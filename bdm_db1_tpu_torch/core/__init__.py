@@ -1,0 +1,1 @@
+"""core of the PyTorch port (counterpart of bdm_db1_tpu/core)."""

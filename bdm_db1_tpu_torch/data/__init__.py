@@ -1,0 +1,1 @@
+"""data of the PyTorch port (counterpart of bdm_db1_tpu/data)."""

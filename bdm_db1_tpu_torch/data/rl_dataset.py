@@ -1,0 +1,305 @@
+"""RL trajectories and their tokenization: the evaluation subset of
+bdm_db1_tpu/data/rl_dataset.py.
+
+* ``TrajectoryStore`` — in-memory per-trajectory storage built from a
+  d4rl-style flat dataset.
+* ``RLTokenizerSuite`` — per-obs-type tokenization with the unified vocab
+  offsets.
+* ``RLFullDataset`` — the dataset meta (obs/action token widths, transition
+  budget), observation/action tokenization and expert-prompt sampling that
+  the eval wrapper reads.
+
+Tensor observations only: image and text observations raise
+``NotImplementedError``. Training samples (``get``, ``prepend_prompt``, the
+sample index) and the on-disk trajectory cache come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from bdm_db1_tpu_torch.core.vocab import VocabLayout
+from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
+
+ObsTree = Union[np.ndarray, Dict[str, np.ndarray]]
+
+
+# obs trees are flat arrays or one-level dicts; the map recurses through
+# tuples too, because segment() maps over an (obs, act, rew) tuple
+def tree_map(fn: Callable, tree: ObsTree, *rest):
+    if isinstance(tree, dict):
+        return {
+            k: tree_map(fn, tree[k], *[r[k] for r in rest])
+            for k in sorted(tree)
+        }
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(
+            tree_map(fn, x, *[r[i] for r in rest])
+            for i, x in enumerate(tree)
+        )
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: ObsTree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [tree[k] for k in sorted(tree)]
+    return [tree]
+
+
+def qlearning_dataset_with_timeouts(dataset: Dict[str, np.ndarray]) -> Dict:
+    """Normalize a d4rl-style dict: merge terminals|timeouts into done."""
+    terminal = np.asarray(dataset["terminals"]).reshape(-1)
+    done = terminal
+    if "timeouts" in dataset:
+        done = terminal | np.asarray(dataset["timeouts"]).reshape(-1)
+    return {
+        "observations": dataset["observations"],
+        "actions": np.asarray(dataset["actions"]),
+        "rewards": np.asarray(dataset["rewards"]).reshape(-1, 1),
+        "terminals": done.reshape(-1, 1),
+    }
+
+
+def segment(traj_input, terminals: np.ndarray,
+            max_path_length: Optional[int] = None) -> List:
+    """Split flat arrays into per-trajectory chunks at terminal flags."""
+    terminals = np.asarray(terminals).reshape(-1)
+    n = len(terminals)
+    trajectories = []
+    start = 0
+    for i in range(n):
+        if terminals[i] or (
+            max_path_length is not None and i - start + 1 >= max_path_length
+        ):
+            trajectories.append(tree_map(lambda x: x[start: i + 1], traj_input))
+            start = i + 1
+    if start < n:
+        trajectories.append(tree_map(lambda x: x[start:n], traj_input))
+    return trajectories
+
+
+def obs_type_of(x: np.ndarray) -> str:
+    if x.ndim == 4:
+        assert x.shape[1] == 3, "rgb input should be (T, 3, h, w)"
+        return "image"
+    if "float" in x.dtype.name:
+        return "float"
+    if "str" in x.dtype.name:
+        return "text"
+    if "int" in x.dtype.name:
+        return "discrete"
+    raise ValueError(f"unsupported obs dtype {x.dtype}")
+
+
+def _tensor_only(obs_type: str) -> None:
+    if obs_type in ("image", "text"):
+        raise NotImplementedError(
+            f"{obs_type} observations are not ported yet; the port's RL "
+            "evaluation takes tensor (float/discrete) observations")
+
+
+class RLTokenizerSuite:
+    """Per-modality tokenization with unified vocab offsets."""
+
+    def __init__(self, layout: VocabLayout, scalar: ScalarTokenizer):
+        self.layout = layout
+        self.scalar = scalar
+
+    def obs_dim_of(self, x: np.ndarray, obs_type: str) -> int:
+        """Token count contributed by one obs leaf per timestep."""
+        _tensor_only(obs_type)
+        return int(np.prod(x.shape[1:])) if x.ndim > 1 else 1
+
+    def encode_obs_leaf(self, x: np.ndarray, obs_type: str, obs_dim: int):
+        """-> (text_tokens, image, tensor_tokens); only the tensor part is
+        ported, so the first two are always None."""
+        _tensor_only(obs_type)
+        if obs_type == "float":
+            bins = self.scalar.discretize_np(x, is_action=False)
+            tok = self.layout.encode_continuous(bins.astype(np.int64))
+        else:  # discrete
+            assert x.min() >= 0 and x.max() < self.layout.num_discrete_values
+            tok = self.layout.encode_discrete(x.astype(np.int64))
+        if tok.ndim < 2:
+            tok = tok[:, None]
+        return None, None, tok
+
+    def encode_action(self, act: np.ndarray) -> np.ndarray:
+        if "float" in act.dtype.name:
+            bins = self.scalar.discretize_np(act, is_action=True)
+            return self.layout.encode_continuous(bins.astype(np.int64))
+        assert act.min() >= 0 and act.max() < self.layout.num_discrete_values
+        if act.ndim == 1:
+            act = act[:, None]
+        return self.layout.encode_discrete(act.astype(np.int64))
+
+    def decode_action_batch(self, tokens: np.ndarray, discrete: bool):
+        """Model tokens ``[B, action_length]`` -> env actions: ``[B]`` ints
+        (discrete) or ``[B, action_length]`` floats."""
+        tokens = np.asarray(tokens)
+        if discrete:
+            return self.layout.decode_discrete(tokens)[:, 0].astype(np.int64)
+        bins = self.layout.decode_continuous(tokens)
+        return self.scalar.decode_np(bins, is_action=True)
+
+
+class TrajectoryStore:
+    """Per-env trajectory storage (in memory)."""
+
+    def __init__(self, observations: Sequence[ObsTree],
+                 actions: Sequence[np.ndarray],
+                 rewards: Sequence[np.ndarray]):
+        self.observations = list(observations)
+        self.actions = list(actions)
+        self.rewards = list(rewards)
+        self.path_lengths = np.array([len(a) for a in self.actions])
+        self.traj_returns = np.array(
+            [float(np.sum(r)) for r in self.rewards], dtype=np.float32)
+
+    @classmethod
+    def from_flat_dataset(cls, dataset: Dict[str, np.ndarray],
+                          max_path_length: Optional[int] = None):
+        d = qlearning_dataset_with_timeouts(dataset)
+        trajs = segment(
+            (d["observations"], d["actions"], d["rewards"]),
+            d["terminals"], max_path_length,
+        )
+        obs, act, rew = zip(*trajs)
+        return cls(obs, act, rew)
+
+    @property
+    def num_trajectories(self) -> int:
+        return len(self.path_lengths)
+
+    def get(self, path_idx: int, start: Optional[int] = None,
+            end: Optional[int] = None) -> Tuple[ObsTree, np.ndarray]:
+        start = start or 0
+        end = end if end is not None else len(self.actions[path_idx])
+        obs = tree_map(lambda x: x[start:end], self.observations[path_idx])
+        return obs, self.actions[path_idx][start:end]
+
+
+class RLFullDataset:
+    """One environment's trajectories with the tokenization and prompt
+    sampling that evaluation reads."""
+
+    def __init__(
+        self,
+        name: str,
+        store: TrajectoryStore,
+        tokenizer: RLTokenizerSuite,
+        seq_length: int,
+        *,
+        prompt_ratio: float = 0.5,
+        seed: Optional[int] = None,
+    ):
+        self.name = name
+        self.store = store
+        self.tok = tokenizer
+        self.output_sequence_length = int(seq_length)
+        self.prompt_ratio = prompt_ratio
+        self.rng = np.random.RandomState(seed)
+        self._build_meta()
+        # top-return trajectories first, for expert-prompt sampling
+        self._ret_order = np.argsort(-self.store.traj_returns, kind="stable")
+
+    def _build_meta(self) -> None:
+        obs0, act0 = self.store.get(0)
+        self.obs_type_spec = tree_map(obs_type_of, obs0)
+        self.observation_dims_for_spec = tree_map(
+            lambda x, t: self.tok.obs_dim_of(x, t), obs0, self.obs_type_spec)
+        self.observation_dim = int(
+            sum(tree_leaves(self.observation_dims_for_spec)))
+        a0 = act0[0]
+        self.action_dim = int(a0.shape[0]) if a0.ndim >= 1 else 1
+        trans_dim = self.observation_dim + self.action_dim
+        # whole transitions that fit seq_length + 1 tokens
+        self.transition_num = (
+            self.output_sequence_length + trans_dim) // (trans_dim + 1)
+        self.prompt_transition_num = int(self.prompt_ratio * self.transition_num)
+        self.predicted_transition_num = (
+            self.transition_num - self.prompt_transition_num)
+
+    @property
+    def step_size(self) -> int:
+        return self.observation_dim + self.action_dim + 1
+
+    def postprocess_obs_and_act(self, obs: ObsTree, act: np.ndarray):
+        """-> ((o_text, o_image, o_tensor) trees, act_tokens)."""
+        enc = tree_map(
+            lambda x, t, d: self.tok.encode_obs_leaf(np.asarray(x), t, d),
+            obs, self.obs_type_spec, self.observation_dims_for_spec,
+        )
+        if isinstance(enc, dict):
+            o_text = {k: v[0] for k, v in enc.items()}
+            o_image = {k: v[1] for k, v in enc.items()}
+            o_tensor = {k: v[2] for k, v in enc.items()}
+        else:
+            o_text, o_image, o_tensor = enc
+        return (o_text, o_image, o_tensor), self.tok.encode_action(
+            np.asarray(act))
+
+    def assemble_obs_tokens(self, o_text, o_image, o_tensor):
+        """Concat obs token streams in the canonical order. Returns
+        (obs_tokens [T, obs_dim], None): only tensor leaves are ported."""
+        for tree in (o_text, o_image):
+            if tree is not None and any(
+                    leaf is not None for leaf in tree_leaves(tree)):
+                raise NotImplementedError(
+                    "text/image observation tokens are not ported yet")
+        parts = [leaf for leaf in tree_leaves(o_tensor) if leaf is not None]
+        return np.concatenate(parts, axis=1).astype(np.int64), None
+
+    def sample_expert_demonstration(
+        self, strategy: str, strict_length: bool, sample_peak: bool,
+        rng: Optional[np.random.RandomState] = None,
+    ) -> Dict[str, Any]:
+        """An expert prompt: ``transition_num`` transitions (or
+        ``prompt_transition_num`` for ``fixed_prompt``) from a top-return
+        trajectory, topped up with further trajectories under
+        ``strict_length``."""
+        rng = rng or self.rng
+        prompt_length = (
+            self.prompt_transition_num if strategy == "fixed_prompt"
+            else self.transition_num
+        )
+        if sample_peak:
+            stop = max(1, int(self.store.num_trajectories * 0.1))
+            candidates = self._ret_order[:stop]
+        else:
+            candidates = np.arange(self.store.num_trajectories)
+
+        path_idx = int(rng.choice(candidates))
+        obs_traj, act_traj = self.store.get(path_idx)
+        if strict_length:
+            obs_list, act_list = [obs_traj], [act_traj]
+            total = len(act_traj)
+            while total < prompt_length:
+                path_idx = int(rng.choice(candidates))
+                o, a = self.store.get(path_idx)
+                obs_list.append(o)
+                act_list.append(a)
+                total += len(a)
+            if len(obs_list) > 1:
+                if isinstance(obs_traj, dict):
+                    obs_traj = {
+                        k: np.concatenate([np.asarray(o[k]) for o in obs_list])
+                        for k in sorted(obs_traj)
+                    }
+                else:
+                    obs_traj = np.concatenate(
+                        [np.asarray(o) for o in obs_list])
+                act_traj = np.concatenate([np.asarray(a) for a in act_list])
+
+        obs = tree_map(lambda x: np.asarray(x[:prompt_length]), obs_traj)
+        act = np.asarray(act_traj[:prompt_length])
+        (o_text, o_image, o_tensor), act_tok = self.postprocess_obs_and_act(
+            obs, act)
+        return {
+            "actions": act_tok,
+            "obs/text": o_text,
+            "obs/image": o_image,
+            "obs/tensor": o_tensor,
+        }

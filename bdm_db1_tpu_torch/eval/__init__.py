@@ -1,0 +1,1 @@
+"""eval of the PyTorch port (counterpart of bdm_db1_tpu/eval)."""

@@ -1,0 +1,294 @@
+"""Greedy autoregressive action decoding over the ring K/V cache, the
+classic path of bdm_db1_tpu/eval/decode.py.
+
+One env step of a batch of envs: a prime forward over [obs || sep] (or
+[prompt || obs || sep] at episode start, in <= 256-token ring slices), then
+one single-token forward per action dim feeding back the previous masked
+argmax with local-timestep id 0. With ``defer_last`` the last action token
+is not fed: the caller carries it into the next step's prime as
+``deferred_tok``, which saves one forward per step (exact under
+same_length ring attention, where every query sees exactly mem_len keys
+however the token stream is cut into forwards). The per-dim loop is a
+Python loop whose tokens stay on the device; only the finished
+``[B, action_length]`` block is read back, by the caller.
+
+Speculative decode, geometry buckets and images are not ported yet.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bdm_db1_tpu_torch.core.vocab import VocabLayout
+from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+from bdm_db1_tpu_torch.eval.envs import is_discrete_space
+
+
+class _LRU:
+    """Tiny bounded cache for device-resident decode constants (position
+    ids, logit biases, positional projections) keyed by geometry."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self._d: OrderedDict = OrderedDict()
+
+    def get(self, key, make):
+        if key in self._d:
+            self._d.move_to_end(key)
+            return self._d[key]
+        val = make()
+        self._d[key] = val
+        if len(self._d) > self.cap:
+            self._d.popitem(last=False)
+        return val
+
+
+def fold_env_mask_bias(base_bias: np.ndarray, layout: VocabLayout,
+                       discrete_action: bool, num_actions,
+                       env_action_mask) -> np.ndarray:
+    """Fold an env-supplied 0/1 action mask ([n] or [B, n]) into a base
+    logit bias: banned discrete actions get -1e10."""
+    if env_action_mask is None or not discrete_action:
+        return base_bias
+    m = np.asarray(env_action_mask, np.float32)
+    extra = np.abs(m - 1) * 1e10
+    lo = layout.discrete_offset
+    hi = lo + num_actions
+    if m.ndim == 1:
+        bias = base_bias.copy()
+        bias[lo:hi] -= extra
+    else:
+        bias = np.broadcast_to(
+            base_bias, (m.shape[0],) + base_bias.shape).copy()
+        bias[:, lo:hi] -= extra
+    return bias
+
+
+def _prime_chunk(model_cfg) -> int:
+    """Most tokens per ring prime slice (also bounds q <= mem_len)."""
+    return min(256, model_cfg.mem_len)
+
+
+class RkCache:
+    """Positional projections per prime width, shared by the decoders of a
+    :class:`DecoderPool` (a function of the model and the width only)."""
+
+    def __init__(self, model, cap: int = 8):
+        self.model = model
+        self._lru = _LRU(cap)
+
+    def get(self, qlen: int) -> torch.Tensor:
+        return self._lru.get(qlen, lambda: self.model.precompute_rk(qlen))
+
+
+class ActionDecoder:
+    """Per-env-geometry greedy decoder over the model's ring cache."""
+
+    def __init__(
+        self,
+        model,
+        layout: VocabLayout,
+        obs_length: int,
+        action_length: int,
+        discrete_action: bool,
+        num_actions: Optional[int] = None,
+        rk_cache: Optional[RkCache] = None,
+        pad_buckets=None,
+    ):
+        cfg = model.cfg
+        if pad_buckets:
+            raise NotImplementedError("geometry buckets are not ported yet")
+        if not discrete_action and action_length > 1 and (
+                cfg.decode_speculative or cfg.decode_spec_adaptive):
+            raise NotImplementedError("speculative decode is not ported yet")
+        if cfg.mem_len <= 0:
+            raise NotImplementedError(
+                "decode without a ring cache (mem_len 0) is not ported yet")
+        self.model = model
+        self.layout = layout
+        self.obs_length = int(obs_length)
+        self.action_length = int(action_length)
+        self.discrete_action = discrete_action
+        if discrete_action:
+            assert num_actions is not None
+            base = layout.discrete_action_logit_bias(num_actions)
+        else:
+            base = layout.continuous_action_logit_bias()
+        self._base_bias = base
+        self._num_actions = num_actions
+        # deferring the last action token into the next prime is exact
+        # only under same_length ring attention
+        self.defers = bool(cfg.same_length)
+        self._rk = rk_cache if rk_cache is not None else RkCache(model)
+        self._bias_dev_cache = _LRU(8)
+        self._pos_cache = _LRU(16)
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def init_mems(self, batch_size: int = 1):
+        return self.model.init_kv_cache_ring(batch_size)
+
+    def decode(self, prime_tokens: np.ndarray, mems, prime_images=None,
+               env_action_mask=None, deferred_tok=None,
+               defer_last: bool = False) -> Tuple[np.ndarray, object]:
+        """Greedy-decode one action per batch row; returns (action token ids
+        [action_length] or [B, action_length] on the host, new mems)."""
+        single = prime_tokens.ndim == 1
+        act, new_mems = self.decode_async(
+            prime_tokens, mems, prime_images, env_action_mask,
+            deferred_tok=deferred_tok, defer_last=defer_last)
+        act = act.cpu().numpy()
+        return (act[0] if single else act), new_mems
+
+    def chunk_sizes(self, q: int, lead: int) -> Optional[List[int]]:
+        """The ring slices of a q-token prime whose first ``lead`` tokens
+        are deferred action tokens, or None for a one-slice prime."""
+        chunk = _prime_chunk(self.model.cfg)
+        if q <= chunk or not self.model.cfg.same_length:
+            return None
+        qp = q - lead
+        sizes = [chunk] * (qp // chunk)
+        if qp % chunk:
+            sizes.append(qp % chunk)
+        if lead:
+            if sizes[0] + lead <= chunk:
+                sizes[0] += lead
+            else:
+                sizes.insert(0, lead)
+        return sizes
+
+    @torch.no_grad()
+    def decode_async(self, prime_tokens: np.ndarray, mems,
+                     prime_images=None, env_action_mask=None,
+                     deferred_tok: Optional[np.ndarray] = None,
+                     defer_last: bool = False
+                     ) -> Tuple[torch.Tensor, object]:
+        """Like :meth:`decode` but returns the action tokens as a device
+        tensor [B, action_length] without waiting for the device.
+
+        ``defer_last=True`` (only when :attr:`defers`) skips the trailing
+        cache-fold forward; the caller then feeds this call's last action
+        token back as the next call's ``deferred_tok`` ([B] or [] int)."""
+        if prime_images is not None:
+            raise NotImplementedError("image primes are not ported yet")
+        single = prime_tokens.ndim == 1
+        if single:
+            prime_tokens = prime_tokens[None]
+        defer_last = defer_last and self.defers
+        lead = 0
+        if deferred_tok is not None:
+            assert self.defers, "deferred_tok needs same_length ring decode"
+            dt = np.asarray(deferred_tok, np.int64)
+            if single:
+                dt = dt.reshape(1, -1)
+            elif dt.ndim <= 1:          # one token per row
+                dt = np.broadcast_to(
+                    dt.reshape(-1), (prime_tokens.shape[0],))[:, None]
+            prime_tokens = np.concatenate([dt, prime_tokens], axis=1)
+            lead = dt.shape[1]
+        b, q = prime_tokens.shape
+        # long primes run through the ring in <= 256-token slices: the f32
+        # [B, H, q, M+q] score buffers of a ~1000-token expert prompt are
+        # what would not fit at large batch; a deferred lead token rides in
+        # the first slice
+        sizes = self.chunk_sizes(q, lead)
+        dev = self.device
+
+        def _make_pos():
+            _, p = action_flags_and_position_ids(
+                q - lead, self.obs_length, self.action_length, 0)
+            if lead:  # deferred action tokens carry the action slot id 0
+                p = np.concatenate([np.zeros(lead, p.dtype), p])
+            return torch.as_tensor(
+                np.broadcast_to(p[None], (b, q)).copy(), device=dev)
+
+        pos = self._pos_cache.get((b, q, lead), _make_pos)
+        bias = self._bias_dev_cache.get(b, lambda: torch.as_tensor(
+            np.broadcast_to(self._base_bias,
+                            (b,) + self._base_bias.shape).copy(),
+            device=dev))
+        if env_action_mask is not None and self.discrete_action:
+            m = torch.as_tensor(np.asarray(env_action_mask, np.float32),
+                                device=dev).expand(b, -1)
+            lo = self.layout.discrete_offset
+            bias = bias.clone()
+            bias[:, lo:lo + m.shape[1]] -= (1.0 - m) * 1e10
+        tokens = torch.as_tensor(prime_tokens, dtype=torch.int64, device=dev)
+        rk_chunks = ([self._rk.get(s) for s in sizes] if sizes is not None
+                     else [self._rk.get(q)])
+        return _decode_step(self.model, self.action_length, tokens, pos,
+                            mems, bias, rk_chunks, self._rk.get(1),
+                            defer_last)
+
+
+def _decode_step(model, action_length: int, tokens: torch.Tensor,
+                 pos: torch.Tensor, mems, bias: torch.Tensor,
+                 rk_chunks, rk_step: torch.Tensor,
+                 defer_last: bool = False):
+    """Prime forward (one ring call per slice) + the per-dim loop.
+    tokens/pos [B, q]; bias [B, V]; returns ([B, action_length], mems)."""
+    b, q = tokens.shape
+    M = model.cfg.mem_len
+    if len(rk_chunks) == 1 and q > M:
+        raise NotImplementedError(
+            "a one-slice prime longer than mem_len (no same_length "
+            "chunking) is not ported yet")
+    start = 0
+    logits = None
+    for rk_c in rk_chunks:
+        size = rk_c.shape[1] - M
+        logits, mems = model.decode_rl_kv_ring(
+            tokens[:, start:start + size], pos[:, start:start + size], mems,
+            rk_c)
+        start += size
+    tok = torch.argmax(logits + bias, dim=-1)
+    acts = [tok]
+    zero_pos = torch.zeros((b, 1), dtype=torch.int64, device=tokens.device)
+    # with defer_last the final token is never fed; otherwise its feed only
+    # folds it into the cache and its argmax is thrown away
+    for _ in range(action_length - 1 if defer_last else action_length):
+        lg, mems = model.decode_rl_kv_ring(tok[:, None], zero_pos, mems,
+                                           rk_step)
+        tok = torch.argmax(lg + bias, dim=-1)
+        if len(acts) < action_length:
+            acts.append(tok)
+    return torch.stack(acts, dim=1), mems
+
+
+class DecoderPool:
+    """Shares decoders, and one positional-projection cache, across envs
+    with the same decode geometry."""
+
+    def __init__(self, model):
+        self.model = model
+        self.rk_cache = RkCache(model)
+        self._cache = {}
+
+    def get(self, tokenized_env) -> ActionDecoder:
+        from bdm_db1_tpu_torch.eval.harness import decode_geometry
+
+        key = decode_geometry(tokenized_env)
+        if key not in self._cache:
+            self._cache[key] = build_decoder_for_env(
+                self.model, tokenized_env, rk_cache=self.rk_cache)
+        return self._cache[key]
+
+
+def build_decoder_for_env(model, tokenized_env,
+                          rk_cache=None) -> ActionDecoder:
+    discrete = is_discrete_space(tokenized_env.action_space)
+    return ActionDecoder(
+        model,
+        tokenized_env.tok.layout,
+        obs_length=tokenized_env.obs_length,
+        action_length=tokenized_env.action_length,
+        discrete_action=discrete,
+        num_actions=tokenized_env.action_space.n if discrete else None,
+        rk_cache=rk_cache,
+    )

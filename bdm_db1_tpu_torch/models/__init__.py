@@ -1,0 +1,1 @@
+"""models of the PyTorch port (counterpart of bdm_db1_tpu/models)."""

@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (counterpart of bdm_db1_tpu/ops)."""

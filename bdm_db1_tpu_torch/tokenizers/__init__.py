@@ -1,0 +1,1 @@
+"""tokenizers of the PyTorch port (counterpart of bdm_db1_tpu/tokenizers)."""

@@ -1,0 +1,1 @@
+"""train of the PyTorch port (counterpart of bdm_db1_tpu/train)."""

@@ -1,0 +1,105 @@
+"""Weight bridge: the JAX package's param tree -> the port's state dict.
+
+Follows bdm_db1_tpu/train/convert.py ``invert_state_dict`` (scan-stacked
+layers unstacked, flax kernels [in, out] transposed to torch [out, in],
+reference torch names), with the port's two layout choices: the word
+embedding and an untied head keep the padded vocab rows, and the shared
+``r_w_bias``/``r_r_bias`` pair is listed under every layer. The vision
+subtree (a later slice) is skipped by name; any other leaf the bridge does
+not consume is an error.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from bdm_db1_tpu_torch.core.config import DB1Config
+
+VISION_KEY = "vision"
+
+
+def _leaf_paths(tree, prefix=()) -> List[Tuple[str, ...]]:
+    if isinstance(tree, Mapping):
+        out = []
+        for k in tree:
+            out += _leaf_paths(tree[k], prefix + (k,))
+        return out
+    return [prefix]
+
+
+def state_dict_from_jax(params_np: Mapping, cfg: DB1Config
+                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """JAX params (nested dicts of arrays, boxes already removed) -> (the
+    port's state dict as f32 CPU tensors, the skipped vision leaf names)."""
+    m = cfg.model
+    L = m.n_layer
+    used = set()
+
+    def g(*ks) -> np.ndarray:
+        node = params_np
+        for k in ks:
+            node = node[k]
+        used.add(ks)
+        return np.asarray(node, dtype=np.float32)
+
+    sd: Dict[str, np.ndarray] = {
+        "word_embedding.weight": g("word_embedding", "embedding"),
+        "rl_local_timestep_embedding.weight":
+            g("rl_timestep_embedding", "embedding"),
+        "pos_emb.inv_freq": (
+            1.0 / (10000.0 ** (np.arange(0.0, m.n_embed, 2.0) / m.n_embed))
+        ).astype(np.float32),
+    }
+    if not m.untie_r:
+        sd["r_w_bias"] = g("r_w_bias")
+        sd["r_r_bias"] = g("r_r_bias")
+        for i in range(L):
+            sd[f"h.{i}.dec_attn.r_w_bias"] = sd["r_w_bias"]
+            sd[f"h.{i}.dec_attn.r_r_bias"] = sd["r_r_bias"]
+
+    def unstack(fmt: str, arr: np.ndarray, transpose: bool = False) -> None:
+        if arr.shape[0] != L:
+            raise ValueError(f"{fmt}: leading dim {arr.shape[0]} != {L}")
+        for i in range(L):
+            sd[fmt.format(i=i)] = arr[i].T if transpose else arr[i]
+
+    a = ("layers", "attn")
+    unstack("h.{i}.dec_attn.qkv_net.weight", g(*a, "qkv_net", "kernel"), True)
+    unstack("h.{i}.dec_attn.r_net.weight", g(*a, "r_net", "kernel"), True)
+    unstack("h.{i}.dec_attn.o_net.weight", g(*a, "o_net", "kernel"), True)
+    unstack("h.{i}.dec_attn.layer_norm.weight", g(*a, "layer_norm", "scale"))
+    unstack("h.{i}.dec_attn.layer_norm.bias", g(*a, "layer_norm", "bias"))
+    if m.untie_r:
+        unstack("h.{i}.dec_attn.r_w_bias", g(*a, "r_w_bias"))
+        unstack("h.{i}.dec_attn.r_r_bias", g(*a, "r_r_bias"))
+    f = ("layers", "ff")
+    unstack("h.{i}.pos_ff.CoreNet.0.weight", g(*f, "wi", "kernel"), True)
+    unstack("h.{i}.pos_ff.CoreNet.0.bias", g(*f, "wi", "bias"))
+    unstack("h.{i}.pos_ff.CoreNet.2.weight", g(*f, "wo", "kernel"), True)
+    unstack("h.{i}.pos_ff.CoreNet.2.bias", g(*f, "wo", "bias"))
+    unstack("h.{i}.pos_ff.layer_norm.weight", g(*f, "layer_norm", "scale"))
+    unstack("h.{i}.pos_ff.layer_norm.bias", g(*f, "layer_norm", "bias"))
+    if not m.share_input_output_embedding:
+        sd["lm_head.weight"] = g("lm_head", "kernel").T
+
+    leaves = _leaf_paths(params_np)
+    skipped = ["/".join(p) for p in leaves if p[0] == VISION_KEY]
+    left = [p for p in leaves if p[0] != VISION_KEY and p not in used]
+    if left:
+        raise ValueError("JAX params the port does not take: "
+                         + ", ".join("/".join(p) for p in left))
+    out = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return out, skipped
+
+
+def load_jax_params(model: torch.nn.Module, params_np: Mapping) -> List[str]:
+    """Load JAX params into ``model`` (``strict=True``; values are cast to
+    the model's parameter dtype and device). Returns the skipped vision
+    leaf names."""
+    cfg = DB1Config(model=model.cfg, vocab=model.vocab)
+    sd, skipped = state_dict_from_jax(params_np, cfg)
+    model.load_state_dict(sd, strict=True)
+    return skipped
