@@ -361,6 +361,17 @@ class TransformerXL(nn.Module):
             raise ValueError(f"decode_flash={flash!r}")
         return kernels_take(k_cache)
 
+    def ring_masks(self, qlen: int, cursor: int, device
+                   ) -> Tuple[Tensor, Tensor]:
+        """(mask [q, M+q] over [memory | new tokens] in age order, mask_s
+        its M cache columns rotated into ring order); True is banned."""
+        cfg = self.cfg
+        M = cfg.mem_len
+        mask = (same_length_mask(qlen, M + qlen, M, device=device)
+                if cfg.same_length else
+                causal_mask(qlen, M + qlen, device=device))
+        return mask, torch.roll(mask[:, :M], cursor, dims=-1)
+
     @torch.no_grad()
     def decode_rl_kv_ring(self, tokens: Tensor, position_id: Tensor,
                           cache: RingCache, rk_full: Tensor,
@@ -384,9 +395,7 @@ class TransformerXL(nn.Module):
         cursor = int(cache["cursor"])
         dev = k_cache.device
         h = self.embed_rl(tokens, position_id)
-        mask = (same_length_mask(qlen, M + qlen, M, device=dev)
-                if cfg.same_length else causal_mask(qlen, M + qlen, device=dev))
-        mask_s = torch.roll(mask[:, :M], cursor, dims=-1)
+        mask, mask_s = self.ring_masks(qlen, cursor, dev)
         use_kernels = self.use_kernels(qlen, k_cache)
         idx = (None if qlen == 1 else
                (torch.arange(qlen, device=dev) + cursor) % M)

@@ -2,7 +2,8 @@
 from the same weights (db1_tiny, f32, CPU), with decode_flash "on" (the
 kernels' plain versions against the Pallas kernels in interpret mode) and
 "off" (the plain ring branches): logits within 2e-4 (tests/test_parity.py's
-bar), the cache within 1e-5 and the cursor equal after every forward."""
+bar), the cache within 1e-5 and the cursor equal after every forward; and
+in bf16, the port's logits against the JAX package's bf16 path."""
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from bdm_db1_tpu.core.config import db1_tiny
 from bdm_db1_tpu.models.transformer_xl import TransformerXL as JaxTXL
+from bdm_db1_tpu_torch.core import config as port_config
+from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL as PortTXL
+from bdm_db1_tpu_torch.train.convert import load_jax_params
 from torch_port_helpers import jax_tiny, one_thread, port_model
 
 
@@ -73,3 +78,64 @@ def test_gate_routes():
     assert on.use_kernels(1, cache) and on.use_kernels(32, cache)
     assert not on.use_kernels(33, cache)
     assert not port_model(pnp, "auto").use_kernels(1, cache)
+
+
+def _logit_chain(step, V, seed=7):
+    """Logits of the STEPS forwards, from one stream of random tokens."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _, q in STEPS:
+        out.append(step(rng.randint(0, V, (3, q)), rng.randint(0, 8, (3, q))))
+    return out
+
+
+def _jax_chain(dtype, flash, params, V):
+    cfg = db1_tiny()
+    cfg.model.dtype = dtype
+    cfg.model.decode_flash = flash
+    jm = JaxTXL(cfg.model, cfg.vocab, cfg.vision)
+    run = jax.jit(lambda p, t, q, c, r: jm.apply(
+        {"params": p}, t, q, c, r, method=JaxTXL.decode_rl_kv_ring))
+    cache = [jm.apply({"params": params}, 3, method=JaxTXL.init_kv_cache_ring)]
+
+    def step(tok, pos):
+        rk = jm.apply({"params": params}, tok.shape[1],
+                      method=JaxTXL.precompute_rk)
+        lg, cache[0] = run(params, jnp.asarray(tok, jnp.int32),
+                           jnp.asarray(pos, jnp.int32), cache[0], rk)
+        return np.asarray(lg, np.float32)
+    return _logit_chain(step, V)
+
+
+@pytest.mark.parametrize("flash", ["on", "off"])
+def test_ring_decode_bf16_matches_jax_bf16(flash):
+    """db1_tiny in bf16, weights rounded to bf16 so both packages start
+    from the same values. Two bf16 computations round at different points,
+    so they differ by the bf16 floor itself (each is 2e-3..3e-3 of the
+    largest logit from its own f32 result here): the port is held within
+    1e-2 of the largest logit of JAX's bf16 logits, and its distance from
+    f32 within twice JAX's own."""
+    *_, pnp = jax_tiny()
+    p16 = jax.tree.map(lambda a: np.asarray(
+        jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)), pnp)
+    params = jax.tree.map(jnp.asarray, p16)
+    pcfg = port_config.db1_tiny(dtype="bfloat16", param_dtype="bfloat16",
+                                decode_flash=flash)
+    pm = PortTXL(pcfg.model, pcfg.vocab, device="cpu")
+    load_jax_params(pm, p16)
+    V = pcfg.vocab.layout().total_vocab_size
+    cache = [pm.init_kv_cache_ring(3)]
+
+    def port_step(tok, pos):
+        lg, cache[0] = pm.decode_rl_kv_ring(
+            torch.as_tensor(tok), torch.as_tensor(pos), cache[0],
+            pm.precompute_rk(tok.shape[1]))
+        return lg.numpy()
+
+    port = _logit_chain(port_step, V)
+    j16 = _jax_chain("bfloat16", flash, params, V)
+    j32 = _jax_chain("float32", "off", params, V)
+    for (label, _), p, j, f in zip(STEPS, port, j16, j32):
+        top = np.abs(f).max()
+        assert np.abs(p - j).max() <= 1e-2 * top, label
+        assert np.abs(p - f).max() <= 2 * np.abs(j - f).max(), label
