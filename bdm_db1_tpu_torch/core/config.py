@@ -82,9 +82,12 @@ class ModelConfig:
     # and logits stay f32
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # "" = ring cache in the compute dtype; "int8" is not ported yet
+    # "" = ring cache in the compute dtype; "int8" = int8 values with
+    # per-(slot, head) f32 scales, read by the CUDA kernels K6/K7
     decode_cache_dtype: str = ""
-    # "" = trunk weights in param_dtype; "int8"/"int8a8" are not ported yet
+    # "" = trunk weights in param_dtype; "int8" = qkv/o/FF matrices int8
+    # with per-output-channel scales through the K9 kernel; "int8a8" = the
+    # same weights through the W8A8 int8 product (activations per row)
     decode_weight_dtype: str = ""
     # ring-decode attention route: "auto" = the CUDA kernels
     # (ops/flash_ring_decode.py) for 1 <= q <= 32 when the cache is one they

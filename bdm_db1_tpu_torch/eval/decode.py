@@ -12,7 +12,10 @@ however the token stream is cut into forwards). The per-dim loop is a
 Python loop whose tokens stay on the device; only the finished
 ``[B, action_length]`` block is read back, by the caller.
 
-Speculative decode, geometry buckets and images are not ported yet.
+With ``decode_weight_dtype`` "int8"/"int8a8", :func:`build_decoder_for_env`
+(and so :class:`DecoderPool`) quantizes the model's trunk weights once, as
+the JAX package's does. Speculative decode, geometry buckets and images are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -280,8 +283,17 @@ class DecoderPool:
         return self._cache[key]
 
 
+def _maybe_quantize_weights(model) -> None:
+    """Opt-in int8 trunk weights for decode (ModelConfig.decode_weight_dtype
+    "int8" or "int8a8", which share the quantized weights): quantize the
+    loaded weights once, in place."""
+    if model.cfg.decode_weight_dtype in ("int8", "int8a8"):
+        model.quantize_decode_weights()
+
+
 def build_decoder_for_env(model, tokenized_env,
                           rk_cache=None) -> ActionDecoder:
+    _maybe_quantize_weights(model)
     discrete = is_discrete_space(tokenized_env.action_space)
     return ActionDecoder(
         model,

@@ -14,11 +14,18 @@ Decode runs over a ring-buffer K/V cache ``{"k", "v": [L, B, M, H, Dh],
 the positional BD scores and the attention mask are the aligned ones
 rotated by ``cursor``. The cursor is a host int, so rotations and writes
 need no device sync; new K/V rows are written in place at the cursor, layer
-by layer after that layer's attention has read the cache.
+by layer after that layer's attention has read the cache. With
+``decode_cache_dtype="int8"`` the cache is int8 with per-(slot, head) f32
+scales ``"k_scale"``/``"v_scale"`` [L, B, M, H] beside it.
 
-Not ported yet (raise ``NotImplementedError``): images, the int8 cache,
-quantized weights, the speculative tail, geometry-bucket padding and the
-hidden-state (pre-LN) memory path.
+``decode_weight_dtype`` "int8"/"int8a8" serve the trunk matrices (qkv_net,
+o_net, CoreNet.0, CoreNet.2) as int8 with per-output-channel scales once
+:meth:`TransformerXL.quantize_decode_weights` has run on the loaded
+weights: "int8" through the K9 kernel (ops/quant_matmul.py), "int8a8"
+through the W8A8 int8 product.
+
+Not ported yet (raise ``NotImplementedError``): images, the speculative
+tail, geometry-bucket padding and the hidden-state (pre-LN) memory path.
 """
 
 from __future__ import annotations
@@ -36,14 +43,18 @@ from bdm_db1_tpu_torch.ops.attention import (
 )
 from bdm_db1_tpu_torch.ops.flash_ring_decode import (
     MAX_PRIME_Q, NEG_INF, combine_new_columns, combine_self_column,
-    flash_ring_decode, flash_ring_prime, kernels_take,
+    flash_ring_decode, flash_ring_prime_ap, kernels_take,
 )
 from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+from bdm_db1_tpu_torch.ops.quant_matmul import (
+    quant_matmul, quantize_weight, w8a8_matmul,
+)
 
 Tensor = torch.Tensor
 INIT_STD = 0.02
 
-RingCache = Dict[str, object]   # {"k": Tensor, "v": Tensor, "cursor": int}
+# {"k": Tensor, "v": Tensor, "cursor": int}, + "k_scale"/"v_scale" when int8
+RingCache = Dict[str, object]
 
 
 def _linear(d_in: int, d_out: int, bias: bool, device, dtype) -> nn.Linear:
@@ -51,10 +62,41 @@ def _linear(d_in: int, d_out: int, bias: bool, device, dtype) -> nn.Linear:
                                     device=device, dtype=dtype)
 
 
-def _dense(x: Tensor, lin: nn.Linear, dtype) -> Tensor:
-    """y = x @ W^T (+ b) in the compute dtype, as the JAX Dense promotes."""
+def _dense(x: Tensor, lin: nn.Linear, dtype, a8: bool = False) -> Tensor:
+    """y = x @ W^T (+ b) in the compute dtype, as the JAX QDense promotes.
+    A quantized layer (``weight_q`` int8 [N, K], ``weight_scale`` [N])
+    goes through K9 (or, with ``a8``, the W8A8 product), whose f32 result
+    is cast to the compute dtype before the bias is added."""
     b = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+    w_q = getattr(lin, "weight_q", None)
+    if w_q is None:
+        return F.linear(x.to(dtype), lin.weight.to(dtype), b)
+    shp = x.shape
+    x2 = x.reshape(-1, shp[-1])
+    y = (w8a8_matmul(x2, w_q, lin.weight_scale) if a8 else
+         quant_matmul(x2.to(dtype).contiguous(), w_q, lin.weight_scale))
+    y = y.reshape(*shp[:-1], w_q.shape[0]).to(dtype)
+    return y if b is None else y + b
+
+
+def quantize_kv_rows(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Symmetric per-(..., head) int8 quantization over the trailing Dh
+    axis: (int8 values, f32 scales with the Dh axis dropped). The zero
+    guard is max(amax, 1e-8), not the weights' scale of 1.0."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    """Inverse of :func:`quantize_kv_rows` (scales broadcast over Dh)."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _a8(cfg: ModelConfig) -> bool:
+    """Quantized layers take the W8A8 product ("int8a8"), not K9."""
+    return cfg.decode_weight_dtype == "int8a8"
 
 
 def _layer_norm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
@@ -90,36 +132,41 @@ class RelMultiHeadAttn(nn.Module):
             self.r_r_bias = nn.Parameter(torch.empty(h, dh, device=device,
                                                      dtype=dtype))
 
-    def forward_ring(self, x: Tensor, rk: Tensor, k_cache: Tensor,
-                     v_cache: Tensor, layer: int, cursor: int,
-                     mask: Tensor, mask_s: Tensor, use_kernels: bool
-                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    def forward_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
+                     layer: int, mask: Tensor, mask_s: Tensor,
+                     use_kernels: bool) -> Tuple[Tensor, Tensor, Tensor]:
         """One layer over the ring cache. x [B, q, D]; rk [M+q, H, Dh]
-        this layer's positional projections; mask [q, M+q] aligned, mask_s
-        its cache columns rotated into ring order. Returns (out, k_x, v_x),
-        the new tokens' K/V rows [B, q, H, Dh] in the compute dtype."""
-        attn, k_x, v_x = self.attend_ring(x, rk, k_cache, v_cache, layer,
-                                          cursor, mask, mask_s, use_kernels)
+        this layer's positional projections; cache the stacked ring cache
+        (read at ``layer``, cursor ``cache["cursor"]``); mask [q, M+q]
+        aligned, mask_s its cache columns rotated into ring order. Returns
+        (out, k_x, v_x), the new tokens' K/V rows [B, q, H, Dh] in the
+        compute dtype."""
+        attn, k_x, v_x = self.attend_ring(x, rk, cache, layer, mask, mask_s,
+                                          use_kernels)
         cfg = self.cfg
         b, qlen = x.shape[:2]
         out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
-                     self.o_net, x.dtype)
+                     self.o_net, x.dtype, _a8(cfg))
         alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
         return _layer_norm(x * alpha + out, self.layer_norm), k_x, v_x
 
-    def attend_ring(self, x: Tensor, rk: Tensor, k_cache: Tensor,
-                    v_cache: Tensor, layer: int, cursor: int, mask: Tensor,
-                    mask_s: Tensor, use_kernels: bool
-                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    def attend_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
+                    layer: int, mask: Tensor, mask_s: Tensor,
+                    use_kernels: bool) -> Tuple[Tensor, Tensor, Tensor]:
         """The attention part of :meth:`forward_ring`: (attn [B, q, H, Dh]
-        before o_net, k_x, v_x). It reads the cache and writes nothing."""
+        before o_net, k_x, v_x). It reads the cache and writes nothing. The
+        self column and the new tokens' q x q block use this forward's
+        unquantized k_x/v_x."""
         cfg = self.cfg
         h, dh = cfg.n_head, cfg.d_head
         dtype = x.dtype
         b, qlen = x.shape[:2]
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_scale, v_scale = cache.get("k_scale"), cache.get("v_scale")
+        cursor = int(cache["cursor"])
         M = k_cache.shape[2]
         r_w, r_r = self.r_w_bias, self.r_r_bias
-        q, k_x, v_x = _dense(x, self.qkv_net, dtype).view(
+        q, k_x, v_x = _dense(x, self.qkv_net, dtype, _a8(cfg)).view(
             b, qlen, 3, h, dh).unbind(2)
         qf = q.float()
         qw = qf + r_w.float()                                  # [B, q, H, Dh]
@@ -133,7 +180,8 @@ class RelMultiHeadAttn(nn.Module):
             bd_s = torch.roll(bd[..., :M], cursor, dims=-1)
             bias = torch.where(mask_s[0], NEG_INF, bd_s * scale)
             o_un, m_s, l_s = flash_ring_decode(
-                k_cache, v_cache, qw0.to(dtype), bias, layer, scale=scale)
+                k_cache, v_cache, qw0.to(dtype), bias, layer, k_scale,
+                v_scale, scale=scale)
             # distance-0 self column (never masked at q == 1)
             s_x = ((qw0 * k_x[:, 0].float()).sum(-1) + bd[..., M]) * scale
             attn = combine_self_column(o_un, m_s, l_s, s_x, v_x[:, 0])[:, None]
@@ -141,9 +189,9 @@ class RelMultiHeadAttn(nn.Module):
             bd = rel_shift_sliced(torch.einsum("bihd,jhd->bhij", qr, rkf))
             bd_s = torch.roll(bd[..., :M], cursor, dims=-1)
             bias = torch.where(mask_s, NEG_INF, bd_s * scale)
-            o_un, m_s, l_s = flash_ring_prime(
+            o_un, m_s, l_s = flash_ring_prime_ap(
                 k_cache, v_cache, qw.transpose(1, 2).to(dtype).contiguous(),
-                bias, layer, scale=scale)
+                bias, layer, k_scale, v_scale, scale=scale)
             # the new tokens' q x q block, causal among themselves
             ac_x = torch.einsum("bihd,bjhd->bhij", qw, k_x.float())
             s_new = torch.where(mask[:, M:], NEG_INF,
@@ -151,19 +199,26 @@ class RelMultiHeadAttn(nn.Module):
             attn = combine_new_columns(o_un, m_s, l_s, s_new, v_x,
                                        compute_dtype=dtype)
         else:
+            ks = vs = None
+            if k_scale is not None:
+                ks, vs = k_scale[layer], v_scale[layer]
             attn = self._plain_ring(qw, qr, k_x, v_x, rkf, k_cache[layer],
-                                    v_cache[layer], cursor, mask, mask_s,
-                                    scale, dtype)
+                                    v_cache[layer], ks, vs, cursor, mask,
+                                    mask_s, scale, dtype)
         return attn, k_x, v_x
 
     @staticmethod
-    def _plain_ring(qw, qr, k_x, v_x, rkf, k_c, v_c, cursor, mask, mask_s,
-                    scale, dtype) -> Tensor:
+    def _plain_ring(qw, qr, k_x, v_x, rkf, k_c, v_c, ks, vs, cursor, mask,
+                    mask_s, scale, dtype) -> Tensor:
         """The plain ring branch: full f32 scores over [ring cache | new
-        tokens], masked softmax, PV in the compute dtype. [B, q, H, Dh]."""
+        tokens], masked softmax, PV in the compute dtype. An int8 cache's
+        scales ks/vs [B, M, H] land on its scores and on its f32
+        probabilities before the cast. [B, q, H, Dh]."""
         M = k_c.shape[1]
         qlen = qw.shape[1]
         ac_s = torch.einsum("bihd,bjhd->bhij", qw, k_c.float())
+        if ks is not None:
+            ac_s = ac_s * ks.float().transpose(1, 2)[:, :, None, :]
         ac_x = torch.einsum("bihd,bjhd->bhij", qw, k_x.float())
         bd = torch.einsum("bihd,jhd->bhij", qr, rkf)           # [B,H,q,M+q]
         # small q: the sliced shift (differs only in always-masked columns)
@@ -172,7 +227,12 @@ class RelMultiHeadAttn(nn.Module):
         scores = torch.cat([ac_s + bd_s, ac_x + bd[..., M:]], dim=-1) * scale
         mask_ring = torch.cat([mask_s, mask[:, M:]], dim=-1)
         scores = torch.where(mask_ring, NEG_INF, scores)
-        probs = torch.softmax(scores, dim=-1).to(dtype)
+        probs = torch.softmax(scores, dim=-1)
+        if vs is not None:
+            probs = torch.cat([probs[..., :M]
+                               * vs.float().transpose(1, 2)[:, :, None, :],
+                               probs[..., M:]], dim=-1)
+        probs = probs.to(dtype)
         v_all = torch.cat([v_c.to(dtype), v_x], dim=1)
         return torch.einsum("bhij,bjhd->bihd", probs, v_all)
 
@@ -206,7 +266,8 @@ class PositionwiseFF(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         wi, act, wo = self.CoreNet
-        h = _dense(act(_dense(x, wi, x.dtype)), wo, x.dtype)
+        a8 = _a8(self.cfg)
+        h = _dense(act(_dense(x, wi, x.dtype, a8)), wo, x.dtype, a8)
         alpha = (2 * self.cfg.n_layer) ** 0.25 if self.cfg.use_deepnorm \
             else 1.0
         return _layer_norm(x * alpha + h, self.layer_norm)
@@ -218,11 +279,9 @@ class DecoderLayer(nn.Module):
         self.dec_attn = RelMultiHeadAttn(cfg, device, dtype)
         self.pos_ff = PositionwiseFF(cfg, device, dtype)
 
-    def forward_ring(self, x, rk, k_cache, v_cache, layer, cursor, mask,
-                     mask_s, use_kernels):
+    def forward_ring(self, x, rk, cache, layer, mask, mask_s, use_kernels):
         h, k_x, v_x = self.dec_attn.forward_ring(
-            x, rk, k_cache, v_cache, layer, cursor, mask, mask_s,
-            use_kernels)
+            x, rk, cache, layer, mask, mask_s, use_kernels)
         return self.pos_ff(h), k_x, v_x
 
 
@@ -240,10 +299,12 @@ class TransformerXL(nn.Module):
             raise NotImplementedError(
                 "pre-LN models decode through hidden-state memory, which is "
                 "not ported yet")
-        for name, val in (("decode_cache_dtype", cfg.decode_cache_dtype),
-                          ("decode_weight_dtype", cfg.decode_weight_dtype)):
-            if val:
-                raise NotImplementedError(f"{name}={val!r} is not ported yet")
+        for name, val, ok in (
+                ("decode_cache_dtype", cfg.decode_cache_dtype, ("", "int8")),
+                ("decode_weight_dtype", cfg.decode_weight_dtype,
+                 ("", "int8", "int8a8"))):
+            if val not in ok:
+                raise ValueError(f"{name}={val!r}; the port takes {ok}")
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -327,12 +388,45 @@ class TransformerXL(nn.Module):
     def init_kv_cache_ring(self, batch_size: int) -> RingCache:
         """Zero ring K/V cache [n_layer, B, mem_len, H, Dh] in the compute
         dtype (equal to the reference's zero hidden memory for post-LN
-        models: QKV has no bias) and cursor 0."""
+        models: QKV has no bias) and cursor 0. With decode_cache_dtype
+        "int8" the values are int8 with zero f32 scales [n_layer, B,
+        mem_len, H] (zero values times zero scales are the same zero
+        cache)."""
         cfg = self.cfg
         shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+        dev = self.device
+        if cfg.decode_cache_dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev),
+                    "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev),
+                    "cursor": 0}
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
                 "cursor": 0}
+
+    def decode_weights_quantized(self) -> bool:
+        return hasattr(self.h[0].dec_attn.qkv_net, "weight_q")
+
+    @torch.no_grad()
+    def quantize_decode_weights(self) -> None:
+        """Decode-only transform of the loaded weights, in place and
+        idempotent: qkv_net, o_net, CoreNet.0 and CoreNet.2 of every layer
+        trade their ``weight`` for ``weight_q`` (int8 [N, K]) and
+        ``weight_scale`` (f32 [N], per output channel) buffers. r_net (read
+        raw by :meth:`precompute_rk`), the embeddings, the head, the
+        LayerNorms and the biases keep their dtype."""
+        if self.decode_weights_quantized():
+            return
+        for layer in self.h:
+            a, f = layer.dec_attn, layer.pos_ff
+            for lin in (a.qkv_net, a.o_net, f.CoreNet[0], f.CoreNet[2]):
+                w_q, scale = quantize_weight(lin.weight)
+                del lin.weight
+                lin.register_buffer("weight_q", w_q)
+                lin.register_buffer("weight_scale", scale)
 
     @torch.no_grad()
     def precompute_rk(self, qlen: int) -> Tensor:
@@ -347,11 +441,12 @@ class TransformerXL(nn.Module):
                           for layer in self.h])
         return rk.view(cfg.n_layer, klen, cfg.n_head, cfg.d_head)
 
-    def use_kernels(self, qlen: int, k_cache: Tensor) -> bool:
+    def use_kernels(self, qlen: int, cache: RingCache) -> bool:
         """The ``decode_flash`` gate: the kernel route (CUDA kernels on CUDA
         tensors, their plain versions on the CPU) for 1 <= q <= 32 under
-        "on", and under "auto" whenever the kernels take the cache;
-        otherwise the plain ring branch."""
+        "on", and under "auto" whenever the kernels take the cache (bf16,
+        or int8 with its scales) and the bf16 queries; otherwise the plain
+        ring branch."""
         flash = self.cfg.decode_flash
         if not 1 <= qlen <= MAX_PRIME_Q or flash == "off":
             return False
@@ -359,7 +454,8 @@ class TransformerXL(nn.Module):
             return True
         if flash != "auto":
             raise ValueError(f"decode_flash={flash!r}")
-        return kernels_take(k_cache)
+        return (self.dtype == torch.bfloat16
+                and kernels_take(cache["k"], cache.get("k_scale")))
 
     def ring_masks(self, qlen: int, cursor: int, device
                    ) -> Tuple[Tensor, Tensor]:
@@ -380,7 +476,8 @@ class TransformerXL(nn.Module):
         """One forward of ``q <= mem_len`` tokens [B, q] over the ring
         cache; returns (last-position logits [B, V] f32, the cache with the
         q new K/V rows written at the cursor and the cursor advanced). The
-        cache tensors are updated in place."""
+        cache tensors are updated in place; an int8 cache stores the rows
+        quantized, with their scales."""
         if images is not None or spec_tail or real_q is not None:
             raise NotImplementedError(
                 "images, speculative tails and geometry buckets are not "
@@ -391,26 +488,28 @@ class TransformerXL(nn.Module):
         if qlen > M:
             raise ValueError(f"a ring forward takes q <= mem_len ({M}), "
                              f"got {qlen}")
-        k_cache, v_cache = cache["k"], cache["v"]
         cursor = int(cache["cursor"])
-        dev = k_cache.device
+        dev = cache["k"].device
         h = self.embed_rl(tokens, position_id)
         mask, mask_s = self.ring_masks(qlen, cursor, dev)
-        use_kernels = self.use_kernels(qlen, k_cache)
+        use_kernels = self.use_kernels(qlen, cache)
+        quantized = "k_scale" in cache
         idx = (None if qlen == 1 else
                (torch.arange(qlen, device=dev) + cursor) % M)
         for li, layer in enumerate(self.h):
             h, k_x, v_x = layer.forward_ring(
-                h, rk_full[li], k_cache, v_cache, li, cursor, mask, mask_s,
-                use_kernels)
+                h, rk_full[li], cache, li, mask, mask_s, use_kernels)
+            rows = {"k": k_x, "v": v_x}
+            if quantized:
+                for key in ("k", "v"):
+                    rows[key], rows[key + "_scale"] = quantize_kv_rows(
+                        rows[key])
             # write the q new rows at (cursor + t) % M: a q == 1 write never
             # wraps and is a slice assignment
-            if qlen == 1:
-                k_cache[li, :, cursor] = k_x[:, 0]
-                v_cache[li, :, cursor] = v_x[:, 0]
-            else:
-                k_cache[li].index_copy_(1, idx, k_x)
-                v_cache[li].index_copy_(1, idx, v_x)
+            for key, new in rows.items():
+                if qlen == 1:
+                    cache[key][li, :, cursor] = new[:, 0]
+                else:
+                    cache[key][li].index_copy_(1, idx, new)
         logits = self.logits(h[:, -1])
-        return logits, {"k": k_cache, "v": v_cache,
-                        "cursor": (cursor + qlen) % M}
+        return logits, {**cache, "cursor": (cursor + qlen) % M}

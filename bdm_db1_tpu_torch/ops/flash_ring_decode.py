@@ -1,18 +1,25 @@
-"""Ring-cache decode attention: the CUDA kernels K1 (q == 1) and K2
-(2 <= Q <= 32), their plain PyTorch versions, and the online-softmax merges.
+"""Ring-cache decode attention: the CUDA kernels K1/K6 (q == 1, bf16/int8
+cache), K2/K7 (2 <= Q <= 32) and K8 (the per-head prime, int8 scales
+head-major), their plain PyTorch versions, and the online-softmax merges.
 
-Counterpart of bdm_db1_tpu/ops/flash_ring_decode.py. Each kernel computes
-what the Pallas kernel's wrapper returns, for one layer of the stacked ring
-cache ``[L, B, M, H, Dh]``:
+Counterpart of bdm_db1_tpu/ops/flash_ring_decode.py, with its entry names:
+``flash_ring_decode`` (K1/K6), ``flash_ring_prime_ap`` (K2/K7) and
+``flash_ring_prime`` (K8). Each kernel computes what the Pallas kernel's
+wrapper returns, for one layer of the stacked ring cache ``[L, B, M, H, Dh]``:
 
-    s = bf16(qw * bf16(scale)) . k + bias      (bias: scaled BD term in ring
-                                                order, NEG_INF at banned slots)
+    s = bf16(qw * bf16(scale)) . k * k_scale + bias   (bias: scaled BD term
+                                                   in ring order, NEG_INF at
+                                                   banned slots)
     per key block: m_blk = max s, p = exp(s - m_blk), l_blk = sum p,
-                   o_blk = sum bf16(p) * v
+                   o_blk = sum cdt(p * v_scale) * v
     merged: m = max m_blk, w = exp(m_blk - m), o = sum w o_blk, l = sum w l_blk
 
 and returns the UNNORMALISED ``o`` with ``(m, l)``; :func:`combine_self_column`
-and :func:`combine_new_columns` fold in the new tokens' own columns.
+and :func:`combine_new_columns` fold in the new tokens' own columns. ``cdt``
+is the compute dtype (the query's). With an int8 cache the dequant scales
+``[L, B, M, H]`` (K8: ``[L, B, H, M]``) land on the scores and on the PV
+operand, never on the cache read and never on ``l``; with an exact-dtype
+cache there are no scales (both are 1).
 
 ``NEG_INF`` is -1e30, not -inf: a block whose slots are all banned gets
 ``m_blk = -1e30`` and junk ``(o, l)``, and only its merge weight
@@ -20,20 +27,21 @@ and :func:`combine_new_columns` fold in the new tokens' own columns.
 
 The wrappers take a tensor's device as the route: CPU tensors run the plain
 version, CUDA tensors launch the kernel (csrc/flash_ring_decode.cu, built on
-first use) or raise. The kernels take bf16 caches with a head dim of 128;
-the plain versions take any floating dtype and shape.
+first use) or raise. The kernels take bf16 or int8 (with scales) caches with
+a head dim of 128 and bf16 queries; the plain versions take any dtype and
+shape. ``LAUNCHES`` counts each kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from bdm_db1_tpu_torch.ops.cuda_build import load_library
+from bdm_db1_tpu_torch.ops.cuda_build import check_operand, load_library
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_M = 512
@@ -41,8 +49,13 @@ MAX_PRIME_Q = 32
 # what csrc/flash_ring_decode.cu takes (checked against the library on load)
 KERNEL_HEAD_DIM = 128
 K1_MAX_HEADS = 32
-K1_SPLIT = 64          # keys per K1 block: its softmax block size
-K2_SPLIT = 128         # keys per K2 block
+K1_SPLIT = 64          # keys per K1/K6 block: its softmax block size
+K2_SPLIT = 128         # keys per K2/K7/K8 block
+
+# launches per kernel, counted where the wrapper launches it
+LAUNCHES = dict.fromkeys(
+    ("flash_ring_decode", "flash_ring_decode_int8", "flash_ring_prime_ap",
+     "flash_ring_prime_ap_int8", "flash_ring_prime"), 0)
 
 Tensor = torch.Tensor
 
@@ -55,30 +68,38 @@ def _scaled(qw: Tensor, scale: float) -> Tensor:
 
 
 def _attend_blocks(qs: Tensor, k: Tensor, v: Tensor, bias: Tensor,
+                   ks: Optional[Tensor], vs: Optional[Tensor],
                    block_m: int) -> Tuple[Tensor, Tensor, Tensor]:
     """qs [B, H, Q, Dh] scaled queries, k/v [B, M, H, Dh] one layer, bias
-    [B, H, Q, M] f32 -> blockwise partials o [B, nm, H, Q, Dh],
-    m/l [B, nm, H, Q], then merged. A ragged last block is padded with keys
-    of score -inf, which get probability 0."""
+    [B, H, Q, M] f32, ks/vs [B, M, H] dequant scales or None -> blockwise
+    partials o [B, nm, H, Q, Dh], m/l [B, nm, H, Q], then merged. A ragged
+    last block is padded with keys of score -inf, which get probability 0."""
     B, M, H, Dh = k.shape
     Q = qs.shape[2]
     bm = min(block_m, M)
     nm = -(-M // bm)
     pad = nm * bm - M
+    if ks is None:
+        ks = vs = torch.ones(B, M, H, dtype=torch.float32, device=k.device)
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        ks = F.pad(ks, (0, 0, 0, pad))
+        vs = F.pad(vs, (0, 0, 0, pad))
         bias = F.pad(bias, (0, pad), value=float("-inf"))
     kb = k.reshape(B, nm, bm, H, Dh).float()
-    vb = v.reshape(B, nm, bm, H, Dh)
+    vb = v.reshape(B, nm, bm, H, Dh).float()
+    ks_b = ks.float().reshape(B, nm, bm, H).permute(0, 1, 3, 2)[..., None, :]
+    vs_b = vs.float().reshape(B, nm, bm, H).permute(0, 1, 3, 2)[..., None, :]
     bias_b = bias.reshape(B, H, Q, nm, bm).permute(0, 3, 1, 2, 4)
-    s = torch.einsum("bhqd,bnmhd->bnhqm", qs.float(), kb) + bias_b
+    s = torch.einsum("bhqd,bnmhd->bnhqm", qs.float(), kb) * ks_b + bias_b
     m_blk = s.amax(-1)                                       # [B, nm, H, Q]
     p = torch.exp(s - m_blk[..., None])
     l_blk = p.sum(-1)
-    # p rounds to the cache dtype before the PV product (f32 accumulation)
-    o_blk = torch.einsum("bnhqm,bnmhd->bnhqd", p.to(v.dtype).float(),
-                         vb.float())
+    # the v scale folds into p on the PV operand only (never into l), then
+    # p rounds to the compute dtype before the PV product (f32 accumulation)
+    o_blk = torch.einsum("bnhqm,bnmhd->bnhqd",
+                         (p * vs_b).to(qs.dtype).float(), vb)
     m_f = m_blk.amax(1)                                      # [B, H, Q]
     w = torch.exp(m_blk - m_f[:, None])
     o_un = torch.einsum("bnhqd,bnhq->bhqd", o_blk, w)
@@ -86,25 +107,52 @@ def _attend_blocks(qs: Tensor, k: Tensor, v: Tensor, bias: Tensor,
     return o_un, m_f, l_f
 
 
+def _layer_scales(k_scale, v_scale, layer):
+    if k_scale is None:
+        return None, None
+    return k_scale[layer], v_scale[layer]
+
+
 def flash_ring_decode_plain(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
-                            bias: Tensor, layer: int, *, scale: float,
-                            block_m: int = DEFAULT_BLOCK_M
+                            bias: Tensor, layer: int,
+                            k_scale: Optional[Tensor] = None,
+                            v_scale: Optional[Tensor] = None, *,
+                            scale: float, block_m: int = DEFAULT_BLOCK_M
                             ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain K1: qw [B, H, Dh], bias [B, H, M] -> (o [B, H, Dh],
-    m [B, H, 1], l [B, H, 1]), all f32."""
+    """Plain K1/K6: qw [B, H, Dh], bias [B, H, M], scales [L, B, M, H] ->
+    (o [B, H, Dh], m [B, H, 1], l [B, H, 1]), all f32."""
     o, m, l = _attend_blocks(_scaled(qw, scale)[:, :, None], k_cache[layer],
-                             v_cache[layer], bias[:, :, None], block_m)
+                             v_cache[layer], bias[:, :, None],
+                             *_layer_scales(k_scale, v_scale, layer), block_m)
     return o[:, :, 0], m, l
 
 
-def flash_ring_prime_plain(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
-                           bias: Tensor, layer: int, *, scale: float,
-                           block_m: int = DEFAULT_BLOCK_M
-                           ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain K2: qw [B, H, Q, Dh], bias [B, H, Q, M] -> (o [B, H, Q, Dh],
-    m [B, H, Q], l [B, H, Q]), all f32."""
+def flash_ring_prime_ap_plain(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
+                              bias: Tensor, layer: int,
+                              k_scale: Optional[Tensor] = None,
+                              v_scale: Optional[Tensor] = None, *,
+                              scale: float, block_m: int = DEFAULT_BLOCK_M
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain K2/K7: qw [B, H, Q, Dh], bias [B, H, Q, M], scales
+    [L, B, M, H] -> (o [B, H, Q, Dh], m [B, H, Q], l [B, H, Q]), all f32."""
     return _attend_blocks(_scaled(qw, scale), k_cache[layer], v_cache[layer],
-                          bias, block_m)
+                          bias, *_layer_scales(k_scale, v_scale, layer),
+                          block_m)
+
+
+def flash_ring_prime_plain(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
+                           bias: Tensor, layer: int,
+                           k_scale_t: Optional[Tensor] = None,
+                           v_scale_t: Optional[Tensor] = None, *,
+                           scale: float, block_m: int = DEFAULT_BLOCK_M
+                           ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain K8: :func:`flash_ring_prime_ap_plain` with the scales
+    head-major, [L, B, H, M]."""
+    ks, vs = _layer_scales(k_scale_t, v_scale_t, layer)
+    if ks is not None:
+        ks, vs = ks.transpose(1, 2), vs.transpose(1, 2)
+    return _attend_blocks(_scaled(qw, scale), k_cache[layer], v_cache[layer],
+                          bias, ks, vs, block_m)
 
 
 # ---- kernels --------------------------------------------------------------
@@ -113,9 +161,9 @@ def flash_ring_prime_plain(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_ring_decode")
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bdm_flash_ring_decode.argtypes = [P] * 10 + [I] * 4 + [Fl, I, P]
+    lib.bdm_flash_ring_decode.argtypes = [P] * 12 + [I] * 4 + [Fl, I, P]
     lib.bdm_flash_ring_decode.restype = I
-    lib.bdm_flash_ring_prime.argtypes = [P] * 10 + [I] * 5 + [Fl, I, P]
+    lib.bdm_flash_ring_prime.argtypes = [P] * 12 + [I] * 6 + [Fl, I, P]
     lib.bdm_flash_ring_prime.restype = I
     lib.bdm_cuda_error_string.argtypes = [I]
     lib.bdm_cuda_error_string.restype = ctypes.c_char_p
@@ -129,37 +177,41 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def kernels_take(k_cache: Tensor) -> bool:
-    """Whether the CUDA kernels take this stacked cache."""
-    return (k_cache.is_cuda and k_cache.dtype == torch.bfloat16
-            and k_cache.dim() == 5 and k_cache.shape[-1] == KERNEL_HEAD_DIM
+def kernels_take(k_cache: Tensor, k_scale: Optional[Tensor] = None) -> bool:
+    """Whether the CUDA kernels take this stacked cache: bf16, or int8 with
+    its dequant scales."""
+    dtype_ok = (k_cache.dtype == torch.bfloat16
+                or (k_cache.dtype == torch.int8 and k_scale is not None))
+    return (k_cache.is_cuda and dtype_ok and k_cache.dim() == 5
+            and k_cache.shape[-1] == KERNEL_HEAD_DIM
             and k_cache.shape[-2] <= K1_MAX_HEADS)
 
 
-def _check(name: str, t: Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the cache on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
-def _check_cache(k_cache: Tensor, v_cache: Tensor, layer: int):
-    if not kernels_take(k_cache):
+def _check_cache(k_cache: Tensor, v_cache: Tensor, k_scale, v_scale,
+                 layer: int, head_major: bool = False):
+    """Check the stacked cache (and its scales) the kernels read; returns
+    the cache shape and the scale pointers (None for a bf16 cache)."""
+    if not kernels_take(k_cache, k_scale):
         raise ValueError(
-            "the CUDA ring-decode kernels take a bf16 CUDA cache "
-            f"[L, B, M, H <= {K1_MAX_HEADS}, {KERNEL_HEAD_DIM}]; got "
-            f"{k_cache.dtype} {tuple(k_cache.shape)} on {k_cache.device}")
-    _check("k_cache", k_cache, k_cache.shape, torch.bfloat16, k_cache.device)
-    _check("v_cache", v_cache, k_cache.shape, torch.bfloat16, k_cache.device)
-    L = k_cache.shape[0]
+            "the CUDA ring-decode kernels take a bf16 CUDA cache, or an int8 "
+            f"one with its scales, [L, B, M, H <= {K1_MAX_HEADS}, "
+            f"{KERNEL_HEAD_DIM}]; got {k_cache.dtype} {tuple(k_cache.shape)} "
+            f"on {k_cache.device}")
+    dev = k_cache.device
+    check_operand("k_cache", k_cache, k_cache.shape, k_cache.dtype, dev)
+    check_operand("v_cache", v_cache, k_cache.shape, k_cache.dtype, dev)
+    L, B, M, H, _ = k_cache.shape
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} out of range for {L} layers")
-    return k_cache.shape
+    ptrs = (None, None)
+    if k_cache.dtype == torch.int8:
+        sshape = (L, B, H, M) if head_major else (L, B, M, H)
+        check_operand("k_scale", k_scale, sshape, torch.float32, dev)
+        check_operand("v_scale", v_scale, sshape, torch.float32, dev)
+        ptrs = (k_scale.data_ptr(), v_scale.data_ptr())
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError("dequant scales come only with an int8 cache")
+    return k_cache.shape, ptrs
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -168,20 +220,32 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
+def _stream(dev: torch.device):
+    return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _bf16_scale(scale: float) -> float:
+    return float(torch.tensor(scale, dtype=torch.bfloat16))
+
+
 def flash_ring_decode(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
-                      bias: Tensor, layer: int, *, scale: float
+                      bias: Tensor, layer: int,
+                      k_scale: Optional[Tensor] = None,
+                      v_scale: Optional[Tensor] = None, *, scale: float
                       ) -> Tuple[Tensor, Tensor, Tensor]:
-    """K1: attention of one query per (row, head) over layer ``layer`` of
-    the stacked ring cache. qw [B, H, Dh] (q + r_w_bias, compute dtype),
-    bias [B, H, M] f32 -> (o [B, H, Dh], m [B, H, 1], l [B, H, 1]) f32.
-    The kernel reads the full stacked cache at the layer's offset."""
+    """K1 (bf16 cache) / K6 (int8 cache with scales [L, B, M, H]):
+    attention of one query per (row, head) over layer ``layer`` of the
+    stacked ring cache. qw [B, H, Dh] (q + r_w_bias, compute dtype), bias
+    [B, H, M] f32 -> (o [B, H, Dh], m [B, H, 1], l [B, H, 1]) f32. The
+    kernel reads the full stacked cache at the layer's offset."""
     if k_cache.device.type == "cpu":
         return flash_ring_decode_plain(k_cache, v_cache, qw, bias, layer,
-                                       scale=scale)
-    L, B, M, H, Dh = _check_cache(k_cache, v_cache, layer)
+                                       k_scale, v_scale, scale=scale)
+    (L, B, M, H, Dh), (ks, vs) = _check_cache(k_cache, v_cache, k_scale,
+                                              v_scale, layer)
     dev = k_cache.device
-    _check("qw", qw, (B, H, Dh), torch.bfloat16, dev)
-    _check("bias", bias, (B, H, M), torch.float32, dev)
+    check_operand("qw", qw, (B, H, Dh), torch.bfloat16, dev)
+    check_operand("bias", bias, (B, H, M), torch.float32, dev)
     S = -(-M // K1_SPLIT)
     f32 = dict(device=dev, dtype=torch.float32)
     o_part = torch.empty(B, S, H, Dh, **f32)
@@ -191,38 +255,28 @@ def flash_ring_decode(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
     m = torch.empty(B, H, 1, **f32)
     l = torch.empty(B, H, 1, **f32)
     rc = _lib().bdm_flash_ring_decode(
-        k_cache.data_ptr(), v_cache.data_ptr(), qw.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, qw.data_ptr(),
         bias.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        layer, B, M, H, float(torch.tensor(scale, dtype=torch.bfloat16)),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "flash_ring_decode")
-    flash_ring_decode.launches += 1
+        layer, B, M, H, _bf16_scale(scale), *_stream(dev))
+    name = "flash_ring_decode" + (
+        "_int8" if k_cache.dtype == torch.int8 else "")
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return o, m, l
 
 
-flash_ring_decode.launches = 0
-
-
-def flash_ring_prime(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
-                     bias: Tensor, layer: int, *, scale: float
-                     ) -> Tuple[Tensor, Tensor, Tensor]:
-    """K2: :func:`flash_ring_decode` for 2 <= Q <= 32 query rows (the
-    observation prime). qw [B, H, Q, Dh], bias [B, H, Q, M] f32 ->
-    (o [B, H, Q, Dh], m [B, H, Q], l [B, H, Q]) f32. It serves both values
-    of ``decode_prime_compact``: the TPU kernel's two variants compute the
-    same function."""
-    if k_cache.device.type == "cpu":
-        return flash_ring_prime_plain(k_cache, v_cache, qw, bias, layer,
-                                      scale=scale)
-    L, B, M, H, Dh = _check_cache(k_cache, v_cache, layer)
+def _prime_launch(name: str, k_cache, v_cache, qw, bias, layer, k_scale,
+                  v_scale, scale: float, head_major: bool):
+    (L, B, M, H, Dh), (ks, vs) = _check_cache(
+        k_cache, v_cache, k_scale, v_scale, layer, head_major)
     dev = k_cache.device
     Q = qw.shape[2] if qw.dim() == 4 else -1
     if not 1 <= Q <= MAX_PRIME_Q:
         raise ValueError(f"qw must be [B, H, Q <= {MAX_PRIME_Q}, Dh], "
                          f"got {tuple(qw.shape)}")
-    _check("qw", qw, (B, H, Q, Dh), torch.bfloat16, dev)
-    _check("bias", bias, (B, H, Q, M), torch.float32, dev)
+    check_operand("qw", qw, (B, H, Q, Dh), torch.bfloat16, dev)
+    check_operand("bias", bias, (B, H, Q, M), torch.float32, dev)
     S = -(-M // K2_SPLIT)
     f32 = dict(device=dev, dtype=torch.float32)
     o_part = torch.empty(B, S, H, Q, Dh, **f32)
@@ -231,18 +285,52 @@ def flash_ring_prime(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
     o = torch.empty(B, H, Q, Dh, **f32)
     m = torch.empty(B, H, Q, **f32)
     l = torch.empty(B, H, Q, **f32)
+    # the scales' stride along M: H for [L, B, M, H], 1 for [L, B, H, M]
     rc = _lib().bdm_flash_ring_prime(
-        k_cache.data_ptr(), v_cache.data_ptr(), qw.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, qw.data_ptr(),
         bias.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
         l_part.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        layer, B, M, H, Q, float(torch.tensor(scale, dtype=torch.bfloat16)),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "flash_ring_prime")
-    flash_ring_prime.launches += 1
+        layer, B, M, H, Q, 1 if head_major else H, _bf16_scale(scale),
+        *_stream(dev))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return o, m, l
 
 
-flash_ring_prime.launches = 0
+def flash_ring_prime_ap(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
+                        bias: Tensor, layer: int,
+                        k_scale: Optional[Tensor] = None,
+                        v_scale: Optional[Tensor] = None, *, scale: float
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K2 (bf16 cache) / K7 (int8 cache, scales [L, B, M, H]):
+    :func:`flash_ring_decode` for 2 <= Q <= 32 query rows (the observation
+    prime). qw [B, H, Q, Dh], bias [B, H, Q, M] f32 -> (o [B, H, Q, Dh],
+    m [B, H, Q], l [B, H, Q]) f32. It serves both values of
+    ``decode_prime_compact``: the TPU kernel's two variants compute the
+    same function."""
+    if k_cache.device.type == "cpu":
+        return flash_ring_prime_ap_plain(k_cache, v_cache, qw, bias, layer,
+                                         k_scale, v_scale, scale=scale)
+    name = "flash_ring_prime_ap" + (
+        "_int8" if k_cache.dtype == torch.int8 else "")
+    return _prime_launch(name, k_cache, v_cache, qw, bias, layer, k_scale,
+                         v_scale, scale, head_major=False)
+
+
+def flash_ring_prime(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
+                     bias: Tensor, layer: int,
+                     k_scale_t: Optional[Tensor] = None,
+                     v_scale_t: Optional[Tensor] = None, *, scale: float
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K8, the per-head prime: :func:`flash_ring_prime_ap`'s contract with
+    the int8 dequant scales pre-transposed head-major, [L, B, H, M]. The
+    decode path does not call it (the JAX package keeps it as K2's oracle);
+    the same kernel as K7 reads the scales through their M stride."""
+    if k_cache.device.type == "cpu":
+        return flash_ring_prime_plain(k_cache, v_cache, qw, bias, layer,
+                                      k_scale_t, v_scale_t, scale=scale)
+    return _prime_launch("flash_ring_prime", k_cache, v_cache, qw, bias,
+                         layer, k_scale_t, v_scale_t, scale, head_major=True)
 
 
 # ---- online-softmax merges (plain torch, as the JAX package's are XLA) ----

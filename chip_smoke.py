@@ -5,34 +5,42 @@
 
 Phases, each printing one JSON line:
 
-* ``build``   — nvcc builds every CUDA source of the port's main path
+* ``build``      — nvcc builds every CUDA source of the port's main paths
   (one nvcc per source, all started together).
-* ``kernels`` — each kernel against its plain PyTorch version at the
-  db1_1p2b serving shapes (B = 40, M = 1024, H = 16, Dh = 128; Q = 19 and
-  26 for the prime kernel; a layer index other than 0) and at one small
-  ragged shape, with its time, its bound, the plain version's time and one
-  PyTorch library call's time as a yardstick.
-* ``serve``   — db1_1p2b in bf16 with random weights from a seed serves 40
-  lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous actions)
-  with strict-length expert prompts through the port's
+* ``kernels``    — each kernel against its plain PyTorch version at the
+  db1_1p2b serving shapes and at one small ragged shape, with its time, its
+  bound, the plain version's time and one PyTorch library call's time as a
+  yardstick: K1/K2 on a bf16 cache (B = 40), K6/K7 on an int8 cache with
+  scales made by ``quantize_kv_rows`` (B = 56), K8 equal to K7 on the
+  transposed scales (M = 1024, H = 16, Dh = 128; Q = 19 and 26 for the
+  primes; a layer index other than 0), K9 at the four trunk matrices and
+  the three row counts of the int8 serve; and the W8A8 int32 product
+  against the exact one.
+* ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
+  40 lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous
+  actions) with strict-length expert prompts through the port's
   ``evaluate_envs_lockstep``; checks the kernels' launch counts against the
   chunk plan, the action tokens' range, and, layer by layer, the kernel
   route against the plain ring branch on one prime and one single-token
   forward; reads how far bf16 moves each layer from an f32 copy.
+* ``serve_int8`` — the same at 56 envs with the int8 ring cache and int8
+  trunk weights (decode_cache_dtype = decode_weight_dtype = "int8", bf16
+  activations, one cohort): K6, K7 and K9 launches against the plan, the
+  action range, and the layer-by-layer route check on the int8 cache.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
-with every kernel's numbers and its launches on the main path (only when
-``kernels`` and ``serve`` both ran, as with no arguments), and as the last
-line
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
-not 0 and no result line is printed. It needs one CUDA card and imports
-nothing of JAX.
+with every kernel's numbers and its launches on the main paths (only when
+``kernels`` and both serve phases ran, as with no arguments), and as the
+last line ``{"ok": true, "device": {...}}``. Any failure raises: the exit
+code is then not 0 and no result line is printed. It needs one CUDA card
+and imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -44,14 +52,21 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
-PHASES = ("build", "kernels", "serve")
+PHASES = ("build", "kernels", "serve", "serve_int8")
 # Kernel against its plain version, normalised output: max |diff| at most
-# OUT_REL_TOL * max |plain output|. Both round p to bf16 per split before
-# the PV product with the same split maxima, so they differ only where an
-# exp lands on the other side of a bf16 rounding: a few 2^-9 of one key's
-# weight, about 2e-4 of the largest output. A split whose PV is dropped or
-# misweighted moves outputs by a share of their size, far above the limit.
+# OUT_REL_TOL * max |plain output|. Both round p (times the v scale, int8)
+# to bf16 per split before the PV product with the same split maxima, so
+# they differ only where an exp lands on the other side of a bf16 rounding:
+# a few 2^-9 of one key's weight, about 2e-4 of the largest output. A split
+# whose PV is dropped or misweighted moves outputs by a share of their
+# size, far above the limit. The int8 cache changes neither side's
+# roundings (its values are exact in f32 and bf16), so the limit holds.
 OUT_REL_TOL = 2e-3
+# K9 against its plain version: max |diff| at most QMM_REL_TOL * max
+# |plain|. Both sum the same exact bf16 x int8 products in f32, in another
+# order (~1e-6 of the output); a wrong tile, mask or scale moves outputs by
+# O(1) of their size.
+QMM_REL_TOL = 1e-4
 
 
 def emit(rec: dict) -> None:
@@ -60,8 +75,8 @@ def emit(rec: dict) -> None:
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time per call of fn(i) over ``iters`` calls (CUDA
-    events); i lets a caller rotate through layers so no launch finds the
-    previous one's bytes in L2."""
+    events); i lets a caller rotate through layers or copies so no launch
+    finds the previous one's bytes in L2."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
@@ -75,11 +90,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_build() -> dict:
     from bdm_db1_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build_libraries(["flash_ring_decode"])
+    built = cuda_build.build_libraries(["flash_ring_decode", "quant_matmul"])
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "sources": {k: v["seconds"] for k, v in built.items()}}
     for name, info in built.items():
@@ -88,14 +110,35 @@ def phase_build() -> dict:
     return rec
 
 
-def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed):
-    """One kernel (K1 when Q is None, else K2) against its plain version on
-    the same inputs. Returns the comparison and, when timed, the times."""
+def _cache(gen, L, B, M, H, Dh, int8: bool):
+    """(k, v, k_scale, v_scale) of a stacked ring cache from seeded bf16
+    values: bf16 with no scales, or int8 with scales [L, B, M, H] made by
+    quantize_kv_rows layer by layer."""
+    from bdm_db1_tpu_torch.models.transformer_xl import quantize_kv_rows
+
+    if not int8:
+        k = torch.randn(L, B, M, H, Dh, device="cuda", generator=gen)
+        v = torch.randn(L, B, M, H, Dh, device="cuda", generator=gen)
+        return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    out = [torch.empty(L, B, M, H, Dh, dtype=torch.int8, device="cuda")
+           for _ in range(2)] + [torch.empty(L, B, M, H, device="cuda")
+                                 for _ in range(2)]
+    for kv in range(2):
+        for layer in range(L):
+            x = torch.randn(B, M, H, Dh, device="cuda", generator=gen)
+            out[kv][layer], out[2 + kv][layer] = quantize_kv_rows(
+                x.to(torch.bfloat16))
+    return tuple(out)
+
+
+def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False):
+    """One ring kernel (K1/K6 when Q is None, else K2/K7, and K8 for an
+    int8 prime) against its plain version on the same inputs. Returns the
+    comparison and, when timed, the times."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     scale = 1.0 / Dh ** 0.5
-    k = torch.randn(L, B, M, H, Dh, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(L, B, M, H, Dh, device=dev, generator=gen).to(torch.bfloat16)
+    k, v, ks, vs = _cache(gen, L, B, M, H, Dh, int8)
     nq = 1 if Q is None else Q
     qw = torch.randn(B, H, nq, Dh, device=dev, generator=gen).to(torch.bfloat16)
     bias = torch.randn(B, H, nq, M, device=dev, generator=gen) * 0.5
@@ -106,11 +149,13 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed):
         qw, bias = qw[:, :, 0].contiguous(), bias[:, :, 0].contiguous()
         kern, plain = fro.flash_ring_decode, fro.flash_ring_decode_plain
     else:
-        kern, plain = fro.flash_ring_prime, fro.flash_ring_prime_plain
+        kern, plain = fro.flash_ring_prime_ap, fro.flash_ring_prime_ap_plain
+    sc = () if ks is None else (ks, vs)
 
-    o, m, l = kern(k, v, qw, bias, layer, scale=scale)
+    o, m, l = kern(k, v, qw, bias, layer, *sc, scale=scale)
     torch.cuda.synchronize()
-    o_p, m_p, l_p = plain(k, v, qw, bias, layer, scale=scale, block_m=split)
+    o_p, m_p, l_p = plain(k, v, qw, bias, layer, *sc, scale=scale,
+                          block_m=split)
     torch.cuda.synchronize()
     out = o / l[..., None] if Q is not None else o / l
     out_p = o_p / l_p[..., None] if Q is not None else o_p / l_p
@@ -122,70 +167,188 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed):
     ok = (np.isfinite([err, m_err, l_rel]).all() and err <= tol["out_abs"]
           and m_err <= tol["m_abs"] and l_rel <= tol["l_rel"])
     rec = {"shape": {"L": L, "B": B, "M": M, "H": H, "Dh": Dh, "Q": nq,
-                     "layer": layer},
+                     "layer": layer, "cache": "int8" if int8 else "bf16"},
            "max_abs_err": err, "out_plain_absmax": out_max,
            "m_abs_err": m_err, "l_rel_err": l_rel, "tol": tol, "ok": bool(ok)}
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {rec}")
+    k8 = None
+    if int8 and Q is not None:
+        # K8: the same prime with the scales head-major [L, B, H, M] must
+        # give K7's outputs exactly (one kernel, another scale stride)
+        ks_t, vs_t = ks.transpose(2, 3).contiguous(), vs.transpose(2, 3).contiguous()
+        got = fro.flash_ring_prime(k, v, qw, bias, layer, ks_t, vs_t,
+                                   scale=scale)
+        torch.cuda.synchronize()
+        rec["k8_equals_k7"] = all(torch.equal(a, b)
+                                  for a, b in zip(got, (o, m, l)))
+        if not rec["k8_equals_k7"]:
+            raise AssertionError("K8 on transposed scales differs from K7")
+        o8, _, l8 = got
+        rec["k8_max_abs_err"] = float((o8 / l8[..., None] - out_p).abs().max())
+
+        def k8(i):
+            return fro.flash_ring_prime(k, v, qw, bias, i % L, ks_t, vs_t,
+                                        scale=scale)
     if timed:
-        cache_bytes = 2 * B * M * H * Dh * 2
+        elem = 1 if int8 else 2
+        cache_bytes = 2 * B * M * H * Dh * elem + (2 * B * M * H * 4 if int8
+                                                   else 0)
         io_bytes = (qw.numel() * 2 + bias.numel() * 4
                     + B * H * nq * Dh * 4 + 2 * B * H * nq * 4)
-        flops = 2 * 2 * B * H * nq * M * Dh
-        rec["bytes"] = cache_bytes + io_bytes
-        rec["flops"] = flops
-        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec.update(bound(cache_bytes + io_bytes, 2 * 2 * B * H * nq * M * Dh))
         rec["ms"] = time_ms(lambda i: kern(
-            k, v, qw, bias, i % L, scale=scale), iters=48)
+            k, v, qw, bias, i % L, *sc,
+            scale=scale), iters=48)
+        if k8 is not None:
+            rec["k8_ms"] = time_ms(k8, iters=48)
         rec["plain_ms"] = time_ms(lambda i: plain(
-            k, v, qw, bias, i % L, scale=scale, block_m=split), iters=6,
-            warmup=1)
+            k, v, qw, bias, i % L, *sc,
+            scale=scale, block_m=split), iters=6, warmup=1)
         # yardstick only: one PyTorch call computing the normalised output
-        # of the same attention (the port never calls it)
+        # of the same attention (the port never calls it); an int8 cache is
+        # dequantized to bf16 beforehand, outside the timing, for 4 layers
         qs = (qw if Q is not None else qw[:, :, None])
-        mask = bias if Q is not None else bias[:, :, None]
+        mask = (bias if Q is not None else bias[:, :, None]).to(torch.bfloat16)
+        if int8:
+            from bdm_db1_tpu_torch.models.transformer_xl import dequantize_kv
+
+            lib_layers = [(dequantize_kv(k[j], ks[j], torch.bfloat16),
+                           dequantize_kv(v[j], vs[j], torch.bfloat16))
+                          for j in range(min(4, L))]
+        else:
+            lib_layers = [(k[j], v[j]) for j in range(L)]
 
         def lib(i):
-            kl = k[i % L].permute(0, 2, 1, 3)
-            vl = v[i % L].permute(0, 2, 1, 3)
+            kl, vl = lib_layers[i % len(lib_layers)]
             return F.scaled_dot_product_attention(
-                qs, kl, vl, attn_mask=mask.to(torch.bfloat16), scale=scale)
+                qs, kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3),
+                attn_mask=mask, scale=scale)
 
         rec["library_ms"] = time_ms(lib, iters=12, warmup=2)
+        rec["library"] = "F.scaled_dot_product_attention" + (
+            " over the dequantized bf16 cache" if int8 else "")
     return rec
+
+
+# the trunk matrices (K, N) of db1_1p2b: qkv_net, o_net, CoreNet.0, .2
+TRUNK = {"qkv_net": (2048, 6144), "o_net": (2048, 2048),
+         "CoreNet.0": (2048, 8192), "CoreNet.2": (4096, 2048)}
+# K9's rows in the int8 serve: 56 envs x q = 1, 19 (steady prime), 256
+# (a prompt slice)
+QMM_ROWS = (56, 1064, 14336)
+
+
+def _qmm_case(qm, *, R, K, N, seed, timed):
+    """K9 against its plain version on one weight made by quantize_weight
+    from seeded values; when timed, its time, bound, plain time and the
+    time of F.linear on the pre-dequantized bf16 weight."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w_q, s = qm.quantize_weight(
+        torch.randn(N, K, device="cuda", generator=gen) * 0.02)
+    x = torch.randn(R, K, device="cuda", generator=gen).to(torch.bfloat16)
+    y = qm.quant_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    y_p = qm.quant_matmul_plain(x, w_q, s)
+    torch.cuda.synchronize()
+    err = float((y - y_p).abs().max())
+    ymax = float(y_p.abs().max())
+    rec = {"shape": {"R": R, "K": K, "N": N}, "max_abs_err": err,
+           "out_plain_absmax": ymax, "tol": QMM_REL_TOL * ymax,
+           "ok": bool(np.isfinite(err) and err <= QMM_REL_TOL * ymax)}
+    if not rec["ok"]:
+        raise AssertionError(f"K9 disagrees with its plain version: {rec}")
+    if timed:
+        rec.update(bound(R * K * 2 + N * K + N * 4 + R * N * 4,
+                         2 * R * K * N))
+        # >= 128 MB of weights between two reads of one copy (50 MB L2)
+        n = max(1, min(16, -(-(1 << 27) // (N * K))))
+        wqs = [w_q] + [w_q.clone() for _ in range(n - 1)]
+        iters = 200 if R <= 64 else 50 if R <= 2048 else 10
+        rec["ms"] = time_ms(lambda i: qm.quant_matmul(x, wqs[i % n], s),
+                            iters=iters)
+        rec["plain_ms"] = time_ms(lambda i: qm.quant_matmul_plain(
+            x, wqs[i % n], s), iters=3, warmup=1)
+        w_bf = [(c.float() * s[:, None]).to(torch.bfloat16) for c in wqs]
+        rec["library_ms"] = time_ms(lambda i: F.linear(x, w_bf[i % n]),
+                                    iters=iters)
+        rec["library"] = "F.linear, bf16 weight dequantized beforehand"
+    return rec
+
+
+def _w8a8_check(qm) -> list:
+    """W8A8's int8 x int8 -> int32 product (torch._int_mm) against the
+    exact integer product (f64 on the card: |acc| <= K * 127^2 < 2^53)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = []
+    for R, K, N in ((56, 2048, 6144), (1064, 4096, 2048), (5, 96, 40)):
+        xq = torch.randint(-127, 128, (R, K), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (N, K), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        acc = qm.int8_matmul(xq, wq)
+        exact = xq.double() @ wq.double().t()
+        ok = acc.dtype == torch.int32 and torch.equal(acc.double(), exact)
+        out.append({"shape": [R, K, N], "exact": bool(ok)})
+        if not ok:
+            raise AssertionError(f"W8A8 int32 product is not exact: {out}")
+    return out
 
 
 def phase_kernels() -> dict:
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
 
     full = dict(L=24, B=40, M=1024, H=16, Dh=128, layer=17)
+    full8 = dict(full, B=56, int8=True)
     ragged = dict(L=3, B=3, M=200, H=4, Dh=128, layer=2)
+    ragged8 = dict(ragged, int8=True)
     cases = {
         "flash_ring_decode": [
             _kernel_case(fro, Q=None, seed=1, timed=True, **full),
             _kernel_case(fro, Q=None, seed=2, timed=False, **ragged)],
-        "flash_ring_prime": [
+        "flash_ring_prime_ap": [
             _kernel_case(fro, Q=19, seed=3, timed=True, **full),
             _kernel_case(fro, Q=26, seed=4, timed=True, **full),
             _kernel_case(fro, Q=5, seed=5, timed=False, **ragged)],
+        "flash_ring_decode_int8": [
+            _kernel_case(fro, Q=None, seed=11, timed=True, **full8),
+            _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8)],
+        "flash_ring_prime_ap_int8": [
+            _kernel_case(fro, Q=19, seed=13, timed=True, **full8),
+            _kernel_case(fro, Q=26, seed=14, timed=True, **full8),
+            _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8)],
     }
-    return {"phase": "kernels", "cases": cases}
+    torch.cuda.empty_cache()
+    qmm = [_qmm_case(qm, R=R, K=K, N=N, seed=20 + i, timed=True)
+           for i, (R, (K, N)) in enumerate(
+               (R, kn) for R in QMM_ROWS for kn in TRUNK.values())]
+    qmm.append(_qmm_case(qm, R=37, K=96, N=200, seed=40, timed=False))
+    cases["quant_matmul"] = qmm
+    return {"phase": "kernels", "cases": cases, "w8a8_int32": _w8a8_check(qm)}
 
 
-K1_REPLACES = "bdm_db1_tpu/ops/flash_ring_decode.py:249"
-K2_REPLACES = "bdm_db1_tpu/ops/flash_ring_decode.py:578"
-SOURCE = "bdm_db1_tpu_torch/csrc/flash_ring_decode.cu"
+K_REPLACES = {
+    "flash_ring_decode": "bdm_db1_tpu/ops/flash_ring_decode.py:249",
+    "flash_ring_prime_ap": "bdm_db1_tpu/ops/flash_ring_decode.py:578",
+    "flash_ring_decode_int8": "bdm_db1_tpu/ops/flash_ring_decode.py:166",
+    "flash_ring_prime_ap_int8": "bdm_db1_tpu/ops/flash_ring_decode.py:497",
+    "flash_ring_prime": "bdm_db1_tpu/ops/flash_ring_decode.py:671",
+    "quant_matmul": "bdm_db1_tpu/ops/quant_matmul.py:125",
+}
+K_SOURCES = {name: "bdm_db1_tpu_torch/csrc/flash_ring_decode.cu"
+             for name in K_REPLACES}
+K_SOURCES["quant_matmul"] = "bdm_db1_tpu_torch/csrc/quant_matmul.cu"
 # Kernel route (use_kernels True) against the plain ring branch (False) on
 # the card. Per layer, on identical inputs, the attention output before
 # o_net: max |diff| / max |attn|. The routes differ only by bf16 roundings
 # (the query cast, p cast per key split against the full softmax), a few
 # 2^-9 of a value; 2e-2 leaves room for that and none for a wrong mask,
 # scale, rotation or merge, which move attention outputs by O(1) of their
-# size. The gates stay within one layer: end to end, 24 layers grow any
-# rounding difference (see the bf16-against-f32 readings beside them).
+# size. The int8 cache holds the same int8 values and scales on both
+# routes, so the same limit holds there. The gates stay within one layer:
+# end to end, 24 layers grow any rounding difference (see the
+# bf16-against-f32 readings beside them).
 ATTN_REL_TOL = 2e-2
 # The last layer run both ways from one input, then the tied head: max
 # |diff| / max |logit|. One layer's rounding difference passes o_net, two
@@ -221,7 +384,7 @@ class _RecordingPool:
         return self.decoders.setdefault(id(dec), _Recorder(dec))
 
 
-def _serve_setup(n_envs, episode_len, seed):
+def _serve_setup(n_envs, episode_len, seed, **model_overrides):
     from bdm_db1_tpu_torch.core.config import db1_1p2b
     from bdm_db1_tpu_torch.data.rl_dataset import (
         RLFullDataset, RLTokenizerSuite, TrajectoryStore,
@@ -231,7 +394,7 @@ def _serve_setup(n_envs, episode_len, seed):
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
     from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 
-    cfg = db1_1p2b()
+    cfg = db1_1p2b(**model_overrides)
     cfg.model.param_dtype = "bfloat16"   # served weights in bf16
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = TransformerXL(cfg.model, cfg.vocab, device="cuda", generator=gen)
@@ -254,41 +417,76 @@ def _serve_setup(n_envs, episode_len, seed):
     return cfg, model, layout, names, make_tenv
 
 
-def phase_serve(smi: str, steps: int = 8, batch: int = 40,
-                seed: int = 0) -> dict:
+def _reset_launches():
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
+
+    for counts in (fro.LAUNCHES, qm.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _read_launches() -> dict:
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
+
+    return {**fro.LAUNCHES, **qm.LAUNCHES}
+
+
+def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
+                seed: int = 0, **model_overrides) -> dict:
     from bdm_db1_tpu_torch.eval.decode import DecoderPool
     from bdm_db1_tpu_torch.eval.harness import evaluate_envs_lockstep
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
 
-    cfg, model, layout, names, make_tenv = _serve_setup(batch, steps, seed)
+    cfg, model, layout, names, make_tenv = _serve_setup(
+        batch, steps, seed, **model_overrides)
+    int8_cache = cfg.model.decode_cache_dtype == "int8"
+    int8_weights = cfg.model.decode_weight_dtype == "int8"
     L, A = cfg.model.n_layer, 6
     run = dict(num_trials=1, seed=100, batch_size=batch, interleave=1,
                strict_length=True)
     pool = _RecordingPool(DecoderPool(model))
-    # warm-up: allocator, cuBLAS handles, the positional projections
+    # warm-up: allocator, cuBLAS handles, the positional projections (and,
+    # with int8 weights, the one-off weight quantization)
     evaluate_envs_lockstep(model, names, make_tenv, decoder_pool=pool,
                            max_step_size=2, **run)
     torch.cuda.synchronize()
     for rec in pool.decoders.values():
         rec.acts.clear()
+    if int8_weights and not model.decode_weights_quantized():
+        raise AssertionError("int8 decode weights were not quantized")
 
     # ---- the main path, counted --------------------------------------
-    fro.flash_ring_decode.launches = 0
-    fro.flash_ring_prime.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     res = evaluate_envs_lockstep(model, names, make_tenv, decoder_pool=pool,
                                  max_step_size=steps, **run)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_ring_decode": fro.flash_ring_decode.launches,
-                "flash_ring_prime": fro.flash_ring_prime.launches}
+    launches = _read_launches()
     # ------------------------------------------------------------------
 
-    # per env step: one observation prime (the last prompt slice at step
-    # 0, 26 tokens; [deferred action || obs || sep], 19 tokens, after)
-    # and A - 1 single-token forwards, each over L layers
-    want = {"flash_ring_decode": steps * L * (A - 1),
-            "flash_ring_prime": steps * L}
+    # the chunk plan: step 0 primes [prompt || obs || sep] in ring slices
+    # (at 1.2B: 256-token slices on the plain ring branch, the last, 26
+    # tokens, on the prime kernel); every later step primes [deferred
+    # action || obs || sep], 19 tokens; each step then runs A - 1
+    # single-token forwards. Every forward runs L layers, each with 4 trunk
+    # matrices.
+    dec = pool.get(make_tenv(names[0])).inner
+    prompt, _ = make_tenv(names[0]).get_prompt(
+        strict_length=True, rng=np.random.RandomState(0))
+    q0 = len(prompt) + dec.obs_length + 1
+    slices = dec.chunk_sizes(q0, 0) or [q0]
+    forwards = len(slices) + steps * (A - 1) + (steps - 1)
+    suffix = "_int8" if int8_cache else ""
+    want = dict.fromkeys(launches, 0)
+    want["flash_ring_decode" + suffix] = L * (
+        steps * (A - 1) + slices.count(1))
+    want["flash_ring_prime_ap" + suffix] = L * (
+        steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+    if int8_weights:
+        want["quant_matmul"] = 4 * L * forwards
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     if not all(r["length_mean"] == steps and r["num_trials"] == 1
@@ -303,9 +501,13 @@ def phase_serve(smi: str, steps: int = 8, batch: int = 40,
                              f"range {acts.min()}..{acts.max()}")
 
     steady = _steady_steps(model, pool, make_tenv, names, layout, A)
-    routes = _route_check(model, layout, batch, make_tenv, names)
-    return {"phase": "serve", "config": "db1_1p2b", "dtype": "bfloat16",
+    routes = _route_check(model, layout, batch, make_tenv, names,
+                          f32_copy=not (int8_cache or int8_weights))
+    return {"phase": phase, "config": "db1_1p2b", "dtype": "bfloat16",
+            "decode_cache_dtype": cfg.model.decode_cache_dtype,
+            "decode_weight_dtype": cfg.model.decode_weight_dtype,
             "batch": batch, "env_steps": steps, "card": smi,
+            "prime_slices": slices, "forwards": forwards,
             "launches": launches, "launches_expected": want,
             "wall_s": wall, "actions_per_sec": batch * steps / wall,
             **steady, "kernel_vs_plain": routes}
@@ -359,20 +561,24 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
             "profiled_step_ms": prof_wall * 1e3,
             "device_busy_ms": busy * 1e3,
             "device_idle_share": 1.0 - busy / step,
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}
+            # names without the namespace noise, long enough that the
+            # template instantiations of one kernel stay apart
+            "top_device_ms": {
+                e.key.replace("(anonymous namespace)::", "")[:100]:
+                    e.self_device_time_total / 1e3 for e in top}}
 
 
 @torch.no_grad()
-def _route_check(model, layout, B, make_tenv, names) -> dict:
+def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     """One observation prime and one single-token forward from the same
     primed cache, driven layer by layer. Each layer's attention output with
     use_kernels True (the kernels) is held against use_kernels False (the
     plain ring branch) on the same input, and so are the logits after the
-    last layer run both ways from its one input. Beside those gates, an
-    f32 copy of the model reads how far bf16 alone moves each layer's
-    output from the same bf16 input ("local"), the running hidden state
-    ("propagated") and the last-position logits."""
+    last layer run both ways from its one input. Beside those gates, with
+    ``f32_copy`` (a bf16 cache and weights), an f32 copy of the model reads
+    how far bf16 alone moves each layer's output from the same bf16 input
+    ("local"), the running hidden state ("propagated") and the
+    last-position logits."""
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
 
@@ -391,11 +597,13 @@ def _route_check(model, layout, B, make_tenv, names) -> dict:
     one = torch.full((B, 1), layout.continuous_offset + 3, device="cuda")
     zero = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
 
-    m32 = TransformerXL(dataclasses.replace(model.cfg, dtype="float32"),
-                        model.vocab, device="cuda")
-    m32.load_state_dict(model.state_dict())
-    k, v, cursor = cache["k"], cache["v"], cache["cursor"]
-    k32, v32 = k.float(), v.float()
+    m32 = cache32 = None
+    if f32_copy:
+        m32 = TransformerXL(dataclasses.replace(model.cfg, dtype="float32"),
+                            model.vocab, device="cuda")
+        m32.load_state_dict(model.state_dict())
+        cache32 = {"k": cache["k"].float(), "v": cache["v"].float(),
+                   "cursor": cache["cursor"]}
 
     def rel(a, b):
         return float((a.float() - b.float()).abs().max()
@@ -404,32 +612,37 @@ def _route_check(model, layout, B, make_tenv, names) -> dict:
     out = {"attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL}
     for name, tok, tpos in (("prime", prime, pos), ("q1", one, zero)):
         q = tok.shape[1]
-        mask, mask_s = model.ring_masks(q, cursor, "cuda")
-        rk, rk32 = model.precompute_rk(q), m32.precompute_rk(q)
-        h, h32 = model.embed_rl(tok, tpos), m32.embed_rl(tok, tpos)
+        mask, mask_s = model.ring_masks(q, cache["cursor"], "cuda")
+        rk = model.precompute_rk(q)
+        h = model.embed_rl(tok, tpos)
+        if f32_copy:
+            rk32, h32 = m32.precompute_rk(q), m32.embed_rl(tok, tpos)
         attn_err, local, prop = [], [], []
-        for li, (layer, layer32) in enumerate(zip(model.h, m32.h)):
-            ring = (rk[li], k, v, li, cursor, mask, mask_s)
-            ring32 = (rk32[li], k32, v32, li, cursor, mask, mask_s, False)
+        for li, layer in enumerate(model.h):
+            ring = (rk[li], cache, li, mask, mask_s)
             attn = layer.dec_attn.attend_ring(h, *ring, True)[0]
             attn_p = layer.dec_attn.attend_ring(h, *ring, False)[0]
             attn_err.append(rel(attn, attn_p))
             h_in = h
             h = layer.forward_ring(h, *ring, True)[0]
-            h_f = layer32.forward_ring(h_in.float(), *ring32)[0]
-            local.append(rel(h, h_f))
-            h32 = layer32.forward_ring(h32, *ring32)[0]
-            prop.append(rel(h, h32))
+            if f32_copy:
+                layer32 = m32.h[li]
+                ring32 = (rk32[li], cache32, li, mask, mask_s, False)
+                local.append(rel(h, layer32.forward_ring(h_in.float(),
+                                                         *ring32)[0]))
+                h32 = layer32.forward_ring(h32, *ring32)[0]
+                prop.append(rel(h, h32))
         logits = model.logits(h[:, -1])
         # the last layer both ways from the same input, through the head
         h_p = layer.forward_ring(h_in, *ring, False)[0]
         logits_p = model.logits(h_p[:, -1])
         out[name] = {"attn_rel_err_max": max(attn_err),
-                     "last_layer_logits_rel_err": rel(logits, logits_p),
-                     "bf16_vs_f32_local_max": max(local),
-                     "bf16_vs_f32_propagated": prop,
-                     "logits_bf16_vs_f32": rel(logits,
-                                               m32.logits(h32[:, -1]))}
+                     "last_layer_logits_rel_err": rel(logits, logits_p)}
+        if f32_copy:
+            out[name].update({
+                "bf16_vs_f32_local_max": max(local),
+                "bf16_vs_f32_propagated": prop,
+                "logits_bf16_vs_f32": rel(logits, m32.logits(h32[:, -1]))})
         if not (torch.isfinite(logits).all()
                 and out[name]["attn_rel_err_max"] <= ATTN_REL_TOL
                 and out[name]["last_layer_logits_rel_err"] <= LOGIT_REL_TOL):
@@ -438,15 +651,25 @@ def _route_check(model, layout, B, make_tenv, names) -> dict:
 
 
 def kernels_line(kernels: dict, launches: dict) -> dict:
-    """One record per kernel: its numbers at the main path's shape and its
-    launches in the counted main-path run of the same process."""
+    """One record per kernel: its numbers at the main path's shape (the
+    first case of each; K9 at the serve's q == 1 rows and the largest trunk
+    matrix) and its launches in the counted main-path runs of the same
+    process. K8 is held by the kernels phase only: no main path runs it."""
+    cases = kernels["cases"]
+    pick = {name: cases[name][0] for name in cases}
+    pick["quant_matmul"] = next(
+        c for c in cases["quant_matmul"]
+        if c["shape"] == {"R": QMM_ROWS[0], "K": 2048, "N": 8192})
+    k7 = cases["flash_ring_prime_ap_int8"][0]
+    pick["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
+                                    max_abs_err=k7["k8_max_abs_err"])
     rows = []
-    for name, replaces in (("flash_ring_decode", K1_REPLACES),
-                           ("flash_ring_prime", K2_REPLACES)):
-        case = kernels["cases"][name][0]
+    for name, replaces in K_REPLACES.items():
+        case = pick[name]
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": K_SOURCES[name],
             "replaces": replaces, "launches": launches[name],
+            "on_path": name != "flash_ring_prime",
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -479,15 +702,23 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         results["kernels"] = phase_kernels()
         emit(results["kernels"])
-    if "serve" in phases:
-        results["serve"] = phase_serve(smi)
-        emit(results["serve"])
+    serves = {"serve": dict(batch=40),
+              "serve_int8": dict(batch=56, decode_cache_dtype="int8",
+                                 decode_weight_dtype="int8")}
+    for phase, kw in serves.items():
+        if phase in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[phase] = phase_serve(smi, phase=phase, **kw)
+            emit(results[phase])
 
     print(smi, flush=True)
-    # launches are counted only on the main path (serve): without it this
-    # run has no count to print
-    if "kernels" in results and "serve" in results:
-        emit(kernels_line(results["kernels"], results["serve"]["launches"]))
+    # launches are counted only on the main paths (both serves): without
+    # them this run has no count to print
+    if "kernels" in results and all(p in results for p in serves):
+        launches = {name: sum(results[p]["launches"][name] for p in serves)
+                    for name in K_REPLACES}
+        emit(kernels_line(results["kernels"], launches))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -83,7 +83,7 @@ def test_prime_plain_matches_pallas(Q, oracle):
     else:
         ref = jf.flash_ring_prime_ap(*args, compact=oracle == "ap_compact",
                                      **kw)
-    got = tf.flash_ring_prime_plain(*_t(k, v, qw, bias), 2, scale=SCALE,
+    got = tf.flash_ring_prime_ap_plain(*_t(k, v, qw, bias), 2, scale=SCALE,
                                     block_m=BLOCK)
     assert got[0].shape == (B, H, Q, DH) and got[1].shape == (B, H, Q)
     _assert_close(got, ref)
@@ -99,9 +99,9 @@ def test_plain_ragged_blocks(M_ragged):
     qw = torch.from_numpy(rng.randn(2, H, 5, DH).astype(np.float32))
     bias = torch.from_numpy(rng.randn(2, H, 5, M_ragged).astype(np.float32))
     bias[..., :BLOCK] = tf.NEG_INF
-    split = tf.flash_ring_prime_plain(k, v, qw, bias, 1, scale=SCALE,
+    split = tf.flash_ring_prime_ap_plain(k, v, qw, bias, 1, scale=SCALE,
                                       block_m=BLOCK)
-    whole = tf.flash_ring_prime_plain(k, v, qw, bias, 1, scale=SCALE,
+    whole = tf.flash_ring_prime_ap_plain(k, v, qw, bias, 1, scale=SCALE,
                                       block_m=M_ragged)
     _assert_close(split, whole)
 

@@ -1,0 +1,144 @@
+"""int8 trunk weights of the port (bdm_db1_tpu_torch/ops/quant_matmul.py)
+against the JAX package's ops/quant_matmul.py on the CPU, from the same
+numpy inputs:
+
+- ``quantize_weight``: int8 values and scales equal exactly (both divide in
+  f32 and round half to even), in the transposed [N, K] layout; the port's
+  ``TransformerXL.quantize_decode_weights`` gives the JAX quantized tree's
+  ints and scales.
+- plain K9 against the Pallas ``quant_matmul`` in interpret mode, at block
+  sizes that force several k and n blocks: 1e-5 in f32 (the JAX package's
+  own bar, tests/test_quant_matmul.py), and in bf16 activations 1e-5 of the
+  largest output (both sum exact bf16 x bf16 products in f32).
+- ``w8a8_matmul`` against JAX's: 1e-5; its int32 product is exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bdm_db1_tpu.models.transformer_xl import quantize_decode_weights
+from bdm_db1_tpu.ops import quant_matmul as jq
+from bdm_db1_tpu_torch.ops import quant_matmul as tq
+from torch_port_helpers import jax_tiny, one_thread, port_model, to_numpy
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    n = one_thread()
+    yield
+    torch.set_num_threads(n)
+
+
+def _weight(seed, K, N, zero_col=True):
+    w = np.random.RandomState(seed).randn(K, N).astype(np.float32) * 0.05
+    if zero_col:
+        w[:, 3] = 0.0        # an all-zero output channel: scale 1.0
+    return w
+
+
+def test_quantize_weight_matches_jax():
+    w = _weight(0, 64, 48)
+    wq_j, s_j = jq.quantize_weight(jnp.asarray(w))
+    wq_t, s_t = tq.quantize_weight(torch.from_numpy(w.T.copy()))
+    assert wq_t.dtype == torch.int8 and wq_t.shape == (48, 64)
+    np.testing.assert_array_equal(wq_t.numpy(), np.asarray(wq_j).T)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert s_t[3] == 1.0 and not wq_t[3].any()
+
+
+def test_quantize_decode_weights_matches_jax():
+    """The port quantizes exactly qkv_net, o_net, CoreNet.0 and CoreNet.2
+    of every layer, to the JAX tree's ints and scales (transposed), and
+    leaves r_net, the embeddings and the LayerNorms as they were."""
+    cfg, _, params, pnp = jax_tiny()
+    qnp = to_numpy(quantize_decode_weights(params))
+    pm = port_model(pnp, decode_weight_dtype="int8")
+    r_net = pm.h[0].dec_attn.r_net.weight.clone()
+    pm.quantize_decode_weights()
+    pm.quantize_decode_weights()            # idempotent
+    assert pm.decode_weights_quantized()
+    sd = pm.state_dict()
+    paths = {"dec_attn.qkv_net": ("attn", "qkv_net"),
+             "dec_attn.o_net": ("attn", "o_net"),
+             "pos_ff.CoreNet.0": ("ff", "wi"),
+             "pos_ff.CoreNet.2": ("ff", "wo")}
+    for i in range(cfg.model.n_layer):
+        for name, (grp, leaf) in paths.items():
+            node = qnp["layers"][grp][leaf]
+            np.testing.assert_array_equal(
+                sd[f"h.{i}.{name}.weight_q"].numpy(), node["kernel"][i].T)
+            np.testing.assert_array_equal(
+                sd[f"h.{i}.{name}.weight_scale"].numpy(),
+                node["kernel_scale"][i])
+            assert f"h.{i}.{name}.weight" not in sd
+    assert torch.equal(pm.h[0].dec_attn.r_net.weight, r_net)
+    assert sd["word_embedding.weight"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("R,K,N,bm,bk,bn", [
+    (8, 64, 96, 1024, 16, 32),      # 4 k blocks x 3 n blocks
+    (100, 64, 96, 20, 32, 32),      # ragged rows over several m blocks
+])
+def test_quant_matmul_plain_matches_pallas(R, K, N, bm, bk, bn):
+    rng = np.random.RandomState(R)
+    x = rng.randn(R, K).astype(np.float32)
+    wq, s = jq.quantize_weight(jnp.asarray(_weight(R + 1, K, N)))
+    ref = np.asarray(jq.quant_matmul(jnp.asarray(x), wq, s, block_m=bm,
+                                     block_k=bk, block_n=bn,
+                                     interpret=True))
+    w_t = torch.from_numpy(np.asarray(wq).T.copy())
+    s_t = torch.tensor(np.asarray(s))
+    got = tq.quant_matmul_plain(torch.from_numpy(x), w_t, s_t)
+    assert got.dtype == torch.float32 and got.shape == (R, N)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    # the wrapper takes the plain route for CPU tensors
+    wrapped = tq.quant_matmul(torch.from_numpy(x), w_t, s_t)
+    np.testing.assert_allclose(wrapped.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+def test_quant_matmul_bf16_activations_match_pallas():
+    rng = np.random.RandomState(2)
+    x = jnp.asarray(rng.randn(12, 64), jnp.bfloat16)
+    wq, s = jq.quantize_weight(jnp.asarray(_weight(3, 64, 32)))
+    ref = np.asarray(jq.quant_matmul(x, wq, s, block_k=16, block_n=16,
+                                     interpret=True))
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+    got = tq.quant_matmul(xt, torch.from_numpy(np.asarray(wq).T.copy()),
+                          torch.tensor(np.asarray(s)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=TOL * np.abs(ref).max())
+
+
+def test_w8a8_matmul_matches_jax():
+    rng = np.random.RandomState(11)
+    x = rng.randn(12, 64).astype(np.float32)
+    x[5] = 0.0                             # an all-zero row stays zero
+    wq, s = jq.quantize_weight(jnp.asarray(_weight(12, 64, 96)))
+    ref = np.asarray(jq.w8a8_matmul(jnp.asarray(x), wq, s))
+    w_t = torch.from_numpy(np.asarray(wq).T.copy())
+    got = tq.w8a8_matmul(torch.from_numpy(x), w_t,
+                         torch.tensor(np.asarray(s)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    assert not got[5].any()
+    # the int8 x int8 -> int32 product is the exact integer product
+    xq, _ = tq.quantize_rows(torch.from_numpy(x))
+    acc = tq.int8_matmul(xq, w_t)
+    assert acc.dtype == torch.int32
+    exact = xq.numpy().astype(np.int64) @ np.asarray(wq).astype(np.int64)
+    np.testing.assert_array_equal(acc.numpy(), exact)
+    # the card's route: torch._int_mm with the rows padded past 16
+    np.testing.assert_array_equal(tq.int_mm_padded(xq, w_t).numpy(), exact)
+
+
+def test_cuda_route_refuses_what_the_kernel_does_not_take():
+    """A non-CPU tensor never reaches the plain version: a shape the K9
+    kernel does not take is refused before any build or launch."""
+    x = torch.zeros(4, 30, device="meta")
+    w = torch.zeros(8, 30, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="K9 kernel takes"):
+        tq.quant_matmul(x, w, torch.zeros(8, device="meta"))

@@ -72,7 +72,7 @@ def test_gate_routes():
     """decode_flash: "off" never takes the kernel route, "on" takes it for
     1 <= q <= 32, "auto" only where the CUDA kernels take the cache."""
     *_, pnp = jax_tiny()
-    cache = torch.zeros(2, 1, 32, 4, 16)
+    cache = {"k": torch.zeros(2, 1, 32, 4, 16)}
     assert not port_model(pnp, "off").use_kernels(1, cache)
     on = port_model(pnp, "on")
     assert on.use_kernels(1, cache) and on.use_kernels(32, cache)

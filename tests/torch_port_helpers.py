@@ -20,11 +20,14 @@ from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL as PortTXL
 from bdm_db1_tpu_torch.train.convert import load_jax_params
 
 
-def jax_tiny(decode_flash: str = "off", seed: int = 0):
-    """db1_tiny in f32: (cfg, model, params, params as numpy)."""
+def jax_tiny(decode_flash: str = "off", seed: int = 0, **model_overrides):
+    """db1_tiny in f32: (cfg, model, params, params as numpy). The params
+    are the unquantized ones whatever ``decode_weight_dtype`` says."""
     cfg = db1_tiny()
     cfg.model.dtype = "float32"
     cfg.model.decode_flash = decode_flash
+    for key, val in model_overrides.items():
+        setattr(cfg.model, key, val)
     params, pnp = _tiny_params(seed)
     return cfg, JaxTXL(cfg.model, cfg.vocab, cfg.vision), params, pnp
 
@@ -46,9 +49,10 @@ def to_numpy(params):
     return jax.tree.map(np.asarray, nn.meta.unbox(params))
 
 
-def port_model(params_np, decode_flash: str = "off"):
+def port_model(params_np, decode_flash: str = "off", **model_overrides):
     """The port's db1_tiny (f32, CPU) holding the JAX weights."""
-    pcfg = port_config.db1_tiny(dtype="float32", decode_flash=decode_flash)
+    pcfg = port_config.db1_tiny(dtype="float32", decode_flash=decode_flash,
+                                **model_overrides)
     model = PortTXL(pcfg.model, pcfg.vocab, device="cpu")
     load_jax_params(model, params_np)
     return model
