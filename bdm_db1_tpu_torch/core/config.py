@@ -6,8 +6,9 @@ defaults, so the two configs compare field for field; the decode-path
 switches keep their meaning on the GPU (``decode_flash``: "auto" runs the
 CUDA kernels for 1 <= q <= 32 on CUDA tensors, "on" forces the kernel route,
 whose CPU form is the kernels' plain versions, "off" the plain ring branch).
-``MeshConfig``, ``TrainConfig``, ``DataConfig`` and the JSON round trip
-belong to later slices.
+``DataConfig`` carries the data fields the validation-loss path reads
+(sequence length, split, prompt sampling); ``MeshConfig``, ``TrainConfig``
+and the JSON/CLI round trip belong to later slices.
 """
 
 from __future__ import annotations
@@ -117,6 +118,25 @@ class ModelConfig:
 
 
 @dataclass
+class DataConfig:
+    # (weight, prefix, type) triples, reference --data-path semantics
+    data_path: Tuple[str, ...] = ()
+    split: str = "90,5,5"
+    seq_length: int = 1024
+    rl_dataset_cache_dir: Optional[str] = None
+    use_prompt: bool = True
+    prompt_ratio: float = 0.5
+    prompt_prob: float = 0.25
+    prompt_at_final_transition_prob: float = 0.5
+    prompt_strategy: str = "stochastic_subseq;moving_prompt"
+    num_workers: int = 2
+    tokenizer_save_path: Optional[str] = None
+    # few-shot RL finetuning: each RL train split draws from the first N
+    # trajectories only
+    num_rl_fewshot_episodes: Optional[int] = None
+
+
+@dataclass
 class EvalConfig:
     env_names: Tuple[str, ...] = ()
     task_suite_names: Tuple[str, ...] = ()
@@ -148,6 +168,7 @@ class DB1Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     vocab: VocabConfig = field(default_factory=VocabConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
 
@@ -176,5 +197,6 @@ def db1_tiny(**model_overrides) -> DB1Config:
     )
     kw.update(model_overrides)
     cfg.model = ModelConfig(**kw)
+    cfg.data.seq_length = 64
     return cfg
 

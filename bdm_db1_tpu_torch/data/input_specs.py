@@ -1,0 +1,31 @@
+"""Typed device batches (counterpart of bdm_db1_tpu/data/input_specs.py):
+dataclasses of tensors in place of flax pytrees.
+
+Every modality group packs to one sequence length ``L`` and the model
+concatenates the groups along the batch. Only the RL batch is ported; the
+text, captioning and VQA batches come with their embedders.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+
+@dataclass
+class RLTaskBatch:
+    """Packed decision-transformer sample; image slots hold token id -1."""
+
+    tokens: torch.Tensor                       # [B, L] int
+    position_id: torch.Tensor                  # [B, L] int (0 = action)
+    loss_mask: Optional[torch.Tensor] = None   # [B, L]
+    label: Optional[torch.Tensor] = None       # [B, L] int
+    images: Optional[torch.Tensor] = None      # [B, T, H, W, C] float
+
+
+# A mixed-modality batch: modality group name -> sub-batch.
+GatoBatch = Dict[str, object]
+
+MODALITY_ORDER = ("rl", "nlp", "ic", "vqa")

@@ -1,5 +1,5 @@
 """Gato transition layout helpers (the part of bdm_db1_tpu/data/packing.py
-that decode reads).
+that decode and the packed training samples read).
 
 A transition is ``[obs_tokens(obs_len) | separator | action_tokens(act_len)]``.
 ``position_id`` is the local timestep id: 1..obs_len+1 over obs+separator,
@@ -25,3 +25,14 @@ def action_flags_and_position_ids(
         (within > obs_len) & (idx >= prepend_trans_num * step)
     ).astype(np.int64)
     return action_flag, position_id
+
+
+def truncate_or_pad(arr: np.ndarray, length: int, pad_value=0) -> np.ndarray:
+    """Cut ``arr`` to ``length`` rows or pad its tail with ``pad_value``."""
+    if len(arr) > length:
+        return arr[:length]
+    if len(arr) < length:
+        pad = np.full((length - len(arr),) + arr.shape[1:], pad_value,
+                      arr.dtype)
+        return np.concatenate([arr, pad], axis=0)
+    return arr

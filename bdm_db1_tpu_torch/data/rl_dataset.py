@@ -1,17 +1,19 @@
-"""RL trajectories and their tokenization: the evaluation subset of
-bdm_db1_tpu/data/rl_dataset.py.
+"""RL trajectories, their tokenization and packed training samples: the
+in-memory subset of bdm_db1_tpu/data/rl_dataset.py.
 
 * ``TrajectoryStore`` — in-memory per-trajectory storage built from a
   d4rl-style flat dataset.
 * ``RLTokenizerSuite`` — per-obs-type tokenization with the unified vocab
   offsets.
 * ``RLFullDataset`` — the dataset meta (obs/action token widths, transition
-  budget), observation/action tokenization and expert-prompt sampling that
-  the eval wrapper reads.
+  budget), the sample index, packed samples (``get``, with prompt
+  conditioning drawn from ``self.rng`` in the JAX package's order, so one
+  seed gives the same samples in both), and expert-prompt sampling.
+* ``RLDataset`` / ``split_rl_dataset`` — train/valid/test views.
 
 Tensor observations only: image and text observations raise
-``NotImplementedError``. Training samples (``get``, ``prepend_prompt``, the
-sample index) and the on-disk trajectory cache come with the training slice.
+``NotImplementedError``. The on-disk trajectory and meta caches, the
+few-shot view and the dataset-factory creators are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from bdm_db1_tpu_torch.core.vocab import VocabLayout
+from bdm_db1_tpu_torch.data import native
+from bdm_db1_tpu_torch.data.dataset_utils import get_train_valid_test_split_
+from bdm_db1_tpu_torch.data.packing import (
+    action_flags_and_position_ids, truncate_or_pad,
+)
 from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 
 ObsTree = Union[np.ndarray, Dict[str, np.ndarray]]
@@ -182,8 +189,8 @@ class TrajectoryStore:
 
 
 class RLFullDataset:
-    """One environment's trajectories with the tokenization and prompt
-    sampling that evaluation reads."""
+    """Packed Gato samples over one environment's trajectories, with the
+    tokenization and prompt sampling that evaluation reads."""
 
     def __init__(
         self,
@@ -192,16 +199,27 @@ class RLFullDataset:
         tokenizer: RLTokenizerSuite,
         seq_length: int,
         *,
+        use_prompt: bool = True,
         prompt_ratio: float = 0.5,
+        prompt_prob: float = 0.25,
+        prompt_at_final_transition_prob: float = 0.5,
+        prompt_strategy: str = "stochastic_subseq",
         seed: Optional[int] = None,
     ):
         self.name = name
         self.store = store
         self.tok = tokenizer
         self.output_sequence_length = int(seq_length)
+        self.use_prompt = use_prompt
         self.prompt_ratio = prompt_ratio
+        self.prompt_prob = prompt_prob
+        self.prompt_at_final_transition_prob = prompt_at_final_transition_prob
+        self.prompt_strategy = prompt_strategy
         self.rng = np.random.RandomState(seed)
         self._build_meta()
+        # sample index: one sample per timestep of every trajectory
+        self.indices = native.build_rl_sample_idx(
+            self.store.path_lengths, self.transition_num)
         # top-return trajectories first, for expert-prompt sampling
         self._ret_order = np.argsort(-self.store.traj_returns, kind="stable")
 
@@ -221,6 +239,9 @@ class RLFullDataset:
         self.prompt_transition_num = int(self.prompt_ratio * self.transition_num)
         self.predicted_transition_num = (
             self.transition_num - self.prompt_transition_num)
+
+    def __len__(self) -> int:
+        return len(self.indices)
 
     @property
     def step_size(self) -> int:
@@ -251,6 +272,92 @@ class RLFullDataset:
                     "text/image observation tokens are not ported yet")
         parts = [leaf for leaf in tree_leaves(o_tensor) if leaf is not None]
         return np.concatenate(parts, axis=1).astype(np.int64), None
+
+    def prepend_prompt(self, path_idx: int, obs: ObsTree, act: np.ndarray):
+        """With probability ``prompt_prob``, prepend ``prompt_transition_num``
+        transitions of trajectory ``path_idx`` (its final ones with
+        probability ``prompt_at_final_transition_prob``, else a random
+        subsequence or random timesteps) and clip the sample's own window to
+        ``predicted_transition_num``. Returns (obs, act, prepended count)."""
+        prepend = 0
+        if path_idx >= 0 and self.rng.random() < self.prompt_prob:
+            obs_traj, act_traj = self.store.get(path_idx)
+            path_length = int(self.store.path_lengths[path_idx])
+            if self.rng.random() < self.prompt_at_final_transition_prob:
+                t_obs = tree_map(
+                    lambda x: x[-self.prompt_transition_num:], obs_traj)
+                t_act = act_traj[-self.prompt_transition_num:]
+            elif self.prompt_strategy == "stochastic_timestep":
+                k = min(self.prompt_transition_num, path_length)
+                idx = np.sort(self.rng.choice(path_length, k, replace=False))
+                t_obs = tree_map(lambda x: x[idx], obs_traj)
+                t_act = act_traj[idx]
+            else:  # stochastic_subseq
+                start = self.rng.choice(
+                    max(path_length - self.prompt_transition_num, 1))
+                t_obs = tree_map(
+                    lambda x: x[start: start + self.prompt_transition_num],
+                    obs_traj)
+                t_act = act_traj[start: start + self.prompt_transition_num]
+            prepend = len(t_act)
+
+            # clip the original window to the predicted budget
+            offset_range = max(0, len(act) - self.predicted_transition_num)
+            offset = self.rng.choice(offset_range) if offset_range > 0 else 0
+            obs = tree_map(
+                lambda x: x[offset: offset + self.predicted_transition_num],
+                obs)
+            act = act[offset: offset + self.predicted_transition_num]
+            obs = tree_map(
+                lambda a, b: np.concatenate([np.asarray(a), np.asarray(b)], 0),
+                t_obs, obs)
+            act = np.concatenate([np.asarray(t_act), np.asarray(act)], axis=0)
+        return obs, act, prepend
+
+    def get(self, idx: int) -> Dict[str, np.ndarray]:
+        """Sample ``idx``: the window of ``transition_num`` transitions at
+        its index row, prompt-conditioned when ``use_prompt``, packed to
+        ``seq_length + 1`` tokens and split into ``tokens`` / ``label``
+        (int32), ``loss_mask`` (f32: action tokens outside the prompt and
+        before the trajectory's end) and ``position_id`` (int32)."""
+        idx = idx % len(self.indices)
+        path_idx, start, end = (int(v) for v in self.indices[idx])
+        path_length = int(self.store.path_lengths[path_idx])
+        obs, act = self.store.get(path_idx, start, end)
+
+        if self.use_prompt:
+            rand_path = int(self.rng.choice(self.store.num_trajectories))
+            obs, act, prepend = self.prepend_prompt(rand_path, obs, act)
+        else:
+            prepend = 0
+
+        (o_text, o_image, o_tensor), act_tok = self.postprocess_obs_and_act(
+            obs, act)
+        obs_tok, _ = self.assemble_obs_tokens(o_text, o_image, o_tensor)
+
+        T = obs_tok.shape[0]
+        sep = np.full((T, 1), self.tok.layout.separator_id, dtype=np.int64)
+        joined = np.concatenate([obs_tok, sep, act_tok], axis=1).reshape(-1)
+
+        flags, pos = action_flags_and_position_ids(
+            len(joined), self.observation_dim, self.action_dim, prepend)
+        if end > path_length:
+            # transitions past the true end carry no loss
+            flags[(path_length - start) * self.step_size:] = 0
+
+        L = self.output_sequence_length + 1
+        joined = truncate_or_pad(joined, L)
+        flags = truncate_or_pad(flags, L)
+        pos = truncate_or_pad(pos, L)
+        return {
+            "tokens": joined[:-1].astype(np.int32),
+            "label": joined[1:].astype(np.int32),
+            "loss_mask": flags[1:].astype(np.float32),
+            "position_id": pos[:-1].astype(np.int32),
+        }
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.get(idx)
 
     def sample_expert_demonstration(
         self, strategy: str, strict_length: bool, sample_peak: bool,
@@ -303,3 +410,39 @@ class RLFullDataset:
             "obs/image": o_image,
             "obs/tensor": o_tensor,
         }
+
+
+class RLDataset:
+    """Subset view over an RLFullDataset's sample indices (one split)."""
+
+    def __init__(self, full: RLFullDataset, indices: np.ndarray):
+        self.full = full
+        self.indices = np.asarray(indices)
+        assert len(self.indices) == 0 or (
+            self.indices.max() < len(full) and self.indices.min() >= 0)
+
+    @property
+    def name(self) -> str:
+        return self.full.name
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        item = self.full.get(int(self.indices[idx % len(self.indices)]))
+        item["modality"] = "rl"
+        return item
+
+
+def split_rl_dataset(full: RLFullDataset, splits_string: str = "90,5,5",
+                     seed: int = 1234):
+    """Shuffle the sample indices once and split them into (train, valid,
+    test) views; an empty split is None."""
+    n = len(full)
+    perm = np.random.RandomState(seed).permutation(n)
+    cuts = get_train_valid_test_split_(splits_string, n)
+    out = []
+    for i in range(3):
+        sel = perm[cuts[i]: cuts[i + 1]]
+        out.append(RLDataset(full, sel) if len(sel) else None)
+    return tuple(out)

@@ -1,5 +1,6 @@
-"""TransformerXL decoder, the RL ring-cache decode subset of
-bdm_db1_tpu/models/transformer_xl.py.
+"""TransformerXL decoder: the RL subset of bdm_db1_tpu/models/transformer_xl.py
+(ring-cache decode, the full-sequence trunk with hidden-state memory, the
+loss and ``decode_rl``).
 
 Parameter names are the reference torch model's (``word_embedding.weight``,
 ``h.{i}.dec_attn.qkv_net.weight``, ``h.{i}.pos_ff.CoreNet.0.weight``, ...),
@@ -24,8 +25,16 @@ o_net, CoreNet.0, CoreNet.2) as int8 with per-output-channel scales once
 weights: "int8" through the K9 kernel (ops/quant_matmul.py), "int8a8"
 through the W8A8 int8 product.
 
-Not ported yet (raise ``NotImplementedError``): images, the speculative
-tail, geometry-bucket padding and the hidden-state (pre-LN) memory path.
+The full-sequence trunk (:meth:`TransformerXL.trunk`, under ``forward``,
+``decode_rl`` and the validation loss) runs every layer over
+``[memory || x]`` with the relative attention picked by
+:func:`use_rel_kernel`, the JAX package's ``_use_pallas`` gate: the kernel
+route (K3, ops/flash_rel_attention.py; its plain version on the CPU) or
+``rel_attention``. Hidden-state memory is ``[n_layer, B, mem_len, D]``.
+
+Not ported yet (raise ``NotImplementedError``): images and modalities
+other than RL, dropout (``deterministic=False``), gradients through K3,
+pre-LN models, the speculative tail and geometry-bucket padding.
 """
 
 from __future__ import annotations
@@ -37,14 +46,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from bdm_db1_tpu_torch.core.config import ModelConfig, VocabConfig
+from bdm_db1_tpu_torch.data.input_specs import MODALITY_ORDER, GatoBatch
 from bdm_db1_tpu_torch.models.activations import ACT2FN
 from bdm_db1_tpu_torch.ops.attention import (
-    causal_mask, rel_shift, rel_shift_sliced, same_length_mask,
+    causal_mask, rel_attention, rel_shift, rel_shift_sliced, same_length_mask,
+)
+from bdm_db1_tpu_torch.ops.flash_rel_attention import (
+    flash_rel_attention, kernel_route_applicable,
 )
 from bdm_db1_tpu_torch.ops.flash_ring_decode import (
     MAX_PRIME_Q, NEG_INF, combine_new_columns, combine_self_column,
     flash_ring_decode, flash_ring_prime_ap, kernels_take,
 )
+from bdm_db1_tpu_torch.ops.fused_ce import masked_cross_entropy_fused
 from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
 from bdm_db1_tpu_torch.ops.quant_matmul import (
     quant_matmul, quantize_weight, w8a8_matmul,
@@ -99,6 +113,33 @@ def _a8(cfg: ModelConfig) -> bool:
     return cfg.decode_weight_dtype == "int8a8"
 
 
+def use_rel_kernel(cfg: ModelConfig, qlen: int, klen: int, device) -> bool:
+    """The JAX package's ``_use_pallas`` gate (attention dropout is never on
+    here): "xla" takes ``rel_attention``; otherwise shapes that the JAX
+    kernel or its padding wrapper serve take the kernel route under
+    "pallas" (the plain K3 version on the CPU), and under "auto" when the
+    tensors are on CUDA."""
+    if cfg.attention_impl == "xla" or not kernel_route_applicable(qlen, klen):
+        return False
+    if cfg.attention_impl == "pallas":
+        return True
+    return torch.device(device).type == "cuda"
+
+
+def masked_cross_entropy(logits: Tensor, labels: Tensor, loss_mask: Tensor,
+                         valid_vocab: int) -> Tensor:
+    """Masked mean CE in f32; the vocab tail from ``valid_vocab`` on is out
+    of the softmax."""
+    v = logits.shape[-1]
+    if valid_vocab < v:
+        pad_bias = torch.where(
+            torch.arange(v, device=logits.device) < valid_vocab, 0.0, -1e30)
+        logits = logits + pad_bias
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return (nll * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1e-8)
+
+
 def _layer_norm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
     return F.layer_norm(x, ln.normalized_shape, ln.weight.to(x.dtype),
                         ln.bias.to(x.dtype), ln.eps)
@@ -132,6 +173,47 @@ class RelMultiHeadAttn(nn.Module):
             self.r_r_bias = nn.Parameter(torch.empty(h, dh, device=device,
                                                      dtype=dtype))
 
+    def _residual(self, x: Tensor, attn: Tensor) -> Tensor:
+        """o_net, then the post-LN residual with the DeepNorm alpha."""
+        cfg = self.cfg
+        b, qlen = x.shape[:2]
+        out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
+                     self.o_net, x.dtype, _a8(cfg))
+        alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
+        return _layer_norm(x * alpha + out, self.layer_norm)
+
+    def forward(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
+                mask: Tensor, use_kernel: bool) -> Tensor:
+        """One layer over ``[mem || x]`` (hidden states; mem [B, M, D] or
+        None): x [B, q, D], r [M+q, D] positional embeddings, mask [q, M+q]
+        (True = banned). Returns the post-LN output [B, q, D]."""
+        return self._residual(x, self.attend(x, r, mem, mask, use_kernel))
+
+    def attend(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
+               mask: Tensor, use_kernel: bool) -> Tensor:
+        """The attention part of :meth:`forward`: [B, q, H, Dh] before o_net.
+        QKV runs over ``[mem || x]``; q is its last q rows; r_net projects
+        r in the compute dtype; ``use_kernel`` picks K3 (with f32 biases, as
+        the JAX kernel route takes them) or ``rel_attention``."""
+        cfg = self.cfg
+        h, dh = cfg.n_head, cfg.d_head
+        dtype = x.dtype
+        qlen = x.shape[1]
+        cat = x if mem is None else torch.cat([mem.to(dtype), x], dim=1)
+        klen = cat.shape[1]
+        q, k, v = _dense(cat, self.qkv_net, dtype, _a8(cfg)).split(
+            cfg.n_embed, dim=-1)
+        q = q[:, -qlen:].unflatten(-1, (h, dh))
+        k, v = k.unflatten(-1, (h, dh)), v.unflatten(-1, (h, dh))
+        r_k = _dense(r.to(dtype), self.r_net, dtype).view(klen, h, dh)
+        if use_kernel:
+            return flash_rel_attention(
+                q, k, v, r_k, self.r_w_bias.float(), self.r_r_bias.float(),
+                mem_len=cfg.mem_len, same_length=cfg.same_length,
+                scale=1.0 / dh ** 0.5).to(dtype)
+        return rel_attention(q, k, v, r_k, self.r_w_bias, self.r_r_bias,
+                             mask, compute_dtype=dtype)
+
     def forward_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
                      layer: int, mask: Tensor, mask_s: Tensor,
                      use_kernels: bool) -> Tuple[Tensor, Tensor, Tensor]:
@@ -143,12 +225,7 @@ class RelMultiHeadAttn(nn.Module):
         compute dtype."""
         attn, k_x, v_x = self.attend_ring(x, rk, cache, layer, mask, mask_s,
                                           use_kernels)
-        cfg = self.cfg
-        b, qlen = x.shape[:2]
-        out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
-                     self.o_net, x.dtype, _a8(cfg))
-        alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
-        return _layer_norm(x * alpha + out, self.layer_norm), k_x, v_x
+        return self._residual(x, attn), k_x, v_x
 
     def attend_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
                     layer: int, mask: Tensor, mask_s: Tensor,
@@ -279,6 +356,11 @@ class DecoderLayer(nn.Module):
         self.dec_attn = RelMultiHeadAttn(cfg, device, dtype)
         self.pos_ff = PositionwiseFF(cfg, device, dtype)
 
+    def forward(self, h: Tensor, mem: Optional[Tensor], r: Tensor,
+                mask: Tensor, use_kernel: bool) -> Tensor:
+        """Attention over ``[mem || h]``, then the FF."""
+        return self.pos_ff(self.dec_attn(h, r, mem, mask, use_kernel))
+
     def forward_ring(self, x, rk, cache, layer, mask, mask_s, use_kernels):
         h, k_x, v_x = self.dec_attn.forward_ring(
             x, rk, cache, layer, mask, mask_s, use_kernels)
@@ -296,9 +378,7 @@ class TransformerXL(nn.Module):
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.pre_lnorm:
-            raise NotImplementedError(
-                "pre-LN models decode through hidden-state memory, which is "
-                "not ported yet")
+            raise NotImplementedError("pre-LN models are not ported yet")
         for name, val, ok in (
                 ("decode_cache_dtype", cfg.decode_cache_dtype, ("", "int8")),
                 ("decode_weight_dtype", cfg.decode_weight_dtype,
@@ -383,6 +463,125 @@ class TransformerXL(nn.Module):
         w = (self.word_embedding.weight if self.cfg.share_input_output_embedding
              else self.lm_head.weight)
         return F.linear(h.to(self.dtype), w.to(self.dtype)).float()
+
+    def embed_concat(self, batch: GatoBatch, deterministic: bool = True,
+                     with_targets: bool = True):
+        """Embed every modality group and concatenate along the batch:
+        (h, loss_mask f32, label clamped at 0), the last two None without
+        targets. Groups go in ``MODALITY_ORDER``, then other keys sorted; a
+        key routes to the embedder of its prefix before "_" ("rl_img" ->
+        "rl"). Only RL groups without images are ported (others raise
+        ``NotImplementedError``), and an unknown group key raises
+        ``ValueError`` where the JAX package drops it."""
+        names = [n for n in MODALITY_ORDER if n in batch]
+        names += sorted(k for k in batch if k not in MODALITY_ORDER)
+        embs, masks, labels = [], [], []
+        for name in names:
+            base = name.split("_")[0]
+            if base not in MODALITY_ORDER:
+                raise ValueError(f"unknown modality group {name!r}; the "
+                                 f"groups are {MODALITY_ORDER} and their "
+                                 "'<group>_<suffix>' sub-groups")
+            sub = batch[name]
+            if sub is None:
+                continue
+            if base != "rl" or sub.images is not None:
+                raise NotImplementedError(
+                    f"group {name!r}: only RL batches without images are "
+                    "ported")
+            embs.append(self.embed_rl(sub.tokens, sub.position_id))
+            if with_targets:
+                masks.append(sub.loss_mask)
+                labels.append(sub.label.clamp(min=0))
+        h = torch.cat(embs, dim=0) if len(embs) > 1 else embs[0]
+        if not with_targets:
+            return h, None, None
+        return h, torch.cat(masks, dim=0).float(), torch.cat(labels, dim=0)
+
+    def loss_from_hidden(self, h: Tensor, loss_mask: Tensor,
+                         label: Tensor) -> Tensor:
+        """Masked CE from the trunk output; the tied head goes through the
+        blockwise fused CE, so the f32 [B, L, V] logits never exist."""
+        valid = self.layout.total_vocab_size
+        if self.cfg.share_input_output_embedding:
+            return masked_cross_entropy_fused(
+                h, self.word_embedding.weight, label, loss_mask, valid)
+        return masked_cross_entropy(self.logits(h), label, loss_mask, valid)
+
+    # ---- full-sequence trunk ----------------------------------------------
+    def init_mems(self, batch_size: int) -> Tensor:
+        """Zero hidden-state memory [n_layer, B, mem_len, D] in the compute
+        dtype."""
+        cfg = self.cfg
+        return torch.zeros(cfg.n_layer, batch_size, cfg.mem_len, cfg.n_embed,
+                           dtype=self.dtype, device=self.device)
+
+    def trunk(self, h: Tensor, mems: Optional[Tensor],
+              deterministic: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+        """Every layer over ``[mems[i] || h]`` (h [B, q, D]; mems
+        [n_layer, B, M, D] or None). Returns (h, new mems): the trailing
+        mem_len of ``[mems || layer inputs]`` per layer, None without
+        mems."""
+        if not deterministic:
+            raise NotImplementedError(
+                "dropout (deterministic=False) comes with the training slice")
+        cfg = self.cfg
+        qlen = h.shape[1]
+        mlen = 0 if mems is None else mems.shape[2]
+        klen = mlen + qlen
+        dev = h.device
+        mask = (same_length_mask(qlen, klen, cfg.mem_len, device=dev)
+                if cfg.same_length else causal_mask(qlen, klen, device=dev))
+        r = relative_positional_embedding(
+            klen, cfg.n_embed, cfg.effective_clamp_len, device=dev)
+        use_kernel = use_rel_kernel(cfg, qlen, klen, dev)
+        hids = []
+        for i, layer in enumerate(self.h):
+            mem = None
+            if mems is not None:
+                mem = mems[i].to(self.dtype)
+                hids.append(h)
+            h = layer(h, mem, r, mask, use_kernel)
+        if mems is None:
+            return h, None
+        cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
+        return h, cat[:, :, -cfg.mem_len:]
+
+    @torch.no_grad()
+    def forward(self, batch: GatoBatch, mems: Optional[Tensor] = None,
+                compute_loss: bool = True, deterministic: bool = True,
+                loss_only: bool = False):
+        """Mixed-modality forward with the JAX package's ``__call__``
+        signature and returns: (logits f32 [B, L, V], loss), plus the new
+        mems when ``mems`` is given; ``(None, loss)`` with ``loss_only`` and
+        a tied head (the fused CE). Runs without gradients: K3 has no
+        backward yet."""
+        if compute_loss and mems is not None:
+            raise ValueError("training does not use segment memory")
+        h, loss_mask, label = self.embed_concat(
+            batch, deterministic, with_targets=compute_loss)
+        h, new_mems = self.trunk(h, mems, deterministic)
+        if compute_loss and loss_only and self.cfg.share_input_output_embedding:
+            return None, self.loss_from_hidden(h, loss_mask, label)
+        logits = self.logits(h)
+        loss = None
+        if compute_loss:
+            loss = masked_cross_entropy(logits, label, loss_mask,
+                                        self.layout.total_vocab_size)
+        if mems is not None:
+            return logits, loss, new_mems
+        return logits, loss
+
+    @torch.no_grad()
+    def decode_rl(self, tokens: Tensor, position_id: Tensor, mems: Tensor,
+                  images=None) -> Tuple[Tensor, Tensor]:
+        """One step over hidden-state memory: tokens/position_id [B, q],
+        mems [n_layer, B, mem_len, D] -> (last-position logits [B, V] f32,
+        new mems)."""
+        if images is not None:
+            raise NotImplementedError("image observations are not ported yet")
+        h, new_mems = self.trunk(self.embed_rl(tokens, position_id), mems)
+        return self.logits(h[:, -1]), new_mems
 
     # ---- ring-cache decode ------------------------------------------------
     def init_kv_cache_ring(self, batch_size: int) -> RingCache:

@@ -1,5 +1,6 @@
-"""TransformerXL relative-attention index helpers (counterpart of
-bdm_db1_tpu/ops/attention.py): the BD-term shifts and the attention masks.
+"""TransformerXL relative attention, plain PyTorch (counterpart of
+bdm_db1_tpu/ops/attention.py): the BD-term shifts, the attention masks and
+``rel_attention``, the plain route of the full-sequence trunk.
 
 Scores decompose as ``AC[b,h,i,j] = (q + r_w_bias) . k`` (content) and
 ``BD[b,h,i,j] = rel_shift((q + r_r_bias) . r)`` (position). Masks are bool
@@ -8,8 +9,12 @@ Scores decompose as ``AC[b,h,i,j] = (q + r_w_bias) . k`` (content) and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+MASK_VALUE = -1e30
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -57,3 +62,29 @@ def same_length_mask(qlen: int, klen: int, mem_len: int,
     mask_shift_len = qlen - mask_len if mask_len > 0 else qlen
     lower = j < i - (mask_shift_len - 1)
     return upper | lower
+
+
+def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  r: torch.Tensor, r_w_bias: torch.Tensor,
+                  r_r_bias: torch.Tensor, mask: Optional[torch.Tensor], *,
+                  scale: Optional[float] = None,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """q [B, qlen, H, Dh], k/v [B, klen, H, Dh], r [klen, H, Dh] projected
+    positional embeddings (row 0 the most distant), biases [H, Dh], mask
+    [q, k] or [B, q, k] bool (True = banned) -> [B, qlen, H, Dh] in
+    ``compute_dtype``. Scores, mask and softmax in f32; the probabilities
+    are cast to the compute dtype for the PV product. No attention dropout
+    (the training slice adds it)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    qf = q.float()
+    rw_q = qf + r_w_bias.float()
+    rr_q = qf + r_r_bias.float()
+    ac = torch.einsum("bihd,bjhd->bhij", rw_q, k.float())
+    bd = rel_shift(torch.einsum("bihd,jhd->bhij", rr_q, r.float()))
+    scores = (ac + bd) * scale
+    if mask is not None:
+        mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
+        scores = torch.where(mask, MASK_VALUE, scores)
+    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+    return torch.einsum("bhij,bjhd->bihd", probs, v.to(compute_dtype))

@@ -2,20 +2,24 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,eval_loss
 
 Phases, each printing one JSON line:
 
 * ``build``      — nvcc builds every CUDA source of the port's main paths
   (one nvcc per source, all started together).
 * ``kernels``    — each kernel against its plain PyTorch version at the
-  db1_1p2b serving shapes and at one small ragged shape, with its time, its
-  bound, the plain version's time and one PyTorch library call's time as a
-  yardstick: K1/K2 on a bf16 cache (B = 40), K6/K7 on an int8 cache with
-  scales made by ``quantize_kv_rows`` (B = 56), K8 equal to K7 on the
-  transposed scales (M = 1024, H = 16, Dh = 128; Q = 19 and 26 for the
-  primes; a layer index other than 0), K9 at the four trunk matrices and
-  the three row counts of the int8 serve; and the W8A8 int32 product
-  against the exact one.
+  db1_1p2b serving and evaluation shapes and at one small ragged shape,
+  with its time, its bound, the plain version's time and one PyTorch
+  library call's time as a yardstick: K1/K2 on a bf16 cache (B = 40), K6/K7
+  on an int8 cache with scales made by ``quantize_kv_rows`` (B = 56), K8
+  equal to K7 on the transposed scales (M = 1024, H = 16, Dh = 128; Q = 19
+  and 26 for the primes; a layer index other than 0), K9 at the four trunk
+  matrices and the three row counts of the int8 serve, the W8A8 int32
+  product against the exact one, and K3 (out, m, l) at the validation
+  forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
+  (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
+  qlen 100, klen 1124).
 * ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
   40 lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous
   actions) with strict-length expert prompts through the port's
@@ -27,6 +31,15 @@ Phases, each printing one JSON line:
   trunk weights (decode_cache_dtype = decode_weight_dtype = "int8", bf16
   activations, one cohort): K6, K7 and K9 launches against the plan, the
   action range, and the layer-by-layer route check on the int8 cache.
+* ``eval_loss``  — the validation loss of db1_1p2b in bf16 (random weights
+  from a seed) over 8 micro-batches of 4 x 1024 tokens: packed
+  ``RLFullDataset`` samples (prompts on) of a seeded HalfCheetah-geometry
+  ``FakeContinuousEnv`` dataset, its valid split, through
+  ``SequentialSampler``, ``collate_modalities`` and the port's
+  ``evaluate_loss``; checks 24 K3 launches per forward, a finite loss, K3
+  against ``rel_attention`` layer by layer at the attention output, and the
+  loss through both routes; reads tokens/sec, ms per micro-batch and the
+  device idle share.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers and its launches on the main paths (only when
@@ -52,7 +65,8 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
-PHASES = ("build", "kernels", "serve", "serve_int8")
+PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss")
+MAIN_PATHS = ("serve", "serve_int8", "eval_loss")
 # Kernel against its plain version, normalised output: max |diff| at most
 # OUT_REL_TOL * max |plain output|. Both round p (times the v scale, int8)
 # to bf16 per split before the PV product with the same split maxima, so
@@ -101,7 +115,8 @@ def phase_build() -> dict:
     from bdm_db1_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build_libraries(["flash_ring_decode", "quant_matmul"])
+    built = cuda_build.build_libraries(
+        ["flash_ring_decode", "quant_matmul", "flash_rel_attention"])
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "sources": {k: v["seconds"] for k, v in built.items()}}
     for name, info in built.items():
@@ -295,7 +310,96 @@ def _w8a8_check(qm) -> list:
     return out
 
 
+# K3 against its plain version. out is bf16 on both sides: where the two
+# f32 results straddle a bf16 rounding boundary they differ by one ulp of
+# the element (at most 2^-7 of it), so each element may differ by that plus
+# OUT_REL_TOL * max |plain|, the ring kernels' limit for the softmax itself
+# (p rounded to bf16 per key tile with the running max against once with
+# the final max). The f32 row stats hold the mask: one key wrongly in or out
+# of a row moves l by ~1/n of it (>= 1e-3 at n <= 1024) and m by a score,
+# while both sides sum the same f32 products in another order (~1e-6).
+K3_M_ABS_TOL = 1e-4
+K3_L_REL_TOL = 1e-4
+
+
+def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
+    """K3 on q, k, v sliced from one fused [B, klen, 3 * H * Dh] projection
+    (as the trunk feeds it, through its strides) against its plain version:
+    (out, m, l); when timed, its time, bound, plain time and the time of
+    F.scaled_dot_product_attention on the same function."""
+    from bdm_db1_tpu_torch.ops.attention import (
+        causal_mask, rel_shift_sliced, same_length_mask,
+    )
+
+    H, Dh = 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, klen, 3 * H * Dh, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.split(H * Dh, dim=-1)
+    q = q[:, -qlen:].unflatten(-1, (H, Dh))
+    k, v = k.unflatten(-1, (H, Dh)), v.unflatten(-1, (H, Dh))
+    rk = torch.randn(klen, H, Dh, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    rw = torch.randn(H, Dh, device="cuda", generator=gen) * 0.1
+    rr = torch.randn(H, Dh, device="cuda", generator=gen) * 0.1
+    kw = dict(mem_len=mem_len, same_length=same_length, scale=1.0 / Dh ** 0.5)
+    args = (q, k, v, rk, rw, rr)
+    out, (m, l) = fra.flash_rel_attention(*args, with_stats=True, **kw)
+    torch.cuda.synchronize()
+    out_p, m_p, l_p = fra.flash_rel_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    diff = (out.float() - out_p.float()).abs()
+    out_max = float(out_p.float().abs().max())
+    excess = float((diff - 2.0 ** -7 * out_p.float().abs()
+                    - OUT_REL_TOL * out_max).max())
+    err = float(diff.max())
+    m_err = float((m - m_p).abs().max())
+    l_rel = float(((l - l_p).abs() / l_p.abs()).max())
+    ok = (np.isfinite([err, m_err, l_rel]).all() and excess <= 0
+          and m_err <= K3_M_ABS_TOL and l_rel <= K3_L_REL_TOL)
+    rec = {"shape": {"B": B, "qlen": qlen, "klen": klen, "H": H, "Dh": Dh,
+                     "mem_len": mem_len, "same_length": same_length},
+           "max_abs_err": err, "out_plain_absmax": out_max,
+           "err_over_limit_max": excess, "m_abs_err": m_err,
+           "l_rel_err": l_rel,
+           "tol": {"out": "2^-7 |plain| + %g max|plain|" % OUT_REL_TOL,
+                   "m_abs": K3_M_ABS_TOL, "l_rel": K3_L_REL_TOL},
+           "ok": bool(ok)}
+    if not ok:
+        raise AssertionError(f"K3 disagrees with its plain version: {rec}")
+    if timed:
+        banned = (same_length_mask(qlen, klen, mem_len, device="cuda")
+                  if same_length else causal_mask(qlen, klen, device="cuda"))
+        pairs = int((~banned).sum()) * B * H
+        # q, k, v, o and rk once each in bf16, the f32 stats and biases
+        nbytes = 2 * (2 * B * qlen + 2 * B * klen + klen) * H * Dh \
+            + 4 * (2 * B * H * qlen + 2 * H * Dh)
+        rec.update(bound(nbytes, 3 * 2 * Dh * pairs))
+        rec["unbanned_pairs"] = pairs
+        rec["ms"] = time_ms(lambda i: fra.flash_rel_attention(*args, **kw),
+                            iters=20)
+        rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_plain(
+            *args, **kw), iters=3, warmup=1)
+        # yardstick only (the port never calls it): SDPA of (q + r_w) over
+        # k, v with the scaled BD term and -inf at banned positions as its
+        # float mask, built beforehand outside the timing, so the library
+        # time leaves out the BD product and the mask that K3 computes
+        qw = (q.float() + rw).to(torch.bfloat16).transpose(1, 2)
+        bd = torch.einsum("bihd,jhd->bhij", q.float() + rr, rk.float())
+        mask = torch.where(banned, float("-inf"), rel_shift_sliced(bd)
+                           * kw["scale"]).to(torch.bfloat16)
+        del bd
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        rec["library_ms"] = time_ms(lambda i: F.scaled_dot_product_attention(
+            qw, kt, vt, attn_mask=mask, scale=kw["scale"]), iters=10)
+        rec["library"] = ("F.scaled_dot_product_attention of q + r_w with "
+                          "the scaled BD term as a bf16 mask built "
+                          "beforehand (undercounts the whole function)")
+    return rec
+
+
 def phase_kernels() -> dict:
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
 
@@ -325,6 +429,18 @@ def phase_kernels() -> dict:
                (R, kn) for R in QMM_ROWS for kn in TRUNK.values())]
     qmm.append(_qmm_case(qm, R=37, K=96, N=200, seed=40, timed=False))
     cases["quant_matmul"] = qmm
+    torch.cuda.empty_cache()
+    cases["flash_rel_attention"] = [
+        # (a) the validation forward: seq 1024, no memory (causal: the
+        # same_length window is empty at klen = mem_len)
+        _rel_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
+                  same_length=True, seed=50, timed=True),
+        # (b) the trunk over 1024 memory rows (decode_rl): window active
+        _rel_case(fra, B=4, qlen=256, klen=1280, mem_len=1024,
+                  same_length=True, seed=51, timed=True),
+        # (c) ragged, as the JAX anylen wrapper admits it
+        _rel_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
+                  same_length=True, seed=52, timed=False)]
     return {"phase": "kernels", "cases": cases, "w8a8_int32": _w8a8_check(qm)}
 
 
@@ -335,10 +451,13 @@ K_REPLACES = {
     "flash_ring_prime_ap_int8": "bdm_db1_tpu/ops/flash_ring_decode.py:497",
     "flash_ring_prime": "bdm_db1_tpu/ops/flash_ring_decode.py:671",
     "quant_matmul": "bdm_db1_tpu/ops/quant_matmul.py:125",
+    "flash_rel_attention": "bdm_db1_tpu/ops/pallas_attention.py:50",
 }
 K_SOURCES = {name: "bdm_db1_tpu_torch/csrc/flash_ring_decode.cu"
              for name in K_REPLACES}
 K_SOURCES["quant_matmul"] = "bdm_db1_tpu_torch/csrc/quant_matmul.cu"
+K_SOURCES["flash_rel_attention"] = \
+    "bdm_db1_tpu_torch/csrc/flash_rel_attention.cu"
 # Kernel route (use_kernels True) against the plain ring branch (False) on
 # the card. Per layer, on identical inputs, the attention output before
 # o_net: max |diff| / max |attn|. The routes differ only by bf16 roundings
@@ -346,8 +465,10 @@ K_SOURCES["quant_matmul"] = "bdm_db1_tpu_torch/csrc/quant_matmul.cu"
 # 2^-9 of a value; 2e-2 leaves room for that and none for a wrong mask,
 # scale, rotation or merge, which move attention outputs by O(1) of their
 # size. The int8 cache holds the same int8 values and scales on both
-# routes, so the same limit holds there. The gates stay within one layer:
-# end to end, 24 layers grow any rounding difference (see the
+# routes, so the same limit holds there. The same limit holds K3 against
+# rel_attention in the validation forward: p cast per key tile against the
+# full softmax, and both outputs rounded to bf16. The gates stay within one
+# layer: end to end, 24 layers grow any rounding difference (see the
 # bf16-against-f32 readings beside them).
 ATTN_REL_TOL = 2e-2
 # The last layer run both ways from one input, then the tied head: max
@@ -417,20 +538,22 @@ def _serve_setup(n_envs, episode_len, seed, **model_overrides):
     return cfg, model, layout, names, make_tenv
 
 
-def _reset_launches():
+def _counters():
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
 
-    for counts in (fro.LAUNCHES, qm.LAUNCHES):
+    return fro.LAUNCHES, qm.LAUNCHES, fra.LAUNCHES
+
+
+def _reset_launches():
+    for counts in _counters():
         for name in counts:
             counts[name] = 0
 
 
 def _read_launches() -> dict:
-    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
-    from bdm_db1_tpu_torch.ops import quant_matmul as qm
-
-    return {**fro.LAUNCHES, **qm.LAUNCHES}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
@@ -520,8 +643,6 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
     over their summed wall time. The idle share is one profiled step's
     summed kernel time against the median unprofiled step (the profiler
     slows the host, so the profiled step's own wall time is not used)."""
-    from torch.profiler import ProfilerActivity, profile
-
     tenvs = [make_tenv(nm) for nm in names]
     dec = pool.get(tenvs[0]).inner
     B = len(tenvs)
@@ -544,28 +665,36 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
         act, mems = step(act, mems)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    busy, top, prof_wall = _profile_busy(lambda: step(act, mems))
+    step_s = float(np.median(times))
+    return {"steady_actions_per_sec": n * B / sum(times),
+            "steady_step_ms_median": step_s * 1e3,
+            "steady_step_ms": [t * 1e3 for t in times],
+            "profiled_step_ms": prof_wall * 1e3,
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / step_s,
+            "top_device_ms": top}
+
+
+def _profile_busy(fn):
+    """One profiled call of fn ending in a device sync: (summed device time
+    s, the largest kernels by name in ms, the call's wall time s)."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        act, mems = step(act, mems)
+        fn()
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    step = float(np.median(times))
-    return {"steady_actions_per_sec": n * B / sum(times),
-            "steady_step_ms_median": step * 1e3,
-            "steady_step_ms": [t * 1e3 for t in times],
-            "profiled_step_ms": prof_wall * 1e3,
-            "device_busy_ms": busy * 1e3,
-            "device_idle_share": 1.0 - busy / step,
-            # names without the namespace noise, long enough that the
-            # template instantiations of one kernel stay apart
-            "top_device_ms": {
-                e.key.replace("(anonymous namespace)::", "")[:100]:
-                    e.self_device_time_total / 1e3 for e in top}}
+    # names without the namespace noise, long enough that the template
+    # instantiations of one kernel stay apart
+    return busy, {e.key.replace("(anonymous namespace)::", "")[:100]:
+                  e.self_device_time_total / 1e3 for e in top}, wall
 
 
 @torch.no_grad()
@@ -650,6 +779,151 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     return out
 
 
+# The validation loss of one micro-batch through the K3 route against the
+# rel_attention route (attention_impl "xla"), same bf16 weights and data:
+# |difference| at most EVAL_LOSS_TOL. Both routes round at other places
+# (p per key tile, the bf16 PV product) and 24 layers carry that on. The
+# readings that set it, on an H100: 1.8e-3 between the routes at a loss of
+# 10.81, while the per-layer attention gap was at most 5.1e-3 of its
+# largest value. With random weights the loss is near log V whatever the
+# attention does, so this is a coarse end-to-end check; the per-layer
+# ATTN_REL_TOL gate holds the route.
+EVAL_LOSS_TOL = 1e-2
+EVAL_MICRO = 4          # the JAX TrainConfig.micro_batch_size
+EVAL_BATCHES = 8
+
+
+def _eval_setup(seed: int):
+    """db1_1p2b in bf16 (random weights from ``seed``) and its validation
+    micro-batches: packed samples (prompts on) of a seeded HalfCheetah-
+    geometry fake dataset (17 obs + separator + 6 action tokens a step, 43
+    transitions per 1025-token sample), the valid split of the default
+    "90,5,5", in sampler order. Each loader batch is [accum 1, micro 4]."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        RLFullDataset, RLTokenizerSuite, TrajectoryStore, split_rl_dataset,
+    )
+    from bdm_db1_tpu_torch.data.samplers import (
+        SequentialSampler, collate_modalities,
+    )
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
+
+    cfg = db1_1p2b()
+    cfg.model.param_dtype = "bfloat16"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cuda", generator=gen)
+    store = TrajectoryStore.from_flat_dataset(FakeContinuousEnv(
+        obs_dim=17, act_dim=6, episode_len=200, seed=999).make_dataset(20))
+    suite = RLTokenizerSuite(cfg.vocab.layout(),
+                             ScalarTokenizer(cfg.vocab.num_continuous_bin))
+    full = RLFullDataset("halfcheetah-geometry", store, suite,
+                         seq_length=cfg.data.seq_length, seed=seed)
+    _, valid, _ = split_rl_dataset(full, cfg.data.split)
+    sampler = iter(SequentialSampler(len(valid), 0, EVAL_MICRO, 0, 1))
+    batches = []
+    for _ in range(EVAL_BATCHES + 1):   # the first one warms up
+        raw = collate_modalities([valid[i] for i in next(sampler)], ["rl"])
+        batches.append({m: {k: v[None] for k, v in f.items()}
+                        for m, f in raw.items()})
+    return cfg, model, full, batches
+
+
+def phase_eval_loss(smi: str, seed: int = 0) -> dict:
+    from bdm_db1_tpu_torch.train.trainer import evaluate_loss
+
+    cfg, model, full, batches = _eval_setup(seed)
+    L = cfg.model.n_layer
+    seq = cfg.data.seq_length
+    warm, batches = batches[0], batches[1:]
+    evaluate_loss(model, [warm], device="cuda")
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted --------------------------------------
+    _reset_launches()
+    losses, times = [], []
+    for raw in batches:
+        t0 = time.perf_counter()
+        losses.append(evaluate_loss(model, [raw], device="cuda"))  # host read
+        times.append(time.perf_counter() - t0)
+    launches = _read_launches()
+    # ------------------------------------------------------------------
+
+    forwards = EVAL_BATCHES           # accum 1 per loader batch
+    want = dict.fromkeys(launches, 0)
+    want["flash_rel_attention"] = L * forwards
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    loss = float(np.mean(losses))
+    log_v = float(np.log(full.tok.layout.total_vocab_size))
+    # random tied weights give logits of O(1): near-uniform, ~log V
+    if not (np.isfinite(losses).all() and 0.5 * log_v < loss < 2 * log_v):
+        raise AssertionError(f"validation losses off: {losses}")
+    tokens = EVAL_MICRO * seq
+    step = float(np.median(times))
+    busy, top, _ = _profile_busy(lambda: evaluate_loss(model, [batches[0]],
+                                                       device="cuda"))
+    routes = _eval_route_check(model, batches[0])
+    return {"phase": "eval_loss", "config": "db1_1p2b", "dtype": "bfloat16",
+            "micro_batch": EVAL_MICRO, "seq_length": seq,
+            "micro_batches": EVAL_BATCHES, "forwards": forwards,
+            "valid_samples": len(batches) * EVAL_MICRO, "card": smi,
+            "launches": launches, "launches_expected": want,
+            "loss": loss, "losses": losses, "log_vocab": log_v,
+            "tokens_per_sec": tokens * EVAL_BATCHES / sum(times),
+            "micro_batch_ms_median": step * 1e3,
+            "micro_batch_ms": [t * 1e3 for t in times],
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / step,
+            "top_device_ms": top, "kernel_vs_plain": routes}
+
+
+@torch.no_grad()
+def _eval_route_check(model, raw) -> dict:
+    """One micro-batch driven layer by layer: each layer's attention output
+    through K3 against ``rel_attention`` on the same input (limit
+    ATTN_REL_TOL of its largest value); then the loss through each route
+    end to end (limit EVAL_LOSS_TOL)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+    from bdm_db1_tpu_torch.train.trainer import evaluate_loss, to_gato_batch
+
+    cfg = model.cfg
+    rl = to_gato_batch({m: {k: v[0] for k, v in f.items()}
+                        for m, f in raw.items()}, device="cuda")["rl"]
+    qlen = rl.tokens.shape[1]
+    if not use_rel_kernel(cfg, qlen, qlen, "cuda"):
+        raise AssertionError("the validation forward does not take K3")
+    mask = same_length_mask(qlen, qlen, cfg.mem_len, device="cuda")
+    r = relative_positional_embedding(qlen, cfg.n_embed,
+                                      cfg.effective_clamp_len, device="cuda")
+    h = model.embed_rl(rl.tokens, rl.position_id)
+    errs = []
+    for layer in model.h:
+        attn = layer.dec_attn.attend(h, r, None, mask, True)
+        attn_p = layer.dec_attn.attend(h, r, None, mask, False)
+        errs.append(float((attn.float() - attn_p.float()).abs().max()
+                          / attn_p.float().abs().max()))
+        h = layer(h, None, r, mask, True)
+    loss_k = evaluate_loss(model, [raw], device="cuda")
+    impl = cfg.attention_impl
+    cfg.attention_impl = "xla"       # the rel_attention route
+    try:
+        loss_p = evaluate_loss(model, [raw], device="cuda")
+    finally:
+        cfg.attention_impl = impl
+    out = {"attn_tol": ATTN_REL_TOL, "attn_rel_err": errs,
+           "attn_rel_err_max": max(errs), "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_abs_diff": abs(loss_k - loss_p),
+           "loss_tol": EVAL_LOSS_TOL}
+    if not (max(errs) <= ATTN_REL_TOL and np.isfinite(loss_p)
+            and abs(loss_k - loss_p) <= EVAL_LOSS_TOL):
+        raise AssertionError(f"K3 route vs rel_attention: {out}")
+    return out
+
+
 def kernels_line(kernels: dict, launches: dict) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
@@ -711,12 +985,18 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             results[phase] = phase_serve(smi, phase=phase, **kw)
             emit(results[phase])
+    if "eval_loss" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["eval_loss"] = phase_eval_loss(smi)
+        emit(results["eval_loss"])
 
     print(smi, flush=True)
-    # launches are counted only on the main paths (both serves): without
-    # them this run has no count to print
-    if "kernels" in results and all(p in results for p in serves):
-        launches = {name: sum(results[p]["launches"][name] for p in serves)
+    # launches are counted only on the main paths (both serves and the
+    # validation loss): without them this run has no count to print
+    if "kernels" in results and all(p in results for p in MAIN_PATHS):
+        launches = {name: sum(results[p]["launches"][name]
+                              for p in MAIN_PATHS)
                     for name in K_REPLACES}
         emit(kernels_line(results["kernels"], launches))
     emit({"ok": True, "device": {"platform": "gpu",

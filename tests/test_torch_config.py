@@ -16,7 +16,7 @@ def _fields(cls):
 
 
 @pytest.mark.parametrize("name", ["VocabConfig", "VisionConfig",
-                                  "ModelConfig", "EvalConfig"])
+                                  "ModelConfig", "DataConfig", "EvalConfig"])
 def test_section_fields_match_jax(name):
     assert _fields(getattr(tc, name)) == _fields(getattr(jc, name))
 
@@ -24,7 +24,7 @@ def test_section_fields_match_jax(name):
 @pytest.mark.parametrize("name", ["db1_tiny", "db1_1p2b"])
 def test_named_configs_match_jax(name):
     j, t = getattr(jc, name)(), getattr(tc, name)()
-    for section in ("model", "vocab", "vision", "eval"):
+    for section in ("model", "vocab", "vision", "data", "eval"):
         assert dataclasses.asdict(getattr(t, section)) == \
             dataclasses.asdict(getattr(j, section)), section
     tl, jl = t.vocab.layout(), j.vocab.layout()

@@ -49,8 +49,8 @@ def test_guard_sees_a_banned_import(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Import every port module and run one tiny CPU decode step with JAX
-    made unimportable."""
+    """Import every port module, run one tiny CPU decode step and one tiny
+    validation loss with JAX made unimportable."""
     code = r'''
 import sys
 for name in ("jax", "jaxlib", "flax"):
@@ -76,6 +76,25 @@ act, mems = dec.decode(prime, dec.init_mems(2), defer_last=True)
 assert act.shape == (2, 2), act.shape
 assert ((act >= layout.continuous_offset) & (act < layout.separator_id)).all()
 assert mems["cursor"] == 6
+# the validation loss over a packed RL sample, K3's route (plain on the CPU)
+from bdm_db1_tpu_torch.data.rl_dataset import (
+    RLFullDataset, RLTokenizerSuite, TrajectoryStore, split_rl_dataset)
+from bdm_db1_tpu_torch.data.samplers import collate_modalities
+from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
+from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
+from bdm_db1_tpu_torch.train.trainer import evaluate_loss
+cfg = db1_tiny(dtype="float32", n_position=1024, attention_impl="pallas")
+model = TransformerXL(cfg.model, cfg.vocab, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+store = TrajectoryStore.from_flat_dataset(
+    FakeContinuousEnv(5, 2, episode_len=200, seed=1).make_dataset(2))
+ds = RLFullDataset("fake", store, RLTokenizerSuite(
+    layout, ScalarTokenizer(cfg.vocab.num_continuous_bin)), 1024, seed=0)
+valid = split_rl_dataset(ds, "50,50,0")[1]
+raw = collate_modalities([valid[0]], ["rl"])
+loss = evaluate_loss(model, [{"rl": {k: v[None] for k, v in raw["rl"].items()}}],
+                     device="cpu")
+assert np.isfinite(loss), loss
 assert not any(k in ("jax", "bdm_db1_tpu")
                or k.startswith(("jax.", "flax", "bdm_db1_tpu."))
                for k, v in sys.modules.items() if v is not None)
