@@ -7,8 +7,11 @@ switches keep their meaning on the GPU (``decode_flash``: "auto" runs the
 CUDA kernels for 1 <= q <= 32 on CUDA tensors, "on" forces the kernel route,
 whose CPU form is the kernels' plain versions, "off" the plain ring branch).
 ``DataConfig`` carries the data fields the validation-loss path reads
-(sequence length, split, prompt sampling); ``MeshConfig``, ``TrainConfig``
-and the JSON/CLI round trip belong to later slices.
+(sequence length, split, prompt sampling); ``OptimizerConfig`` and
+``TrainConfig`` those of the train step and the trainer, every field kept
+(``TrainConfig.prng_impl`` names a JAX generator kind: torch has one kind,
+so the port keeps the field for the round trip and ignores it).
+``MeshConfig`` and the JSON/CLI round trip belong to later slices.
 """
 
 from __future__ import annotations
@@ -118,6 +121,49 @@ class ModelConfig:
 
 
 @dataclass
+class OptimizerConfig:
+    optimizer: str = "adamw"
+    lr: float = 1e-4
+    min_lr: float = 1e-5
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.95
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.1
+    end_weight_decay: float = 0.1
+    start_weight_decay: float = 0.1
+    weight_decay_incr_style: str = "constant"
+    clip_grad: float = 1.0
+    adam_mu_dtype: Optional[str] = None  # e.g. "bfloat16": moments in bf16
+    adam_nu_dtype: Optional[str] = None  # the same for the second moment
+    fused: bool = False  # one elementwise pass (train/step.py FusedAdamW)
+    lr_decay_style: str = "cosine"
+    lr_warmup_iters: int = 0
+    lr_warmup_fraction: Optional[float] = None
+    lr_decay_iters: Optional[int] = None
+
+
+@dataclass
+class TrainConfig:
+    train_iters: int = 10_000
+    global_batch_size: int = 512
+    micro_batch_size: int = 4
+    seed: int = 1234
+    log_interval: int = 10
+    eval_interval: int = 1000
+    eval_iters: int = 10
+    save_interval: int = 1000
+    save_dir: Optional[str] = None   # checkpointing is not ported yet
+    load_dir: Optional[str] = None
+    ckpt_tag: str = "latest_model"
+    tensorboard_dir: Optional[str] = None
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    # loss in fp32; grads accumulated in fp32
+    grad_accum_dtype: str = "float32"
+    # a JAX generator kind, ignored by the port (one torch.Generator kind)
+    prng_impl: str = "rbg"
+
+
+@dataclass
 class DataConfig:
     # (weight, prefix, type) triples, reference --data-path semantics
     data_path: Tuple[str, ...] = ()
@@ -168,6 +214,7 @@ class DB1Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     vocab: VocabConfig = field(default_factory=VocabConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 

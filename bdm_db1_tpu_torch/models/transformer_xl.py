@@ -29,12 +29,19 @@ The full-sequence trunk (:meth:`TransformerXL.trunk`, under ``forward``,
 ``decode_rl`` and the validation loss) runs every layer over
 ``[memory || x]`` with the relative attention picked by
 :func:`use_rel_kernel`, the JAX package's ``_use_pallas`` gate: the kernel
-route (K3, ops/flash_rel_attention.py; its plain version on the CPU) or
-``rel_attention``. Hidden-state memory is ``[n_layer, B, mem_len, D]``.
+route (K3 forward, K4/K5 backward, ops/flash_rel_attention.py; their plain
+versions on the CPU) or ``rel_attention``. Hidden-state memory is
+``[n_layer, B, mem_len, D]``. ``forward`` follows the caller's grad mode,
+so the train step differentiates it; with ``deterministic=False`` dropout
+runs at the JAX package's four sites (``embd_pdrop`` on the embedded input
+and on the positional embedding, ``drop`` on the o_net and FF outputs,
+``dropattn`` on the attention probabilities, which sends the attention to
+``rel_attention`` as the JAX gate does), drawing from the
+``torch.Generator`` the caller passes.
 
 Not ported yet (raise ``NotImplementedError``): images and modalities
-other than RL, dropout (``deterministic=False``), gradients through K3,
-pre-LN models, the speculative tail and geometry-bucket padding.
+other than RL, rematerialization (``remat``), pre-LN models, the
+speculative tail and geometry-bucket padding.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from bdm_db1_tpu_torch.models.activations import ACT2FN
 from bdm_db1_tpu_torch.ops.attention import (
     causal_mask, rel_attention, rel_shift, rel_shift_sliced, same_length_mask,
 )
+from bdm_db1_tpu_torch.ops.fast_dropout import dropout
 from bdm_db1_tpu_torch.ops.flash_rel_attention import (
     flash_rel_attention, kernel_route_applicable,
 )
@@ -113,13 +121,15 @@ def _a8(cfg: ModelConfig) -> bool:
     return cfg.decode_weight_dtype == "int8a8"
 
 
-def use_rel_kernel(cfg: ModelConfig, qlen: int, klen: int, device) -> bool:
-    """The JAX package's ``_use_pallas`` gate (attention dropout is never on
-    here): "xla" takes ``rel_attention``; otherwise shapes that the JAX
-    kernel or its padding wrapper serve take the kernel route under
-    "pallas" (the plain K3 version on the CPU), and under "auto" when the
-    tensors are on CUDA."""
-    if cfg.attention_impl == "xla" or not kernel_route_applicable(qlen, klen):
+def use_rel_kernel(cfg: ModelConfig, qlen: int, klen: int, device,
+                   use_dropatt: bool = False) -> bool:
+    """The JAX package's ``_use_pallas`` gate: "xla" and attention dropout
+    take ``rel_attention``; otherwise shapes that the JAX kernel or its
+    padding wrapper serve take the kernel route under "pallas" (the plain
+    K3-K5 versions on the CPU), and under "auto" when the tensors are on
+    CUDA."""
+    if (cfg.attention_impl == "xla" or use_dropatt
+            or not kernel_route_applicable(qlen, klen)):
         return False
     if cfg.attention_impl == "pallas":
         return True
@@ -173,28 +183,39 @@ class RelMultiHeadAttn(nn.Module):
             self.r_r_bias = nn.Parameter(torch.empty(h, dh, device=device,
                                                      dtype=dtype))
 
-    def _residual(self, x: Tensor, attn: Tensor) -> Tensor:
-        """o_net, then the post-LN residual with the DeepNorm alpha."""
+    def _residual(self, x: Tensor, attn: Tensor,
+                  drop: Optional[torch.Generator] = None) -> Tensor:
+        """o_net (then dropout at ``cfg.drop`` when ``drop``, the training
+        generator, is given), then the post-LN residual with the DeepNorm
+        alpha."""
         cfg = self.cfg
         b, qlen = x.shape[:2]
         out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
                      self.o_net, x.dtype, _a8(cfg))
+        if drop is not None:
+            out = dropout(out, cfg.drop, drop, cfg.dropout_impl)
         alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
         return _layer_norm(x * alpha + out, self.layer_norm)
 
     def forward(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
-                mask: Tensor, use_kernel: bool) -> Tensor:
+                mask: Tensor, use_kernel: bool,
+                drop: Optional[torch.Generator] = None) -> Tensor:
         """One layer over ``[mem || x]`` (hidden states; mem [B, M, D] or
         None): x [B, q, D], r [M+q, D] positional embeddings, mask [q, M+q]
-        (True = banned). Returns the post-LN output [B, q, D]."""
-        return self._residual(x, self.attend(x, r, mem, mask, use_kernel))
+        (True = banned). ``drop`` is the training generator (None:
+        deterministic). Returns the post-LN output [B, q, D]."""
+        return self._residual(
+            x, self.attend(x, r, mem, mask, use_kernel, drop), drop)
 
     def attend(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
-               mask: Tensor, use_kernel: bool) -> Tensor:
+               mask: Tensor, use_kernel: bool,
+               drop: Optional[torch.Generator] = None) -> Tensor:
         """The attention part of :meth:`forward`: [B, q, H, Dh] before o_net.
         QKV runs over ``[mem || x]``; q is its last q rows; r_net projects
-        r in the compute dtype; ``use_kernel`` picks K3 (with f32 biases, as
-        the JAX kernel route takes them) or ``rel_attention``."""
+        r in the compute dtype; ``use_kernel`` picks K3-K5 (with f32 biases,
+        as the JAX kernel route takes them) or ``rel_attention``, which
+        applies the attention dropout (``cfg.dropattn``) when ``drop`` is
+        given."""
         cfg = self.cfg
         h, dh = cfg.n_head, cfg.d_head
         dtype = x.dtype
@@ -211,8 +232,10 @@ class RelMultiHeadAttn(nn.Module):
                 q, k, v, r_k, self.r_w_bias.float(), self.r_r_bias.float(),
                 mem_len=cfg.mem_len, same_length=cfg.same_length,
                 scale=1.0 / dh ** 0.5).to(dtype)
+        rate = cfg.dropattn if drop is not None else 0.0
         return rel_attention(q, k, v, r_k, self.r_w_bias, self.r_r_bias,
-                             mask, compute_dtype=dtype)
+                             mask, compute_dtype=dtype, dropout_rate=rate,
+                             generator=drop)
 
     def forward_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
                      layer: int, mask: Tensor, mask_s: Tensor,
@@ -341,10 +364,13 @@ class PositionwiseFF(nn.Module):
                                        eps=cfg.layer_norm_epsilon,
                                        device=device, dtype=dtype)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor,
+                drop: Optional[torch.Generator] = None) -> Tensor:
         wi, act, wo = self.CoreNet
         a8 = _a8(self.cfg)
         h = _dense(act(_dense(x, wi, x.dtype, a8)), wo, x.dtype, a8)
+        if drop is not None:
+            h = dropout(h, self.cfg.drop, drop, self.cfg.dropout_impl)
         alpha = (2 * self.cfg.n_layer) ** 0.25 if self.cfg.use_deepnorm \
             else 1.0
         return _layer_norm(x * alpha + h, self.layer_norm)
@@ -357,9 +383,12 @@ class DecoderLayer(nn.Module):
         self.pos_ff = PositionwiseFF(cfg, device, dtype)
 
     def forward(self, h: Tensor, mem: Optional[Tensor], r: Tensor,
-                mask: Tensor, use_kernel: bool) -> Tensor:
-        """Attention over ``[mem || h]``, then the FF."""
-        return self.pos_ff(self.dec_attn(h, r, mem, mask, use_kernel))
+                mask: Tensor, use_kernel: bool,
+                drop: Optional[torch.Generator] = None) -> Tensor:
+        """Attention over ``[mem || h]``, then the FF; ``drop`` is the
+        training generator (None: deterministic)."""
+        return self.pos_ff(self.dec_attn(h, r, mem, mask, use_kernel, drop),
+                           drop)
 
     def forward_ring(self, x, rk, cache, layer, mask, mask_s, use_kernels):
         h, k_x, v_x = self.dec_attn.forward_ring(
@@ -517,15 +546,25 @@ class TransformerXL(nn.Module):
                            dtype=self.dtype, device=self.device)
 
     def trunk(self, h: Tensor, mems: Optional[Tensor],
-              deterministic: bool = True) -> Tuple[Tensor, Optional[Tensor]]:
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None
+              ) -> Tuple[Tensor, Optional[Tensor]]:
         """Every layer over ``[mems[i] || h]`` (h [B, q, D]; mems
         [n_layer, B, M, D] or None). Returns (h, new mems): the trailing
         mem_len of ``[mems || layer inputs]`` per layer, None without
-        mems."""
-        if not deterministic:
-            raise NotImplementedError(
-                "dropout (deterministic=False) comes with the training slice")
+        mems. With ``deterministic=False`` the dropout sites draw from
+        ``generator`` (embedded input and positional embedding, then per
+        layer the attention, o_net and FF outputs)."""
         cfg = self.cfg
+        if cfg.remat and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "rematerialization (remat=True) is not ported yet")
+        drop = None
+        if not deterministic:
+            if generator is None:
+                raise ValueError("deterministic=False needs the training "
+                                 "torch.Generator")
+            drop = generator
         qlen = h.shape[1]
         mlen = 0 if mems is None else mems.shape[2]
         klen = mlen + qlen
@@ -534,33 +573,39 @@ class TransformerXL(nn.Module):
                 if cfg.same_length else causal_mask(qlen, klen, device=dev))
         r = relative_positional_embedding(
             klen, cfg.n_embed, cfg.effective_clamp_len, device=dev)
-        use_kernel = use_rel_kernel(cfg, qlen, klen, dev)
+        if drop is not None:
+            h = dropout(h, cfg.embd_pdrop, drop, cfg.dropout_impl)
+            r = dropout(r, cfg.embd_pdrop, drop, cfg.dropout_impl)
+        use_kernel = use_rel_kernel(
+            cfg, qlen, klen, dev,
+            use_dropatt=drop is not None and cfg.dropattn > 0.0)
         hids = []
         for i, layer in enumerate(self.h):
             mem = None
             if mems is not None:
                 mem = mems[i].to(self.dtype)
                 hids.append(h)
-            h = layer(h, mem, r, mask, use_kernel)
+            h = layer(h, mem, r, mask, use_kernel, drop)
         if mems is None:
             return h, None
         cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
         return h, cat[:, :, -cfg.mem_len:]
 
-    @torch.no_grad()
     def forward(self, batch: GatoBatch, mems: Optional[Tensor] = None,
                 compute_loss: bool = True, deterministic: bool = True,
-                loss_only: bool = False):
+                loss_only: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Mixed-modality forward with the JAX package's ``__call__``
         signature and returns: (logits f32 [B, L, V], loss), plus the new
         mems when ``mems`` is given; ``(None, loss)`` with ``loss_only`` and
-        a tied head (the fused CE). Runs without gradients: K3 has no
-        backward yet."""
+        a tied head (the fused CE). Follows the caller's grad mode; with
+        ``deterministic=False`` dropout draws from ``generator`` (the JAX
+        package's "dropout" rng)."""
         if compute_loss and mems is not None:
             raise ValueError("training does not use segment memory")
         h, loss_mask, label = self.embed_concat(
             batch, deterministic, with_targets=compute_loss)
-        h, new_mems = self.trunk(h, mems, deterministic)
+        h, new_mems = self.trunk(h, mems, deterministic, generator)
         if compute_loss and loss_only and self.cfg.share_input_output_embedding:
             return None, self.loss_from_hidden(h, loss_mask, label)
         logits = self.logits(h)

@@ -68,13 +68,17 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   r: torch.Tensor, r_w_bias: torch.Tensor,
                   r_r_bias: torch.Tensor, mask: Optional[torch.Tensor], *,
                   scale: Optional[float] = None,
-                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+                  compute_dtype=torch.bfloat16, dropout_rate: float = 0.0,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     """q [B, qlen, H, Dh], k/v [B, klen, H, Dh], r [klen, H, Dh] projected
     positional embeddings (row 0 the most distant), biases [H, Dh], mask
     [q, k] or [B, q, k] bool (True = banned) -> [B, qlen, H, Dh] in
-    ``compute_dtype``. Scores, mask and softmax in f32; the probabilities
-    are cast to the compute dtype for the PV product. No attention dropout
-    (the training slice adds it)."""
+    ``compute_dtype``. Scores, mask and softmax in f32; with a
+    ``dropout_rate`` the f32 probabilities keep each entry with probability
+    1 - rate (a Bernoulli draw from ``generator``) and are divided by
+    1 - rate; then they are cast to the compute dtype for the PV
+    product."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     qf = q.float()
@@ -86,5 +90,13 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
         scores = torch.where(mask, MASK_VALUE, scores)
-    probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout draws from an explicit "
+                             "torch.Generator; none was given")
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
+    probs = probs.to(compute_dtype)
     return torch.einsum("bhij,bjhd->bihd", probs, v.to(compute_dtype))

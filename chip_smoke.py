@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,eval_loss
+    python3 chip_smoke.py --phases build,kernels,train
 
 Phases, each printing one JSON line:
 
@@ -19,7 +20,8 @@ Phases, each printing one JSON line:
   product against the exact one, and K3 (out, m, l) at the validation
   forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
   (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
-  qlen 100, klen 1124).
+  qlen 100, klen 1124); K4 and K5 (the six gradients of the rel-attention
+  backward) at the same three shapes from a seeded upstream gradient.
 * ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
   40 lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous
   actions) with strict-length expert prompts through the port's
@@ -40,10 +42,22 @@ Phases, each printing one JSON line:
   against ``rel_attention`` layer by layer at the attention output, and the
   loss through both routes; reads tokens/sec, ms per micro-batch and the
   device idle share.
+* ``train``      — training of db1_1p2b (bf16 activations, f32 parameters,
+  random weights from a seed, the ModelConfig dropout rates, the default
+  AdamW chain) on the train split of the same dataset through
+  ``RandomSampler``, ``StratifiedGatoLoader`` (micro 4, accum 2: 2 x 4 x
+  1024 tokens a step) and the port's ``Trainer.train()``: one warm-up step,
+  then 8 counted steps, each ending in a host read of the loss; checks
+  K3 = K4 = K5 = 24 x 2 x 8 launches, finite losses (the first near log V,
+  the last below it), finite and changed parameters, and a gradient route
+  check (layer by layer the six attention gradients through K3-K5 against
+  autograd through ``rel_attention``; the whole model's gradient through
+  both routes under the same dropout masks); reads tokens/sec, the median
+  step, the device idle share and the peak memory.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers and its launches on the main paths (only when
-``kernels`` and both serve phases ran, as with no arguments), and as the
+``kernels`` and every main-path phase ran, as with no arguments), and as the
 last line ``{"ok": true, "device": {...}}``. Any failure raises: the exit
 code is then not 0 and no result line is printed. It needs one CUDA card
 and imports nothing of JAX.
@@ -65,8 +79,10 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
-PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss")
-MAIN_PATHS = ("serve", "serve_int8", "eval_loss")
+PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train")
+MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train")
+SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
+           "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
 # OUT_REL_TOL * max |plain output|. Both round p (times the v scale, int8)
 # to bf16 per split before the PV product with the same split maxima, so
@@ -115,8 +131,7 @@ def phase_build() -> dict:
     from bdm_db1_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    built = cuda_build.build_libraries(
-        ["flash_ring_decode", "quant_matmul", "flash_rel_attention"])
+    built = cuda_build.build_libraries(SOURCES)
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "sources": {k: v["seconds"] for k, v in built.items()}}
     for name, info in built.items():
@@ -320,6 +335,18 @@ def _w8a8_check(qm) -> list:
 # while both sides sum the same f32 products in another order (~1e-6).
 K3_M_ABS_TOL = 1e-4
 K3_L_REL_TOL = 1e-4
+# K4/K5 against their plain version: each gradient's max |diff| at most
+# BWD_REL_TOL of its largest value. dq, dk, dv and drk are bf16 on both
+# sides (the kernels round p and dS to bf16 for the tensor-core products,
+# the plain version does not), so they differ by about one bf16 ulp of an
+# element, at most 2^-7 = 7.8e-3 of the largest; drk's f32 atomics add in
+# another order every run. drw and drr are f32 sums of the same f32 terms
+# in another order. Readings on an H100 80GB HBM3 (700 W) over the three
+# shapes: dq 5.3e-3, dk 4.1e-3, dv 5.1e-3, drk 7.7e-3, drw 1.3e-6, drr
+# 1.4e-6. A wrong mask, shift, scale or band row moves a gradient by O(1)
+# of its size.
+BWD_REL_TOL = {"dq": 2e-2, "dk": 2e-2, "dv": 2e-2, "drk": 2e-2,
+               "drw": 1e-4, "drr": 1e-4}
 
 
 def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
@@ -398,6 +425,96 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
     return rec
 
 
+GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
+
+
+def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
+    """K4 and K5 on K3's inputs (q, k, v sliced from one fused projection),
+    K3's (out, m, l) and a seeded upstream gradient, against their plain
+    version: the six gradients, each within BWD_REL_TOL of its largest
+    value; when timed, each kernel's time and bound, the plain backward's
+    time and the SDPA backward as a yardstick."""
+    from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
+
+    H, Dh = 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, klen, 3 * H * Dh, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.split(H * Dh, dim=-1)
+    q = q[:, -qlen:].unflatten(-1, (H, Dh))
+    k, v = k.unflatten(-1, (H, Dh)), v.unflatten(-1, (H, Dh))
+    rk = torch.randn(klen, H, Dh, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    rw = torch.randn(H, Dh, device="cuda", generator=gen) * 0.1
+    rr = torch.randn(H, Dh, device="cuda", generator=gen) * 0.1
+    dout = torch.randn(B, qlen, H, Dh, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    kw = dict(mem_len=mem_len, same_length=same_length, scale=1.0 / Dh ** 0.5)
+    args = (q, k, v, rk, rw, rr)
+    with torch.no_grad():
+        out, (m, l) = fra.flash_rel_attention(*args, with_stats=True, **kw)
+    saved = args + (out, m, l, dout)
+    pos = (mem_len, same_length, kw["scale"])
+    got = (fra._launch_bwd("dq", *saved, *pos),) + \
+        fra._launch_bwd("dkv", *saved, *pos)
+    torch.cuda.synchronize()
+    ref = fra.flash_rel_attention_bwd_plain(*saved, **kw)
+    torch.cuda.synchronize()
+    rel, abs_err = {}, {}
+    for name, a, b in zip(GRAD_NAMES, got, ref):
+        abs_err[name] = float((a.float() - b.float()).abs().max())
+        rel[name] = abs_err[name] / float(b.float().abs().max())
+    del ref
+    ok = all(np.isfinite(rel[n]) and rel[n] <= BWD_REL_TOL[n]
+             for n in GRAD_NAMES)
+    rec = {"shape": {"B": B, "qlen": qlen, "klen": klen, "H": H, "Dh": Dh,
+                     "mem_len": mem_len, "same_length": same_length},
+           "rel_err": rel, "abs_err": abs_err, "tol": BWD_REL_TOL,
+           "ok": bool(ok)}
+    if not ok:
+        raise AssertionError(f"K4/K5 disagree with their plain version: {rec}")
+    if timed:
+        banned = fra._banned(qlen, klen, mem_len, same_length, "cuda")
+        pairs = int((~banned).sum()) * B * H
+        rows_q, rows_k = B * qlen * H * Dh, B * klen * H * Dh
+        stats = 3 * 4 * B * H * qlen                   # m, l, delta
+        ins = 2 * (2 * rows_q + 2 * rows_k + klen * H * Dh) + stats \
+            + 2 * 4 * H * Dh
+        rec["dq"] = bound(ins + 2 * rows_q, 5 * 2 * Dh * pairs)
+        rec["dkv"] = bound(ins + 2 * 2 * rows_k + 4 * klen * H * Dh
+                           + 2 * 4 * H * Dh, 6 * 2 * Dh * pairs)
+        rec["unbanned_pairs"] = pairs
+        for which in ("dq", "dkv"):
+            rec[which]["ms"] = time_ms(
+                lambda i: fra._launch_bwd(which, *saved, *pos), iters=10)
+        rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_bwd_plain(
+            *saved, **kw), iters=2, warmup=1)
+        # yardstick only (the port never calls it): the backward of SDPA of
+        # (q + r_w) over k, v with the scaled BD term and -inf as a float
+        # mask built beforehand, over torch.autograd.grad with the forward
+        # done first. One number for K4 + K5; it leaves out the BD band
+        # gradients (dq_bd, drk, drr), so it undercounts the function.
+        qw = (q.float() + rw).to(torch.bfloat16).transpose(1, 2) \
+            .detach().requires_grad_(True)
+        kt = k.transpose(1, 2).detach().requires_grad_(True)
+        vt = v.transpose(1, 2).detach().requires_grad_(True)
+        with torch.no_grad():
+            bd = torch.einsum("bihd,jhd->bhij", q.float() + rr, rk.float())
+            mask = torch.where(banned, float("-inf"), rel_shift_sliced(bd)
+                               * kw["scale"]).to(torch.bfloat16)
+            del bd
+        o = F.scaled_dot_product_attention(qw, kt, vt, attn_mask=mask,
+                                           scale=kw["scale"])
+        go = dout.transpose(1, 2)
+        rec["library_ms"] = time_ms(lambda i: torch.autograd.grad(
+            o, (qw, kt, vt), go, retain_graph=True), iters=10)
+        rec["library"] = ("backward of F.scaled_dot_product_attention of q + "
+                          "r_w with the scaled BD term as a bf16 mask: K4 + "
+                          "K5 together, without the BD gradients "
+                          "(undercounts the function)")
+    return rec
+
+
 def phase_kernels() -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
@@ -441,6 +558,17 @@ def phase_kernels() -> dict:
         # (c) ragged, as the JAX anylen wrapper admits it
         _rel_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
                   same_length=True, seed=52, timed=False)]
+    torch.cuda.empty_cache()
+    cases["flash_rel_attention_bwd"] = [
+        # (a) the train step's shape: B 4, seq 1024, causal
+        _rel_bwd_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
+                      same_length=True, seed=60, timed=True),
+        # (b) over 1024 memory rows, window active
+        _rel_bwd_case(fra, B=4, qlen=256, klen=1280, mem_len=1024,
+                      same_length=True, seed=61, timed=True),
+        # (c) ragged
+        _rel_bwd_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
+                      same_length=True, seed=62, timed=False)]
     return {"phase": "kernels", "cases": cases, "w8a8_int32": _w8a8_check(qm)}
 
 
@@ -452,12 +580,16 @@ K_REPLACES = {
     "flash_ring_prime": "bdm_db1_tpu/ops/flash_ring_decode.py:671",
     "quant_matmul": "bdm_db1_tpu/ops/quant_matmul.py:125",
     "flash_rel_attention": "bdm_db1_tpu/ops/pallas_attention.py:50",
+    "flash_rel_attention_bwd_dq": "bdm_db1_tpu/ops/pallas_attention.py:244",
+    "flash_rel_attention_bwd_dkv": "bdm_db1_tpu/ops/pallas_attention.py:299",
 }
 K_SOURCES = {name: "bdm_db1_tpu_torch/csrc/flash_ring_decode.cu"
              for name in K_REPLACES}
 K_SOURCES["quant_matmul"] = "bdm_db1_tpu_torch/csrc/quant_matmul.cu"
 K_SOURCES["flash_rel_attention"] = \
     "bdm_db1_tpu_torch/csrc/flash_rel_attention.cu"
+for _name in ("flash_rel_attention_bwd_dq", "flash_rel_attention_bwd_dkv"):
+    K_SOURCES[_name] = "bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu"
 # Kernel route (use_kernels True) against the plain ring branch (False) on
 # the card. Per layer, on identical inputs, the attention output before
 # o_net: max |diff| / max |attn|. The routes differ only by bf16 roundings
@@ -687,8 +819,11 @@ def _profile_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # kernels only: a user annotation (the optimizer's step range) spans
+    # kernels on the device timeline and would count them twice
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     # names without the namespace noise, long enough that the template
@@ -924,6 +1059,255 @@ def _eval_route_check(model, raw) -> dict:
     return out
 
 
+# The training gradients through the K3-K5 route against autograd through
+# rel_attention. Per layer, on the same bf16 inputs (rel_attention in f32
+# over them) and the same seeded upstream gradient, each of the six
+# gradients: max |diff| at most GRAD_REL_TOL of its largest value. K4/K5
+# round p and dS to bf16 for the tensor-core products and dq, dk, dv to
+# bf16 on output, so each gradient carries a few 2^-9 of its size; a wrong
+# mask, shift or scale moves a gradient by O(1) of its size. Readings on an
+# H100 80GB HBM3 (700 W), worst layer of 24, two runs (the loader's threads
+# may hand the check another micro-batch): dq 1.6e-2 / 1.4e-2, dk 6.7e-3 /
+# 5.8e-3, dv 3.7e-3 / 3.7e-3, drk 9.7e-3 / 7.4e-3, drw 1.8e-2 / 2.2e-2, drr
+# 2.3e-2 / 2.1e-2.
+GRAD_REL_TOL = 5e-2
+# The whole model's gradient on one micro-batch through both routes with
+# the same dropout masks: the global norms within GRAD_NORM_RTOL of each
+# other and a cosine similarity of at least GRAD_COS_MIN. Both routes round
+# at other places (bf16 p, dS and outputs in the kernels) and 24 layers
+# carry that on, so this is a coarse end-to-end check; the per-layer
+# GRAD_REL_TOL gate holds the route. Readings on an H100 80GB HBM3 (700 W),
+# two runs: norms 7.1e-3 and 8.8e-3 apart, cosines 0.9921 and 0.9908.
+GRAD_NORM_RTOL = 3e-2
+GRAD_COS_MIN = 0.98
+TRAIN_MICRO = 4         # the JAX TrainConfig.micro_batch_size
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 8
+
+
+def _train_setup(seed: int):
+    """db1_1p2b with bf16 activations and f32 parameters (random weights
+    from ``seed``), the ModelConfig dropout rates (flax dropout) and the
+    OptimizerConfig defaults; its train split of the eval phase's dataset
+    wired as ``pretrain.build_loader`` wires it: RandomSampler(seed =
+    TrainConfig.seed), mixture counts {"rl": 4} and StratifiedGatoLoader
+    with accum 2."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        RLFullDataset, RLTokenizerSuite, TrajectoryStore, split_rl_dataset,
+    )
+    from bdm_db1_tpu_torch.data.samplers import (
+        RandomSampler, StratifiedGatoLoader, mixture_counts,
+    )
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
+
+    cfg = db1_1p2b()
+    assert (cfg.model.dtype, cfg.model.param_dtype) == ("bfloat16",
+                                                        "float32")
+    cfg.train = dataclasses.replace(
+        cfg.train, micro_batch_size=TRAIN_MICRO,
+        global_batch_size=TRAIN_MICRO * TRAIN_ACCUM, log_interval=1,
+        eval_interval=1 << 30)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cuda", generator=gen)
+    store = TrajectoryStore.from_flat_dataset(FakeContinuousEnv(
+        obs_dim=17, act_dim=6, episode_len=200, seed=999).make_dataset(20))
+    suite = RLTokenizerSuite(cfg.vocab.layout(),
+                             ScalarTokenizer(cfg.vocab.num_continuous_bin))
+    full = RLFullDataset("halfcheetah-geometry", store, suite,
+                         seq_length=cfg.data.seq_length, seed=seed)
+    train = split_rl_dataset(full, cfg.data.split)[0]
+    counts = mixture_counts({"rl": 1.0}, cfg.train.micro_batch_size)
+    accum = cfg.train.global_batch_size // cfg.train.micro_batch_size
+    sampler = RandomSampler(len(train), 0, counts["rl"], 0, 1,
+                            seed=cfg.train.seed)
+    loader = StratifiedGatoLoader({"rl": train}, {"rl": sampler}, counts,
+                                  accum, num_threads=cfg.data.num_workers)
+    return cfg, model, full, loader
+
+
+def phase_train(smi: str, seed: int = 0) -> dict:
+    from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
+    from bdm_db1_tpu_torch.train.trainer import Trainer, to_gato_batch
+
+    cfg, model, full, loader = _train_setup(seed)
+    L = cfg.model.n_layer
+    try:
+        raw = next(loader)
+        routes = _train_route_check(model, raw)
+        torch.cuda.empty_cache()
+        state = init_train_state(model, cfg.train.optimizer,
+                                 cfg.train.train_iters)
+        step = make_train_step(model)
+        marks, losses = [], []
+
+        def timed_step(st, batch, gen):
+            marks.append(time.perf_counter())
+            st, met = step(st, batch, gen)
+            losses.append(met["loss"])
+            return st, met
+
+        def run(n, st):
+            tcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, train_iters=n))
+            trainer = Trainer(tcfg, model, timed_step, st, loader)
+            trainer.train()
+            return trainer.state
+
+        state = run(1, state)                   # warm-up
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for p in model.parameters()]
+        marks.clear()
+        losses.clear()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path, counted ----------------------------------
+        _reset_launches()
+        state = run(TRAIN_STEPS, state)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        launches = _read_launches()
+        # --------------------------------------------------------------
+
+        peak = torch.cuda.max_memory_allocated()
+        micro = TRAIN_STEPS * TRAIN_ACCUM
+        want = dict.fromkeys(launches, 0)
+        for name in ("flash_rel_attention", "flash_rel_attention_bwd_dq",
+                     "flash_rel_attention_bwd_dkv"):
+            want[name] = L * micro
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+        losses = [float(x) for x in losses]
+        log_v = float(np.log(full.tok.layout.total_vocab_size))
+        if not (np.isfinite(losses).all()
+                and 0.5 * log_v < losses[0] < 2 * log_v
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"training losses off: {losses}")
+        changed = [not torch.equal(a, p) for a, p in
+                   zip(before, model.parameters())]
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in model.parameters())
+        del before
+        if not (finite and all(changed)):
+            raise AssertionError(f"parameters finite: {finite}, changed: "
+                                 f"{sum(changed)} of {len(changed)}")
+        times = np.diff(marks)
+        tokens = TRAIN_ACCUM * TRAIN_MICRO * cfg.data.seq_length
+        step_s = float(np.median(times))
+        batch = to_gato_batch(next(loader), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        busy, top, _ = _profile_busy(lambda: step(state, batch, gen))
+    finally:
+        loader.stop()
+    return {"phase": "train", "config": "db1_1p2b", "dtype": "bfloat16",
+            "param_dtype": "float32", "micro_batch": TRAIN_MICRO,
+            "accum": TRAIN_ACCUM, "seq_length": cfg.data.seq_length,
+            "steps": TRAIN_STEPS, "card": smi, "optimizer": dataclasses.asdict(
+                cfg.train.optimizer),
+            "dropout": {"drop": cfg.model.drop,
+                        "embd_pdrop": cfg.model.embd_pdrop,
+                        "dropattn": cfg.model.dropattn,
+                        "impl": cfg.model.dropout_impl},
+            "launches": launches, "launches_expected": want,
+            "losses": losses, "log_vocab": log_v,
+            "tokens_per_sec": tokens * TRAIN_STEPS / float(times.sum()),
+            "step_ms_median": step_s * 1e3,
+            "step_ms": [t * 1e3 for t in times],
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / step_s,
+            "max_memory_allocated_gb": peak / 1e9,
+            "top_device_ms": top, "gradient_routes": routes}
+
+
+def _train_route_check(model, raw) -> dict:
+    """One micro-batch of a loader batch. Layer by layer (under no_grad
+    between layers): the six attention gradients through K3-K5 against
+    autograd through ``rel_attention`` in f32 on the same inputs and one
+    seeded upstream gradient (GRAD_REL_TOL). Then the whole model's
+    gradient through both routes (attention_impl "auto" and "xla") from one
+    generator seed, so that the dropout masks are equal: global norms
+    within GRAD_NORM_RTOL, cosine similarity at least GRAD_COS_MIN."""
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+    from bdm_db1_tpu_torch.ops.attention import rel_attention, same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    cfg = model.cfg
+    batch = to_gato_batch({m: {k: v[0] for k, v in f.items()}
+                           for m, f in raw.items()}, device="cuda")
+    rl = batch["rl"]
+    qlen = rl.tokens.shape[1]
+    if not use_rel_kernel(cfg, qlen, qlen, "cuda"):
+        raise AssertionError("the training forward does not take K3-K5")
+    H, Dh, D = cfg.n_head, cfg.d_head, cfg.n_embed
+    mask = same_length_mask(qlen, qlen, cfg.mem_len, device="cuda")
+    r = relative_positional_embedding(qlen, D, cfg.effective_clamp_len,
+                                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kw = dict(mem_len=cfg.mem_len, same_length=cfg.same_length,
+              scale=1.0 / Dh ** 0.5)
+    worst = dict.fromkeys(GRAD_NAMES, 0.0)
+    with torch.no_grad():
+        h = model.embed_rl(rl.tokens, rl.position_id)
+    for layer in model.h:
+        a = layer.dec_attn
+        with torch.no_grad():
+            q, k, v = F.linear(h, a.qkv_net.weight.to(h.dtype)).split(D, -1)
+            q, k, v = (t.unflatten(-1, (H, Dh)) for t in (q, k, v))
+            rk = F.linear(r.to(h.dtype), a.r_net.weight.to(h.dtype)).view(
+                qlen, H, Dh)
+        ins = [t.detach().requires_grad_(True) for t in
+               (q, k, v, rk, a.r_w_bias.float(), a.r_r_bias.float())]
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+        got = torch.autograd.grad(fra.flash_rel_attention(*ins, **kw), ins,
+                                  g)
+        ref_ins = [t.detach().float().requires_grad_(True) for t in ins]
+        ref = torch.autograd.grad(
+            rel_attention(*ref_ins, mask, scale=kw["scale"],
+                          compute_dtype=torch.float32), ref_ins, g.float())
+        for name, x, y in zip(GRAD_NAMES, got, ref):
+            worst[name] = max(worst[name], float(
+                (x.float() - y).abs().max() / y.abs().max()))
+        del got, ref, ref_ins, ins
+        with torch.no_grad():
+            h = layer(h, None, r, mask, True)
+
+    params = list(model.parameters())
+    flat = {}
+    impl = cfg.attention_impl
+    try:
+        for route, name in (("auto", "kernel"), ("xla", "plain")):
+            cfg.attention_impl = route
+            _, loss = model(batch, compute_loss=True, deterministic=False,
+                            loss_only=True,
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(4))
+            flat[name] = [gr.float() for gr in
+                          torch.autograd.grad(loss, params)]
+            del loss
+    finally:
+        cfg.attention_impl = impl
+    dot = sum(float((x.double() * y.double()).sum())
+              for x, y in zip(flat["kernel"], flat["plain"]))
+    nk = sum(float(x.double().square().sum()) for x in flat["kernel"]) ** 0.5
+    npl = sum(float(y.double().square().sum()) for y in flat["plain"]) ** 0.5
+    del flat
+    out = {"grad_tol": GRAD_REL_TOL, "attn_grad_rel_err": worst,
+           "grad_norm_kernel": nk, "grad_norm_plain": npl,
+           "grad_norm_rel_diff": abs(nk - npl) / npl,
+           "grad_norm_rtol": GRAD_NORM_RTOL, "grad_cosine": dot / (nk * npl),
+           "grad_cosine_min": GRAD_COS_MIN}
+    if not (all(v <= GRAD_REL_TOL for v in worst.values())
+            and out["grad_norm_rel_diff"] <= GRAD_NORM_RTOL
+            and out["grad_cosine"] >= GRAD_COS_MIN):
+        raise AssertionError(f"K3-K5 gradients vs rel_attention: {out}")
+    return out
+
+
 def kernels_line(kernels: dict, launches: dict) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
@@ -937,13 +1321,21 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
     k7 = cases["flash_ring_prime_ap_int8"][0]
     pick["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
                                     max_abs_err=k7["k8_max_abs_err"])
+    # K4 and K5 share one record: each its time and bound, the plain
+    # backward's time (both kernels' work) and the SDPA backward (K4 + K5)
+    bwd = cases["flash_rel_attention_bwd"][0]
+    for which, grads in (("dq", ("dq",)),
+                         ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
+        pick["flash_rel_attention_bwd_" + which] = dict(
+            bwd, **bwd[which], max_abs_err=max(bwd["abs_err"][n]
+                                               for n in grads))
     rows = []
     for name, replaces in K_REPLACES.items():
         case = pick[name]
         rows.append({
             "name": name, "route": "cuda", "source": K_SOURCES[name],
             "replaces": replaces, "launches": launches[name],
-            "on_path": name != "flash_ring_prime",
+            "on_path": launches[name] > 0,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -985,15 +1377,16 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             results[phase] = phase_serve(smi, phase=phase, **kw)
             emit(results[phase])
-    if "eval_loss" in phases:
-        gc.collect()
-        torch.cuda.empty_cache()
-        results["eval_loss"] = phase_eval_loss(smi)
-        emit(results["eval_loss"])
+    for phase, fn in (("eval_loss", phase_eval_loss), ("train", phase_train)):
+        if phase in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[phase] = fn(smi)
+            emit(results[phase])
 
     print(smi, flush=True)
-    # launches are counted only on the main paths (both serves and the
-    # validation loss): without them this run has no count to print
+    # launches are counted only on the main paths (both serves, the
+    # validation loss and training): without them this run has no count
     if "kernels" in results and all(p in results for p in MAIN_PATHS):
         launches = {name: sum(results[p]["launches"][name]
                               for p in MAIN_PATHS)

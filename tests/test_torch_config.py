@@ -11,12 +11,16 @@ from bdm_db1_tpu_torch.core import config as tc
 
 
 def _fields(cls):
-    return {f.name: (f.default, f.default_factory)
+    """{name: (default, default factory)}; a factory that is a config class
+    compares by name (each package has its own class)."""
+    return {f.name: (f.default, getattr(f.default_factory, "__name__",
+                                        f.default_factory))
             for f in dataclasses.fields(cls)}
 
 
 @pytest.mark.parametrize("name", ["VocabConfig", "VisionConfig",
-                                  "ModelConfig", "DataConfig", "EvalConfig"])
+                                  "ModelConfig", "DataConfig", "EvalConfig",
+                                  "OptimizerConfig", "TrainConfig"])
 def test_section_fields_match_jax(name):
     assert _fields(getattr(tc, name)) == _fields(getattr(jc, name))
 
@@ -24,7 +28,7 @@ def test_section_fields_match_jax(name):
 @pytest.mark.parametrize("name", ["db1_tiny", "db1_1p2b"])
 def test_named_configs_match_jax(name):
     j, t = getattr(jc, name)(), getattr(tc, name)()
-    for section in ("model", "vocab", "vision", "data", "eval"):
+    for section in ("model", "vocab", "vision", "train", "data", "eval"):
         assert dataclasses.asdict(getattr(t, section)) == \
             dataclasses.asdict(getattr(j, section)), section
     tl, jl = t.vocab.layout(), j.vocab.layout()

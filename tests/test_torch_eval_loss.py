@@ -178,8 +178,9 @@ def test_forward_matches_jax(mem_len):
 
     tk.flash_rel_attention_plain = spy
     try:
-        logits_t, loss_t = tm(tb)
-        _, loss_only = tm(tb, loss_only=True)
+        with torch.no_grad():   # forward follows the caller's grad mode
+            logits_t, loss_t = tm(tb)
+            _, loss_only = tm(tb, loss_only=True)
     finally:
         tk.flash_rel_attention_plain = real
     assert len(calls) == 2 * cfg.model.n_layer   # K3's route, every layer
@@ -277,8 +278,13 @@ def test_unported_paths_raise():
     _, _, _, tm = _models(32)
     tok = torch.zeros(1, 8, dtype=torch.long)
     rl = TBatch(tokens=tok, position_id=tok, loss_mask=tok.float(), label=tok)
-    with pytest.raises(NotImplementedError):
-        tm.trunk(torch.zeros(1, 8, 64), None, deterministic=False)
+    # dropout is ported (tests/test_torch_train_step.py); remat is not
+    tm.cfg.remat = True
+    try:
+        with pytest.raises(NotImplementedError, match="remat"):
+            tm.trunk(torch.zeros(1, 8, 64), None, deterministic=False)
+    finally:
+        tm.cfg.remat = False
     with pytest.raises(ValueError, match="unknown modality"):
         tm({"rl": rl, "audio": rl})
     with pytest.raises(NotImplementedError):

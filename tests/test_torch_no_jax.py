@@ -49,8 +49,8 @@ def test_guard_sees_a_banned_import(tmp_path):
 
 
 def test_port_runs_without_jax():
-    """Import every port module, run one tiny CPU decode step and one tiny
-    validation loss with JAX made unimportable."""
+    """Import every port module, run one tiny CPU decode step, one tiny
+    validation loss and one train step with JAX made unimportable."""
     code = r'''
 import sys
 for name in ("jax", "jaxlib", "flax"):
@@ -95,6 +95,15 @@ raw = collate_modalities([valid[0]], ["rl"])
 loss = evaluate_loss(model, [{"rl": {k: v[None] for k, v in raw["rl"].items()}}],
                      device="cpu")
 assert np.isfinite(loss), loss
+# one train step (K3-K5 route, plain on the CPU; dropout on)
+from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
+from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+state = init_train_state(model, cfg.train.optimizer, 2)
+batch = to_gato_batch({"rl": {k: v[None] for k, v in raw["rl"].items()}},
+                      "cpu")
+state, met = make_train_step(model)(state, batch,
+                                    torch.Generator().manual_seed(0))
+assert state.step == 1 and np.isfinite(float(met["loss"]))
 assert not any(k in ("jax", "bdm_db1_tpu")
                or k.startswith(("jax.", "flax", "bdm_db1_tpu."))
                for k, v in sys.modules.items() if v is not None)

@@ -150,11 +150,17 @@ def test_model_gate_follows_attention_impl():
         assert not use_rel_kernel(cfg, 64, 64, "cuda")
 
 
-def test_k3_raises_on_inputs_that_require_grad():
+def test_k3_route_passes_gradients():
+    """With grad mode on, gradients flow through the kernel route to every
+    input (the backward's agreement is held in
+    tests/test_torch_rel_attention_bwd.py); under no_grad nothing is
+    recorded."""
     xs = _t(_inputs(1, 64, 64, 1, 128))
-    q = xs[0].clone().requires_grad_(True)
+    ins = [x.clone().requires_grad_(True) for x in xs]
     kw = dict(mem_len=64, same_length=False, scale=0.1)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tk.flash_rel_attention(q, *xs[1:], **kw)
+    out = tk.flash_rel_attention(*ins, **kw)
+    grads = torch.autograd.grad(out.sum(), ins)
+    assert all(g.shape == x.shape and torch.isfinite(g).all()
+               and g.abs().max() > 0 for g, x in zip(grads, ins))
     with torch.no_grad():
-        tk.flash_rel_attention(q, *xs[1:], **kw)
+        assert not tk.flash_rel_attention(*ins, **kw).requires_grad
