@@ -16,8 +16,11 @@ Phases, each printing one JSON line:
   on an int8 cache with scales made by ``quantize_kv_rows`` (B = 56), K8
   equal to K7 on the transposed scales (M = 1024, H = 16, Dh = 128; Q = 19
   and 26 for the primes; a layer index other than 0), K9 at the four trunk
-  matrices and the three row counts of the int8 serve, the W8A8 int32
-  product against the exact one, and K3 (out, m, l) at the validation
+  matrices and the four row counts of the int8 serve (56, 1064, 1456,
+  14336: timed, two calls bitwise equal at 56 and 1064 rows) and at 24
+  untimed edge shapes (a K split with a shorter last split among them),
+  the host time of a K9 call, the W8A8 int32 product against the exact
+  one, and K3 (out, m, l) at the validation
   forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
   (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
   qlen 100, klen 1124); K4 and K5 (the six gradients of the rel-attention
@@ -31,8 +34,9 @@ Phases, each printing one JSON line:
   forward; reads how far bf16 moves each layer from an f32 copy.
 * ``serve_int8`` — the same at 56 envs with the int8 ring cache and int8
   trunk weights (decode_cache_dtype = decode_weight_dtype = "int8", bf16
-  activations, one cohort): K6, K7 and K9 launches against the plan, the
-  action range, and the layer-by-layer route check on the int8 cache.
+  activations, one cohort): K6, K7 and K9 launches against the plan (K9
+  also by row count), the action range, and the layer-by-layer route
+  check on the int8 cache.
 * ``eval_loss``  — the validation loss of db1_1p2b in bf16 (random weights
   from a seed) over 8 micro-batches of 4 x 1024 tokens: packed
   ``RLFullDataset`` samples (prompts on) of a seeded HalfCheetah-geometry
@@ -54,6 +58,10 @@ Phases, each printing one JSON line:
   autograd through ``rel_attention``; the whole model's gradient through
   both routes under the same dropout masks); reads tokens/sec, the median
   step, the device idle share and the peak memory.
+
+With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
+under build/), the kernels phase also times that K9 in turns with this
+tree's (new, old, old, new) and its host time per call.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers and its launches on the main paths (only when
@@ -79,6 +87,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
+SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train")
 MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
@@ -106,12 +115,15 @@ def emit(rec: dict) -> None:
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time per call of fn(i) over ``iters`` calls (CUDA
     events); i lets a caller rotate through layers or copies so no launch
-    finds the previous one's bytes in L2."""
+    finds the previous one's bytes in L2. The card first spins for about
+    50 µs a call, so the calls are all queued before the first runs and a
+    call shorter than its host enqueue is not paced by the host."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(iters * 50e-6, 0.05) * SPIN_CYCLES_PER_S))
     start.record()
     for i in range(iters):
         fn(i)
@@ -264,15 +276,66 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False):
 # the trunk matrices (K, N) of db1_1p2b: qkv_net, o_net, CoreNet.0, .2
 TRUNK = {"qkv_net": (2048, 6144), "o_net": (2048, 2048),
          "CoreNet.0": (2048, 8192), "CoreNet.2": (4096, 2048)}
-# K9's rows in the int8 serve: 56 envs x q = 1, 19 (steady prime), 256
-# (a prompt slice)
-QMM_ROWS = (56, 1064, 14336)
+# K9's rows in the int8 serve: 56 envs x q = 1, 19 (steady prime), 26
+# (the prompt's tail slice), 256 (a prompt slice)
+QMM_ROWS = (56, 1064, 1456, 14336)
+# K9's untimed edge shapes: rows around the one-tile limit (64) and past
+# it, ragged N, a K tail of half a step (96, 4128 = 64.5 x 64); 56 x 4128
+# x 2056 splits K 4 ways with a shorter last split
+QMM_EDGE = [(R, K, N) for R in (1, 8, 57, 64, 65, 200) for K in (96, 4128)
+            for N in (200, 2056)]
 
 
-def _qmm_case(qm, *, R, K, N, seed, timed):
+class OldQmm:
+    """An earlier K9 kernel with the 9-argument C interface (the wmma,
+    cp.async-ring one), built from a copy of its source given by
+    --old-qmm and called as its wrapper called it: timed in turns with the
+    kernel of this tree on the same card. Not part of the port."""
+
+    def __init__(self, src: str):
+        import ctypes
+        import os
+        from pathlib import Path
+
+        from bdm_db1_tpu_torch.ops import cuda_build
+
+        src = Path(src).resolve()
+        out = src.with_suffix(".so")
+        log = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+                              "-o", str(out), str(src)],
+                             capture_output=True, text=True)
+        if log.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}"
+                               f"{log.stderr}")
+        self.lib = ctypes.CDLL(os.fspath(out))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        self.lib.bdm_quant_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+        self.lib.bdm_quant_matmul.restype = I
+
+    def __call__(self, x, w_q, scale):
+        from bdm_db1_tpu_torch.ops.cuda_build import check_operand
+
+        R, K = x.shape
+        N = w_q.shape[0]
+        dev = x.device
+        check_operand("x", x, (R, K), torch.bfloat16, dev)
+        check_operand("w_q", w_q, (N, K), torch.int8, dev)
+        check_operand("scale", scale, (N,), torch.float32, dev)
+        y = torch.empty(R, N, device=dev, dtype=torch.float32)
+        rc = self.lib.bdm_quant_matmul(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), R,
+            K, N, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"old K9 launch failed ({rc})")
+        return y
+
+
+def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
     """K9 against its plain version on one weight made by quantize_weight
-    from seeded values; when timed, its time, bound, plain time and the
-    time of F.linear on the pre-dequantized bf16 weight."""
+    from seeded values, with its plan; at 56 and 1064 rows two calls must
+    agree bit for bit. When timed, its time, bound, plain time and the time
+    of F.linear on the pre-dequantized bf16 weight; with ``old``, the old
+    kernel and this one timed in turns (new, old, old, new)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     w_q, s = qm.quantize_weight(
         torch.randn(N, K, device="cuda", generator=gen) * 0.02)
@@ -283,11 +346,19 @@ def _qmm_case(qm, *, R, K, N, seed, timed):
     torch.cuda.synchronize()
     err = float((y - y_p).abs().max())
     ymax = float(y_p.abs().max())
+    plan = qm.plan_quant_matmul(R, K, N)
     rec = {"shape": {"R": R, "K": K, "N": N}, "max_abs_err": err,
            "out_plain_absmax": ymax, "tol": QMM_REL_TOL * ymax,
+           "plan": {"bn": plan.bn, "bm": plan.bm, "split": plan.split,
+                    "kps": plan.kps, "nk": plan.nk, "ctas": plan.ctas},
            "ok": bool(np.isfinite(err) and err <= QMM_REL_TOL * ymax)}
+    if R in (56, 1064):
+        rec["bitwise_repeat"] = bool(torch.equal(y, qm.quant_matmul(x, w_q,
+                                                                    s)))
+        rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
     if not rec["ok"]:
-        raise AssertionError(f"K9 disagrees with its plain version: {rec}")
+        raise AssertionError(f"K9 disagrees with its plain version or "
+                             f"with itself: {rec}")
     if timed:
         rec.update(bound(R * K * 2 + N * K + N * 4 + R * N * 4,
                          2 * R * K * N))
@@ -295,8 +366,17 @@ def _qmm_case(qm, *, R, K, N, seed, timed):
         n = max(1, min(16, -(-(1 << 27) // (N * K))))
         wqs = [w_q] + [w_q.clone() for _ in range(n - 1)]
         iters = 200 if R <= 64 else 50 if R <= 2048 else 10
-        rec["ms"] = time_ms(lambda i: qm.quant_matmul(x, wqs[i % n], s),
-                            iters=iters)
+        turns = [qm.quant_matmul] + ([old, old, qm.quant_matmul] if old
+                                     else [])
+        times = [time_ms(lambda i, f=f: f(x, wqs[i % n], s), iters=iters)
+                 for f in turns]
+        rec["ms"] = float(np.mean(times[::3]))
+        if old:
+            y_o = old(x, w_q, s)
+            torch.cuda.synchronize()
+            rec["old_max_abs_err"] = float((y_o - y_p).abs().max())
+            rec["old_ms"] = float(np.mean(times[1:3]))
+            rec["turns_ms"] = times
         rec["plain_ms"] = time_ms(lambda i: qm.quant_matmul_plain(
             x, wqs[i % n], s), iters=3, warmup=1)
         w_bf = [(c.float() * s[:, None]).to(torch.bfloat16) for c in wqs]
@@ -304,6 +384,34 @@ def _qmm_case(qm, *, R, K, N, seed, timed):
                                     iters=iters)
         rec["library"] = "F.linear, bf16 weight dequantized beforehand"
     return rec
+
+
+def _qmm_host_us(qm, old=None, calls: int = 1000) -> dict:
+    """Host time a K9 call takes to enqueue (wrapper, plan, ctypes,
+    launch), µs: ``calls`` calls at 56 x 2048 x 2048 without a sync (the
+    card takes less time a call than the host, so the host clock reads the
+    enqueue); with ``old``, the old wrapper's the same way, in three rounds
+    of turns (new, old, old, new): the host is shared and noisy."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    w_q, s = qm.quantize_weight(
+        torch.randn(2048, 2048, device="cuda", generator=gen) * 0.02)
+    x = torch.randn(56, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    out = {}
+    new = ("new", qm.quant_matmul)
+    turns = [new, ("old", old), ("old", old), new] * 3 if old else [new]
+    for name, f in turns:
+        for _ in range(10):
+            f(x, w_q, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            f(x, w_q, s)
+        out.setdefault(name, []).append(
+            (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return {"shape": {"R": 56, "K": 2048, "N": 2048}, "calls": calls,
+            **{f"{k}_us": v for k, v in out.items()},
+            **{f"{k}_us_median": float(np.median(v)) for k, v in out.items()}}
 
 
 def _w8a8_check(qm) -> list:
@@ -515,7 +623,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
     return rec
 
 
-def phase_kernels() -> dict:
+def phase_kernels(old_qmm=None) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
@@ -541,11 +649,19 @@ def phase_kernels() -> dict:
             _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8)],
     }
     torch.cuda.empty_cache()
-    qmm = [_qmm_case(qm, R=R, K=K, N=N, seed=20 + i, timed=True)
+    old = OldQmm(old_qmm) if old_qmm else None
+    qmm = [_qmm_case(qm, R=R, K=K, N=N, seed=20 + i, timed=True, old=old)
            for i, (R, (K, N)) in enumerate(
                (R, kn) for R in QMM_ROWS for kn in TRUNK.values())]
-    qmm.append(_qmm_case(qm, R=37, K=96, N=200, seed=40, timed=False))
+    qmm += [_qmm_case(qm, R=R, K=K, N=N, seed=80 + i, timed=False)
+            for i, (R, K, N) in enumerate(QMM_EDGE)]
+    if not any(c["plan"]["split"] > 1
+               and c["plan"]["split"] * c["plan"]["kps"] > c["plan"]["nk"]
+               for c in qmm):
+        raise AssertionError("no K9 case ran a split with a shorter last "
+                             "split")
     cases["quant_matmul"] = qmm
+    host_us = _qmm_host_us(qm, old)
     torch.cuda.empty_cache()
     cases["flash_rel_attention"] = [
         # (a) the validation forward: seq 1024, no memory (causal: the
@@ -569,7 +685,8 @@ def phase_kernels() -> dict:
         # (c) ragged
         _rel_bwd_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
                       same_length=True, seed=62, timed=False)]
-    return {"phase": "kernels", "cases": cases, "w8a8_int32": _w8a8_check(qm)}
+    return {"phase": "kernels", "cases": cases, "qmm_host_us": host_us,
+            "w8a8_int32": _w8a8_check(qm)}
 
 
 K_REPLACES = {
@@ -679,9 +796,12 @@ def _counters():
 
 
 def _reset_launches():
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
+
     for counts in _counters():
         for name in counts:
             counts[name] = 0
+    qm.ROW_LAUNCHES.clear()
 
 
 def _read_launches() -> dict:
@@ -693,6 +813,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
     from bdm_db1_tpu_torch.eval.decode import DecoderPool
     from bdm_db1_tpu_torch.eval.harness import evaluate_envs_lockstep
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
 
     cfg, model, layout, names, make_tenv = _serve_setup(
         batch, steps, seed, **model_overrides)
@@ -720,6 +841,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _read_launches()
+    qmm_rows = dict(sorted(qm.ROW_LAUNCHES.items()))
     # ------------------------------------------------------------------
 
     # the chunk plan: step 0 primes [prompt || obs || sep] in ring slices
@@ -744,6 +866,19 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
         want["quant_matmul"] = 4 * L * forwards
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+    # K9 by row count: each forward's rows are its tokens x the batch (the
+    # prompt slices, the 19-token steady primes, the single-token forwards)
+    rows_want = {}
+    if int8_weights:
+        for rows, n in ([(q * batch, 1) for q in slices]
+                        + [((dec.obs_length + 2) * batch, steps - 1),
+                           (batch, steps * (A - 1))]):
+            rows_want[rows] = rows_want.get(rows, 0) + 4 * L * n
+        rows_want = dict(sorted(rows_want.items()))
+    if (qmm_rows != rows_want
+            or sum(qmm_rows.values()) != want["quant_matmul"]):
+        raise AssertionError(f"K9 launches by rows {qmm_rows}, expected "
+                             f"{rows_want} (sum {want['quant_matmul']})")
     if not all(r["length_mean"] == steps and r["num_trials"] == 1
                and np.isfinite(r["return_mean"]) for r in res):
         raise AssertionError(f"episode records off: {res[:3]}")
@@ -764,6 +899,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
             "batch": batch, "env_steps": steps, "card": smi,
             "prime_slices": slices, "forwards": forwards,
             "launches": launches, "launches_expected": want,
+            "qmm_launches_by_rows": qmm_rows,
             "wall_s": wall, "actions_per_sec": batch * steps / wall,
             **steady, "kernel_vs_plain": routes}
 
@@ -1311,8 +1447,9 @@ def _train_route_check(model, raw) -> dict:
 def kernels_line(kernels: dict, launches: dict) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
-    matrix) and its launches in the counted main-path runs of the same
-    process. K8 is held by the kernels phase only: no main path runs it."""
+    matrix, with every timed K9 shape under ``cases``) and its launches in
+    the counted main-path runs of the same process. K8 is held by the
+    kernels phase only: no main path runs it."""
     cases = kernels["cases"]
     pick = {name: cases[name][0] for name in cases}
     pick["quant_matmul"] = next(
@@ -1340,12 +1477,21 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case["shape"]})
+        if name == "quant_matmul":
+            rows[-1]["cases"] = [
+                {k: c[k] for k in ("shape", "ms", "bound_ms", "bound_by",
+                                   "library_ms", "plain_ms", "old_ms")
+                 if k in c}
+                for c in cases[name] if "ms" in c]
     return {"kernels": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--old-qmm", default=None, metavar="SRC",
+                    help="a copy of an earlier csrc/quant_matmul.cu: its K9 is "
+                         "timed in turns with this tree's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1366,7 +1512,7 @@ def main(argv=None) -> int:
         results["build"] = phase_build()
         emit(results["build"])
     if "kernels" in phases:
-        results["kernels"] = phase_kernels()
+        results["kernels"] = phase_kernels(args.old_qmm)
         emit(results["kernels"])
     serves = {"serve": dict(batch=40),
               "serve_int8": dict(batch=56, decode_cache_dtype="int8",

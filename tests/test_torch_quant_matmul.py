@@ -142,3 +142,69 @@ def test_cuda_route_refuses_what_the_kernel_does_not_take():
     w = torch.zeros(8, 30, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="K9 kernel takes"):
         tq.quant_matmul(x, w, torch.zeros(8, device="meta"))
+
+
+# K9's launch plan (plain Python, held here; the kernel runs it on the
+# card): the 16 serve shapes (rows of the int8 serve x the four trunk
+# matrices of db1_1p2b) and the edge shapes chip_smoke also checks.
+_TRUNK_KN = [(2048, 6144), (2048, 2048), (2048, 8192), (4096, 2048)]
+_PLAN_SHAPES = ([(R, K, N) for R in (56, 1064, 1456, 14336)
+                 for K, N in _TRUNK_KN]
+                + [(R, K, N) for R in (1, 8, 57, 64, 65, 200)
+                   for K, N in ((96, 200), (4128, 2056))])
+
+
+def _covered_once(extent: int, tile: int, tiles: int) -> bool:
+    hits = np.zeros(extent, np.int64)
+    for t in range(tiles):
+        hits[t * tile:(t + 1) * tile] += 1
+    return bool((hits == 1).all()) and (tiles - 1) * tile < extent
+
+
+@pytest.mark.parametrize("R,K,N", _PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [tq.H100_SMS])
+def test_quant_matmul_plan(R, K, N, sms):
+    plan = tq.plan_quant_matmul(R, K, N, sms)
+    # the CTA tiles cover [R, N] exactly once: rows by bn, columns by bm
+    assert (plan.bn, plan.bm) in tq.QMM_TILES
+    assert _covered_once(R, plan.bn, plan.x_tiles)
+    assert _covered_once(N, plan.bm, plan.w_tiles)
+    # wgmma's n: a multiple of 8, at most 256
+    assert plan.bn % 8 == 0 and plan.bn <= 256
+    # K in QMM_BK steps, the splits cover the steps once, none empty
+    bk = tq.QMM_BK
+    assert plan.nk * bk >= K > (plan.nk - 1) * bk
+    steps = [range(s * plan.kps, min(plan.nk, (s + 1) * plan.kps))
+             for s in range(plan.split)]
+    assert all(len(r) > 0 for r in steps)
+    assert sorted(k for r in steps for k in r) == list(range(plan.nk))
+    assert plan.ctas == plan.w_tiles * plan.x_tiles * plan.split
+    # the one integer the C entry point decodes
+    code = tq.plan_code(plan)
+    assert (code & 511, code >> 9 & 511, code >> 18 & 15, code >> 22) == (
+        plan.bn, plan.bm, plan.split, plan.kps)
+    if R <= tq.QMM_SMALL_R:
+        # one x tile; the splits fill the SMs unless S is at the cap
+        assert plan.x_tiles == 1
+        assert plan.ctas >= sms or plan.split == tq.split_cap(R, K)
+    else:
+        assert plan.split == 1
+    assert plan.split <= tq.split_cap(R, K) <= tq.QMM_SPLIT_CAP
+    # a split keeps QMM_MIN_WAY_STEPS steps in each of the CTA's ways
+    if plan.split > 1:
+        assert plan.kps >= tq.QMM_WAYS * tq.QMM_MIN_WAY_STEPS
+
+
+def test_quant_matmul_plan_picks_the_least_padding():
+    """The serve's row counts: 56 is one n = 56 tile (no padding), the
+    1064-row prime 8 tiles of 136, the 1456-row prompt tail 7 of 208, a
+    256-token prompt slice 56 of 256; at 56 rows only CoreNet.2 (K 4096)
+    has the K steps to split (2 splits of 32 steps), the rest run one CTA
+    a 64-row tile."""
+    got = {R: tq.plan_quant_matmul(R, 2048, 2048) for R in (56, 1064, 1456,
+                                                             14336)}
+    assert {R: (p.bn, p.x_tiles) for R, p in got.items()} == {
+        56: (56, 1), 1064: (136, 8), 1456: (208, 7), 14336: (256, 56)}
+    assert got[56].split == 1
+    assert tq.plan_quant_matmul(56, 4096, 2048).split == 2
+    assert tq.plan_quant_matmul(56, 2048, 8192).split == 1
