@@ -39,32 +39,57 @@
 // or, over the block's 64 rows, drk_band += dG^T . q (K5). No row reversal
 // or roll of the TPU kernels is needed: it is an addressing change.
 //
-// Layout. K4: one block of 4 warps takes 64 query rows of one (b, h), 16
-// rows a warp, and walks the key tiles of K3's _tile_j_bounds; dq lives in
-// registers. K5: one block takes 64 keys of one (b, h) and walks the query
-// tiles of _tile_i_bounds. A tile is first computed query-major (each warp
-// 16 query rows: p and dS in registers), written to shared memory as bf16
-// p, dS and the skewed dG, then read key-major: each warp owns 16 keys for
-// dV and dK (registers) and 32 band rows for the drk band product. Every
-// (b, query tile) adds a band of 127 rows into the same rk rows: those sums
-// go by f32 atomics (red.global.add) into one f32 [klen, H, Dh] buffer that
-// the wrapper casts, so drk's summation order changes from run to run.
-// (Summing the overlapping bands of a block's consecutive query tiles in a
-// shared-memory ring first, with float4 atomics for the rows no later tile
-// touches, read 1.648 ms against this version's 1.697 ms at the training
-// shape on an H100 80GB HBM3 at 700 W, in two runs: the atomics are not
-// what bounds K5.)
+// K4. One block of 4 warps takes 64 query rows of one (b, h), 16 rows a
+// warp, and walks the key tiles of K3's _tile_j_bounds; dq lives in
+// registers. It uses 224 registers a thread and 124 KB of shared memory,
+// one block an SM, with no copy/compute overlap (latency-bound).
 //
-// What bounds it on an H100: operations. At the training shape (B 4,
-// H 16, qlen = klen = 1024, Dh 128, causal: 33.6 M unbanned pairs) K4 runs
-// 5 products of 2 * 128 FLOP a pair (AC, BD, dP, dq_ac, dq_bd): 43.0 GFLOP,
-// 0.0435 ms at 989 TFLOP/s; K5 6 (AC, BD, dP, dV, dK, drk): 51.6 GFLOP,
-// 0.0522 ms. This version is mma.sync from one 4-warp block an SM (K4
-// uses 224 registers a thread and 124 KB of shared memory, K5 255 and
-// 143 KB), with no copy/compute overlap: four warps an SM cannot hide the
-// latency of the shared-memory round trips, so both run far above the
-// bound. More warps an SM, wgmma and a TMA-fed ring of tiles are later
-// work.
+// K5. One block of 8 warps takes 64 keys of one (b, h) and walks the query
+// tiles of _tile_i_bounds in order. A tile runs in two passes between
+// three barriers:
+// - Query-major: warp w takes row group w / 2 (16 query rows) and key half
+//   w % 2 (32 keys), so its band slice is 48 rows (G, p and dS are
+//   [16, 48] and [16, 32] in registers). The sums of dS over rows (for
+//   dK's r_w term and drw) and over diagonals (dgsum, for drk's r_r term
+//   and drr) stay f32: dS goes skewed into the warp's own G buffer and each
+//   lane adds one column, one shared add per sum. p and dS go to shared
+//   memory as bf16, and dG skewed into the row group's pair of G buffers
+//   (a 64-thread barrier), with only the two 16-column strips at its ends
+//   zeroed: the drk product reads nothing else.
+// - Key-major: warp w owns keys 16 (w % 4).. and head dims 64 (w / 4)..:
+//   dK and dV are 64 f32 a thread. On the same q fragments it runs the drk
+//   product of band blocks w % 4 (16 rows, fresh) and w % 4 + 4 (carried):
+//   the next query tile's band is this one's moved down 64 rows, so a
+//   warp's low block is the next tile's high block and stays in registers
+//   until it is complete; it then goes to drk by red.global.add.v4.f32
+//   (lanes t, t ^ 1 swap halves), once per rk row per block and tile pair,
+//   while the remaining products run. Every (b, key tile) adds into the
+//   same rk rows, so drk's summation order changes from run to run. drr
+//   sums dgsum . rk over the rk rows no later tile touches.
+// - Stages: Q, dO, (m, l, delta) and r_r . rk_t in two stages; the band in
+//   a ring of three 64-row chunks, so a tile loads only its 64 new rk rows.
+//   The next tile's cp.async copies are issued inside the query-major pass
+//   and waited for (wait_group 0) at the next tile's first barrier.
+// - Budget: 207,360 bytes of shared memory (K, V 34.8 KB; two stages of Q
+//   and dO 69.6 KB; the band ring 52.2 KB; eight warps' G 26.6 KB, with dG
+//   on it; p and dS 18.4 KB; stats, biases and sums 5.5 KB), one block an
+//   SM; registers near the 255 cap (chip_smoke's build phase reports what
+//   ptxas gives, and that nothing spills).
+//
+// What bounds them on an H100: operations by the count, latency in fact.
+// At the training shape (B 4, H 16, qlen = klen = 1024, Dh 128, causal:
+// 33.6 M unbanned pairs) K4 runs 5 products of 2 * 128 FLOP a pair (AC,
+// BD, dP, dq_ac, dq_bd): 43.0 GFLOP, 0.0435 ms at 989 TFLOP/s; K5 6 (AC,
+// BD, dP, dV, dK, drk): 51.6 GFLOP, 0.0522 ms. K5 executes more than that
+// count (48 band rows for 32 keys, the masked halves of diagonal tiles) at
+// 2 warps a scheduler, and its time is spread over the drk flush (the L2
+// atomics), the cp.async issue, the shared-memory sums and the mma.sync
+// chains, none of them dominant. (Pairing the blocks of two batch
+// elements in a cluster, to add their drk rows through distributed shared
+// memory before the atomics, was slower: two cluster barriers a tile hold
+// both blocks in step.) Left for a wgmma version: products from shared
+// memory by warpgroup (fewer registers, so more warps or a deeper ring)
+// and TMA for the staging.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -93,8 +118,7 @@ constexpr int LDGB = WBAND + 8;        // bf16 row stride of a warp's dG (K4)
 constexpr int LDD = BAND + 8;          // bf16 row stride of the block's dG (K5)
 constexpr int LDP = BK + 8;            // bf16 row stride of p and dS (K5)
 constexpr int GW_BYTES = WROWS * LDG * 4;   // one warp's G (its dG aliases it)
-static_assert(WROWS * LDGB * 2 <= GW_BYTES && WROWS * LDD * 2 <= GW_BYTES,
-              "a warp's dG must fit in its G buffer");
+static_assert(WROWS * LDGB * 2 <= GW_BYTES, "a warp's dG must fit in its G buffer");
 
 constexpr int TILE = BQ * LDH * 2;     // one staged [64, 128] bf16 tile
 constexpr int Q_OFF = 0;
@@ -106,13 +130,32 @@ constexpr int G_OFF = R_OFF + BAND * LDH * 2;
 constexpr int RWK_OFF = G_OFF + WARPS * GW_BYTES;   // r_w . k_j  [BK]
 constexpr int RRK_OFF = RWK_OFF + BK * 4;            // r_r . rk_t [BAND]
 constexpr int SMEM_DQ = RRK_OFF + BAND * 4;
-// K5 only
-constexpr int P_OFF = SMEM_DQ;                       // bf16 p  [BQ, LDP]
-constexpr int S_OFF = P_OFF + BQ * LDP * 2;          // bf16 dS [BQ, LDP]
-constexpr int ST_OFF = S_OFF + BQ * LDP * 2;         // m, 1/l, delta [3, BQ]
-constexpr int DSUM_OFF = ST_OFF + 3 * BQ * 4;        // sum_i dS_ij [BK]
-constexpr int DGSUM_OFF = DSUM_OFF + BK * 4;         // sum_i dG_it [BAND]
-constexpr int SMEM_DKV = DGSUM_OFF + BAND * 4;
+
+// K5: eight warps. In the query-major pass warp w takes row group w / 2
+// (16 query rows) and key half w % 2 (32 keys), over a 48-row band slice.
+constexpr int WARPS5 = 8;
+constexpr int THREADS5 = 32 * WARPS5;
+constexpr int KH5 = BK / 2;                  // keys per warp, query-major
+constexpr int WBAND5 = WROWS + KH5;          // 48 band rows per warp (47 used)
+constexpr int LDG5 = WBAND5 + 4;             // f32 row stride of a warp's G
+constexpr int GW5_BYTES = WROWS * LDG5 * 4;  // one warp's G
+static_assert(WROWS * LDD * 2 <= 2 * GW5_BYTES,
+              "a row group's dG rows must fit in its two warps' G buffers");
+constexpr int K5_K = 0;
+constexpr int K5_V = K5_K + TILE;
+constexpr int K5_Q = K5_V + TILE;                     // 2 stages
+constexpr int K5_DO = K5_Q + 2 * TILE;                // 2 stages
+constexpr int K5_R = K5_DO + 2 * TILE;                // rk band: a ring of 3 x 64 rows
+constexpr int K5_G = K5_R + 3 * TILE;                 // 8 warps' G; the block's dG
+constexpr int K5_P = K5_G + WARPS5 * GW5_BYTES;       // bf16 p  [BQ, LDP]
+constexpr int K5_S = K5_P + BQ * LDP * 2;             // bf16 dS [BQ, LDP]
+constexpr int K5_RRK = K5_S + BQ * LDP * 2;           // r_r . rk_t [2][BAND]
+constexpr int K5_ST = K5_RRK + 2 * BAND * 4;          // m, l, delta [2][3][BQ]
+constexpr int K5_RWK = K5_ST + 2 * 3 * BQ * 4;        // r_w . k_j [BK]
+constexpr int K5_BIAS = K5_RWK + BK * 4;              // r_w, r_r [2][DH]
+constexpr int K5_DSUM = K5_BIAS + 2 * DH * 4;         // sum_i dS_ij [BK]
+constexpr int K5_DGSUM = K5_DSUM + BK * 4;            // sum_i dG_it [3][BAND]
+constexpr int SMEM_DKV = K5_DGSUM + 3 * BAND * 4;
 static_assert(SMEM_DKV <= 232448, "one block must fit one SM");
 
 struct Params {
@@ -148,6 +191,30 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_group0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the 64 threads of row group rg (warps 2 rg, 2 rg + 1) meet; barrier 0 is
+// __syncthreads
+__device__ __forceinline__ void pair_barrier(int rg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(64) : "memory");
+}
+
+// four adjacent f32 adds into global memory, dst 16-byte aligned (one
+// red.global.add.v4.f32 on sm_90)
+__device__ __forceinline__ void red_add4(float* dst, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
 }
 
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
@@ -492,30 +559,74 @@ __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params 
   }
 }
 
+// K5: stage 64 rk rows from t1 into ring slot `slot` (zero outside [0, klen))
+__device__ __forceinline__ void k5_stage_rk(const Params& p, int h, int t1, unsigned char* smem,
+                                            int slot, int tid) {
+  bf16* Rs = reinterpret_cast<bf16*>(smem + K5_R + slot * TILE);
+  for (int e = tid; e < BQ * VECS; e += THREADS5) {
+    const int r = e / VECS, c = (e % VECS) * 8;
+    const int tr = t1 + r;
+    const bool ok = tr >= 0 && tr < p.klen;
+    cp_async16(Rs + r * LDH + c,
+               ok ? p.rk + (static_cast<long long>(tr) * p.H + h) * DH + c : p.rk, ok);
+  }
+}
+
+// K5: stage query tile r0's Q, dO, r_r . rk_t and (m, l, delta) into stage
+// s, and the low 64 rows of its rk band into ring slot `slot`, by cp.async
+// (zero past qlen and outside [0, klen)). The band's high 64 rows are the
+// previous tile's low ones.
+__device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, int c0, int r0,
+                                         unsigned char* smem, int s, int slot, int tid) {
+  bf16* Qs = reinterpret_cast<bf16*>(smem + K5_Q + s * TILE);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + K5_DO + s * TILE);
+  const bf16* qb = p.q + b * p.q_sb + h * DH;
+  const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
+  const long long do_st = static_cast<long long>(p.H) * DH;
+  for (int e = tid; e < BQ * VECS; e += THREADS5) {
+    const int r = e / VECS, c = (e % VECS) * 8;
+    const bool ok = r0 + r < p.qlen;
+    cp_async16(Qs + r * LDH + c, ok ? qb + (r0 + r) * p.q_st + c : qb, ok);
+    cp_async16(dOs + r * LDH + c, ok ? dob + (r0 + r) * do_st + c : dob, ok);
+  }
+  const int t0 = c0 - r0 + p.qlen - BQ;   // rk row of band row 0
+  k5_stage_rk(p, h, t0, smem, slot, tid);
+  float* rrk_s = reinterpret_cast<float*>(smem + K5_RRK) + s * BAND;
+  float* st_s = reinterpret_cast<float*>(smem + K5_ST) + s * 3 * BQ;
+  const long long srow = static_cast<long long>(bh) * p.qlen;
+  for (int e = tid; e < BAND + 3 * BQ; e += THREADS5) {
+    if (e < BAND) {
+      const int tr = t0 + e;
+      const bool ok = e < BAND - 1 && tr >= 0 && tr < p.klen;
+      cp_async4(rrk_s + e, ok ? p.rrk + static_cast<long long>(h) * p.klen + tr : p.rrk, ok);
+    } else {
+      const int which = (e - BAND) / BQ, r = (e - BAND) % BQ;
+      const float* src = which == 0 ? p.m : which == 1 ? p.l : p.delta;
+      const bool ok = r0 + r < p.qlen;
+      cp_async4(st_s + which * BQ + r, ok ? src + srow + r0 + r : src, ok);
+    }
+  }
+}
+
 // K5: dk, dv for 64 keys of one (b, h); drk, drw and drr by f32 atomics
-__global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Q_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + V_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + DO_OFF);
-  bf16* Rs = reinterpret_cast<bf16*>(smem + R_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + P_OFF);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + S_OFF);
-  float* rwk_s = reinterpret_cast<float*>(smem + RWK_OFF);
-  float* rrk_s = reinterpret_cast<float*>(smem + RRK_OFF);
-  float* m_s = reinterpret_cast<float*>(smem + ST_OFF);
-  float* il_s = m_s + BQ;
-  float* dl_s = il_s + BQ;
-  float* dsum_s = reinterpret_cast<float*>(smem + DSUM_OFF);
-  float* dgsum_s = reinterpret_cast<float*>(smem + DGSUM_OFF);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + K5_K);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + K5_V);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + K5_P);
+  bf16* dSs = reinterpret_cast<bf16*>(smem + K5_S);
+  float* rwk_s = reinterpret_cast<float*>(smem + K5_RWK);
+  float* rw_s = reinterpret_cast<float*>(smem + K5_BIAS);
+  float* rr_s = rw_s + DH;
+  float* dsum_s = reinterpret_cast<float*>(smem + K5_DSUM);
+  float* dgsum_s = reinterpret_cast<float*>(smem + K5_DGSUM);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  float* Gw = reinterpret_cast<float*>(smem + G_OFF + warp * GW_BYTES);
-  // the block's dG [BQ, LDD]: rows 16w..16w+15 in warp w's G buffer
+  // the block's dG [BQ, LDD] (bf16, skewed): the rows of row group rg lie
+  // in the G buffers of warps 2 rg and 2 rg + 1
   const auto dg_row = [&](int r) {
-    return reinterpret_cast<bf16*>(smem + G_OFF + (r / WROWS) * GW_BYTES) + (r % WROWS) * LDD;
+    return reinterpret_cast<bf16*>(smem + K5_G + (r / WROWS) * 2 * GW5_BYTES) + (r % WROWS) * LDD;
   };
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const Geometry geo = geometry(p);
@@ -527,177 +638,391 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
   int i_hi = nq;
   if (p.same_length) i_hi = min(nq, (c0 + BK - 1 + (geo.shift - 1)) / BQ + 1);
 
-  stage_rows(p.k + b * p.k_sb + h * DH, p.k_st, c0, p.klen, Ks, tid);
-  stage_rows(p.v + b * p.v_sb + h * DH, p.v_st, c0, p.klen, Vs, tid);
+  // query-major: row group rg, key half kh, band slice from block band row wb
+  const int rg = warp >> 1, kh = warp & 1;
+  const int wb = BQ - WROWS - WROWS * rg + KH5 * kh;
+  const int i0 = WROWS * rg + g;            // block rows i0 and i0 + 8
+  float* Gw = reinterpret_cast<float*>(smem + K5_G + warp * GW5_BYTES);
+  bf16* dgp = dg_row(WROWS * rg);
+  // key-major: keys 16 kq.., head dims 64 dh..
+  const int kq = warp & 3, dh = warp >> 2;
+  // drk: band-row blocks rbl = warp % 4 and rbl + 4 (16 rows each) over
+  // head dims 64 dh... Block rb meets min(rb, 7 - rb) + 1 query blocks, so
+  // the two sum to 5 products of 16 rows x 64 dims x 16 queries a warp. The
+  // next query tile's band is this one's moved down 64 rows: its block
+  // rbl + 4 holds this tile's block rbl, so the warp carries that block's
+  // sums in registers to the next tile and adds them into drk once.
+  const int rbl = warp & 3;
+
+  {
+    const bf16* kb = p.k + b * p.k_sb + h * DH;
+    const bf16* vb = p.v + b * p.v_sb + h * DH;
+    for (int e = tid; e < BK * VECS; e += THREADS5) {
+      const int r = e / VECS, c = (e % VECS) * 8;
+      const bool ok = c0 + r < p.klen;
+      cp_async16(Ks + r * LDH + c, ok ? kb + (c0 + r) * p.k_st + c : kb, ok);
+      cp_async16(Vs + r * LDH + c, ok ? vb + (c0 + r) * p.v_st + c : vb, ok);
+    }
+  }
+  // band chunk c (64 rk rows) in ring slot c % 3: tile iq's band is chunks
+  // iq - i_lo + 1 (low rows) and iq - i_lo (high rows)
+  if (i_lo < i_hi) {
+    k5_stage_rk(p, h, c0 - i_lo * BQ + p.qlen, smem, 0, tid);
+    k5_stage(p, bh, b, h, c0, i_lo * BQ, smem, 0, 1, tid);
+  }
+  cp_async_commit();
   if (tid < BK) {
     const int j = c0 + tid;
     rwk_s[tid] = j < p.klen ? p.rwk[static_cast<long long>(bh) * p.klen + j] : 0.f;
     dsum_s[tid] = 0.f;
   }
+  if (tid < DH) {
+    rw_s[tid] = p.rw[h * DH + tid];
+    rr_s[tid] = p.rr[h * DH + tid];
+  }
+  for (int e = tid; e < 3 * BAND; e += THREADS5) dgsum_s[e] = 0.f;
 
-  float dk[DH / 8][4], dv[DH / 8][4];
+  float dk[DH / 16][4], dv[DH / 16][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < DH / 16; ++n) {
     dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
     dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
   }
-  float drr_acc = 0.f;   // thread tid: dim tid of sum_t dgsum_t rk_t
-  const long long srow = static_cast<long long>(bh) * p.qlen;
-  const bf16* qb = p.q + b * p.q_sb + h * DH;
-  const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
+  float drr_acc[4] = {0.f, 0.f, 0.f, 0.f};   // dims 4 lane..
+  float carry[DH / 16][4];   // drk of block rbl + 4 of the next tile
+#pragma unroll
+  for (int n = 0; n < DH / 16; ++n) carry[n][0] = carry[n][1] = carry[n][2] = carry[n][3] = 0.f;
 
   for (int iq = i_lo; iq < i_hi; ++iq) {
+    const int s = (iq - i_lo) & 1;
     const int r0 = iq * BQ;
     const int t0 = c0 - r0 + p.qlen - BQ;   // rk row of band row 0
-    __syncthreads();   // every warp is done with the previous tile
-    stage_rows(qb, p.q_st, r0, p.qlen, Qs, tid);
-    stage_rows(dob, static_cast<long long>(p.H) * DH, r0, p.qlen, dOs, tid);
-    stage_band(p, h, r0, c0, Rs, rrk_s, tid);
-    if (tid < BQ) {
-      const int row = r0 + tid;
-      const bool ok = row < p.qlen;
-      m_s[tid] = ok ? p.m[srow + row] : 0.f;
-      il_s[tid] = ok ? 1.f / fmaxf(p.l[srow + row], 1e-30f) : 0.f;
-      dl_s[tid] = ok ? p.delta[srow + row] : 0.f;
-    }
-    dgsum_s[tid] = 0.f;
-    cp_async_wait_all();
-    __syncthreads();
+    const bool has_next = iq + 1 < i_hi;
+    cp_async_wait_group0();
+    __syncthreads();   // tile iq has landed; every warp is done with tile iq - 1
+    // dgsum: this tile's, the previous tile's (read by drr), the next's
+    const int dg_cur = (iq - i_lo) % 3;
+    float* dgs = dgsum_s + dg_cur * BAND;
+    const float* dgs_prev = dgsum_s + (dg_cur + 2) % 3 * BAND;
+    if (tid < BAND) dgsum_s[(dg_cur + 1) % 3 * BAND + tid] = 0.f;
 
-    {  // query-major: this warp's 16 rows
-      const int i0 = WROWS * warp + g;
-      float pr[BK / 8][4], ds[BK / 8][4];
-      tile_p_ds(p, geo, Qs, Ks, Vs, dOs, Rs, Gw, rwk_s, rrk_s, warp, lane, r0, c0, m_s[i0],
-                m_s[i0 + 8], il_s[i0], il_s[i0 + 8], dl_s[i0], dl_s[i0 + 8], pr, ds);
-      bf16* dg0 = dg_row(i0);
-      bf16* dg1 = dg_row(i0 + 8);
-      for (int e = lane; e < WROWS * LDD / 8; e += 32)
-        reinterpret_cast<uint4*>(dg_row(WROWS * warp))[e] = make_uint4(0u, 0u, 0u, 0u);
+    const bf16* Qs = reinterpret_cast<const bf16*>(smem + K5_Q + s * TILE);
+    const bf16* dOs = reinterpret_cast<const bf16*>(smem + K5_DO + s * TILE);
+    const int chunk = iq - i_lo + 1;
+    const bf16* Rlo = reinterpret_cast<const bf16*>(smem + K5_R + chunk % 3 * TILE);
+    const bf16* Rhi = reinterpret_cast<const bf16*>(smem + K5_R + (chunk + 2) % 3 * TILE);
+    // band row r (a group of 16 never straddles the two chunks)
+    const auto band_row = [&](int r) { return (r < BQ ? Rlo : Rhi) + (r % BQ) * LDH; };
+    const float* rrk_s = reinterpret_cast<const float*>(smem + K5_RRK) + s * BAND;
+    const float* st_s = reinterpret_cast<const float*>(smem + K5_ST) + s * 3 * BQ;
+
+    {  // query-major: rows i0, i0 + 8 of row group rg, keys 32 kh..
+      float pr[KH5 / 8][4], ds[KH5 / 8][4];
+      const bf16* qw = Qs + WROWS * rg * LDH;
+      {  // G = q . band^T over the warp's 48 band rows (f32 in Gw), S = q . k^T
+        float gacc[WBAND5 / 8][4];
+#pragma unroll
+        for (int n = 0; n < WBAND5 / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
+#pragma unroll
+        for (int n = 0; n < KH5 / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t qa[4];
+          ld_a(qa, qw + kk * 16, LDH, lane);
+#pragma unroll
+          for (int np = 0; np < WBAND5 / 16; ++np) {
+            uint32_t bfr[4];
+            ld_b(bfr, band_row(wb + 16 * np) + kk * 16, LDH, lane);
+            mma16816(gacc[2 * np], qa, bfr[0], bfr[1]);
+            mma16816(gacc[2 * np + 1], qa, bfr[2], bfr[3]);
+          }
+#pragma unroll
+          for (int np = 0; np < KH5 / 16; ++np) {
+            uint32_t bfr[4];
+            ld_b(bfr, Ks + (KH5 * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+            mma16816(pr[2 * np], qa, bfr[0], bfr[1]);
+            mma16816(pr[2 * np + 1], qa, bfr[2], bfr[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < WBAND5 / 8; ++n) {
+          *reinterpret_cast<float2*>(Gw + g * LDG5 + 8 * n + 2 * t) =
+              make_float2(gacc[n][0], gacc[n][1]);
+          *reinterpret_cast<float2*>(Gw + (g + 8) * LDG5 + 8 * n + 2 * t) =
+              make_float2(gacc[n][2], gacc[n][3]);
+        }
+      }
+      __syncwarp();
+      // tile iq + 1 into the other stage, issued here, between the shared-
+      // memory work, rather than in one burst after the barrier
+      if (has_next) k5_stage(p, bh, b, h, c0, r0 + BQ, smem, s ^ 1, (chunk + 1) % 3, tid);
+      cp_async_commit();
+      // p = exp(s - m) / l with K3's scores and mask
+      const int row0 = r0 + i0, row1 = row0 + 8;
+      const float m0 = st_s[i0], m1 = st_s[i0 + 8];
+      const float il0 = 1.f / fmaxf(st_s[BQ + i0], 1e-30f);
+      const float il1 = 1.f / fmaxf(st_s[BQ + i0 + 8], 1e-30f);
+      const float dl0 = st_s[2 * BQ + i0], dl1 = st_s[2 * BQ + i0 + 8];
+      const auto scores = [&](int n, int e, float& s0, float& s1) {
+        const int jl = 8 * n + 2 * t + e, j = KH5 * kh + jl;
+        const int br0 = BQ - 1 - i0 + j;          // block band row of (i0, j)
+        const int gc0 = WROWS - 1 - g + jl;       // its column in Gw
+        s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG5 + gc0] + rrk_s[br0]) * p.scale;
+        s1 = (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG5 + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
+      };
+      // most tiles ban nothing in the warp's 16 rows x 32 keys
+      const int wrow = r0 + WROWS * rg, wcol = c0 + KH5 * kh;
+      const bool full = wrow + WROWS <= p.qlen && wcol + KH5 <= p.klen &&
+                        wcol + KH5 - 1 <= wrow + geo.mlen &&
+                        (!p.same_length || wcol >= wrow + WROWS - 1 - (geo.shift - 1));
+      if (full) {
+#pragma unroll
+        for (int n = 0; n < KH5 / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float s0, s1;
+            scores(n, e, s0, s1);
+            pr[n][e] = __expf(s0 - m0) * il0;
+            pr[n][2 + e] = __expf(s1 - m1) * il1;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < KH5 / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float s0, s1;
+            scores(n, e, s0, s1);
+            const int col = wcol + 8 * n + 2 * t + e;
+            bool ban0 = col > row0 + geo.mlen || col >= p.klen || row0 >= p.qlen;
+            bool ban1 = col > row1 + geo.mlen || col >= p.klen || row1 >= p.qlen;
+            if (p.same_length) {
+              ban0 = ban0 || col < row0 - (geo.shift - 1);
+              ban1 = ban1 || col < row1 - (geo.shift - 1);
+            }
+            pr[n][e] = ban0 ? 0.f : __expf(s0 - m0) * il0;
+            pr[n][2 + e] = ban1 ? 0.f : __expf(s1 - m1) * il1;
+          }
+        }
+      }
+      // dP = dO . V^T, then dS = p (dP - delta) scale
+#pragma unroll
+      for (int n = 0; n < KH5 / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+      const bf16* dow = dOs + WROWS * rg * LDH;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t da[4];
+        ld_a(da, dow + kk * 16, LDH, lane);
+#pragma unroll
+        for (int np = 0; np < KH5 / 16; ++np) {
+          uint32_t bfr[4];
+          ld_b(bfr, Vs + (KH5 * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+          mma16816(ds[2 * np], da, bfr[0], bfr[1]);
+          mma16816(ds[2 * np + 1], da, bfr[2], bfr[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KH5 / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ds[n][e] = pr[n][e] * (ds[n][e] - dl0) * p.scale;
+          ds[n][2 + e] = pr[n][2 + e] * (ds[n][2 + e] - dl1) * p.scale;
+        }
+      }
+
+      // The sums in f32: dS goes skewed into the warp's own G buffer (BD is
+      // read), Gw[i, 15 - i + jl] = dS[i, jl]; then lane L sums key column
+      // L (sum_i dS_ij) and band columns L and 32 + L (sum_i dG_it) over
+      // the rows that wrote them, and adds each once.
       __syncwarp();
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const int j = 8 * n + 2 * t;
+      for (int n = 0; n < KH5 / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jl = 8 * n + 2 * t + e;
+          Gw[g * LDG5 + WROWS - 1 - g + jl] = ds[n][e];
+          Gw[(g + 8) * LDG5 + WROWS - 9 - g + jl] = ds[n][2 + e];
+        }
+      }
+      __syncwarp();
+      {
+        float cs = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < WROWS; ++i) {
+          cs += Gw[i * LDG5 + WROWS - 1 - i + lane];
+          if (i >= WROWS - 1 - lane) d0 += Gw[i * LDG5 + lane];
+          if (i < WROWS - 1 - lane) d1 += Gw[i * LDG5 + KH5 + lane];
+        }
+        atomicAdd(dsum_s + KH5 * kh + lane, cs);
+        atomicAdd(dgs + wb + lane, d0);
+        if (lane < WROWS - 1) atomicAdd(dgs + wb + KH5 + lane, d1);
+      }
+
+      // the row group's dG rows overlay both warps' G: both must be done
+      pair_barrier(rg);
+      // dG[i, 63 - i + j] = dS[i, j]. The drk product reads row group rg's
+      // dG in band columns [48 - 16 rg, 128 - 16 rg): this warp's diagonal
+      // plus a 16-column strip at its outer end, zeroed here.
+      {
+        const int zc = kh ? 2 * BQ - WROWS - WROWS * rg : BQ - WROWS - WROWS * rg;
+        *reinterpret_cast<uint4*>(dgp + (lane >> 1) * LDD + zc + 8 * (lane & 1)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int n = 0; n < KH5 / 8; ++n) {
+        const int j = KH5 * kh + 8 * n + 2 * t;
         *reinterpret_cast<uint32_t*>(Ps + i0 * LDP + j) = pack_bf16(pr[n][0], pr[n][1]);
         *reinterpret_cast<uint32_t*>(Ps + (i0 + 8) * LDP + j) = pack_bf16(pr[n][2], pr[n][3]);
         *reinterpret_cast<uint32_t*>(dSs + i0 * LDP + j) = pack_bf16(ds[n][0], ds[n][1]);
         *reinterpret_cast<uint32_t*>(dSs + (i0 + 8) * LDP + j) = pack_bf16(ds[n][2], ds[n][3]);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          // block band column of (i, j) is BQ - 1 - i + j
-          const int bc0 = BQ - 1 - i0 + j + e;
-          dg0[bc0] = __float2bfloat16_rn(ds[n][e]);
-          dg1[bc0 - 8] = __float2bfloat16_rn(ds[n][2 + e]);
-          atomicAdd(dgsum_s + bc0, ds[n][e]);
-          atomicAdd(dgsum_s + bc0 - 8, ds[n][2 + e]);
-          // column sums of dS over the warp's 16 rows, then across warps
-          float cs = ds[n][e] + ds[n][2 + e];
-          cs += __shfl_xor_sync(0xffffffffu, cs, 4);
-          cs += __shfl_xor_sync(0xffffffffu, cs, 8);
-          cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-          if (g == 0) atomicAdd(dsum_s + j + e, cs);
+          const int bc0 = BQ - 1 - i0 + j + e;     // block band column of (i0, j + e)
+          dgp[g * LDD + bc0] = __float2bfloat16_rn(ds[n][e]);
+          dgp[(g + 8) * LDD + bc0 - 8] = __float2bfloat16_rn(ds[n][2 + e]);
         }
       }
     }
-    __syncthreads();
+    __syncthreads();   // p, dS, dG and the sums are complete
 
-    // key-major: this warp's 16 keys. dV += p^T . dO, dK += dS^T . q
+    // drk rows of band block rb: A = dG^T (stored rows are queries 16 ks..,
+    // columns band rows 16 rb..), zero outside query blocks 3 - rb..7 - rb
+    const auto ld_dgt = [&](uint32_t* a, int ks, int rb) {
+      const int qr = 16 * ks + (lane & 7) + 8 * ((lane >> 4) & 1);
+      ldsm_x4_t(a, dg_row(qr) + 16 * rb + 8 * ((lane >> 3) & 1));
+    };
+    // + dgsum r_r for the rows of block rb (this tile's sums)
+    const auto add_rr = [&](float (&acc)[DH / 16][4], int rb) {
+      const float gA = dgs[16 * rb + g], gB = dgs[16 * rb + g + 8];
 #pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq) {
-      uint32_t ap[4], as[4];
-      ld_a_t(ap, Ps + 16 * kq * LDP + WROWS * warp, LDP, lane);
-      ld_a_t(as, dSs + 16 * kq * LDP + WROWS * warp, LDP, lane);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bfr[4];
-        ld_b_t(bfr, dOs + 16 * kq * LDH + 16 * dp, LDH, lane);
-        mma16816(dv[2 * dp], ap, bfr[0], bfr[1]);
-        mma16816(dv[2 * dp + 1], ap, bfr[2], bfr[3]);
-        ld_b_t(bfr, Qs + 16 * kq * LDH + 16 * dp, LDH, lane);
-        mma16816(dk[2 * dp], as, bfr[0], bfr[1]);
-        mma16816(dk[2 * dp + 1], as, bfr[2], bfr[3]);
+      for (int n = 0; n < DH / 16; ++n) {
+        const float2 r2 = *reinterpret_cast<const float2*>(rr_s + DH / 2 * dh + 8 * n + 2 * t);
+        acc[n][0] += gA * r2.x;
+        acc[n][1] += gA * r2.y;
+        acc[n][2] += gB * r2.x;
+        acc[n][3] += gB * r2.y;
       }
-    }
+    };
+    // into drk for the rows of block rb: lanes t and t ^ 1 swap halves, so
+    // an even t adds dims d..d+3 of row A and an odd t dims d-2..d+1 of row B
+    const auto flush_drk = [&](float (&acc)[DH / 16][4], int rb) {
+      const bool odd = t & 1;
+      const int tr = t0 + 16 * rb + g + (odd ? 8 : 0);
+      const bool ok = tr >= 0 && tr < p.klen;
+      float* dst = p.drk + (static_cast<long long>(tr) * p.H + h) * DH + DH / 2 * dh + 2 * (t & 2);
+#pragma unroll
+      for (int n = 0; n < DH / 16; ++n) {
+        const float sx = __shfl_xor_sync(0xffffffffu, odd ? acc[n][0] : acc[n][2], 1);
+        const float sy = __shfl_xor_sync(0xffffffffu, odd ? acc[n][1] : acc[n][3], 1);
+        if (ok)
+          red_add4(dst + 8 * n, odd ? make_float4(sx, sy, acc[n][2], acc[n][3])
+                                    : make_float4(acc[n][0], acc[n][1], sx, sy));
+      }
+    };
 
-    // drk band rows 32w..32w+31: dG^T . q + dgsum r_r, in 16-row, 64-dim pieces
-#pragma unroll 1
-    for (int mt = 0; mt < 2; ++mt) {
-      const int br = 2 * WROWS * warp + WROWS * mt;   // first band row
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        float acc[DH / 16][4];
+    {  // key-major: dV += p^T . dO, dK += dS^T . q for keys 16 kq.., dims
+       // 64 dh..; drk of blocks rbl (fresh) and rbl + 4 (carried) on the
+       // same q fragments
+      float acc[DH / 16][4];
 #pragma unroll
-        for (int n = 0; n < DH / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int n = 0; n < DH / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-        for (int kq = 0; kq < BQ / 16; ++kq) {
-          uint32_t a[4];
-          // A = dG^T: stored rows are queries 16kq.., columns band rows br..
-          const int qr = 16 * kq + (lane & 7) + 8 * ((lane >> 4) & 1);
-          ldsm_x4_t(a, dg_row(qr) + br + 8 * ((lane >> 3) & 1));
+      for (int ks = 0; ks < BQ / 16; ++ks) {
+        uint32_t ap[4], as[4], al[4], ah[4];
+        ld_a_t(ap, Ps + 16 * ks * LDP + 16 * kq, LDP, lane);
+        ld_a_t(as, dSs + 16 * ks * LDP + 16 * kq, LDP, lane);
+        const bool in_l = ks >= 3 - rbl, in_h = ks <= 3 - rbl;   // the same for the warp
+        if (in_l) ld_dgt(al, ks, rbl);
+        if (in_h) ld_dgt(ah, ks, rbl + 4);
 #pragma unroll
-          for (int dp = 0; dp < DH / 32; ++dp) {
-            uint32_t bfr[4];
-            ld_b_t(bfr, Qs + 16 * kq * LDH + DH / 2 * half + 16 * dp, LDH, lane);
-            mma16816(acc[2 * dp], a, bfr[0], bfr[1]);
-            mma16816(acc[2 * dp + 1], a, bfr[2], bfr[3]);
+        for (int dp = 0; dp < DH / 32; ++dp) {
+          uint32_t bfr[4];
+          ld_b_t(bfr, dOs + 16 * ks * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
+          mma16816(dv[2 * dp], ap, bfr[0], bfr[1]);
+          mma16816(dv[2 * dp + 1], ap, bfr[2], bfr[3]);
+          ld_b_t(bfr, Qs + 16 * ks * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
+          mma16816(dk[2 * dp], as, bfr[0], bfr[1]);
+          mma16816(dk[2 * dp + 1], as, bfr[2], bfr[3]);
+          if (in_l) {
+            mma16816(acc[2 * dp], al, bfr[0], bfr[1]);
+            mma16816(acc[2 * dp + 1], al, bfr[2], bfr[3]);
+          }
+          if (in_h) {
+            mma16816(carry[2 * dp], ah, bfr[0], bfr[1]);
+            mma16816(carry[2 * dp + 1], ah, bfr[2], bfr[3]);
           }
         }
-        const int rA = br + g, rB = rA + 8;
-        const int tA = t0 + rA, tB = t0 + rB;
-        const bool okA = rA < BAND - 1 && tA >= 0 && tA < p.klen;
-        const bool okB = rB < BAND - 1 && tB >= 0 && tB < p.klen;
-        const float gA = dgsum_s[rA], gB = dgsum_s[rB];
-        const float* rrh = p.rr + h * DH;
-#pragma unroll
-        for (int n = 0; n < DH / 16; ++n) {
-          const int d = DH / 2 * half + 8 * n + 2 * t;
-          const float2 rr2 = *reinterpret_cast<const float2*>(rrh + d);
-          if (okA) {
-            float* dst = p.drk + (static_cast<long long>(tA) * p.H + h) * DH + d;
-            atomicAdd(dst, acc[n][0] + gA * rr2.x);
-            atomicAdd(dst + 1, acc[n][1] + gA * rr2.y);
-          }
-          if (okB) {
-            float* dst = p.drk + (static_cast<long long>(tB) * p.H + h) * DH + d;
-            atomicAdd(dst, acc[n][2] + gB * rr2.x);
-            atomicAdd(dst + 1, acc[n][3] + gB * rr2.y);
-          }
+        if (ks == 3 - rbl) {   // block rbl + 4 is complete: out while the rest runs
+          add_rr(carry, rbl + 4);
+          flush_drk(carry, rbl + 4);
         }
       }
+      // drr: sum_t dgsum_t rk_t over the rk rows no later tile touches: the
+      // band's high 64 rows (this tile's sums and the previous tile's sums of
+      // its low rows, the same rk rows), and on the last tile the low 64
+      // too. Rows 8 warp.., dims 4 lane..; rows outside [0, klen) are zero.
+      for (int half = has_next ? 1 : 0; half < 2; ++half) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = BQ * half + 8 * warp + i;
+          const float gs = dgs[r] + (half ? dgs_prev[r - BQ] : 0.f);
+          const uint2 raw = *reinterpret_cast<const uint2*>(band_row(r) + 4 * lane);
+          const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const float2 x0 = __bfloat1622float2(x[0]), x1 = __bfloat1622float2(x[1]);
+          drr_acc[0] += gs * x0.x;
+          drr_acc[1] += gs * x0.y;
+          drr_acc[2] += gs * x1.x;
+          drr_acc[3] += gs * x1.y;
+        }
+      }
+      add_rr(acc, rbl);
+      if (has_next) {
+#pragma unroll
+        for (int n = 0; n < DH / 16; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) carry[n][e] = acc[n][e];
+      } else {
+        flush_drk(acc, rbl);
+      }
     }
-
-    // drr: sum_t dgsum_t rk_t, dim tid (band rows outside [0, klen) are zero)
-    for (int r = 0; r < BAND - 1; ++r)
-      drr_acc += dgsum_s[r] * __bfloat162float(Rs[r * LDH + tid]);
   }
-  cp_async_wait_all();   // K and V, should no query tile have been visited
+  cp_async_wait_group0();   // K and V, should no query tile have been visited
   __syncthreads();
 
   // dK = dS^T . q + (sum_i dS_ij) r_w; dV; both cast to bf16
-  const int j0 = WROWS * warp + g, j1 = j0 + 8;
+  const int j0 = 16 * kq + g, j1 = j0 + 8;
   const int key0 = c0 + j0, key1 = c0 + j1;
   const float s0 = dsum_s[j0], s1 = dsum_s[j1];
-  const float* rwh = p.rw + h * DH;
-  const long long o0 = ((static_cast<long long>(b) * p.klen + key0) * p.H + h) * DH + 2 * t;
+  const long long o0 =
+      ((static_cast<long long>(b) * p.klen + key0) * p.H + h) * DH + DH / 2 * dh + 2 * t;
   const long long o1 = o0 + 8LL * p.H * DH;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
-    const float2 rw2 = *reinterpret_cast<const float2*>(rwh + 8 * n + 2 * t);
+  for (int n = 0; n < DH / 16; ++n) {
+    const int d = DH / 2 * dh + 8 * n + 2 * t;
+    const float rx = rw_s[d], ry = rw_s[d + 1];
     if (key0 < p.klen) {
       *reinterpret_cast<uint32_t*>(p.dk + o0 + 8 * n) =
-          pack_bf16(dk[n][0] + s0 * rw2.x, dk[n][1] + s0 * rw2.y);
+          pack_bf16(dk[n][0] + s0 * rx, dk[n][1] + s0 * ry);
       *reinterpret_cast<uint32_t*>(p.dv + o0 + 8 * n) = pack_bf16(dv[n][0], dv[n][1]);
     }
     if (key1 < p.klen) {
       *reinterpret_cast<uint32_t*>(p.dk + o1 + 8 * n) =
-          pack_bf16(dk[n][2] + s1 * rw2.x, dk[n][3] + s1 * rw2.y);
+          pack_bf16(dk[n][2] + s1 * rx, dk[n][3] + s1 * ry);
       *reinterpret_cast<uint32_t*>(p.dv + o1 + 8 * n) = pack_bf16(dv[n][2], dv[n][3]);
     }
   }
-  // drw: sum_j (sum_i dS_ij) k_j, dim tid (keys past klen are zero rows)
-  float drw_acc = 0.f;
-  for (int j = 0; j < BK; ++j) drw_acc += dsum_s[j] * __bfloat162float(Ks[j * LDH + tid]);
-  atomicAdd(p.drw + h * DH + tid, drw_acc);
-  atomicAdd(p.drr + h * DH + tid, drr_acc);
+  // drw: sum_j (sum_i dS_ij) k_j, dim tid % DH over half the keys (keys past
+  // klen are zero rows)
+  {
+    const int d = tid % DH, jh = tid / DH;
+    float drw_acc = 0.f;
+    for (int j = BK / 2 * jh; j < BK / 2 * (jh + 1); ++j)
+      drw_acc += dsum_s[j] * __bfloat162float(Ks[j * LDH + d]);
+    atomicAdd(p.drw + h * DH + d, drw_acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) atomicAdd(p.drr + h * DH + 4 * lane + i, drr_acc[i]);
 }
 
 }  // namespace
@@ -788,7 +1113,7 @@ int bdm_flash_rel_attention_bwd(int which, const void* q, const void* k, const v
     k4_rel_bwd_dq_kernel<<<grid, THREADS, SMEM_DQ, st>>>(p);
   } else {
     const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>(nk));
-    k5_rel_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV, st>>>(p);
+    k5_rel_bwd_dkv_kernel<<<grid, THREADS5, SMEM_DKV, st>>>(p);
   }
   return cudaGetLastError();
 }

@@ -61,7 +61,14 @@ Phases, each printing one JSON line:
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
-tree's (new, old, old, new) and its host time per call.
+tree's (new, old, old, new) and its host time per call. With
+``--old-rel-bwd SRC`` (a copy of an earlier
+csrc/flash_rel_attention_bwd.cu with the same C interface), it times that
+K5 in turns with this tree's (old, new, new, old) on the same inputs at
+the two timed K4/K5 shapes.
+
+The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
+registers, stack, spill bytes and static shared memory of K4 and K5.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers and its launches on the main paths (only when
@@ -77,6 +84,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +147,35 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+PTXAS_KERNELS = ("k4_rel_bwd_dq_kernel", "k5_rel_bwd_dkv_kernel")
+
+
+def ptxas_resources(log: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads, smem}} from
+    nvcc's ``-Xptxas -v`` output (bytes; smem is the static shared memory
+    ptxas reports, dynamic shared memory is not in it), for each entry
+    function whose mangled name holds one of PTXAS_KERNELS."""
+    out = {}
+    for chunk in re.split(r"Compiling entry function", log)[1:]:
+        name = next((k for k in PTXAS_KERNELS
+                     if k in chunk.split("\n", 1)[0]), None)
+        if name is None:
+            continue
+        rec = {}
+        m = re.search(r"Used (\d+) registers", chunk)
+        if m:
+            rec["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", chunk)
+        if m:
+            rec.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"(\d+) bytes smem", chunk)
+        rec["smem"] = int(m.group(1)) if m else 0
+        out[name] = rec
+    return out
+
+
 def phase_build() -> dict:
     from bdm_db1_tpu_torch.ops import cuda_build
 
@@ -149,6 +186,9 @@ def phase_build() -> dict:
     for name, info in built.items():
         # ptxas resource lines (registers, shared memory, spills)
         print(f"[nvcc {name}]\n{info['log'].strip()}", file=sys.stderr)
+    if "flash_rel_attention_bwd" in built:
+        rec["resources"] = ptxas_resources(
+            built["flash_rel_attention_bwd"]["log"])
     return rec
 
 
@@ -286,6 +326,25 @@ QMM_EDGE = [(R, K, N) for R in (1, 8, 57, 64, 65, 200) for K in (96, 4128)
             for N in (200, 2056)]
 
 
+def _build_copy(src: str):
+    """nvcc (the port's flags) on a copy of an earlier CUDA source, next to
+    it: (the loaded library, nvcc's output)."""
+    import ctypes
+    import os
+    from pathlib import Path
+
+    from bdm_db1_tpu_torch.ops import cuda_build
+
+    src = Path(src).resolve()
+    out = src.with_suffix(".so")
+    log = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                          str(out), str(src)], capture_output=True, text=True)
+    if log.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}"
+                           f"{log.stderr}")
+    return ctypes.CDLL(os.fspath(out)), log.stdout + log.stderr
+
+
 class OldQmm:
     """An earlier K9 kernel with the 9-argument C interface (the wmma,
     cp.async-ring one), built from a copy of its source given by
@@ -294,20 +353,8 @@ class OldQmm:
 
     def __init__(self, src: str):
         import ctypes
-        import os
-        from pathlib import Path
 
-        from bdm_db1_tpu_torch.ops import cuda_build
-
-        src = Path(src).resolve()
-        out = src.with_suffix(".so")
-        log = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-                              "-o", str(out), str(src)],
-                             capture_output=True, text=True)
-        if log.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}"
-                               f"{log.stderr}")
-        self.lib = ctypes.CDLL(os.fspath(out))
+        self.lib, _ = _build_copy(src)
         P, I = ctypes.c_void_p, ctypes.c_int
         self.lib.bdm_quant_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
         self.lib.bdm_quant_matmul.restype = I
@@ -328,6 +375,37 @@ class OldQmm:
         if rc:
             raise RuntimeError(f"old K9 launch failed ({rc})")
         return y
+
+
+class OldRelBwd:
+    """An earlier K4/K5 source with this tree's C interface, built from a
+    copy given by --old-rel-bwd and called through the port's own wrapper
+    (``_launch_bwd``) with its library in place of this tree's: timed in
+    turns with this tree's K5 on the same card. Not part of the port."""
+
+    def __init__(self, src: str):
+        import ctypes
+
+        from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+
+        lib, log = _build_copy(src)
+        self.resources = ptxas_resources(log)
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bdm_flash_rel_attention_bwd.argtypes = (
+            [I] + [P] * 18 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
+        lib.bdm_flash_rel_attention_bwd.restype = I
+        lib.bdm_rel_bwd_error_string.argtypes = [I]
+        lib.bdm_rel_bwd_error_string.restype = ctypes.c_char_p
+        self.lib, self.fra = lib, fra
+
+    def __call__(self, which, *args):
+        fra = self.fra
+        current = fra._lib_bwd
+        fra._lib_bwd = lambda: self.lib
+        try:
+            return fra._launch_bwd(which, *args)
+        finally:
+            fra._lib_bwd = current
 
 
 def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
@@ -536,12 +614,15 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
 GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
 
 
-def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
+def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
+                  old=None):
     """K4 and K5 on K3's inputs (q, k, v sliced from one fused projection),
     K3's (out, m, l) and a seeded upstream gradient, against their plain
     version: the six gradients, each within BWD_REL_TOL of its largest
     value; when timed, each kernel's time and bound, the plain backward's
-    time and the SDPA backward as a yardstick."""
+    time and the SDPA backward as a yardstick; with ``old`` (OldRelBwd),
+    the old K5 and this one timed in turns (old, new, new, old), the old
+    one's five gradients held to this one's within twice BWD_REL_TOL."""
     from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
 
     H, Dh = 16, 128
@@ -592,9 +673,33 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
         rec["dkv"] = bound(ins + 2 * 2 * rows_k + 4 * klen * H * Dh
                            + 2 * 4 * H * Dh, 6 * 2 * Dh * pairs)
         rec["unbanned_pairs"] = pairs
-        for which in ("dq", "dkv"):
-            rec[which]["ms"] = time_ms(
-                lambda i: fra._launch_bwd(which, *saved, *pos), iters=10)
+        rec["dq"]["ms"] = time_ms(
+            lambda i: fra._launch_bwd("dq", *saved, *pos), iters=10)
+
+        def new_dkv(i):
+            return fra._launch_bwd("dkv", *saved, *pos)
+
+        if old is None:
+            rec["dkv"]["ms"] = time_ms(new_dkv, iters=10)
+        else:
+            def old_dkv(i):
+                return old("dkv", *saved, *pos)
+
+            old_rel = {}
+            for name, a, b in zip(GRAD_NAMES[1:], old_dkv(0), got[1:]):
+                old_rel[name] = float((a.float() - b.float()).abs().max()
+                                      / b.float().abs().max())
+            torch.cuda.synchronize()
+            rec["dkv"]["old_vs_new_rel_err"] = old_rel
+            if not all(np.isfinite(v) and v <= 2 * BWD_REL_TOL[n]
+                       for n, v in old_rel.items()):
+                raise AssertionError(f"the old K5 disagrees with this "
+                                     f"one: {old_rel}")
+            times = [time_ms(f, iters=10)
+                     for f in (old_dkv, new_dkv, new_dkv, old_dkv)]
+            rec["dkv"]["ms"] = float(np.mean(times[1:3]))
+            rec["dkv"]["old_ms"] = float(np.mean(times[::3]))
+            rec["dkv"]["turns_ms"] = times
         rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_bwd_plain(
             *saved, **kw), iters=2, warmup=1)
         # yardstick only (the port never calls it): the backward of SDPA of
@@ -623,7 +728,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
     return rec
 
 
-def phase_kernels(old_qmm=None) -> dict:
+def phase_kernels(old_qmm=None, old_rel_bwd=None) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
@@ -675,18 +780,22 @@ def phase_kernels(old_qmm=None) -> dict:
         _rel_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
                   same_length=True, seed=52, timed=False)]
     torch.cuda.empty_cache()
+    old_bwd = OldRelBwd(old_rel_bwd) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
         # (a) the train step's shape: B 4, seq 1024, causal
         _rel_bwd_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
-                      same_length=True, seed=60, timed=True),
+                      same_length=True, seed=60, timed=True, old=old_bwd),
         # (b) over 1024 memory rows, window active
         _rel_bwd_case(fra, B=4, qlen=256, klen=1280, mem_len=1024,
-                      same_length=True, seed=61, timed=True),
+                      same_length=True, seed=61, timed=True, old=old_bwd),
         # (c) ragged
         _rel_bwd_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
                       same_length=True, seed=62, timed=False)]
-    return {"phase": "kernels", "cases": cases, "qmm_host_us": host_us,
-            "w8a8_int32": _w8a8_check(qm)}
+    rec = {"phase": "kernels", "cases": cases, "qmm_host_us": host_us,
+           "w8a8_int32": _w8a8_check(qm)}
+    if old_bwd:
+        rec["old_rel_bwd_resources"] = old_bwd.resources
+    return rec
 
 
 K_REPLACES = {
@@ -1460,6 +1569,7 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
                                     max_abs_err=k7["k8_max_abs_err"])
     # K4 and K5 share one record: each its time and bound, the plain
     # backward's time (both kernels' work) and the SDPA backward (K4 + K5)
+    # (with --old-rel-bwd, the old K5's time in turns as dkv_old_ms)
     bwd = cases["flash_rel_attention_bwd"][0]
     for which, grads in (("dq", ("dq",)),
                          ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
@@ -1477,6 +1587,9 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case["shape"]})
+        if name.startswith("flash_rel_attention_bwd") \
+                and "old_ms" in case["dkv"]:
+            rows[-1]["dkv_old_ms"] = case["dkv"]["old_ms"]
         if name == "quant_matmul":
             rows[-1]["cases"] = [
                 {k: c[k] for k in ("shape", "ms", "bound_ms", "bound_by",
@@ -1492,6 +1605,9 @@ def main(argv=None) -> int:
     ap.add_argument("--old-qmm", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/quant_matmul.cu: its K9 is "
                          "timed in turns with this tree's")
+    ap.add_argument("--old-rel-bwd", default=None, metavar="SRC",
+                    help="a copy of an earlier csrc/flash_rel_attention_bwd.cu:"
+                         " its K5 is timed in turns with this tree's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1512,7 +1628,7 @@ def main(argv=None) -> int:
         results["build"] = phase_build()
         emit(results["build"])
     if "kernels" in phases:
-        results["kernels"] = phase_kernels(args.old_qmm)
+        results["kernels"] = phase_kernels(args.old_qmm, args.old_rel_bwd)
         emit(results["kernels"])
     serves = {"serve": dict(batch=40),
               "serve_int8": dict(batch=56, decode_cache_dtype="int8",
