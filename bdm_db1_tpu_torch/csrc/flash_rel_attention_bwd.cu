@@ -7,7 +7,7 @@
 // (csrc/flash_rel_attention.cu; q [B, qlen, H, Dh], k/v [B, klen, H, Dh],
 // rk [klen, H, Dh], f32 biases r_w, r_r [H, Dh]), its row stats (m, l)
 // [B, H, qlen], the upstream gradient dO [B, qlen, H, Dh] and
-// delta = rowsum(dO * O) [B, H, qlen] (f32, made by the wrapper):
+// delta = rowsum(dO * O) [B, H, qlen] (f32):
 //
 //   p = exp(s - m) / max(l, 1e-30), s recomputed exactly as K3 computes it
 //   dP = dO . V^T,  dS = p * (dP - delta) * scale
@@ -17,12 +17,20 @@
 //   drk = sum_b dG^T . (q + r_r)               (K5, summed over the batch)
 //   drw = sum_{b,i} (dS . K)_i,  drr = sum_{b,i} (dG . rk)_i   (K5)
 //
+// One backward is three launches on one stream: a preparation kernel
+// (delta, and the f32 per-key terms r_w . k_j and r_r . rk_t, one warp per
+// dot product over bf16 rows), then K4, then K5. Both kernels read the one
+// delta and the one set of key terms (the JAX package also computes delta
+// once, in XLA). A separate small kernel rather than K4's prologue: K5
+// needs every row's delta, and the preparation reads ~55 MB at the
+// training shape (0.016 ms at the memory rate), where a prologue would
+// hold each K4 block on a second [64, 128] load before its first tile.
+//
 // Scores. Each tile recomputes q . k and q . rk_band as bf16 mma.sync
-// products with f32 accumulation plus the f32 per-key terms r_w . k_j and
-// r_r . rk_t (a small first kernel, as in K3), with K3's mask from indices
-// (a banned entry gets p = 0, as exp(-1e30 - m) gives it) and K3's
-// skipping of fully banned tiles, so exp(s - m) / l gives back K3's
-// probabilities. p and dS are rounded to bf16 for the tensor-core
+// products with f32 accumulation plus the per-key terms, with K3's mask
+// from indices (a banned entry gets p = 0, as exp(-1e30 - m) gives it)
+// and K3's skipping of fully banned tiles, so exp(s - m) / l gives back
+// K3's probabilities. p and dS are rounded to bf16 for the tensor-core
 // products (as FlashAttention-2 does); the row and column sums below stay
 // f32.
 //
@@ -39,10 +47,36 @@
 // or, over the block's 64 rows, drk_band += dG^T . q (K5). No row reversal
 // or roll of the TPU kernels is needed: it is an addressing change.
 //
-// K4. One block of 4 warps takes 64 query rows of one (b, h), 16 rows a
-// warp, and walks the key tiles of K3's _tile_j_bounds; dq lives in
-// registers. It uses 224 registers a thread and 124 KB of shared memory,
-// one block an SM, with no copy/compute overlap (latency-bound).
+// K4. One block of 8 warps takes 64 query rows of one (b, h) and walks the
+// key tiles of K3's _tile_j_bounds in order. A tile runs in two passes
+// between one block barrier and one 64-thread barrier per row group; the
+// warps 2 rg and 2 rg + 1 share row group rg (16 query rows) in both
+// passes, so nothing else waits:
+// - Query-major (as K5's): warp w takes key half w % 2 (32 keys) over a
+//   48-row band slice; G, p and dS are [16, 48] and [16, 32] in registers.
+//   Warp tiles with every entry banned skip the products, fully unbanned
+//   ones the per-element masks. dS goes to shared memory as bf16 and,
+//   skewed, into the row group's dG rows (a buffer of its own, so the cells
+//   no tile writes are zeroed once, at the start).
+// - dq: warp w owns head dims 64 (w % 2).. of its 16 rows and runs dS . K
+//   (4 k-steps) and dG . band over the band columns [48 - 16 rg,
+//   128 - 16 rg) (5 k-steps): dq is 32 f32 a thread.
+// - Stages: Q and dO once; K, V, r_w . k_j and r_r . rk_t in two stages;
+//   the band in a ring of three 64-row chunks. Walking the key tiles
+//   upward moves the band up 64 rows a tile, so a tile loads only its 64
+//   new high rows (band row 127 included). The next tile's cp.async copies
+//   are issued inside the query-major pass and waited for at the next
+//   tile's barrier.
+// - Budget: 211,456 bytes of shared memory (Q, dO 34.8 KB; two stages of
+//   K and V 69.6 KB; the band ring 52.2 KB; dG 17.4 KB; eight warps' G
+//   26.6 KB; dS 9.2 KB; key terms 1.5 KB), one block an SM.
+// The alternative of 128 query rows a block (8 warps of 16 rows, dq 64 f32
+// a thread, half the K/V/band staging per query row) does not fit with the
+// prefetch: Q and dO (69.6 KB), two K/V stages (69.6 KB), a ring of four
+// 64-row band chunks (its band is 191 rows; 69.6 KB) and eight warps' f32
+// G over 80 band rows (43 KB) come to ~246 KB of the 227 KB a block may
+// have (~229 KB with a three-chunk ring and no prefetch), and it halves
+// the grid to 512 blocks.
 //
 // K5. One block of 8 warps takes 64 keys of one (b, h) and walks the query
 // tiles of _tile_i_bounds in order. A tile runs in two passes between
@@ -80,16 +114,18 @@
 // At the training shape (B 4, H 16, qlen = klen = 1024, Dh 128, causal:
 // 33.6 M unbanned pairs) K4 runs 5 products of 2 * 128 FLOP a pair (AC,
 // BD, dP, dq_ac, dq_bd): 43.0 GFLOP, 0.0435 ms at 989 TFLOP/s; K5 6 (AC,
-// BD, dP, dV, dK, drk): 51.6 GFLOP, 0.0522 ms. K5 executes more than that
+// BD, dP, dV, dK, drk): 51.6 GFLOP, 0.0522 ms. Both execute more than that
 // count (48 band rows for 32 keys, the masked halves of diagonal tiles) at
-// 2 warps a scheduler, and its time is spread over the drk flush (the L2
-// atomics), the cp.async issue, the shared-memory sums and the mma.sync
-// chains, none of them dominant. (Pairing the blocks of two batch
-// elements in a cluster, to add their drk rows through distributed shared
-// memory before the atomics, was slower: two cluster barriers a tile hold
-// both blocks in step.) Left for a wgmma version: products from shared
-// memory by warpgroup (fewer registers, so more warps or a deeper ring)
-// and TMA for the staging.
+// 2 warps a scheduler. K4's time spreads over the dq pass, the cp.async
+// copies, the G, S and dP products and the elementwise work, none of them
+// dominant (probe builds with one part removed at a time: -18%, -10%,
+// -10%, -10%, -9%). K5's spreads over the drk flush (the L2 atomics), the
+// cp.async issue, the shared-memory sums and the mma.sync chains. (Pairing
+// the blocks of two batch elements in a cluster, to add their drk rows
+// through distributed shared memory before the atomics, was slower: two
+// cluster barriers a tile hold both blocks in step.) Left for a wgmma
+// version: products from shared memory by warpgroup (fewer registers, so
+// more warps or a deeper ring) and TMA for the staging.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -107,39 +143,23 @@ constexpr int DH = 128;          // head dim the kernels take
 constexpr int BQ = 64;           // query rows per tile
 constexpr int BK = 64;           // keys per tile
 constexpr int BAND = BQ + BK;    // rk band rows staged (BQ + BK - 1 used)
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int WROWS = BQ / WARPS;      // 16 query rows (or keys) per warp
-constexpr int WBAND = WROWS + BK;      // 80 band rows per warp (79 used)
+constexpr int WROWS = 16;              // query rows (or keys) per warp
 constexpr int VECS = DH / 8;           // 16-byte vectors per bf16 row
 constexpr int LDH = DH + 8;            // bf16 row stride of Q, K, V, dO, band
-constexpr int LDG = WBAND + 4;         // f32 row stride of a warp's G
-constexpr int LDGB = WBAND + 8;        // bf16 row stride of a warp's dG (K4)
-constexpr int LDD = BAND + 8;          // bf16 row stride of the block's dG (K5)
-constexpr int LDP = BK + 8;            // bf16 row stride of p and dS (K5)
-constexpr int GW_BYTES = WROWS * LDG * 4;   // one warp's G (its dG aliases it)
-static_assert(WROWS * LDGB * 2 <= GW_BYTES, "a warp's dG must fit in its G buffer");
-
+constexpr int LDD = BAND + 8;          // bf16 row stride of the block's dG
+constexpr int LDP = BK + 8;            // bf16 row stride of p and dS
 constexpr int TILE = BQ * LDH * 2;     // one staged [64, 128] bf16 tile
-constexpr int Q_OFF = 0;
-constexpr int K_OFF = Q_OFF + TILE;
-constexpr int V_OFF = K_OFF + TILE;
-constexpr int DO_OFF = V_OFF + TILE;
-constexpr int R_OFF = DO_OFF + TILE;
-constexpr int G_OFF = R_OFF + BAND * LDH * 2;
-constexpr int RWK_OFF = G_OFF + WARPS * GW_BYTES;   // r_w . k_j  [BK]
-constexpr int RRK_OFF = RWK_OFF + BK * 4;            // r_r . rk_t [BAND]
-constexpr int SMEM_DQ = RRK_OFF + BAND * 4;
 
-// K5: eight warps. In the query-major pass warp w takes row group w / 2
-// (16 query rows) and key half w % 2 (32 keys), over a 48-row band slice.
-constexpr int WARPS5 = 8;
-constexpr int THREADS5 = 32 * WARPS5;
-constexpr int KH5 = BK / 2;                  // keys per warp, query-major
-constexpr int WBAND5 = WROWS + KH5;          // 48 band rows per warp (47 used)
-constexpr int LDG5 = WBAND5 + 4;             // f32 row stride of a warp's G
-constexpr int GW5_BYTES = WROWS * LDG5 * 4;  // one warp's G
-static_assert(WROWS * LDD * 2 <= 2 * GW5_BYTES,
+// K4 and K5: eight warps. In the query-major pass warp w takes row group
+// w / 2 (16 query rows) and key half w % 2 (32 keys), over a 48-row band
+// slice.
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int KH = BK / 2;                 // keys per warp, query-major
+constexpr int WBAND = WROWS + KH;          // 48 band rows per warp (47 used)
+constexpr int LDG = WBAND + 4;             // f32 row stride of a warp's G
+constexpr int GW_BYTES = WROWS * LDG * 4;  // one warp's G
+static_assert(WROWS * LDD * 2 <= 2 * GW_BYTES,
               "a row group's dG rows must fit in its two warps' G buffers");
 constexpr int K5_K = 0;
 constexpr int K5_V = K5_K + TILE;
@@ -147,7 +167,7 @@ constexpr int K5_Q = K5_V + TILE;                     // 2 stages
 constexpr int K5_DO = K5_Q + 2 * TILE;                // 2 stages
 constexpr int K5_R = K5_DO + 2 * TILE;                // rk band: a ring of 3 x 64 rows
 constexpr int K5_G = K5_R + 3 * TILE;                 // 8 warps' G; the block's dG
-constexpr int K5_P = K5_G + WARPS5 * GW5_BYTES;       // bf16 p  [BQ, LDP]
+constexpr int K5_P = K5_G + WARPS * GW_BYTES;         // bf16 p  [BQ, LDP]
 constexpr int K5_S = K5_P + BQ * LDP * 2;             // bf16 dS [BQ, LDP]
 constexpr int K5_RRK = K5_S + BQ * LDP * 2;           // r_r . rk_t [2][BAND]
 constexpr int K5_ST = K5_RRK + 2 * BAND * 4;          // m, l, delta [2][3][BQ]
@@ -157,6 +177,18 @@ constexpr int K5_DSUM = K5_BIAS + 2 * DH * 4;         // sum_i dS_ij [BK]
 constexpr int K5_DGSUM = K5_DSUM + BK * 4;            // sum_i dG_it [3][BAND]
 constexpr int SMEM_DKV = K5_DGSUM + 3 * BAND * 4;
 static_assert(SMEM_DKV <= 232448, "one block must fit one SM");
+constexpr int K4_Q = 0;
+constexpr int K4_DO = K4_Q + TILE;
+constexpr int K4_K = K4_DO + TILE;                    // 2 stages
+constexpr int K4_V = K4_K + 2 * TILE;                 // 2 stages
+constexpr int K4_R = K4_V + 2 * TILE;                 // rk band: a ring of 3 x 64 rows
+constexpr int K4_DG = K4_R + 3 * TILE;                // the block's dG [BQ, LDD]
+constexpr int K4_G = K4_DG + BQ * LDD * 2;            // 8 warps' G
+constexpr int K4_S = K4_G + WARPS * GW_BYTES;         // bf16 dS [BQ, LDP]
+constexpr int K4_RRK = K4_S + BQ * LDP * 2;           // r_r . rk_t [2][BAND]
+constexpr int K4_RWK = K4_RRK + 2 * BAND * 4;         // r_w . k_j [2][BK]
+constexpr int SMEM_DQ = K4_RWK + 2 * BK * 4;
+static_assert(SMEM_DQ <= 232448, "one block must fit one SM");
 
 struct Params {
   const bf16* q;
@@ -166,11 +198,12 @@ struct Params {
   const float* rw;
   const float* rr;
   const bf16* dout;    // [B, qlen, H, DH] contiguous
+  const bf16* out;     // [B, qlen, H, DH] contiguous: the forward's output
   const float* m;      // [B * H, qlen]
   const float* l;
-  const float* delta;
-  float* rwk;          // scratch [B * H, klen]: r_w . k_j
-  float* rrk;          // scratch [H, klen]: r_r . rk_t
+  float* delta;        // [B * H, qlen]: rowsum(dO * O), made by the preparation
+  float* rwk;          // [B * H, klen]: r_w . k_j, made by the preparation
+  float* rrk;          // [H, klen]: r_r . rk_t, made by the preparation
   bf16* dq;            // K4: [B, qlen, H, DH]
   bf16* dk;            // K5: [B, klen, H, DH]
   bf16* dv;
@@ -186,11 +219,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 16 : 0;  // 0: nothing is read, the 16 bytes are zeroed
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
@@ -264,33 +292,44 @@ __device__ __forceinline__ void ld_b_t(uint32_t* r, const bf16* base, int ld, in
   ldsm_x4_t(r, base + (8 * ((lane >> 3) & 1) + (lane & 7)) * ld + 8 * (lane >> 4));
 }
 
-// one warp per dot product: r_w . k_j for every (b, h, j), then r_r . rk_t
-// for every (h, t), in f32 over the bf16 rows (K3's first kernel)
-__global__ void key_terms_kernel(const Params p) {
+// The preparation, one warp per dot product over two rows of 128 read in
+// bf16, summed in f32: r_w . k_j for every (b, h, j), r_r . rk_t for every
+// (h, t), then, when out is given, delta = dO_i . O_i for every (b, h, i).
+__global__ void prep_kernel(const Params p) {
   const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const long long n_k = static_cast<long long>(p.B) * p.H * p.klen;
   const long long n_r = static_cast<long long>(p.H) * p.klen;
-  if (w >= n_k + n_r) return;
+  const long long n_d = p.out ? static_cast<long long>(p.B) * p.H * p.qlen : 0;
+  if (w >= n_k + n_r + n_d) return;
   const bf16* row;
-  const float* bias;
+  float4 bb;
   float* dst;
   if (w < n_k) {
     const int bh = static_cast<int>(w / p.klen), j = static_cast<int>(w % p.klen);
     const int b = bh / p.H, h = bh % p.H;
     row = p.k + b * p.k_sb + j * p.k_st + h * DH;
-    bias = p.rw + h * DH;
+    bb = *reinterpret_cast<const float4*>(p.rw + h * DH + 4 * lane);
     dst = p.rwk + w;
-  } else {
+  } else if (w < n_k + n_r) {
     const long long w2 = w - n_k;
     const int h = static_cast<int>(w2 / p.klen), t = static_cast<int>(w2 % p.klen);
     row = p.rk + (static_cast<long long>(t) * p.H + h) * DH;
-    bias = p.rr + h * DH;
+    bb = *reinterpret_cast<const float4*>(p.rr + h * DH + 4 * lane);
     dst = p.rrk + w2;
+  } else {
+    const long long w2 = w - n_k - n_r;   // (b * H + h) * qlen + i
+    const int bh = static_cast<int>(w2 / p.qlen), i = static_cast<int>(w2 % p.qlen);
+    const long long off = ((static_cast<long long>(bh / p.H) * p.qlen + i) * p.H + bh % p.H) * DH;
+    row = p.dout + off;
+    const uint2 raw = *reinterpret_cast<const uint2*>(p.out + off + 4 * lane);
+    const __nv_bfloat162* o = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 o0 = __bfloat1622float2(o[0]), o1 = __bfloat1622float2(o[1]);
+    bb = make_float4(o0.x, o0.y, o1.x, o1.y);
+    dst = p.delta + w2;
   }
   const uint2 raw = *reinterpret_cast<const uint2*>(row + 4 * lane);
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float4 bb = *reinterpret_cast<const float4*>(bias + 4 * lane);
   const float2 x0 = __bfloat1622float2(x[0]), x1 = __bfloat1622float2(x[1]);
   float acc = bb.x * x0.x + bb.y * x0.y + bb.z * x1.x + bb.w * x1.y;
 #pragma unroll
@@ -307,132 +346,45 @@ __device__ __forceinline__ Geometry geometry(const Params& p) {
   return {p.klen - p.qlen, mask_len > 0 ? p.qlen - mask_len : p.qlen};
 }
 
-// Stage the band of rk rows t0 + r (r < BAND - 1, zero outside [0, klen))
-// and their r_r . rk_t terms for query tile r0 and key tile c0.
-__device__ __forceinline__ void stage_band(const Params& p, int h, int r0, int c0, bf16* Rs,
-                                           float* rrk_s, int tid) {
-  const int t0 = c0 - r0 + p.qlen - BQ;
-  for (int e = tid; e < BAND * VECS; e += THREADS) {
+// Stage 64 rk rows from t1 into Rs (zero outside [0, klen)).
+__device__ __forceinline__ void stage_rk(const Params& p, int h, int t1, bf16* Rs, int tid) {
+  for (int e = tid; e < BQ * VECS; e += THREADS) {
     const int r = e / VECS, c = (e % VECS) * 8;
-    const int tr = t0 + r;
-    const bool ok = r < BAND - 1 && tr >= 0 && tr < p.klen;
+    const int tr = t1 + r;
+    const bool ok = tr >= 0 && tr < p.klen;
     cp_async16(Rs + r * LDH + c,
                ok ? p.rk + (static_cast<long long>(tr) * p.H + h) * DH + c : p.rk, ok);
   }
-  const int tr = t0 + tid;
-  rrk_s[tid] = (tid < BAND - 1 && tr >= 0 && tr < p.klen)
-                   ? p.rrk[static_cast<long long>(h) * p.klen + tr] : 0.f;
 }
 
-// Stage 64 rows [row0, row0 + 64) of a [*, T, H, DH] operand, zero past T.
-__device__ __forceinline__ void stage_rows(const bf16* base, long long st, int row0, int T,
-                                           bf16* dst, int tid) {
-  for (int e = tid; e < BQ * VECS; e += THREADS) {
+// K4: stage key tile c0's K, V and r_w . k_j into stage s, the r_r . rk_t
+// terms of its band (rk rows from t0), and the band's high 64 rows into
+// ring slot `slot`, by cp.async (zero past klen and outside [0, klen)). The
+// band's low 64 rows are the previous tile's high ones.
+__device__ __forceinline__ void k4_stage(const Params& p, int bh, int b, int h, int c0, int t0,
+                                         unsigned char* smem, int s, int slot, int tid) {
+  bf16* Ks = reinterpret_cast<bf16*>(smem + K4_K + s * TILE);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + K4_V + s * TILE);
+  const bf16* kb = p.k + b * p.k_sb + h * DH;
+  const bf16* vb = p.v + b * p.v_sb + h * DH;
+  for (int e = tid; e < BK * VECS; e += THREADS) {
     const int r = e / VECS, c = (e % VECS) * 8;
-    const bool ok = row0 + r < T;
-    cp_async16(dst + r * LDH + c, ok ? base + (row0 + r) * st + c : base, ok);
+    const bool ok = c0 + r < p.klen;
+    cp_async16(Ks + r * LDH + c, ok ? kb + (c0 + r) * p.k_st + c : kb, ok);
+    cp_async16(Vs + r * LDH + c, ok ? vb + (c0 + r) * p.v_st + c : vb, ok);
   }
-}
-
-// One warp's 16 query rows of a (query tile r0, key tile c0) pair, from the
-// staged tiles: p and dS [16, 64] in the mma accumulator layout (rows g and
-// g + 8 of the warp, columns 8n + 2t + e). Rows past qlen and banned
-// entries give p = dS = 0. Leaves the warp's G buffer free for reuse.
-__device__ __forceinline__ void tile_p_ds(const Params& p, const Geometry& geo,
-                                          const bf16* Qs, const bf16* Ks, const bf16* Vs,
-                                          const bf16* dOs, const bf16* Rs, float* Gw,
-                                          const float* rwk_s, const float* rrk_s, int warp,
-                                          int lane, int r0, int c0, float m0, float m1,
-                                          float il0, float il1, float dl0, float dl1,
-                                          float (&pr)[BK / 8][4], float (&ds)[BK / 8][4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int wb = BQ - WROWS - WROWS * warp;   // this warp's first band row
-  const bf16* qw = Qs + WROWS * warp * LDH;
-  {  // G = q . band^T over this warp's 80 band rows, kept as f32 in Gw
-    float gacc[WBAND / 8][4];
-#pragma unroll
-    for (int n = 0; n < WBAND / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t qa[4];
-      ld_a(qa, qw + kk * 16, LDH, lane);
-#pragma unroll
-      for (int np = 0; np < WBAND / 16; ++np) {
-        uint32_t bfr[4];
-        ld_b(bfr, Rs + (wb + 16 * np) * LDH + kk * 16, LDH, lane);
-        mma16816(gacc[2 * np], qa, bfr[0], bfr[1]);
-        mma16816(gacc[2 * np + 1], qa, bfr[2], bfr[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < WBAND / 8; ++n) {
-      *reinterpret_cast<float2*>(Gw + g * LDG + 8 * n + 2 * t) = make_float2(gacc[n][0], gacc[n][1]);
-      *reinterpret_cast<float2*>(Gw + (g + 8) * LDG + 8 * n + 2 * t) =
-          make_float2(gacc[n][2], gacc[n][3]);
-    }
-  }
-  // S = q . k^T
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t qa[4];
-    ld_a(qa, qw + kk * 16, LDH, lane);
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t bfr[4];
-      ld_b(bfr, Ks + 16 * np * LDH + kk * 16, LDH, lane);
-      mma16816(pr[2 * np], qa, bfr[0], bfr[1]);
-      mma16816(pr[2 * np + 1], qa, bfr[2], bfr[3]);
-    }
-  }
-  __syncwarp();
-  // p = exp(s - m) / l with K3's scores and mask
-  const int i0 = WROWS * warp + g;
-  const int row0 = r0 + i0, row1 = row0 + 8;
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = 8 * n + 2 * t + e, col = c0 + j;
-      const int br0 = BQ - 1 - i0 + j;          // block band row of (i0, j)
-      const int gc0 = WROWS - 1 - g + j;        // its column in Gw
-      const float s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG + gc0] + rrk_s[br0]) * p.scale;
-      const float s1 =
-          (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
-      bool ban0 = col > row0 + geo.mlen || col >= p.klen || row0 >= p.qlen;
-      bool ban1 = col > row1 + geo.mlen || col >= p.klen || row1 >= p.qlen;
-      if (p.same_length) {
-        ban0 = ban0 || col < row0 - (geo.shift - 1);
-        ban1 = ban1 || col < row1 - (geo.shift - 1);
-      }
-      pr[n][e] = ban0 ? 0.f : expf(s0 - m0) * il0;
-      pr[n][2 + e] = ban1 ? 0.f : expf(s1 - m1) * il1;
-    }
-  }
-  __syncwarp();   // G is read: the buffer is free
-  // dP = dO . V^T, then dS = p (dP - delta) scale
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-  const bf16* dow = dOs + WROWS * warp * LDH;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t da[4];
-    ld_a(da, dow + kk * 16, LDH, lane);
-#pragma unroll
-    for (int np = 0; np < BK / 16; ++np) {
-      uint32_t bfr[4];
-      ld_b(bfr, Vs + 16 * np * LDH + kk * 16, LDH, lane);
-      mma16816(ds[2 * np], da, bfr[0], bfr[1]);
-      mma16816(ds[2 * np + 1], da, bfr[2], bfr[3]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      ds[n][e] = pr[n][e] * (ds[n][e] - dl0) * p.scale;
-      ds[n][2 + e] = pr[n][2 + e] * (ds[n][2 + e] - dl1) * p.scale;
+  stage_rk(p, h, t0 + BQ, reinterpret_cast<bf16*>(smem + K4_R + slot * TILE), tid);
+  float* rrk_s = reinterpret_cast<float*>(smem + K4_RRK) + s * BAND;
+  float* rwk_s = reinterpret_cast<float*>(smem + K4_RWK) + s * BK;
+  for (int e = tid; e < BAND + BK; e += THREADS) {
+    if (e < BAND) {
+      const int tr = t0 + e;
+      const bool ok = tr >= 0 && tr < p.klen;
+      cp_async4(rrk_s + e, ok ? p.rrk + static_cast<long long>(h) * p.klen + tr : p.rrk, ok);
+    } else {
+      const int j = c0 + e - BAND;
+      const bool ok = j < p.klen;
+      cp_async4(rwk_s + e - BAND, ok ? p.rwk + static_cast<long long>(bh) * p.klen + j : p.rwk, ok);
     }
   }
 }
@@ -440,18 +392,13 @@ __device__ __forceinline__ void tile_p_ds(const Params& p, const Geometry& geo,
 // K4: dq for 64 query rows of one (b, h)
 __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Q_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + V_OFF);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + DO_OFF);
-  bf16* Rs = reinterpret_cast<bf16*>(smem + R_OFF);
-  float* rwk_s = reinterpret_cast<float*>(smem + RWK_OFF);
-  float* rrk_s = reinterpret_cast<float*>(smem + RRK_OFF);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + K4_Q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + K4_DO);
+  bf16* dGs = reinterpret_cast<bf16*>(smem + K4_DG);
+  bf16* dSs = reinterpret_cast<bf16*>(smem + K4_S);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  float* Gw = reinterpret_cast<float*>(smem + G_OFF + warp * GW_BYTES);
-  bf16* dGw = reinterpret_cast<bf16*>(Gw);
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const Geometry geo = geometry(p);
   const int nq = (p.qlen + BQ - 1) / BQ;
@@ -466,94 +413,236 @@ __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params 
     j_lo = lo_col > 0 ? lo_col / BK : 0;
   }
 
-  stage_rows(p.q + b * p.q_sb + h * DH, p.q_st, r0, p.qlen, Qs, tid);
-  stage_rows(p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH,
-             static_cast<long long>(p.H) * DH, r0, p.qlen, dOs, tid);
-  const int i0 = WROWS * warp + g;
-  const int row0 = r0 + i0, row1 = row0 + 8;
+  // row group rg (block rows 16 rg..) in both passes; key half kh in the
+  // query-major pass, head dims 64 dh.. in the dq pass
+  const int rg = warp >> 1, kh = warp & 1, dh = warp & 1;
+  const int wb = BQ - WROWS - WROWS * rg + KH * kh;   // first row of the band slice
+  const int i0 = WROWS * rg + g;                      // block rows i0 and i0 + 8
+  float* Gw = reinterpret_cast<float*>(smem + K4_G + warp * GW_BYTES);
+  bf16* dgp = dGs + WROWS * rg * LDD;                 // the row group's dG rows
+
+  {
+    const bf16* qb = p.q + b * p.q_sb + h * DH;
+    const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
+    const long long do_st = static_cast<long long>(p.H) * DH;
+    for (int e = tid; e < BQ * VECS; e += THREADS) {
+      const int r = e / VECS, c = (e % VECS) * 8;
+      const bool ok = r0 + r < p.qlen;
+      cp_async16(Qs + r * LDH + c, ok ? qb + (r0 + r) * p.q_st + c : qb, ok);
+      cp_async16(dOs + r * LDH + c, ok ? dob + (r0 + r) * do_st + c : dob, ok);
+    }
+  }
+  // band chunk c (64 rk rows from t_lo + 64 c) in ring slot c % 3: tile
+  // jb's band is chunks jb - j_lo (low rows) and jb - j_lo + 1 (high rows)
+  const int t_lo = j_lo * BK - r0 + p.qlen - BQ;
+  if (j_lo < j_hi) {
+    stage_rk(p, h, t_lo, reinterpret_cast<bf16*>(smem + K4_R), tid);
+    k4_stage(p, bh, b, h, j_lo * BK, t_lo, smem, 0, 1, tid);
+  }
+  cp_async_commit();
+  // Every tile writes the same dG cells (a row group's diagonal band), so
+  // the cells the product reads beside them are zeroed once.
+  for (int e = tid; e < BQ * LDD / 8; e += THREADS)
+    reinterpret_cast<uint4*>(dGs)[e] = make_uint4(0u, 0u, 0u, 0u);
+
   const long long srow = static_cast<long long>(bh) * p.qlen;
+  const int row0 = r0 + i0, row1 = row0 + 8;
   const float m0 = row0 < p.qlen ? p.m[srow + row0] : 0.f;
   const float m1 = row1 < p.qlen ? p.m[srow + row1] : 0.f;
   const float il0 = row0 < p.qlen ? 1.f / fmaxf(p.l[srow + row0], 1e-30f) : 0.f;
   const float il1 = row1 < p.qlen ? 1.f / fmaxf(p.l[srow + row1], 1e-30f) : 0.f;
   const float dl0 = row0 < p.qlen ? p.delta[srow + row0] : 0.f;
   const float dl1 = row1 < p.qlen ? p.delta[srow + row1] : 0.f;
-  const int wb = BQ - WROWS - WROWS * warp;
 
-  float dq[DH / 8][4];
+  float dq[DH / 16][4];   // rows i0, i0 + 8; dims 64 dh + 8 n + 2 t
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < DH / 16; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  const bf16* kb = p.k + b * p.k_sb + h * DH;
-  const bf16* vb = p.v + b * p.v_sb + h * DH;
   for (int jb = j_lo; jb < j_hi; ++jb) {
+    const int tn = jb - j_lo, s = tn & 1;
     const int c0 = jb * BK;
-    __syncthreads();   // every warp is done with the previous tile
-    stage_rows(kb, p.k_st, c0, p.klen, Ks, tid);
-    stage_rows(vb, p.v_st, c0, p.klen, Vs, tid);
-    stage_band(p, h, r0, c0, Rs, rrk_s, tid);
-    if (tid < BK) {
-      const int j = c0 + tid;
-      rwk_s[tid] = j < p.klen ? p.rwk[static_cast<long long>(bh) * p.klen + j] : 0.f;
-    }
-    cp_async_wait_all();
-    __syncthreads();
+    const int t0 = t_lo + BQ * tn;   // rk row of band row 0
+    cp_async_wait_group0();
+    __syncthreads();   // tile jb has landed; every warp is done with tile jb - 1
+    const bf16* Ks = reinterpret_cast<const bf16*>(smem + K4_K + s * TILE);
+    const bf16* Vs = reinterpret_cast<const bf16*>(smem + K4_V + s * TILE);
+    const bf16* Rlo = reinterpret_cast<const bf16*>(smem + K4_R + tn % 3 * TILE);
+    const bf16* Rhi = reinterpret_cast<const bf16*>(smem + K4_R + (tn + 1) % 3 * TILE);
+    // band row r (a group of 16 never straddles the two chunks)
+    const auto band_row = [&](int r) { return (r < BQ ? Rlo : Rhi) + (r % BQ) * LDH; };
+    const float* rrk_s = reinterpret_cast<const float*>(smem + K4_RRK) + s * BAND;
+    const float* rwk_s = reinterpret_cast<const float*>(smem + K4_RWK) + s * BK;
 
-    float pr[BK / 8][4], ds[BK / 8][4];
-    tile_p_ds(p, geo, Qs, Ks, Vs, dOs, Rs, Gw, rwk_s, rrk_s, warp, lane, r0, c0, m0, m1, il0,
-              il1, dl0, dl1, pr, ds);
-
-    // dq += dS . K: the dS tiles 2k, 2k + 1 are the A fragment of keys 16k..16k+15
+    {  // query-major: rows i0, i0 + 8 of row group rg, keys 32 kh..
+      const int wrow = r0 + WROWS * rg, wcol = c0 + KH * kh;
+      // every entry of the warp's 16 rows x 32 keys banned (the upper
+      // triangle of a diagonal tile, the window's edge, the ragged end)
+      const bool empty = wrow >= p.qlen || wcol >= p.klen ||
+                         wcol > wrow + WROWS - 1 + geo.mlen ||
+                         (p.same_length && wcol + KH - 1 < wrow - (geo.shift - 1));
+      float pr[KH / 8][4], ds[KH / 8][4];
+      const bf16* qw = Qs + WROWS * rg * LDH;
+      if (!empty) {  // G = q . band^T over the warp's 48 band rows (f32 in Gw), S = q . k^T
+        float gacc[WBAND / 8][4];
 #pragma unroll
-    for (int kq = 0; kq < BK / 16; ++kq) {
-      uint32_t a[4];
-      a[0] = pack_bf16(ds[2 * kq][0], ds[2 * kq][1]);
-      a[1] = pack_bf16(ds[2 * kq][2], ds[2 * kq][3]);
-      a[2] = pack_bf16(ds[2 * kq + 1][0], ds[2 * kq + 1][1]);
-      a[3] = pack_bf16(ds[2 * kq + 1][2], ds[2 * kq + 1][3]);
+        for (int n = 0; n < WBAND / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bfr[4];
-        ld_b_t(bfr, Ks + 16 * kq * LDH + 16 * dp, LDH, lane);
-        mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
-        mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
+        for (int n = 0; n < KH / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t qa[4];
+          ld_a(qa, qw + kk * 16, LDH, lane);
+#pragma unroll
+          for (int np = 0; np < WBAND / 16; ++np) {
+            uint32_t bfr[4];
+            ld_b(bfr, band_row(wb + 16 * np) + kk * 16, LDH, lane);
+            mma16816(gacc[2 * np], qa, bfr[0], bfr[1]);
+            mma16816(gacc[2 * np + 1], qa, bfr[2], bfr[3]);
+          }
+#pragma unroll
+          for (int np = 0; np < KH / 16; ++np) {
+            uint32_t bfr[4];
+            ld_b(bfr, Ks + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+            mma16816(pr[2 * np], qa, bfr[0], bfr[1]);
+            mma16816(pr[2 * np + 1], qa, bfr[2], bfr[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < WBAND / 8; ++n) {
+          *reinterpret_cast<float2*>(Gw + g * LDG + 8 * n + 2 * t) =
+              make_float2(gacc[n][0], gacc[n][1]);
+          *reinterpret_cast<float2*>(Gw + (g + 8) * LDG + 8 * n + 2 * t) =
+              make_float2(gacc[n][2], gacc[n][3]);
+        }
+      }
+      __syncwarp();
+      // tile jb + 1 into the other stage, issued here, between the products
+      // and the shared-memory work, rather than in one burst after the barrier
+      if (jb + 1 < j_hi) k4_stage(p, bh, b, h, c0 + BK, t0 + BQ, smem, s ^ 1, (tn + 2) % 3, tid);
+      cp_async_commit();
+      if (empty) {
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+      } else {
+        // p = exp(s - m) / l with K3's scores and mask
+        const auto scores = [&](int n, int e, float& s0, float& s1) {
+          const int jl = 8 * n + 2 * t + e, j = KH * kh + jl;
+          const int br0 = BQ - 1 - i0 + j;          // block band row of (i0, j)
+          const int gc0 = WROWS - 1 - g + jl;       // its column in Gw
+          s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG + gc0] + rrk_s[br0]) * p.scale;
+          s1 = (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
+        };
+        // most tiles ban nothing in the warp's 16 rows x 32 keys
+        const bool full = wrow + WROWS <= p.qlen && wcol + KH <= p.klen &&
+                          wcol + KH - 1 <= wrow + geo.mlen &&
+                          (!p.same_length || wcol >= wrow + WROWS - 1 - (geo.shift - 1));
+        if (full) {
+#pragma unroll
+          for (int n = 0; n < KH / 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float s0, s1;
+              scores(n, e, s0, s1);
+              pr[n][e] = __expf(s0 - m0) * il0;
+              pr[n][2 + e] = __expf(s1 - m1) * il1;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < KH / 8; ++n) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float s0, s1;
+              scores(n, e, s0, s1);
+              const int col = wcol + 8 * n + 2 * t + e;
+              bool ban0 = col > row0 + geo.mlen || col >= p.klen || row0 >= p.qlen;
+              bool ban1 = col > row1 + geo.mlen || col >= p.klen || row1 >= p.qlen;
+              if (p.same_length) {
+                ban0 = ban0 || col < row0 - (geo.shift - 1);
+                ban1 = ban1 || col < row1 - (geo.shift - 1);
+              }
+              pr[n][e] = ban0 ? 0.f : __expf(s0 - m0) * il0;
+              pr[n][2 + e] = ban1 ? 0.f : __expf(s1 - m1) * il1;
+            }
+          }
+        }
+        // dP = dO . V^T, then dS = p (dP - delta) scale
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+        const bf16* dow = dOs + WROWS * rg * LDH;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t da[4];
+          ld_a(da, dow + kk * 16, LDH, lane);
+#pragma unroll
+          for (int np = 0; np < KH / 16; ++np) {
+            uint32_t bfr[4];
+            ld_b(bfr, Vs + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+            mma16816(ds[2 * np], da, bfr[0], bfr[1]);
+            mma16816(ds[2 * np + 1], da, bfr[2], bfr[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            ds[n][e] = pr[n][e] * (ds[n][e] - dl0) * p.scale;
+            ds[n][2 + e] = pr[n][2 + e] * (ds[n][2 + e] - dl1) * p.scale;
+          }
+        }
+      }
+      // dS as bf16, and skewed into the row group's dG: dG[i, 63 - i + j] = dS[i, j]
+#pragma unroll
+      for (int n = 0; n < KH / 8; ++n) {
+        const int j = KH * kh + 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dSs + i0 * LDP + j) = pack_bf16(ds[n][0], ds[n][1]);
+        *reinterpret_cast<uint32_t*>(dSs + (i0 + 8) * LDP + j) = pack_bf16(ds[n][2], ds[n][3]);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int bc0 = BQ - 1 - i0 + j + e;     // block band column of (i0, j + e)
+          dgp[g * LDD + bc0] = __float2bfloat16_rn(ds[n][e]);
+          dgp[(g + 8) * LDD + bc0 - 8] = __float2bfloat16_rn(ds[n][2 + e]);
+        }
       }
     }
+    pair_barrier(rg);   // the row group's dS and dG are complete
 
-    // dG[i, j + 15 - i] = dS[i, j] in the warp's buffer (bf16, zero elsewhere)
-    for (int e = lane; e < WROWS * LDGB / 8; e += 32)
-      reinterpret_cast<uint4*>(dGw)[e] = make_uint4(0u, 0u, 0u, 0u);
-    __syncwarp();
+    {  // dq += dS . K, then dG . band over band columns [48 - 16 rg, 128 - 16 rg)
+      const bf16* sw = dSs + WROWS * rg * LDP;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+      for (int kq = 0; kq < BK / 16; ++kq) {
+        uint32_t a[4];
+        ld_a(a, sw + 16 * kq, LDP, lane);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = 8 * n + 2 * t + e;
-        dGw[g * LDGB + WROWS - 1 - g + j] = __float2bfloat16_rn(ds[n][e]);
-        dGw[(g + 8) * LDGB + WROWS - 9 - g + j] = __float2bfloat16_rn(ds[n][2 + e]);
+        for (int dp = 0; dp < DH / 32; ++dp) {
+          uint32_t bfr[4];
+          ld_b_t(bfr, Ks + 16 * kq * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
+          mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
+          mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
+        }
+      }
+#pragma unroll
+      for (int kq = 0; kq < (WROWS + BK) / 16; ++kq) {
+        const int bc = BQ - WROWS - WROWS * rg + 16 * kq;
+        uint32_t a[4];
+        ld_a(a, dgp + bc, LDD, lane);
+#pragma unroll
+        for (int dp = 0; dp < DH / 32; ++dp) {
+          uint32_t bfr[4];
+          ld_b_t(bfr, band_row(bc) + DH / 2 * dh + 16 * dp, LDH, lane);
+          mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
+          mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
+        }
       }
     }
-    __syncwarp();
-    // dq += dG . band over this warp's 80 band rows
-#pragma unroll
-    for (int kq = 0; kq < WBAND / 16; ++kq) {
-      uint32_t a[4];
-      ld_a(a, dGw + kq * 16, LDGB, lane);
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t bfr[4];
-        ld_b_t(bfr, Rs + (wb + 16 * kq) * LDH + 16 * dp, LDH, lane);
-        mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
-        mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncwarp();   // the buffer is G again in the next tile
   }
+  cp_async_wait_group0();   // Q and dO, should no key tile have been visited
 
-  bf16* out0 = p.dq + ((static_cast<long long>(b) * p.qlen + row0) * p.H + h) * DH + 2 * t;
+  bf16* out0 =
+      p.dq + ((static_cast<long long>(b) * p.qlen + row0) * p.H + h) * DH + DH / 2 * dh + 2 * t;
   bf16* out1 = out0 + 8LL * p.H * DH;
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) {
+  for (int n = 0; n < DH / 16; ++n) {
     if (row0 < p.qlen) *reinterpret_cast<uint32_t*>(out0 + 8 * n) = pack_bf16(dq[n][0], dq[n][1]);
     if (row1 < p.qlen) *reinterpret_cast<uint32_t*>(out1 + 8 * n) = pack_bf16(dq[n][2], dq[n][3]);
   }
@@ -562,14 +651,7 @@ __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params 
 // K5: stage 64 rk rows from t1 into ring slot `slot` (zero outside [0, klen))
 __device__ __forceinline__ void k5_stage_rk(const Params& p, int h, int t1, unsigned char* smem,
                                             int slot, int tid) {
-  bf16* Rs = reinterpret_cast<bf16*>(smem + K5_R + slot * TILE);
-  for (int e = tid; e < BQ * VECS; e += THREADS5) {
-    const int r = e / VECS, c = (e % VECS) * 8;
-    const int tr = t1 + r;
-    const bool ok = tr >= 0 && tr < p.klen;
-    cp_async16(Rs + r * LDH + c,
-               ok ? p.rk + (static_cast<long long>(tr) * p.H + h) * DH + c : p.rk, ok);
-  }
+  stage_rk(p, h, t1, reinterpret_cast<bf16*>(smem + K5_R + slot * TILE), tid);
 }
 
 // K5: stage query tile r0's Q, dO, r_r . rk_t and (m, l, delta) into stage
@@ -583,7 +665,7 @@ __device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, 
   const bf16* qb = p.q + b * p.q_sb + h * DH;
   const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
   const long long do_st = static_cast<long long>(p.H) * DH;
-  for (int e = tid; e < BQ * VECS; e += THREADS5) {
+  for (int e = tid; e < BQ * VECS; e += THREADS) {
     const int r = e / VECS, c = (e % VECS) * 8;
     const bool ok = r0 + r < p.qlen;
     cp_async16(Qs + r * LDH + c, ok ? qb + (r0 + r) * p.q_st + c : qb, ok);
@@ -594,7 +676,7 @@ __device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, 
   float* rrk_s = reinterpret_cast<float*>(smem + K5_RRK) + s * BAND;
   float* st_s = reinterpret_cast<float*>(smem + K5_ST) + s * 3 * BQ;
   const long long srow = static_cast<long long>(bh) * p.qlen;
-  for (int e = tid; e < BAND + 3 * BQ; e += THREADS5) {
+  for (int e = tid; e < BAND + 3 * BQ; e += THREADS) {
     if (e < BAND) {
       const int tr = t0 + e;
       const bool ok = e < BAND - 1 && tr >= 0 && tr < p.klen;
@@ -609,7 +691,7 @@ __device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, 
 }
 
 // K5: dk, dv for 64 keys of one (b, h); drk, drw and drr by f32 atomics
-__global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + K5_K);
   bf16* Vs = reinterpret_cast<bf16*>(smem + K5_V);
@@ -626,7 +708,7 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
   // the block's dG [BQ, LDD] (bf16, skewed): the rows of row group rg lie
   // in the G buffers of warps 2 rg and 2 rg + 1
   const auto dg_row = [&](int r) {
-    return reinterpret_cast<bf16*>(smem + K5_G + (r / WROWS) * 2 * GW5_BYTES) + (r % WROWS) * LDD;
+    return reinterpret_cast<bf16*>(smem + K5_G + (r / WROWS) * 2 * GW_BYTES) + (r % WROWS) * LDD;
   };
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const Geometry geo = geometry(p);
@@ -640,9 +722,9 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
 
   // query-major: row group rg, key half kh, band slice from block band row wb
   const int rg = warp >> 1, kh = warp & 1;
-  const int wb = BQ - WROWS - WROWS * rg + KH5 * kh;
+  const int wb = BQ - WROWS - WROWS * rg + KH * kh;
   const int i0 = WROWS * rg + g;            // block rows i0 and i0 + 8
-  float* Gw = reinterpret_cast<float*>(smem + K5_G + warp * GW5_BYTES);
+  float* Gw = reinterpret_cast<float*>(smem + K5_G + warp * GW_BYTES);
   bf16* dgp = dg_row(WROWS * rg);
   // key-major: keys 16 kq.., head dims 64 dh..
   const int kq = warp & 3, dh = warp >> 2;
@@ -657,7 +739,7 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
   {
     const bf16* kb = p.k + b * p.k_sb + h * DH;
     const bf16* vb = p.v + b * p.v_sb + h * DH;
-    for (int e = tid; e < BK * VECS; e += THREADS5) {
+    for (int e = tid; e < BK * VECS; e += THREADS) {
       const int r = e / VECS, c = (e % VECS) * 8;
       const bool ok = c0 + r < p.klen;
       cp_async16(Ks + r * LDH + c, ok ? kb + (c0 + r) * p.k_st + c : kb, ok);
@@ -680,7 +762,7 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
     rw_s[tid] = p.rw[h * DH + tid];
     rr_s[tid] = p.rr[h * DH + tid];
   }
-  for (int e = tid; e < 3 * BAND; e += THREADS5) dgsum_s[e] = 0.f;
+  for (int e = tid; e < 3 * BAND; e += THREADS) dgsum_s[e] = 0.f;
 
   float dk[DH / 16][4], dv[DH / 16][4];
 #pragma unroll
@@ -717,38 +799,38 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
     const float* st_s = reinterpret_cast<const float*>(smem + K5_ST) + s * 3 * BQ;
 
     {  // query-major: rows i0, i0 + 8 of row group rg, keys 32 kh..
-      float pr[KH5 / 8][4], ds[KH5 / 8][4];
+      float pr[KH / 8][4], ds[KH / 8][4];
       const bf16* qw = Qs + WROWS * rg * LDH;
       {  // G = q . band^T over the warp's 48 band rows (f32 in Gw), S = q . k^T
-        float gacc[WBAND5 / 8][4];
+        float gacc[WBAND / 8][4];
 #pragma unroll
-        for (int n = 0; n < WBAND5 / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
+        for (int n = 0; n < WBAND / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
 #pragma unroll
-        for (int n = 0; n < KH5 / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
+        for (int n = 0; n < KH / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
           uint32_t qa[4];
           ld_a(qa, qw + kk * 16, LDH, lane);
 #pragma unroll
-          for (int np = 0; np < WBAND5 / 16; ++np) {
+          for (int np = 0; np < WBAND / 16; ++np) {
             uint32_t bfr[4];
             ld_b(bfr, band_row(wb + 16 * np) + kk * 16, LDH, lane);
             mma16816(gacc[2 * np], qa, bfr[0], bfr[1]);
             mma16816(gacc[2 * np + 1], qa, bfr[2], bfr[3]);
           }
 #pragma unroll
-          for (int np = 0; np < KH5 / 16; ++np) {
+          for (int np = 0; np < KH / 16; ++np) {
             uint32_t bfr[4];
-            ld_b(bfr, Ks + (KH5 * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+            ld_b(bfr, Ks + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
             mma16816(pr[2 * np], qa, bfr[0], bfr[1]);
             mma16816(pr[2 * np + 1], qa, bfr[2], bfr[3]);
           }
         }
 #pragma unroll
-        for (int n = 0; n < WBAND5 / 8; ++n) {
-          *reinterpret_cast<float2*>(Gw + g * LDG5 + 8 * n + 2 * t) =
+        for (int n = 0; n < WBAND / 8; ++n) {
+          *reinterpret_cast<float2*>(Gw + g * LDG + 8 * n + 2 * t) =
               make_float2(gacc[n][0], gacc[n][1]);
-          *reinterpret_cast<float2*>(Gw + (g + 8) * LDG5 + 8 * n + 2 * t) =
+          *reinterpret_cast<float2*>(Gw + (g + 8) * LDG + 8 * n + 2 * t) =
               make_float2(gacc[n][2], gacc[n][3]);
         }
       }
@@ -764,20 +846,20 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
       const float il1 = 1.f / fmaxf(st_s[BQ + i0 + 8], 1e-30f);
       const float dl0 = st_s[2 * BQ + i0], dl1 = st_s[2 * BQ + i0 + 8];
       const auto scores = [&](int n, int e, float& s0, float& s1) {
-        const int jl = 8 * n + 2 * t + e, j = KH5 * kh + jl;
+        const int jl = 8 * n + 2 * t + e, j = KH * kh + jl;
         const int br0 = BQ - 1 - i0 + j;          // block band row of (i0, j)
         const int gc0 = WROWS - 1 - g + jl;       // its column in Gw
-        s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG5 + gc0] + rrk_s[br0]) * p.scale;
-        s1 = (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG5 + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
+        s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG + gc0] + rrk_s[br0]) * p.scale;
+        s1 = (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
       };
       // most tiles ban nothing in the warp's 16 rows x 32 keys
-      const int wrow = r0 + WROWS * rg, wcol = c0 + KH5 * kh;
-      const bool full = wrow + WROWS <= p.qlen && wcol + KH5 <= p.klen &&
-                        wcol + KH5 - 1 <= wrow + geo.mlen &&
+      const int wrow = r0 + WROWS * rg, wcol = c0 + KH * kh;
+      const bool full = wrow + WROWS <= p.qlen && wcol + KH <= p.klen &&
+                        wcol + KH - 1 <= wrow + geo.mlen &&
                         (!p.same_length || wcol >= wrow + WROWS - 1 - (geo.shift - 1));
       if (full) {
 #pragma unroll
-        for (int n = 0; n < KH5 / 8; ++n) {
+        for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float s0, s1;
@@ -788,7 +870,7 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
         }
       } else {
 #pragma unroll
-        for (int n = 0; n < KH5 / 8; ++n) {
+        for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float s0, s1;
@@ -807,22 +889,22 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
       }
       // dP = dO . V^T, then dS = p (dP - delta) scale
 #pragma unroll
-      for (int n = 0; n < KH5 / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+      for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
       const bf16* dow = dOs + WROWS * rg * LDH;
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         uint32_t da[4];
         ld_a(da, dow + kk * 16, LDH, lane);
 #pragma unroll
-        for (int np = 0; np < KH5 / 16; ++np) {
+        for (int np = 0; np < KH / 16; ++np) {
           uint32_t bfr[4];
-          ld_b(bfr, Vs + (KH5 * kh + 16 * np) * LDH + kk * 16, LDH, lane);
+          ld_b(bfr, Vs + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
           mma16816(ds[2 * np], da, bfr[0], bfr[1]);
           mma16816(ds[2 * np + 1], da, bfr[2], bfr[3]);
         }
       }
 #pragma unroll
-      for (int n = 0; n < KH5 / 8; ++n) {
+      for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           ds[n][e] = pr[n][e] * (ds[n][e] - dl0) * p.scale;
@@ -836,12 +918,12 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
       // the rows that wrote them, and adds each once.
       __syncwarp();
 #pragma unroll
-      for (int n = 0; n < KH5 / 8; ++n) {
+      for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int jl = 8 * n + 2 * t + e;
-          Gw[g * LDG5 + WROWS - 1 - g + jl] = ds[n][e];
-          Gw[(g + 8) * LDG5 + WROWS - 9 - g + jl] = ds[n][2 + e];
+          Gw[g * LDG + WROWS - 1 - g + jl] = ds[n][e];
+          Gw[(g + 8) * LDG + WROWS - 9 - g + jl] = ds[n][2 + e];
         }
       }
       __syncwarp();
@@ -849,13 +931,13 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
         float cs = 0.f, d0 = 0.f, d1 = 0.f;
 #pragma unroll
         for (int i = 0; i < WROWS; ++i) {
-          cs += Gw[i * LDG5 + WROWS - 1 - i + lane];
-          if (i >= WROWS - 1 - lane) d0 += Gw[i * LDG5 + lane];
-          if (i < WROWS - 1 - lane) d1 += Gw[i * LDG5 + KH5 + lane];
+          cs += Gw[i * LDG + WROWS - 1 - i + lane];
+          if (i >= WROWS - 1 - lane) d0 += Gw[i * LDG + lane];
+          if (i < WROWS - 1 - lane) d1 += Gw[i * LDG + KH + lane];
         }
-        atomicAdd(dsum_s + KH5 * kh + lane, cs);
+        atomicAdd(dsum_s + KH * kh + lane, cs);
         atomicAdd(dgs + wb + lane, d0);
-        if (lane < WROWS - 1) atomicAdd(dgs + wb + KH5 + lane, d1);
+        if (lane < WROWS - 1) atomicAdd(dgs + wb + KH + lane, d1);
       }
 
       // the row group's dG rows overlay both warps' G: both must be done
@@ -870,8 +952,8 @@ __global__ void __launch_bounds__(THREADS5, 1) k5_rel_bwd_dkv_kernel(const Param
       }
       __syncwarp();
 #pragma unroll
-      for (int n = 0; n < KH5 / 8; ++n) {
-        const int j = KH5 * kh + 8 * n + 2 * t;
+      for (int n = 0; n < KH / 8; ++n) {
+        const int j = KH * kh + 8 * n + 2 * t;
         *reinterpret_cast<uint32_t*>(Ps + i0 * LDP + j) = pack_bf16(pr[n][0], pr[n][1]);
         *reinterpret_cast<uint32_t*>(Ps + (i0 + 8) * LDP + j) = pack_bf16(pr[n][2], pr[n][3]);
         *reinterpret_cast<uint32_t*>(dSs + i0 * LDP + j) = pack_bf16(ds[n][0], ds[n][1]);
@@ -1037,26 +1119,29 @@ const char* bdm_rel_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// which = 0: K4, dq [B, qlen, H, DH] bf16. which = 1: K5, dk and dv
-// [B, klen, H, DH] bf16, and drk [klen, H, DH], drw and drr [H, DH] f32,
-// which the caller zeroes and the kernel adds to. Pointers a kernel does not
-// use may be null. q, k, v are bf16 with element strides (batch, token)
-// given and the heads packed; rk and dout are contiguous bf16; rw and rr
-// contiguous [H, DH] f32; m, l and delta contiguous [B, H, qlen] f32;
-// rwk [B * H * klen] and rrk [H * klen] f32 scratch. Every pointer and
+// One step of the backward, all on `stream`: which = 0, the preparation:
+// rwk [B * H * klen] and rrk [H * klen] f32, and delta [B, H, qlen] f32
+// when out is given (out may be null: the key terms alone); which = 1, K4:
+// dq [B, qlen, H, DH] bf16; which = 2, K5: dk and dv [B, klen, H, DH] bf16,
+// and drk [klen, H, DH], drw and drr [H, DH] f32, which the caller zeroes
+// and the kernel adds to. K4 and K5 read delta, rwk and rrk as the
+// preparation left them. Pointers a step does not use may be null. q, k,
+// v are bf16 with element strides (batch, token) given and the heads
+// packed; rk, dout and out are contiguous bf16; rw and rr contiguous
+// [H, DH] f32; m and l contiguous [B, H, qlen] f32. Every pointer and
 // stride must keep 16-byte alignment.
-int bdm_flash_rel_attention_bwd(int which, const void* q, const void* k, const void* v,
-                                const void* rk, const void* rw, const void* rr,
-                                const void* dout, const void* m, const void* l,
-                                const void* delta, void* rwk, void* rrk, void* dq, void* dk,
-                                void* dv, void* drk, void* drw, void* drr, long long q_sb,
-                                long long q_st, long long k_sb, long long k_st, long long v_sb,
-                                long long v_st, int B, int H, int qlen, int klen, int mem_len,
-                                int same_length, float scale, int device, void* stream) {
+int bdm_rel_bwd(int which, const void* q, const void* k, const void* v, const void* rk,
+                const void* rw, const void* rr, const void* dout, const void* out,
+                const void* m, const void* l, void* delta, void* rwk, void* rrk, void* dq,
+                void* dk, void* dv, void* drk, void* drw, void* drr, long long q_sb,
+                long long q_st, long long k_sb, long long k_st, long long v_sb, long long v_st,
+                int B, int H, int qlen, int klen, int mem_len, int same_length, float scale,
+                int device, void* stream) {
   const long long nq = (qlen + BQ - 1) / BQ;
   const long long nk = (klen + BK - 1) / BK;
-  const long long dots = (static_cast<long long>(B) + 1) * H * klen;
-  if ((which != 0 && which != 1) || B < 1 || H < 1 || qlen < 1 || klen < qlen ||
+  const long long dots = (static_cast<long long>(B) + 1) * H * klen +
+                         (out ? static_cast<long long>(B) * H * qlen : 0);
+  if (which < 0 || which > 2 || B < 1 || H < 1 || qlen < 1 || klen < qlen ||
       static_cast<long long>(B) * H > 2147483647LL || nq > 65535 || nk > 65535 ||
       (dots * 32 + 255) / 256 > 2147483647LL)
     return cudaErrorInvalidValue;
@@ -1080,9 +1165,10 @@ int bdm_flash_rel_attention_bwd(int which, const void* q, const void* k, const v
   p.rw = static_cast<const float*>(rw);
   p.rr = static_cast<const float*>(rr);
   p.dout = static_cast<const bf16*>(dout);
+  p.out = static_cast<const bf16*>(out);
   p.m = static_cast<const float*>(m);
   p.l = static_cast<const float*>(l);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.rwk = static_cast<float*>(rwk);
   p.rrk = static_cast<float*>(rrk);
   p.dq = static_cast<bf16*>(dq);
@@ -1105,15 +1191,14 @@ int bdm_flash_rel_attention_bwd(int which, const void* q, const void* k, const v
   p.same_length = same_length;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  key_terms_kernel<<<static_cast<unsigned>((dots * 32 + 255) / 256), 256, 0, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   if (which == 0) {
+    prep_kernel<<<static_cast<unsigned>((dots * 32 + 255) / 256), 256, 0, st>>>(p);
+  } else if (which == 1) {
     const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>(nq));
     k4_rel_bwd_dq_kernel<<<grid, THREADS, SMEM_DQ, st>>>(p);
   } else {
     const dim3 grid(static_cast<unsigned>(B * H), static_cast<unsigned>(nk));
-    k5_rel_bwd_dkv_kernel<<<grid, THREADS5, SMEM_DKV, st>>>(p);
+    k5_rel_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV, st>>>(p);
   }
   return cudaGetLastError();
 }

@@ -18,10 +18,11 @@ version takes the full f32 score matrix. Both return the row stats (m, l)
 [B, H, qlen] in f32 beside the output.
 
 The backward (csrc/flash_rel_attention_bwd.cu) recomputes p = exp(s - m) / l
-from those stats: K4 makes dq, K5 dk, dv, drk (summed over the batch) and
-the bias gradients drw, drr. Their plain version recomputes the full f32
-score matrix from (m, l) and follows the same contract; it is written out,
-never autograd through the plain forward.
+from those stats: a preparation kernel makes delta = rowsum(dO * O) and the
+per-key terms once, then K4 makes dq, K5 dk, dv, drk (summed over the
+batch) and the bias gradients drw, drr. Their plain version recomputes the
+full f32 score matrix from (m, l) and follows the same contract; it is
+written out, never autograd through the plain forward.
 
 The wrappers take a tensor's device as the route: CPU tensors run the plain
 versions, CUDA tensors launch the kernels (built on first use) or raise.
@@ -141,6 +142,13 @@ def _unshift(ds: Tensor) -> Tensor:
     return xp[..., :k]
 
 
+def bwd_delta_plain(out: Tensor, dout: Tensor) -> Tensor:
+    """delta = rowsum(dO * O) [B, H, qlen] in f32 (or wider), as the JAX
+    package computes it once per backward (XLA) and the CUDA route's
+    preparation kernel does."""
+    return (_wide(dout) * _wide(out)).sum(-1).transpose(1, 2)
+
+
 def flash_rel_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
                                   r_w_bias: Tensor, r_r_bias: Tensor,
                                   out: Tensor, m: Tensor, l: Tensor,
@@ -157,7 +165,7 @@ def flash_rel_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
                                same_length, scale)
     p = torch.exp(scores - m[..., None]) / l.clamp(min=1e-30)[..., None]
     do = _wide(dout)
-    delta = (do * _wide(out)).sum(-1).transpose(1, 2)          # [B, H, q]
+    delta = bwd_delta_plain(out, dout)                         # [B, H, q]
     dp = torch.einsum("bihd,bjhd->bhij", do, _wide(v))
     ds = p * (dp - delta[..., None]) * scale
     draw = _unshift(ds)
@@ -250,9 +258,9 @@ def _launch(q, k, v, rk, r_w_bias, r_r_bias, mem_len, same_length, scale):
 def _lib_bwd() -> ctypes.CDLL:
     lib = load_library("flash_rel_attention_bwd")
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bdm_flash_rel_attention_bwd.argtypes = (
-        [I] + [P] * 18 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
-    lib.bdm_flash_rel_attention_bwd.restype = I
+    lib.bdm_rel_bwd.argtypes = (
+        [I] + [P] * 19 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
+    lib.bdm_rel_bwd.restype = I
     lib.bdm_rel_bwd_error_string.argtypes = [I]
     lib.bdm_rel_bwd_error_string.restype = ctypes.c_char_p
     for fn, want in (("bdm_rel_bwd_head_dim", KERNEL_HEAD_DIM),
@@ -265,11 +273,15 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
-def _launch_bwd(which: str, q, k, v, rk, r_w_bias, r_r_bias, out, m, l,
-                dout, mem_len, same_length, scale):
-    """K4 (``which`` "dq": dq) or K5 ("dkv": dk, dv, drk, drw, drr) on the
-    forward's saved tensors and the upstream gradient; gradients in their
-    inputs' dtypes (drk summed over the batch in f32, then cast)."""
+# the C entry's pointer arguments, in order
+_BWD_PTRS = ("q", "k", "v", "rk", "rw", "rr", "dout", "out", "m", "l", "delta",
+             "rwk", "rrk", "dq", "dk", "dv", "drk", "drw", "drr")
+_BWD_STEPS = {"prep": 0, "dq": 1, "dkv": 2}
+
+
+def _bwd_operands(q, k, v, rk, r_w_bias, r_r_bias, out, m, l, dout):
+    """The checked operands of one CUDA backward, its scratch (delta, the
+    key terms) and its outputs, by the C entry's names."""
     dev = q.device
     B, qlen, H, Dh = q.shape
     klen = k.shape[1]
@@ -280,50 +292,53 @@ def _launch_bwd(which: str, q, k, v, rk, r_w_bias, r_r_bias, out, m, l,
     _check_strided("k", k, (B, klen, H, Dh), dev)
     _check_strided("v", v, (B, klen, H, Dh), dev)
     check_operand("rk", rk, (klen, H, Dh), torch.bfloat16, dev)
-    dout = dout.contiguous()
-    check_operand("dout", dout, (B, qlen, H, Dh), torch.bfloat16, dev)
-    rw = r_w_bias.float().contiguous()
-    rr = r_r_bias.float().contiguous()
-    check_operand("r_w_bias", rw, (H, Dh), torch.float32, dev)
-    check_operand("r_r_bias", rr, (H, Dh), torch.float32, dev)
-    for name, t in (("m", m), ("l", l)):
-        check_operand(name, t, (B, H, qlen), torch.float32, dev)
-    # delta = rowsum(dO * O) in f32 (XLA in the JAX package)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    t = dict(q=q, k=k, v=v, rk=rk, dout=dout.contiguous(),
+             out=out.contiguous(), m=m, l=l,
+             rw=r_w_bias.float().contiguous(), rr=r_r_bias.float().contiguous())
+    for name in ("dout", "out"):
+        check_operand(name, t[name], (B, qlen, H, Dh), torch.bfloat16, dev)
+    for name in ("rw", "rr"):
+        check_operand(name, t[name], (H, Dh), torch.float32, dev)
+    for name in ("m", "l"):
+        check_operand(name, t[name], (B, H, qlen), torch.float32, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    rwk = torch.empty(B * H * klen, **f32)
-    rrk = torch.empty(H * klen, **f32)
-    if which == "dq":
-        dq = torch.empty(B, qlen, H, Dh, dtype=torch.bfloat16, device=dev)
-        res = (dq, None, None, None, None, None)
-        code = 0
-    else:
-        dk = torch.empty(B, klen, H, Dh, dtype=torch.bfloat16, device=dev)
-        dv = torch.empty_like(dk)
-        drk = torch.zeros(klen, H, Dh, **f32)
-        drw = torch.zeros(H, Dh, **f32)
-        drr = torch.zeros(H, Dh, **f32)
-        res = (None, dk, dv, drk, drw, drr)
-        code = 1
-    ptrs = [0 if t is None else t.data_ptr() for t in res]
-    rc = _lib_bwd().bdm_flash_rel_attention_bwd(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), rk.data_ptr(),
-        rw.data_ptr(), rr.data_ptr(), dout.data_ptr(), m.data_ptr(),
-        l.data_ptr(), delta.data_ptr(), rwk.data_ptr(), rrk.data_ptr(),
-        *ptrs, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), B, H, qlen, klen, mem_len,
-        int(same_length), scale, dev.index or 0,
+    # one f32 scratch for rwk [B, H, klen], rrk [H, klen], delta [B, H, qlen]
+    scratch = torch.empty(B * H * klen + H * klen + B * H * qlen, **f32)
+    t["rwk"], t["rrk"], t["delta"] = scratch.split(
+        (B * H * klen, H * klen, B * H * qlen))
+    t["delta"] = t["delta"].view(B, H, qlen)
+    t["dq"] = torch.empty(B, qlen, H, Dh, dtype=torch.bfloat16, device=dev)
+    t["dk"] = torch.empty(B, klen, H, Dh, dtype=torch.bfloat16, device=dev)
+    t["dv"] = torch.empty_like(t["dk"])
+    # the sums K5 adds into, zeroed at once: drk [klen, H, Dh], drw, drr
+    sums = torch.zeros(klen * H * Dh + 2 * H * Dh, **f32)
+    drk, drw, drr = sums.split((klen * H * Dh, H * Dh, H * Dh))
+    t["drk"] = drk.view(klen, H, Dh)
+    t["drw"], t["drr"] = drw.view(H, Dh), drr.view(H, Dh)
+    return t
+
+
+def _bwd_step(step: str, t: dict, mem_len: int, same_length: bool,
+              scale: float) -> None:
+    """One launch of the backward on the operands of :func:`_bwd_operands`:
+    ``step`` "prep" (delta and the key terms; without ``t["out"]`` the key
+    terms alone), "dq" (K4) or "dkv" (K5)."""
+    q, k, v = t["q"], t["k"], t["v"]
+    dev = q.device
+    B, qlen, H, _ = q.shape
+    lib = _lib_bwd()
+    ptrs = [0 if t.get(n) is None else t[n].data_ptr() for n in _BWD_PTRS]
+    rc = lib.bdm_rel_bwd(
+        _BWD_STEPS[step], *ptrs, q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), v.stride(0), v.stride(1), B, H, qlen, k.shape[1],
+        mem_len, int(same_length), scale, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc:
-        msg = _lib_bwd().bdm_rel_bwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_rel_attention backward ({which}) launch "
+        msg = lib.bdm_rel_bwd_error_string(rc).decode()
+        raise RuntimeError(f"flash_rel_attention backward ({step}) launch "
                            f"failed: {msg} ({rc})")
-    LAUNCHES["flash_rel_attention_bwd_" + which] += 1
-    if which == "dq":
-        return res[0]
-    _, dk, dv, drk, drw, drr = res
-    return (dk, dv, drk.to(rk.dtype), drw.to(r_w_bias.dtype),
-            drr.to(r_r_bias.dtype))
+    if step != "prep":
+        LAUNCHES["flash_rel_attention_bwd_" + step] += 1
 
 
 def flash_rel_attention_bwd(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
@@ -332,14 +347,20 @@ def flash_rel_attention_bwd(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
                             mem_len: int, same_length: bool, scale: float
                             ) -> Tuple[Tensor, ...]:
     """K4 + K5: (dq, dk, dv, drk, drw, drr) of the relative attention whose
-    forward gave ``out`` and (m, l), for the upstream gradient ``dout``.
-    CPU tensors take the plain version, CUDA tensors the two kernels."""
+    forward gave ``out`` and (m, l), for the upstream gradient ``dout``,
+    each in its input's dtype (drk summed over the batch in f32, then
+    cast). CPU tensors take the plain version; CUDA tensors three launches:
+    the preparation (delta and the key terms, once for both kernels), K4,
+    K5."""
     args = (q, k, v, rk, r_w_bias, r_r_bias, out, m, l, dout)
-    kw = dict(mem_len=mem_len, same_length=same_length, scale=scale)
     if q.device.type == "cpu":
-        return flash_rel_attention_bwd_plain(*args, **kw)
-    dq = _launch_bwd("dq", *args, mem_len, same_length, scale)
-    return (dq,) + _launch_bwd("dkv", *args, mem_len, same_length, scale)
+        return flash_rel_attention_bwd_plain(
+            *args, mem_len=mem_len, same_length=same_length, scale=scale)
+    t = _bwd_operands(*args)
+    for step in ("prep", "dq", "dkv"):
+        _bwd_step(step, t, mem_len, same_length, scale)
+    return (t["dq"], t["dk"], t["dv"], t["drk"].to(rk.dtype),
+            t["drw"].to(r_w_bias.dtype), t["drr"].to(r_r_bias.dtype))
 
 
 class _FlashRelAttention(torch.autograd.Function):

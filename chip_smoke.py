@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
   forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
   (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
   qlen 100, klen 1124); K4 and K5 (the six gradients of the rel-attention
-  backward) at the same three shapes from a seeded upstream gradient.
+  backward) and the preparation's delta at the same three shapes from a
+  seeded upstream gradient.
 * ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
   40 lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous
   actions) with strict-length expert prompts through the port's
@@ -63,12 +64,19 @@ With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
 tree's (new, old, old, new) and its host time per call. With
 ``--old-rel-bwd SRC`` (a copy of an earlier
-csrc/flash_rel_attention_bwd.cu with the same C interface), it times that
-K5 in turns with this tree's (old, new, new, old) on the same inputs at
-the two timed K4/K5 shapes.
+csrc/flash_rel_attention_bwd.cu with the single-entry C interface of
+commit 5ef425d, e.g. ``git show
+5ef425d:bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu``), at the two
+timed K4/K5 shapes it holds that source's six gradients to this tree's,
+times its K4 in turns with this tree's (old, new, new, old; both after the
+key terms, on the same delta) and its wrapper's two calls in turns with
+this tree's ``flash_rel_attention_bwd``.
 
 The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
-registers, stack, spill bytes and static shared memory of K4 and K5.
+registers, stack, spill bytes and static shared memory of K4 and K5. The
+K4/K5 records of the kernels line say what each of their times is
+(``times``): ``ms`` is the kernel alone, ``train_profile_ms`` the kernel
+alone in the train profile, ``call_ms`` the whole backward call.
 
 Then it prints the card's name and power limit (nvidia-smi), one JSON line
 with every kernel's numbers and its launches on the main paths (only when
@@ -378,15 +386,18 @@ class OldQmm:
 
 
 class OldRelBwd:
-    """An earlier K4/K5 source with this tree's C interface, built from a
-    copy given by --old-rel-bwd and called through the port's own wrapper
-    (``_launch_bwd``) with its library in place of this tree's: timed in
-    turns with this tree's K5 on the same card. Not part of the port."""
+    """An earlier K4/K5 source with the C interface of commit 5ef425d (one
+    entry, ``bdm_flash_rel_attention_bwd(which, ...)``, that runs the key
+    terms and then K4 or K5), built from a copy given by --old-rel-bwd.
+    ``step`` runs one kernel as that commit's wrapper (``_launch_bwd``)
+    did, its input checks aside: delta in PyTorch, the scratch, the zeroed
+    sums, the key terms and the kernel; ``backward`` its two calls; ``dq``
+    its K4 (after the key terms) on the delta, scratch and output of this
+    tree's operands. Timed in turns with this tree's on the same card. Not
+    part of the port."""
 
     def __init__(self, src: str):
         import ctypes
-
-        from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
 
         lib, log = _build_copy(src)
         self.resources = ptxas_resources(log)
@@ -394,18 +405,60 @@ class OldRelBwd:
         lib.bdm_flash_rel_attention_bwd.argtypes = (
             [I] + [P] * 18 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
         lib.bdm_flash_rel_attention_bwd.restype = I
-        lib.bdm_rel_bwd_error_string.argtypes = [I]
-        lib.bdm_rel_bwd_error_string.restype = ctypes.c_char_p
-        self.lib, self.fra = lib, fra
+        self.lib = lib
 
-    def __call__(self, which, *args):
-        fra = self.fra
-        current = fra._lib_bwd
-        fra._lib_bwd = lambda: self.lib
-        try:
-            return fra._launch_bwd(which, *args)
-        finally:
-            fra._lib_bwd = current
+    def _launch(self, code, q, k, v, rk, rw, rr, dout, m, l, delta, rwk, rrk,
+                outs, mem_len, same_length, scale):
+        B, qlen, H, _ = q.shape
+        dev = q.device
+        rc = self.lib.bdm_flash_rel_attention_bwd(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), rk.data_ptr(),
+            rw.data_ptr(), rr.data_ptr(), dout.data_ptr(), m.data_ptr(),
+            l.data_ptr(), delta.data_ptr(), rwk.data_ptr(), rrk.data_ptr(),
+            *[0 if t is None else t.data_ptr() for t in outs],
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), B, H, qlen, k.shape[1], mem_len, int(same_length),
+            scale, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"old K4/K5 launch failed ({rc})")
+
+    def step(self, which, q, k, v, rk, r_w_bias, r_r_bias, out, m, l, dout,
+             mem_len, same_length, scale):
+        dev = q.device
+        B, qlen, H, Dh = q.shape
+        klen = k.shape[1]
+        dout = dout.contiguous()
+        rw = r_w_bias.float().contiguous()
+        rr = r_r_bias.float().contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        rwk = torch.empty(B * H * klen, **f32)
+        rrk = torch.empty(H * klen, **f32)
+        if which == "dq":
+            outs = (torch.empty(B, qlen, H, Dh, dtype=torch.bfloat16,
+                                device=dev), None, None, None, None, None)
+        else:
+            dk = torch.empty(B, klen, H, Dh, dtype=torch.bfloat16, device=dev)
+            outs = (None, dk, torch.empty_like(dk),
+                    torch.zeros(klen, H, Dh, **f32), torch.zeros(H, Dh, **f32),
+                    torch.zeros(H, Dh, **f32))
+        self._launch(0 if which == "dq" else 1, q, k, v, rk, rw, rr, dout, m,
+                     l, delta, rwk, rrk, outs, mem_len, same_length, scale)
+        if which == "dq":
+            return outs[0]
+        _, dk, dv, drk, drw, drr = outs
+        return (dk, dv, drk.to(rk.dtype), drw.to(r_w_bias.dtype),
+                drr.to(r_r_bias.dtype))
+
+    def backward(self, *args):
+        return (self.step("dq", *args),) + self.step("dkv", *args)
+
+    def dq(self, t, mem_len, same_length, scale):
+        self._launch(0, t["q"], t["k"], t["v"], t["rk"], t["rw"], t["rr"],
+                     t["dout"], t["m"], t["l"], t["delta"], t["rwk"],
+                     t["rrk"], (t["dq"],) + (None,) * 5, mem_len,
+                     same_length, scale)
 
 
 def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
@@ -612,17 +665,27 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
 
 
 GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
+# The preparation's delta against its plain version: max |diff| at most
+# DELTA_REL_TOL * max |plain|. Both sum the same 128 exact products of bf16
+# values in f32, in another order (~1e-7 of the largest row); a wrong row,
+# head or operand moves delta by O(1) of its size.
+DELTA_REL_TOL = 1e-5
 
 
 def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
                   old=None):
-    """K4 and K5 on K3's inputs (q, k, v sliced from one fused projection),
-    K3's (out, m, l) and a seeded upstream gradient, against their plain
-    version: the six gradients, each within BWD_REL_TOL of its largest
-    value; when timed, each kernel's time and bound, the plain backward's
-    time and the SDPA backward as a yardstick; with ``old`` (OldRelBwd),
-    the old K5 and this one timed in turns (old, new, new, old), the old
-    one's five gradients held to this one's within twice BWD_REL_TOL."""
+    """The backward (the preparation, K4 and K5) on K3's inputs (q, k, v
+    sliced from one fused projection), K3's (out, m, l) and a seeded
+    upstream gradient, against its plain version: the six gradients, each
+    within BWD_REL_TOL of its largest value, and the preparation's delta
+    within DELTA_REL_TOL. When timed: K4 and K5 each alone (CUDA events
+    around bare launches on one preparation's delta and key terms), the
+    preparation, the whole ``flash_rel_attention_bwd`` call, each kernel's
+    bound, the plain backward and the SDPA backward as a yardstick. With
+    ``old`` (OldRelBwd): its six gradients held to this tree's within twice
+    BWD_REL_TOL, its K4 and this tree's timed in turns (old, new, new, old)
+    after the key terms on the same delta, and its two-call backward and
+    this tree's call in turns."""
     from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
 
     H, Dh = 16, 128
@@ -644,8 +707,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
         out, (m, l) = fra.flash_rel_attention(*args, with_stats=True, **kw)
     saved = args + (out, m, l, dout)
     pos = (mem_len, same_length, kw["scale"])
-    got = (fra._launch_bwd("dq", *saved, *pos),) + \
-        fra._launch_bwd("dkv", *saved, *pos)
+    got = fra.flash_rel_attention_bwd(*saved, **kw)
     torch.cuda.synchronize()
     ref = fra.flash_rel_attention_bwd_plain(*saved, **kw)
     torch.cuda.synchronize()
@@ -654,11 +716,18 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
         abs_err[name] = float((a.float() - b.float()).abs().max())
         rel[name] = abs_err[name] / float(b.float().abs().max())
     del ref
-    ok = all(np.isfinite(rel[n]) and rel[n] <= BWD_REL_TOL[n]
-             for n in GRAD_NAMES)
+    t = fra._bwd_operands(*saved)
+    fra._bwd_step("prep", t, *pos)
+    delta_ref = fra.bwd_delta_plain(out, dout)
+    delta_rel = float((t["delta"] - delta_ref).abs().max()
+                      / delta_ref.abs().max())
+    ok = (all(np.isfinite(rel[n]) and rel[n] <= BWD_REL_TOL[n]
+              for n in GRAD_NAMES)
+          and np.isfinite(delta_rel) and delta_rel <= DELTA_REL_TOL)
     rec = {"shape": {"B": B, "qlen": qlen, "klen": klen, "H": H, "Dh": Dh,
                      "mem_len": mem_len, "same_length": same_length},
            "rel_err": rel, "abs_err": abs_err, "tol": BWD_REL_TOL,
+           "delta_rel_err": delta_rel, "delta_tol": DELTA_REL_TOL,
            "ok": bool(ok)}
     if not ok:
         raise AssertionError(f"K4/K5 disagree with their plain version: {rec}")
@@ -673,33 +742,56 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
         rec["dkv"] = bound(ins + 2 * 2 * rows_k + 4 * klen * H * Dh
                            + 2 * 4 * H * Dh, 6 * 2 * Dh * pairs)
         rec["unbanned_pairs"] = pairs
-        rec["dq"]["ms"] = time_ms(
-            lambda i: fra._launch_bwd("dq", *saved, *pos), iters=10)
+        # the kernels alone, on the delta and key terms made above (K5 adds
+        # into the same sums on every call: its time does not depend on them)
+        for which in ("dq", "dkv"):
+            rec[which]["ms"] = time_ms(
+                lambda i, w=which: fra._bwd_step(w, t, *pos), iters=20)
+        rec["prep_ms"] = time_ms(lambda i: fra._bwd_step("prep", t, *pos),
+                                 iters=20)
 
-        def new_dkv(i):
-            return fra._launch_bwd("dkv", *saved, *pos)
+        def call(i):
+            return fra.flash_rel_attention_bwd(*saved, **kw)
 
         if old is None:
-            rec["dkv"]["ms"] = time_ms(new_dkv, iters=10)
+            rec["call_ms"] = time_ms(call, iters=10)
         else:
-            def old_dkv(i):
-                return old("dkv", *saved, *pos)
-
             old_rel = {}
-            for name, a, b in zip(GRAD_NAMES[1:], old_dkv(0), got[1:]):
+            for name, a, b in zip(GRAD_NAMES, old.backward(*saved, *pos), got):
                 old_rel[name] = float((a.float() - b.float()).abs().max()
                                       / b.float().abs().max())
             torch.cuda.synchronize()
-            rec["dkv"]["old_vs_new_rel_err"] = old_rel
+            rec["old_vs_new_rel_err"] = old_rel
             if not all(np.isfinite(v) and v <= 2 * BWD_REL_TOL[n]
                        for n, v in old_rel.items()):
-                raise AssertionError(f"the old K5 disagrees with this "
-                                     f"one: {old_rel}")
+                raise AssertionError(f"the old K4/K5 disagree with this "
+                                     f"tree's: {old_rel}")
+            # K4 after the key terms on both sides: the old entry runs them
+            # before its K4, this tree's preparation without delta does the
+            # same work; delta is made beforehand for both
+            keys_only = dict(t, out=None)
+
+            def new_dq(i):
+                fra._bwd_step("prep", keys_only, *pos)
+                fra._bwd_step("dq", t, *pos)
+
+            def old_dq(i):
+                old.dq(t, *pos)
+
+            times = [time_ms(f, iters=20)
+                     for f in (old_dq, new_dq, new_dq, old_dq)]
+            rec["dq"]["with_key_terms_ms"] = float(np.mean(times[1:3]))
+            rec["dq"]["old_ms"] = float(np.mean(times[::3]))
+            rec["dq"]["turns_ms"] = times
+
+            def old_call(i):
+                return old.backward(*saved, *pos)
+
             times = [time_ms(f, iters=10)
-                     for f in (old_dkv, new_dkv, new_dkv, old_dkv)]
-            rec["dkv"]["ms"] = float(np.mean(times[1:3]))
-            rec["dkv"]["old_ms"] = float(np.mean(times[::3]))
-            rec["dkv"]["turns_ms"] = times
+                     for f in (old_call, call, call, old_call)]
+            rec["call_ms"] = float(np.mean(times[1:3]))
+            rec["old_call_ms"] = float(np.mean(times[::3]))
+            rec["call_turns_ms"] = times
         rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_bwd_plain(
             *saved, **kw), iters=2, warmup=1)
         # yardstick only (the port never calls it): the backward of SDPA of
@@ -1053,9 +1145,10 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
             "top_device_ms": top}
 
 
-def _profile_busy(fn):
+def _profile_busy(fn, keep=()):
     """One profiled call of fn ending in a device sync: (summed device time
-    s, the largest kernels by name in ms, the call's wall time s)."""
+    s, the largest kernels by name in ms and any whose name holds one of
+    ``keep``, the call's wall time s)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1070,11 +1163,31 @@ def _profile_busy(fn):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
+    top = ranked[:8] + [e for e in ranked[8:] if any(k in e.key for k in keep)]
     # names without the namespace noise, long enough that the template
     # instantiations of one kernel stay apart
     return busy, {e.key.replace("(anonymous namespace)::", "")[:100]:
                   e.self_device_time_total / 1e3 for e in top}, wall
+
+
+# kernels timed alone in the train profile, by the row of the kernels line
+ALONE_KERNELS = {"flash_rel_attention": "k3_rel_attention_kernel",
+                 "flash_rel_attention_bwd_dq": "k4_rel_bwd_dq_kernel",
+                 "flash_rel_attention_bwd_dkv": "k5_rel_bwd_dkv_kernel"}
+
+
+def kernel_alone_ms(device_ms: dict, launches: dict) -> dict:
+    """ms per launch of each kernel of ALONE_KERNELS, the kernel alone: its
+    device time in a profile (``_profile_busy``'s kernels by name, ms) over
+    its launches in the profiled call. A kernel the profile does not list,
+    or that was not launched, is left out."""
+    out = {}
+    for row, kernel in ALONE_KERNELS.items():
+        hits = [ms for name, ms in device_ms.items() if kernel in name]
+        if hits and launches.get(row):
+            out[row] = sum(hits) / launches[row]
+    return out
 
 
 @torch.no_grad()
@@ -1444,7 +1557,10 @@ def phase_train(smi: str, seed: int = 0) -> dict:
         step_s = float(np.median(times))
         batch = to_gato_batch(next(loader), "cuda")
         gen = torch.Generator(device="cuda").manual_seed(1)
-        busy, top, _ = _profile_busy(lambda: step(state, batch, gen))
+        _reset_launches()
+        busy, top, _ = _profile_busy(lambda: step(state, batch, gen),
+                                     keep=tuple(ALONE_KERNELS.values()))
+        alone = kernel_alone_ms(top, _read_launches())
     finally:
         loader.stop()
     return {"phase": "train", "config": "db1_1p2b", "dtype": "bfloat16",
@@ -1464,7 +1580,8 @@ def phase_train(smi: str, seed: int = 0) -> dict:
             "device_busy_ms": busy * 1e3,
             "device_idle_share": 1.0 - busy / step_s,
             "max_memory_allocated_gb": peak / 1e9,
-            "top_device_ms": top, "gradient_routes": routes}
+            "top_device_ms": top, "kernel_alone_ms": alone,
+            "gradient_routes": routes}
 
 
 def _train_route_check(model, raw) -> dict:
@@ -1553,12 +1670,29 @@ def _train_route_check(model, raw) -> dict:
     return out
 
 
-def kernels_line(kernels: dict, launches: dict) -> dict:
+# what each time of the K4/K5 rows of the kernels line is
+BWD_TIMES = {
+    "ms": "the kernel alone: CUDA events around bare launches, on delta and "
+          "the key terms made beforehand",
+    "train_profile_ms": "the kernel alone: its device time in the train "
+                        "profile over its launches there",
+    "call_ms": "the whole flash_rel_attention_bwd call: the preparation "
+               "(delta, key terms), K4, K5, the zeroed sums and allocations",
+    "prep_ms": "the preparation kernel alone",
+    "old_ms": "--old-rel-bwd: the old K4 after its key terms, in turns with "
+              "with_key_terms_ms",
+    "with_key_terms_ms": "--old-rel-bwd: this K4 after the key terms alone",
+    "old_call_ms": "--old-rel-bwd: the old wrapper's two calls, in turns "
+                   "with call_ms"}
+
+
+def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
     matrix, with every timed K9 shape under ``cases``) and its launches in
     the counted main-path runs of the same process. K8 is held by the
-    kernels phase only: no main path runs it."""
+    kernels phase only: no main path runs it. ``alone``: the kernel-alone
+    ms per launch in the train profile (``kernel_alone_ms``)."""
     cases = kernels["cases"]
     pick = {name: cases[name][0] for name in cases}
     pick["quant_matmul"] = next(
@@ -1567,9 +1701,8 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
     k7 = cases["flash_ring_prime_ap_int8"][0]
     pick["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
                                     max_abs_err=k7["k8_max_abs_err"])
-    # K4 and K5 share one record: each its time and bound, the plain
+    # K4 and K5 share one case: each its own time and bound, the plain
     # backward's time (both kernels' work) and the SDPA backward (K4 + K5)
-    # (with --old-rel-bwd, the old K5's time in turns as dkv_old_ms)
     bwd = cases["flash_rel_attention_bwd"][0]
     for which, grads in (("dq", ("dq",)),
                          ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
@@ -1587,9 +1720,12 @@ def kernels_line(kernels: dict, launches: dict) -> dict:
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "shape": case["shape"]})
-        if name.startswith("flash_rel_attention_bwd") \
-                and "old_ms" in case["dkv"]:
-            rows[-1]["dkv_old_ms"] = case["dkv"]["old_ms"]
+        if name in alone:
+            rows[-1]["train_profile_ms"] = alone[name]
+        if name.startswith("flash_rel_attention_bwd"):
+            rows[-1].update({k: case[k] for k in BWD_TIMES if k in case})
+            rows[-1]["times"] = {k: v for k, v in BWD_TIMES.items()
+                                 if k in rows[-1]}
         if name == "quant_matmul":
             rows[-1]["cases"] = [
                 {k: c[k] for k in ("shape", "ms", "bound_ms", "bound_by",
@@ -1607,7 +1743,8 @@ def main(argv=None) -> int:
                          "timed in turns with this tree's")
     ap.add_argument("--old-rel-bwd", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_rel_attention_bwd.cu:"
-                         " its K5 is timed in turns with this tree's")
+                         " its K4 and its whole backward are timed in turns "
+                         "with this tree's")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1653,7 +1790,8 @@ def main(argv=None) -> int:
         launches = {name: sum(results[p]["launches"][name]
                               for p in MAIN_PATHS)
                     for name in K_REPLACES}
-        emit(kernels_line(results["kernels"], launches))
+        emit(kernels_line(results["kernels"], launches,
+                          results["train"]["kernel_alone_ms"]))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -90,6 +90,56 @@ def test_plain_backward_matches_pallas_vjp(same_length, qlen, klen, mem_len):
     _check(got, _rel_attention_grads(xs, g, mem_len, same_length))
 
 
+# delta = rowsum(dO * O) in f32 on both sides: 128 products summed in
+# another order, ~1e-7 of the largest row; a wrong row, head or operand
+# moves delta by O(1) of its size.
+DELTA_RTOL = 1e-6
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("same_length,qlen,klen,mem_len", [
+    (False, 128, 256, 256),
+    (False, 256, 384, 384),
+    (True, 256, 512, 256),
+])
+def test_plain_delta_matches_jax_delta(monkeypatch, same_length, qlen, klen,
+                                       mem_len, dtype):
+    """The port's delta [B, H, qlen] (``bwd_delta_plain``, the one the CUDA
+    route's preparation computes once for K4 and K5) against the delta that
+    ``_pallas_rel_attention_bwd_impl`` hands its dq kernel: the first
+    ``pallas_call`` of the backward is stopped and its operands read."""
+    xs, g = _inputs(2, qlen, klen, 2, 128, seed=5)
+    out = np.random.RandomState(6).randn(2, qlen, 2, 128).astype(np.float32)
+    seen = []
+
+    def pallas_call(*_a, **_k):
+        def call(*operands):
+            seen.append(operands)
+            raise _Captured
+        return call
+
+    monkeypatch.setattr(jp.pl, "pallas_call", pallas_call)
+    jdt = getattr(jnp, dtype)
+    stat = jnp.zeros((2 * 2, 1, qlen), jnp.float32)
+    with pytest.raises(_Captured):
+        jp._pallas_rel_attention_bwd_impl(
+            *(jnp.asarray(x, jdt) for x in xs), jnp.asarray(out, jdt), stat,
+            stat, jnp.asarray(g, jdt), mem_len=mem_len,
+            same_length=same_length, scale=1.0 / 128 ** 0.5, block_q=128,
+            block_k=128, interpret=True)
+    ref = np.asarray(seen[0][-1]).reshape(2, 2, qlen)   # [bh, 1, qlen]
+    tdt = getattr(torch, dtype)
+    got = tk.bwd_delta_plain(torch.from_numpy(out).to(tdt),
+                             torch.from_numpy(g).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (2, 2, qlen)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=DELTA_RTOL * float(np.abs(ref).max()))
+
+
 @pytest.mark.parametrize("qlen,mlen", [(100, 256), (300, 512), (257, 256)])
 def test_plain_backward_matches_anylen_wrapper(qlen, mlen):
     """Ragged qlen: the port masks the ragged edges where the JAX wrapper
