@@ -60,7 +60,8 @@ from bdm_db1_tpu_torch.ops.attention import (
 )
 from bdm_db1_tpu_torch.ops.fast_dropout import dropout
 from bdm_db1_tpu_torch.ops.flash_rel_attention import (
-    flash_rel_attention, kernel_route_applicable,
+    KERNEL_HEAD_DIM as REL_KERNEL_HEAD_DIM, flash_rel_attention,
+    kernel_route_applicable,
 )
 from bdm_db1_tpu_torch.ops.flash_ring_decode import (
     MAX_PRIME_Q, NEG_INF, combine_new_columns, combine_self_column,
@@ -126,14 +127,18 @@ def use_rel_kernel(cfg: ModelConfig, qlen: int, klen: int, device,
     """The JAX package's ``_use_pallas`` gate: "xla" and attention dropout
     take ``rel_attention``; otherwise shapes that the JAX kernel or its
     padding wrapper serve take the kernel route under "pallas" (the plain
-    K3-K5 versions on the CPU), and under "auto" when the tensors are on
-    CUDA."""
+    K3-K5 versions on the CPU; the CUDA kernels raise outside their
+    contract), and under "auto" when the tensors are on CUDA and the model
+    is inside the CUDA kernels' contract: bf16 with a head dim of
+    ``REL_KERNEL_HEAD_DIM``."""
     if (cfg.attention_impl == "xla" or use_dropatt
             or not kernel_route_applicable(qlen, klen)):
         return False
     if cfg.attention_impl == "pallas":
         return True
-    return torch.device(device).type == "cuda"
+    return (torch.device(device).type == "cuda"
+            and cfg.d_head == REL_KERNEL_HEAD_DIM
+            and cfg.dtype == "bfloat16")
 
 
 def masked_cross_entropy(logits: Tensor, labels: Tensor, loss_mask: Tensor,

@@ -50,7 +50,7 @@ MAX_PRIME_Q = 32
 KERNEL_HEAD_DIM = 128
 K1_MAX_HEADS = 32
 K1_SPLIT = 64          # keys per K1/K6 block: its softmax block size
-K2_SPLIT = 128         # keys per K2/K7/K8 block
+K2_SPLIT = 128         # keys per K2/K7/K8 softmax block (split)
 
 # launches per kernel, counted where the wrapper launches it
 LAUNCHES = dict.fromkeys(
@@ -277,21 +277,17 @@ def _prime_launch(name: str, k_cache, v_cache, qw, bias, layer, k_scale,
                          f"got {tuple(qw.shape)}")
     check_operand("qw", qw, (B, H, Q, Dh), torch.bfloat16, dev)
     check_operand("bias", bias, (B, H, Q, M), torch.float32, dev)
-    S = -(-M // K2_SPLIT)
     f32 = dict(device=dev, dtype=torch.float32)
-    o_part = torch.empty(B, S, H, Q, Dh, **f32)
-    m_part = torch.empty(B, S, H, Q, **f32)
-    l_part = torch.empty(B, S, H, Q, **f32)
     o = torch.empty(B, H, Q, Dh, **f32)
     m = torch.empty(B, H, Q, **f32)
     l = torch.empty(B, H, Q, **f32)
-    # the scales' stride along M: H for [L, B, M, H], 1 for [L, B, H, M]
+    # no split scratch: the kernel merges its splits in registers; the
+    # scales' stride along M is H for [L, B, M, H], 1 for [L, B, H, M]
     rc = _lib().bdm_flash_ring_prime(
         k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, qw.data_ptr(),
-        bias.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        layer, B, M, H, Q, 1 if head_major else H, _bf16_scale(scale),
-        *_stream(dev))
+        bias.data_ptr(), None, None, None, o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), layer, B, M, H, Q, 1 if head_major else H,
+        _bf16_scale(scale), *_stream(dev))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return o, m, l

@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
   library call's time as a yardstick: K1/K2 on a bf16 cache (B = 40), K6/K7
   on an int8 cache with scales made by ``quantize_kv_rows`` (B = 56), K8
   equal to K7 on the transposed scales (M = 1024, H = 16, Dh = 128; Q = 19
-  and 26 for the primes; a layer index other than 0), K9 at the four trunk
+  and 26 for the primes; a layer index other than 0; untimed, a ragged
+  prime at Q 5 and one at Q 17 over M = 201 with more (head, row) pairs
+  than SMs), K9 at the four trunk
   matrices and the four row counts of the int8 serve (56, 1064, 1456,
   14336: timed, two calls bitwise equal at 56 and 1064 rows) and at 24
   untimed edge shapes (a K split with a shorter last split among them),
@@ -46,7 +48,8 @@ Phases, each printing one JSON line:
   ``evaluate_loss``; checks 24 K3 launches per forward, a finite loss, K3
   against ``rel_attention`` layer by layer at the attention output, and the
   loss through both routes; reads tokens/sec, ms per micro-batch and the
-  device idle share.
+  device idle share. Then the trunk's kernel gate: db1_tiny (head dim 16)
+  at seq 1024 under "auto" gives a finite loss with no K3 launch.
 * ``train``      — training of db1_1p2b (bf16 activations, f32 parameters,
   random weights from a seed, the ModelConfig dropout rates, the default
   AdamW chain) on the train split of the same dataset through
@@ -70,10 +73,17 @@ commit 5ef425d, e.g. ``git show
 timed K4/K5 shapes it holds that source's six gradients to this tree's,
 times its K4 in turns with this tree's (old, new, new, old; both after the
 key terms, on the same delta) and its wrapper's two calls in turns with
-this tree's ``flash_rel_attention_bwd``.
+this tree's ``flash_rel_attention_bwd``. With ``--old-ring SRC`` (a copy
+of an earlier csrc/flash_ring_decode.cu, e.g. ``git show
+b145d4e:bdm_db1_tpu_torch/csrc/flash_ring_decode.cu``), at the timed K2
+and K7 cases its prime's (o, m, l) are held to this tree's within the
+kernel limits and the two are timed in turns (new, old, old, new), and
+its K8 (head-major scales) in turns with this tree's: ``old_ms`` and
+``turns_ms`` on the K2, K7 and K8 rows of the kernels line.
 
 The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
-registers, stack, spill bytes and static shared memory of K4 and K5. The
+registers, stack, spill bytes and static shared memory of K4, K5 and the
+prime's two instances (``k2_prime_kernel<bf16>``, ``<int8>``). The
 K4/K5 records of the kernels line say what each of their times is
 (``times``): ``ms`` is the kernel alone, ``train_profile_ms`` the kernel
 alone in the train profile, ``call_ms`` the whole backward call.
@@ -155,20 +165,27 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-PTXAS_KERNELS = ("k4_rel_bwd_dq_kernel", "k5_rel_bwd_dkv_kernel")
+PTXAS_KERNELS = ("k4_rel_bwd_dq_kernel", "k5_rel_bwd_dkv_kernel",
+                 "k2_prime_kernel")
+# the template arguments of a mangled kernel name (I<args>E after the name)
+_MANGLED_ARGS = {"I13__nv_bfloat16E": "<bf16>", "IaE": "<int8>"}
 
 
 def ptxas_resources(log: str) -> dict:
     """{kernel: {registers, stack, spill_stores, spill_loads, smem}} from
     nvcc's ``-Xptxas -v`` output (bytes; smem is the static shared memory
     ptxas reports, dynamic shared memory is not in it), for each entry
-    function whose mangled name holds one of PTXAS_KERNELS."""
+    function whose mangled name holds one of PTXAS_KERNELS; a template's
+    instances are keyed with their argument, e.g. k2_prime_kernel<int8>."""
     out = {}
     for chunk in re.split(r"Compiling entry function", log)[1:]:
-        name = next((k for k in PTXAS_KERNELS
-                     if k in chunk.split("\n", 1)[0]), None)
+        head = chunk.split("\n", 1)[0]
+        name = next((k for k in PTXAS_KERNELS if k in head), None)
         if name is None:
             continue
+        rest = head[head.index(name) + len(name):]
+        name += next((v for k, v in _MANGLED_ARGS.items()
+                      if rest.startswith(k)), "")
         rec = {}
         m = re.search(r"Used (\d+) registers", chunk)
         if m:
@@ -194,9 +211,10 @@ def phase_build() -> dict:
     for name, info in built.items():
         # ptxas resource lines (registers, shared memory, spills)
         print(f"[nvcc {name}]\n{info['log'].strip()}", file=sys.stderr)
-    if "flash_rel_attention_bwd" in built:
-        rec["resources"] = ptxas_resources(
-            built["flash_rel_attention_bwd"]["log"])
+    rec["resources"] = {k: v for src in ("flash_rel_attention_bwd",
+                                         "flash_ring_decode")
+                        if src in built
+                        for k, v in ptxas_resources(built[src]["log"]).items()}
     return rec
 
 
@@ -221,10 +239,13 @@ def _cache(gen, L, B, M, H, Dh, int8: bool):
     return tuple(out)
 
 
-def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False):
+def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False,
+                 old=None):
     """One ring kernel (K1/K6 when Q is None, else K2/K7, and K8 for an
     int8 prime) against its plain version on the same inputs. Returns the
-    comparison and, when timed, the times."""
+    comparison and, when timed, the times. With ``old`` (OldRing, primes
+    only): its (o, m, l) held to this tree's within the same limits and,
+    when timed, the two timed in turns (new, old, old, new), K8 too."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     scale = 1.0 / Dh ** 0.5
@@ -262,6 +283,18 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False):
            "m_abs_err": m_err, "l_rel_err": l_rel, "tol": tol, "ok": bool(ok)}
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {rec}")
+    if old is not None and Q is not None:
+        o_o, m_o, l_o = old(k, v, qw, bias, layer, *sc, scale=scale)
+        torch.cuda.synchronize()
+        rec["old_max_abs_err"] = float((o_o / l_o[..., None] - out).abs()
+                                       .max())
+        rec["old_m_abs_err"] = float((m_o - m).abs().max())
+        rec["old_l_rel_err"] = float(((l_o - l).abs() / l.abs()).max())
+        if not (rec["old_max_abs_err"] <= tol["out_abs"]
+                and rec["old_m_abs_err"] <= tol["m_abs"]
+                and rec["old_l_rel_err"] <= tol["l_rel"]):
+            raise AssertionError(f"the old prime disagrees with this "
+                                 f"tree's: {rec}")
     k8 = None
     if int8 and Q is not None:
         # K8: the same prime with the scales head-major [L, B, H, M] must
@@ -287,11 +320,31 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False):
         io_bytes = (qw.numel() * 2 + bias.numel() * 4
                     + B * H * nq * Dh * 4 + 2 * B * H * nq * 4)
         rec.update(bound(cache_bytes + io_bytes, 2 * 2 * B * H * nq * M * Dh))
-        rec["ms"] = time_ms(lambda i: kern(
-            k, v, qw, bias, i % L, *sc,
-            scale=scale), iters=48)
-        if k8 is not None:
+        def new_fn(i):
+            return kern(k, v, qw, bias, i % L, *sc, scale=scale)
+
+        if old is None or Q is None:
+            rec["ms"] = time_ms(new_fn, iters=48)
+        else:
+            def old_fn(i):
+                return old(k, v, qw, bias, i % L, *sc, scale=scale)
+
+            times = [time_ms(f, iters=48)
+                     for f in (new_fn, old_fn, old_fn, new_fn)]
+            rec["ms"] = float(np.mean(times[::3]))
+            rec["old_ms"] = float(np.mean(times[1:3]))
+            rec["turns_ms"] = times
+        if k8 is not None and old is None:
             rec["k8_ms"] = time_ms(k8, iters=48)
+        elif k8 is not None:
+            def old_k8(i):
+                return old(k, v, qw, bias, i % L, ks_t, vs_t, scale=scale,
+                           head_major=True)
+
+            times = [time_ms(f, iters=48) for f in (k8, old_k8, old_k8, k8)]
+            rec["k8_ms"] = float(np.mean(times[::3]))
+            rec["k8_old_ms"] = float(np.mean(times[1:3]))
+            rec["k8_turns_ms"] = times
         rec["plain_ms"] = time_ms(lambda i: plain(
             k, v, qw, bias, i % L, *sc,
             scale=scale, block_m=split), iters=6, warmup=1)
@@ -351,6 +404,53 @@ def _build_copy(src: str):
         raise RuntimeError(f"nvcc failed for {src}:\n{log.stdout}"
                            f"{log.stderr}")
     return ctypes.CDLL(os.fspath(out)), log.stdout + log.stderr
+
+
+class OldRing:
+    """An earlier K2/K7 prime with this tree's C interface
+    (``bdm_flash_ring_prime``), built from a copy of its
+    csrc/flash_ring_decode.cu given by --old-ring and called as its wrapper
+    called it, with split scratch sized by that library's
+    ``bdm_k2_split()`` (scales [L, B, M, H], or [L, B, H, M] with
+    ``head_major``, K8): timed in turns with this tree's prime on the same
+    card. Not part of the port."""
+
+    def __init__(self, src: str):
+        import ctypes
+
+        lib, log = _build_copy(src)
+        self.resources = ptxas_resources(log)
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.bdm_flash_ring_prime.argtypes = [P] * 12 + [I] * 6 + [Fl, I, P]
+        lib.bdm_flash_ring_prime.restype = I
+        lib.bdm_k2_split.restype = I
+        self.split = lib.bdm_k2_split()
+        self.lib = lib
+
+    def __call__(self, k, v, qw, bias, layer, ks=None, vs=None, *, scale,
+                 head_major=False):
+        from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+
+        _, B, M, H, Dh = k.shape
+        Q = qw.shape[2]
+        dev = k.device
+        S = -(-M // self.split)
+        f32 = dict(device=dev, dtype=torch.float32)
+        parts = (torch.empty(B, S, H, Q, Dh, **f32),
+                 torch.empty(B, S, H, Q, **f32),
+                 torch.empty(B, S, H, Q, **f32))
+        outs = (torch.empty(B, H, Q, Dh, **f32), torch.empty(B, H, Q, **f32),
+                torch.empty(B, H, Q, **f32))
+        rc = self.lib.bdm_flash_ring_prime(
+            k.data_ptr(), v.data_ptr(), None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(), qw.data_ptr(),
+            bias.data_ptr(), *(t.data_ptr() for t in parts + outs), layer, B,
+            M, H, Q, 1 if head_major else H, fro._bf16_scale(scale),
+            dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"old prime launch failed ({rc})")
+        return outs
 
 
 class OldQmm:
@@ -820,7 +920,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     return rec
 
 
-def phase_kernels(old_qmm=None, old_rel_bwd=None) -> dict:
+def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
@@ -829,21 +929,27 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None) -> dict:
     full8 = dict(full, B=56, int8=True)
     ragged = dict(L=3, B=3, M=200, H=4, Dh=128, layer=2)
     ragged8 = dict(ragged, int8=True)
+    # M not a multiple of 4 (the prime's bias rows are then not 16-byte
+    # aligned), both row tiles at Q 17, more (head, row) pairs than SMs
+    odd = dict(L=2, B=48, M=201, H=4, Dh=128, layer=1)
+    ring = OldRing(old_ring) if old_ring else None
     cases = {
         "flash_ring_decode": [
             _kernel_case(fro, Q=None, seed=1, timed=True, **full),
             _kernel_case(fro, Q=None, seed=2, timed=False, **ragged)],
         "flash_ring_prime_ap": [
-            _kernel_case(fro, Q=19, seed=3, timed=True, **full),
-            _kernel_case(fro, Q=26, seed=4, timed=True, **full),
-            _kernel_case(fro, Q=5, seed=5, timed=False, **ragged)],
+            _kernel_case(fro, Q=19, seed=3, timed=True, old=ring, **full),
+            _kernel_case(fro, Q=26, seed=4, timed=True, old=ring, **full),
+            _kernel_case(fro, Q=5, seed=5, timed=False, **ragged),
+            _kernel_case(fro, Q=17, seed=6, timed=False, **odd)],
         "flash_ring_decode_int8": [
             _kernel_case(fro, Q=None, seed=11, timed=True, **full8),
             _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8)],
         "flash_ring_prime_ap_int8": [
-            _kernel_case(fro, Q=19, seed=13, timed=True, **full8),
-            _kernel_case(fro, Q=26, seed=14, timed=True, **full8),
-            _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8)],
+            _kernel_case(fro, Q=19, seed=13, timed=True, old=ring, **full8),
+            _kernel_case(fro, Q=26, seed=14, timed=True, old=ring, **full8),
+            _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8),
+            _kernel_case(fro, Q=17, seed=16, timed=False, int8=True, **odd)],
     }
     torch.cuda.empty_cache()
     old = OldQmm(old_qmm) if old_qmm else None
@@ -887,6 +993,8 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None) -> dict:
            "w8a8_int32": _w8a8_check(qm)}
     if old_bwd:
         rec["old_rel_bwd_resources"] = old_bwd.resources
+    if ring:
+        rec["old_ring_resources"] = ring.resources
     return rec
 
 
@@ -1286,12 +1394,13 @@ EVAL_MICRO = 4          # the JAX TrainConfig.micro_batch_size
 EVAL_BATCHES = 8
 
 
-def _eval_setup(seed: int):
-    """db1_1p2b in bf16 (random weights from ``seed``) and its validation
-    micro-batches: packed samples (prompts on) of a seeded HalfCheetah-
-    geometry fake dataset (17 obs + separator + 6 action tokens a step, 43
-    transitions per 1025-token sample), the valid split of the default
-    "90,5,5", in sampler order. Each loader batch is [accum 1, micro 4]."""
+def _eval_setup(seed: int, cfg=None, n_batches: int = EVAL_BATCHES + 1):
+    """db1_1p2b in bf16 (or ``cfg``; random weights from ``seed``) and its
+    validation micro-batches: packed samples (prompts on) of a seeded
+    HalfCheetah-geometry fake dataset (17 obs + separator + 6 action tokens
+    a step, 43 transitions per 1025-token sample), the valid split of the
+    default "90,5,5", in sampler order. Each loader batch is [accum 1,
+    micro 4]; the first of the ``n_batches`` warms up."""
     from bdm_db1_tpu_torch.core.config import db1_1p2b
     from bdm_db1_tpu_torch.data.rl_dataset import (
         RLFullDataset, RLTokenizerSuite, TrajectoryStore, split_rl_dataset,
@@ -1303,8 +1412,9 @@ def _eval_setup(seed: int):
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
     from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 
-    cfg = db1_1p2b()
-    cfg.model.param_dtype = "bfloat16"
+    if cfg is None:
+        cfg = db1_1p2b()
+        cfg.model.param_dtype = "bfloat16"
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = TransformerXL(cfg.model, cfg.vocab, device="cuda", generator=gen)
     store = TrajectoryStore.from_flat_dataset(FakeContinuousEnv(
@@ -1316,7 +1426,7 @@ def _eval_setup(seed: int):
     _, valid, _ = split_rl_dataset(full, cfg.data.split)
     sampler = iter(SequentialSampler(len(valid), 0, EVAL_MICRO, 0, 1))
     batches = []
-    for _ in range(EVAL_BATCHES + 1):   # the first one warms up
+    for _ in range(n_batches):
         raw = collate_modalities([valid[i] for i in next(sampler)], ["rl"])
         batches.append({m: {k: v[None] for k, v in f.items()}
                         for m, f in raw.items()})
@@ -1358,6 +1468,10 @@ def phase_eval_loss(smi: str, seed: int = 0) -> dict:
     busy, top, _ = _profile_busy(lambda: evaluate_loss(model, [batches[0]],
                                                        device="cuda"))
     routes = _eval_route_check(model, batches[0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = _tiny_gate_check(seed)
     return {"phase": "eval_loss", "config": "db1_1p2b", "dtype": "bfloat16",
             "micro_batch": EVAL_MICRO, "seq_length": seq,
             "micro_batches": EVAL_BATCHES, "forwards": forwards,
@@ -1369,7 +1483,37 @@ def phase_eval_loss(smi: str, seed: int = 0) -> dict:
             "micro_batch_ms": [t * 1e3 for t in times],
             "device_busy_ms": busy * 1e3,
             "device_idle_share": 1.0 - busy / step,
-            "top_device_ms": top, "kernel_vs_plain": routes}
+            "top_device_ms": top, "kernel_vs_plain": routes,
+            "tiny_gate": gate}
+
+
+def _tiny_gate_check(seed: int) -> dict:
+    """The trunk's kernel gate on the card: db1_tiny (head dim 16, outside
+    K3's contract) at seq 1024, where the JAX gate's shapes qualify, under
+    "auto" must take ``rel_attention``: ``evaluate_loss`` of one
+    micro-batch gives a finite loss and launches no K3."""
+    from bdm_db1_tpu_torch.core.config import db1_tiny
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+    from bdm_db1_tpu_torch.train.trainer import evaluate_loss
+
+    cfg = db1_tiny(n_position=1024)
+    cfg.data.seq_length = 1024
+    cfg, model, _, batches = _eval_setup(seed, cfg, n_batches=1)
+    seq = cfg.data.seq_length
+    k3 = fra.LAUNCHES["flash_rel_attention"]
+    loss = evaluate_loss(model, batches, device="cuda")
+    k3 = fra.LAUNCHES["flash_rel_attention"] - k3
+    out = {"config": "db1_tiny", "d_head": cfg.model.d_head,
+           "dtype": cfg.model.dtype,
+           "attention_impl": cfg.model.attention_impl, "seq_length": seq,
+           "shape_qualifies": fra.kernel_route_applicable(seq, seq),
+           "kernel_route": use_rel_kernel(cfg.model, seq, seq, "cuda"),
+           "loss": loss, "k3_launches": k3}
+    if not (out["shape_qualifies"] and not out["kernel_route"]
+            and np.isfinite(loss) and k3 == 0):
+        raise AssertionError(f"the trunk's gate on db1_tiny: {out}")
+    return out
 
 
 @torch.no_grad()
@@ -1686,6 +1830,11 @@ BWD_TIMES = {
                    "with call_ms"}
 
 
+# --old-ring: the old prime's mean of its two turns, and the four turns
+# (new, old, old, new) in ms
+RING_TURNS = ("old_ms", "turns_ms")
+
+
 def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
@@ -1698,9 +1847,12 @@ def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
     pick["quant_matmul"] = next(
         c for c in cases["quant_matmul"]
         if c["shape"] == {"R": QMM_ROWS[0], "K": 2048, "N": 8192})
-    k7 = cases["flash_ring_prime_ap_int8"][0]
+    k7 = {k: v for k, v in cases["flash_ring_prime_ap_int8"][0].items()
+          if k not in RING_TURNS}
     pick["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
-                                    max_abs_err=k7["k8_max_abs_err"])
+                                    max_abs_err=k7["k8_max_abs_err"],
+                                    **{t: k7["k8_" + t] for t in RING_TURNS
+                                       if "k8_" + t in k7})
     # K4 and K5 share one case: each its own time and bound, the plain
     # backward's time (both kernels' work) and the SDPA backward (K4 + K5)
     bwd = cases["flash_rel_attention_bwd"][0]
@@ -1722,6 +1874,7 @@ def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
             "shape": case["shape"]})
         if name in alone:
             rows[-1]["train_profile_ms"] = alone[name]
+        rows[-1].update({k: case[k] for k in RING_TURNS if k in case})
         if name.startswith("flash_rel_attention_bwd"):
             rows[-1].update({k: case[k] for k in BWD_TIMES if k in case})
             rows[-1]["times"] = {k: v for k, v in BWD_TIMES.items()
@@ -1745,6 +1898,10 @@ def main(argv=None) -> int:
                     help="a copy of an earlier csrc/flash_rel_attention_bwd.cu:"
                          " its K4 and its whole backward are timed in turns "
                          "with this tree's")
+    ap.add_argument("--old-ring", default=None, metavar="SRC",
+                    help="a copy of an earlier csrc/flash_ring_decode.cu: its "
+                         "prime (K2, K7) is held to this tree's and timed in "
+                         "turns with it")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1765,7 +1922,8 @@ def main(argv=None) -> int:
         results["build"] = phase_build()
         emit(results["build"])
     if "kernels" in phases:
-        results["kernels"] = phase_kernels(args.old_qmm, args.old_rel_bwd)
+        results["kernels"] = phase_kernels(args.old_qmm, args.old_rel_bwd,
+                                           args.old_ring)
         emit(results["kernels"])
     serves = {"serve": dict(batch=40),
               "serve_int8": dict(batch=56, decode_cache_dtype="int8",

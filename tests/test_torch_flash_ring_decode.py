@@ -106,6 +106,80 @@ def test_plain_ragged_blocks(M_ragged):
     _assert_close(split, whole)
 
 
+# bf16 compute (the serves'): both sides round p * v_scale to bf16 against
+# the same block maxima, from f32 scores summed in another order, so now
+# and then one p rounds the other way and moves its query row by ~1e-4 of
+# the largest output. At most MAX_FLIP_ROWS rows may differ beyond TOL, by
+# at most FLIP_TOL of the largest output (chip_smoke's kernel limit); a
+# softmax block of another size than the kernel's moves every row.
+MAX_FLIP_ROWS = 4
+FLIP_TOL = 2e-3
+
+
+@pytest.mark.parametrize("Q", [19, 26])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_prime_plain_at_kernel_split_matches_pallas(Q, cache):
+    """The plain prime at the CUDA kernel's own split (``tf.K2_SPLIT``
+    keys a softmax block: what chip_smoke holds the kernel to on the card)
+    on a bf16 cache and on an int8 one with its scales (bf16 queries, as
+    the serves run them), M ragged against the split. The JAX kernel takes
+    whole blocks only, so its cache is padded to the next split with keys
+    of bias -inf (probability 0, as the plain version pads its last
+    block); both sides then round p to bf16 against the same block
+    maxima."""
+    from bdm_db1_tpu.models.transformer_xl import quantize_kv_rows as jq
+
+    Lk, Bk, Mk, Hk, Dk = 2, 2, 200, 2, 32
+    Mp = -(-Mk // tf.K2_SPLIT) * tf.K2_SPLIT
+    scale = 1.0 / np.sqrt(Dk)
+    rng = np.random.RandomState(Q)
+    kv = [rng.randn(Lk, Bk, Mk, Hk, Dk).astype(np.float32) for _ in range(2)]
+    qw = rng.randn(Bk, Hk, Q, Dk).astype(np.float32)
+    bias = rng.randn(Bk, Hk, Q, Mk).astype(np.float32)
+    bias[..., 3] = tf.NEG_INF                      # one banned ring slot
+    bias[1, 1, :, tf.K2_SPLIT:] = tf.NEG_INF       # an all-banned split
+    scales = []
+    if cache == "int8":
+        (kq, ks), (vq, vs) = (jq(jnp.asarray(x)) for x in kv)
+        kv, scales = [np.array(kq), np.array(vq)], [np.array(ks),
+                                                    np.array(vs)]
+    jdt, tdt = jnp.bfloat16, torch.bfloat16        # the compute dtype
+    pad = Mp - Mk
+    kv_p = [np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0), (0, 0)))
+            for x in kv]
+    scales_p = [np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0)),
+                       constant_values=1.0) for x in scales]
+    bias_p = np.pad(bias, ((0, 0), (0, 0), (0, 0), (0, pad)),
+                    constant_values=-np.inf)
+
+    def jarr(x):
+        return jnp.asarray(x) if x.dtype == np.int8 else jnp.asarray(x, jdt)
+
+    ref = jf.flash_ring_prime_ap(
+        *(jarr(x) for x in kv_p), jnp.asarray(qw, jdt), jnp.asarray(bias_p),
+        jnp.array(1, jnp.int32), *(jnp.asarray(x) for x in scales_p),
+        n_head=Hk, d_head=Dk, scale=scale, block_m=tf.K2_SPLIT,
+        interpret=True)
+
+    def tarr(x):
+        t = torch.from_numpy(x)
+        return t if x.dtype == np.int8 else t.to(tdt)
+
+    got = tf.flash_ring_prime_ap_plain(
+        *(tarr(x) for x in kv), tarr(qw), torch.from_numpy(bias), 1,
+        *(torch.from_numpy(x) for x in scales), scale=scale,
+        block_m=tf.K2_SPLIT)
+    assert got[0].shape == (Bk, Hk, Q, Dk) and got[1].shape == (Bk, Hk, Q)
+    o, m, l = (np.asarray(x, np.float32) for x in got)
+    o_r, m_r, l_r = (np.asarray(jnp.asarray(x, jnp.float32)) for x in ref)
+    np.testing.assert_allclose(m, m_r, rtol=0, atol=TOL)
+    np.testing.assert_allclose(l / l_r, np.ones_like(l_r), rtol=0, atol=TOL)
+    out, out_r = o / l[..., None], o_r / l_r[..., None]
+    row_err = np.abs(out - out_r).max(-1)
+    assert (row_err > TOL).sum() <= MAX_FLIP_ROWS, row_err
+    assert row_err.max() <= FLIP_TOL * np.abs(out_r).max(), row_err.max()
+
+
 def test_combine_self_column_matches_jax():
     rng = np.random.RandomState(5)
     o = rng.randn(B, H, DH).astype(np.float32)

@@ -1,5 +1,6 @@
 """chip_smoke.ptxas_resources: the registers, stack, spill bytes and static
-shared memory of K4 and K5 read from nvcc's ``-Xptxas -v`` output."""
+shared memory of K4, K5 and the prime's two instances read from nvcc's
+``-Xptxas -v`` output."""
 
 import chip_smoke
 
@@ -39,3 +40,34 @@ def test_ptxas_resources_skips_other_kernels_and_empty_log():
                                    "attention_bwd_cu_1922280016"):]
     assert chip_smoke.ptxas_resources(key_terms_only) == {}
     assert chip_smoke.ptxas_resources("") == {}
+
+
+RING_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41815k2_prime_kernelI13__nv_bfloat16EEvPKT_S4_PKfS6_PKS1_S6_PfS9_S9_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41815k2_prime_kernelI13__nv_bfloat16EEvPKT_S4_PKfS6_PKS1_S6_PfS9_S9_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 244 registers, used 1 barriers
+ptxas info    : Compile time = 290.870 ms
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41815k2_prime_kernelIaEEvPKT_S3_PKfS5_PK13__nv_bfloat16S5_PfS9_S9_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41815k2_prime_kernelIaEEvPKT_S3_PKfS5_PK13__nv_bfloat16S5_PfS9_S9_iiiiiif
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41816k1_decode_kernelI13__nv_bfloat16EEvPKT_S4_PKfS6_PKS1_S6_PfS9_S9_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN53_GLOBAL__N__649069c0_20_flash_ring_decode_cu_f855b41816k1_decode_kernelI13__nv_bfloat16EEvPKT_S4_PKfS6_PKS1_S6_PfS9_S9_iiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 50 registers, used 0 barriers, 8192 bytes smem
+"""
+
+
+def test_ptxas_resources_reads_each_prime_instance():
+    """The prime's two template instances (bf16 and int8 cache) are kept
+    apart by their template argument; K1 is not read."""
+    assert chip_smoke.ptxas_resources(RING_LOG) == {
+        "k2_prime_kernel<bf16>": {"registers": 244, "stack": 0,
+                                  "spill_stores": 0, "spill_loads": 0,
+                                  "smem": 0},
+        "k2_prime_kernel<int8>": {"registers": 255, "stack": 8,
+                                  "spill_stores": 4, "spill_loads": 4,
+                                  "smem": 0},
+    }

@@ -136,18 +136,40 @@ def test_gate_matches_jax_applicability():
             or jp.pallas_anylen_applicable(qlen, klen)), (qlen, klen)
 
 
-def test_model_gate_follows_attention_impl():
+# (config overrides, attention_impl, route on "cpu", route on "cuda"):
+# "auto" takes the CUDA kernels only inside their contract (bf16, d_head
+# 128); "pallas" forces the route whatever the model; "xla" never takes it
+GATE_CASES = [
+    (dict(n_embed=256, n_head=2), "xla", False, False),
+    (dict(n_embed=256, n_head=2), "pallas", True, True),
+    (dict(n_embed=256, n_head=2), "auto", False, True),
+    ({}, "auto", False, False),                              # d_head 16
+    (dict(n_embed=256, n_head=2, dtype="float32"), "auto", False, False),
+    ({}, "pallas", True, True),
+    (dict(n_embed=256, n_head=2, dtype="float32"), "pallas", True, True),
+]
+
+
+@pytest.mark.parametrize("overrides,impl,cpu,cuda", GATE_CASES)
+def test_model_gate_follows_attention_impl(overrides, impl, cpu, cuda):
     from bdm_db1_tpu_torch.core.config import db1_tiny
     from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
 
-    cfg = db1_tiny().model
-    for impl, cpu, cuda in (("xla", False, False), ("pallas", True, True),
-                            ("auto", False, True)):
-        cfg.attention_impl = impl
-        assert use_rel_kernel(cfg, 1024, 1024, "cpu") is cpu, impl
-        assert use_rel_kernel(cfg, 1024, 1024, "cuda") is cuda, impl
-        # shapes outside the JAX kernel's reach never take the route
-        assert not use_rel_kernel(cfg, 64, 64, "cuda")
+    cfg = db1_tiny(attention_impl=impl, **overrides).model
+    assert use_rel_kernel(cfg, 1024, 1024, "cpu") is cpu
+    assert use_rel_kernel(cfg, 1024, 1024, "cuda") is cuda
+    # shapes outside the JAX kernel's reach never take the route
+    assert not use_rel_kernel(cfg, 64, 64, "cuda")
+
+
+def test_model_gate_takes_flagship_kernels():
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+
+    cfg = db1_1p2b().model
+    assert cfg.attention_impl == "auto" and cfg.d_head == 128
+    assert use_rel_kernel(cfg, 1024, 1024, "cuda")
+    assert not use_rel_kernel(cfg, 1024, 1024, "cpu")
 
 
 def test_k3_route_passes_gradients():
