@@ -1,7 +1,7 @@
 // Ring-cache decode attention for Hopper (sm_90a): the q == 1 decode kernel
-// (K1 on a bf16 cache, K6 on an int8 one) with the tiny epilogue that
-// merges its per-split partials, and the 2 <= Q <= 32 observation-prime
-// kernel (K2 bf16, K7 int8, and K8: K7 with head-major scales).
+// (K1 on a bf16 cache, K6 on an int8 one) and the 2 <= Q <= 32
+// observation-prime kernel (K2 bf16, K7 int8, and K8: K7 with head-major
+// scales), one launch each.
 //
 // Replaces the Pallas kernels of bdm_db1_tpu/ops/flash_ring_decode.py:
 //   K1/K6  _flash_ring_decode_local (:249, body _decode_core :91,
@@ -33,10 +33,10 @@
 // softmax block with the Pallas kernel's block semantics: its own max m_s,
 // and p rounded against it. The splits merge as the JAX wrapper merges its
 // blocks: m = max m_s, w_s = exp(m_s - m), o = sum w_s o_s, l = sum w_s l_s
-// (an all-banned split, whose max is -1e30, gets weight 0). K1 spreads the
-// splits over blocks (B * splits blocks fill the 132 SMs) and merges them
-// in a second kernel; the prime has B * H blocks of work and merges in
-// registers (see k2_prime_kernel).
+// (an all-banned split, whose max is -1e30, gets weight 0). Both kernels
+// take one (head, batch row) a block: K1 merges the splits in shared
+// memory at its end (see k1_decode_kernel), the prime in registers as it
+// goes (see k2_prime_kernel).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -49,8 +49,7 @@
 namespace {
 
 constexpr int DH = 128;          // head dim the kernels take
-constexpr int K1_SPLIT = 64;     // keys per K1 block
-constexpr int K1_UNROLL = 4;     // warp loads in flight per K1 warp
+constexpr int K1_SPLIT = 64;     // keys per K1/K6 softmax block (split)
 constexpr int K2_SPLIT = 128;    // keys per K2 softmax block (split)
 constexpr int QMAX = 32;         // most query rows K2 takes
 constexpr int VEC = 8;           // bf16 values per 16-byte load
@@ -75,18 +74,6 @@ __device__ __forceinline__ uint4 load16(const T* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // What one 16-byte load of a cache row holds: EPL elements, as floats.
 template <typename T> struct Cache;
 
@@ -101,130 +88,21 @@ template <> struct Cache<__nv_bfloat16> {
 template <> struct Cache<int8_t> {
   static constexpr int EPL = 16;
   static constexpr bool kQuant = true;
+  // exact: byte j of w ^ 0x80808080 (the int8 plus 128) becomes the low
+  // mantissa of 2^23 + u in f32, and less 2^23 + 128 leaves the int8 value
+  // (one PRMT and one FADD a value, where a cast is an I2F at a quarter of
+  // their rate)
   __device__ static void to_float(const uint4& raw, float* out) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(e[i]);
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t u = w[i] ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out[4 * i + j] = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5440u | j)) - 8388736.f;
+    }
   }
 };
-
-// K1/K6: one block per (key split, batch row), one warp per head. A group
-// of LPR lanes (16 for bf16, 8 for int8) x 16 bytes reads one key's head
-// row, so each warp load covers KPW = 32 / LPR keys; K1_UNROLL loads are in
-// flight per warp. Scales (int8 only) are [L, B, M, H].
-template <typename T>
-__global__ void __launch_bounds__(1024) k1_decode_kernel(
-    const T* __restrict__ k_cache,
-    const T* __restrict__ v_cache,
-    const float* __restrict__ k_scale,        // [L, B, M, H] or null
-    const float* __restrict__ v_scale,
-    const __nv_bfloat16* __restrict__ qw,     // [B, H, DH]
-    const float* __restrict__ bias,           // [B, H, M]
-    float* __restrict__ o_part,               // [B, S, H, DH]
-    float* __restrict__ m_part,               // [B, S, H]
-    float* __restrict__ l_part,               // [B, S, H]
-    int layer, int B, int M, int H, float scale) {
-  using C = Cache<T>;
-  constexpr int EPL = C::EPL;      // dims per lane
-  constexpr int LPR = DH / EPL;    // lanes per key row
-  constexpr int KPW = 32 / LPR;    // keys per warp load
-  __shared__ float sc[32][K1_SPLIT];
-  const int split = blockIdx.x, b = blockIdx.y, S = gridDim.x;
-  const int h = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane / LPR, sub = lane % LPR;
-  const int start = split * K1_SPLIT;
-  const int n = min(K1_SPLIT, M - start);
-  const size_t row = (size_t)H * DH;
-  const size_t base = ((size_t)layer * B + b) * M * row + (size_t)h * DH + sub * EPL;
-  // scale of key start + i: sbase + i * H
-  const size_t sbase = (((size_t)layer * B + b) * M + start) * H + h;
-
-  float q[EPL];
-#pragma unroll
-  for (int c = 0; c < EPL; c += VEC)
-    bf16x8_to_float(load16(qw + ((size_t)b * H + h) * DH + sub * EPL + c), q + c);
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) q[j] = round_bf16(q[j] * scale);
-  const float* brow = bias + ((size_t)b * H + h) * M + start;
-
-  // pass 1: scores of this split's keys -> shared memory
-  for (int i0 = 0; i0 < n; i0 += KPW * K1_UNROLL) {
-    uint4 kr[K1_UNROLL];
-#pragma unroll
-    for (int u = 0; u < K1_UNROLL; ++u) {
-      const int i = i0 + KPW * u + grp;
-      kr[u] = i < n ? load16(k_cache + base + (size_t)(start + i) * row)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < K1_UNROLL; ++u) {
-      const int i = i0 + KPW * u + grp;
-      float kf[EPL];
-      C::to_float(kr[u], kf);
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < EPL; ++j) s = fmaf(q[j], kf[j], s);
-#pragma unroll
-      for (int o = LPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (sub == 0 && i < n) {
-        if constexpr (C::kQuant) s *= k_scale[sbase + (size_t)i * H];
-        sc[h][i] = s + brow[i];
-      }
-    }
-  }
-  __syncwarp();
-  float mx = -INFINITY;
-  for (int i = lane; i < n; i += 32) mx = fmaxf(mx, sc[h][i]);
-  mx = warp_max(mx);
-
-  // pass 2: p = exp(s - m), l += p, o += bf16(p * v_scale) * v
-  float o[EPL];
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) o[j] = 0.f;
-  float l = 0.f;
-  for (int i0 = 0; i0 < n; i0 += KPW * K1_UNROLL) {
-    uint4 vr[K1_UNROLL];
-#pragma unroll
-    for (int u = 0; u < K1_UNROLL; ++u) {
-      const int i = i0 + KPW * u + grp;
-      vr[u] = i < n ? load16(v_cache + base + (size_t)(start + i) * row)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int u = 0; u < K1_UNROLL; ++u) {
-      const int i = i0 + KPW * u + grp;
-      if (i < n) {
-        const float p = expf(sc[h][i] - mx);
-        l += p;
-        float pv = p;
-        if constexpr (C::kQuant) pv *= v_scale[sbase + (size_t)i * H];
-        const float pb = round_bf16(pv);
-        float vf[EPL];
-        C::to_float(vr[u], vf);
-#pragma unroll
-        for (int j = 0; j < EPL; ++j) o[j] = fmaf(pb, vf[j], o[j]);
-      }
-    }
-  }
-  // the KPW lane groups hold disjoint keys of the same dims
-#pragma unroll
-  for (int off = LPR; off < 32; off <<= 1) {
-#pragma unroll
-    for (int j = 0; j < EPL; ++j) o[j] += __shfl_xor_sync(0xffffffffu, o[j], off);
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-  }
-  const size_t prow = ((size_t)b * S + split) * H + h;
-  if (grp == 0) {
-    float4* op = reinterpret_cast<float4*>(o_part + prow * DH + sub * EPL);
-#pragma unroll
-    for (int j = 0; j < EPL / 4; ++j)
-      op[j] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
-  }
-  if (lane == 0) {
-    m_part[prow] = mx;
-    l_part[prow] = l;
-  }
-}
 
 // ---- K2/K7/K8: the prime on tensor cores ---------------------------------
 //
@@ -244,8 +122,8 @@ __global__ void __launch_bounds__(1024) k1_decode_kernel(
 // takes 32 of the head dims: P's A fragments and V's B fragments
 // (ldmatrix.trans) into the split's own f32 accumulator, which is then
 // merged into the running one in split order, w = exp(m_split - m_run):
-// the merge of merge_splits_kernel, online. int8 tiles stay int8 in shared
-// memory (half the bytes of a bf16 tile); ldmatrix reads their rows as
+// the JAX wrapper's merge (and K1's), online. int8 tiles stay int8 in
+// shared memory (half the bytes of a bf16 tile); ldmatrix reads their rows as
 // 16-bit pairs and each fragment word converts to bf16 in registers,
 // exactly, with integer and f32 adds (i8pair_bf16).
 //
@@ -295,6 +173,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
 }
 
+// 16 bytes, of which the first n come from gmem and the rest are zeroed
+__device__ __forceinline__ void cp_async16n(void* smem, const void* gmem, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 4 : 0;
@@ -307,7 +191,7 @@ __device__ __forceinline__ void cp_async_commit() {
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
@@ -734,46 +618,262 @@ __global__ void __launch_bounds__(K2_THREADS, K2_BLOCKS) k2_prime_kernel(
 }
 
 
-// merge the S split partials of each of the R rows of batch row b:
-// m = max_s m_s, w_s = exp(m_s - m), o = sum_s w_s o_s, l = sum_s w_s l_s.
-__global__ void __launch_bounds__(DH) merge_splits_kernel(
-    const float* __restrict__ o_part,   // [B, S, R, DH]
-    const float* __restrict__ m_part,   // [B, S, R]
-    const float* __restrict__ l_part,   // [B, S, R]
-    float* __restrict__ o,              // [B, R, DH]
-    float* __restrict__ m,              // [B, R]
-    float* __restrict__ l,              // [B, R]
-    int S, int R) {
-  const int r = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t st0 = (size_t)b * S * R + r;
-  float mf = -INFINITY;
-  for (int s = 0; s < S; ++s) mf = fmaxf(mf, m_part[st0 + (size_t)s * R]);
-  float acc = 0.f, lacc = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const size_t i = st0 + (size_t)s * R;
-    const float w = expf(m_part[i] - mf);
-    acc = fmaf(w, o_part[i * DH + d], acc);
-    lacc = fmaf(w, l_part[i], lacc);
+// ---- K1/K6: the q == 1 decode ------------------------------------------
+//
+// One block per (head, batch row), B * H blocks (640 at B = 40, 896 at
+// B = 56). A block needs K1_THREADS threads and ~28 KB of shared memory, so
+// 8 fit an SM and every block is resident from the start: one wave, with
+// no ragged last one. Its K1_WARPS warps take the row's splits in turn
+// (warp w the splits w, w + K1_WARPS, ...). A group of LPR lanes (16 for
+// bf16, 8 for int8) x 16 bytes reads one key's head row, so a warp step
+// covers KPW = 32 / LPR keys, and a split is NKS K steps, then NKS V steps.
+//
+// The steps stream through the warp's cp.async ring of K1_DEPTH steps
+// (each lane copies, and later reads, its own 16 bytes), committed
+// K1_GROUP steps a group, so K1_DEPTH - K1_GROUP steps (6 KB a warp) stay
+// in flight across every boundary: a split's V rows are on their way
+// before its max is known, and the next split's K rows while its PV runs.
+// The first step of a split also brings the split's f32 bias (and, int8,
+// its k and v scales) into the warp's side buffer.
+// - K steps: the lane group's dot in f32, reduced over its LPR lanes; the
+//   score goes to the warp's shared memory and into a running max.
+// - V steps: p = exp(s - m_split), l += p, o += bf16(p * v_scale) * v.
+// - A split's end: its (o, m, l) goes to the block's shared memory.
+// When every split is in, the block merges them in split order with the
+// arithmetic of the JAX wrapper's merge and writes o, m, l: one launch, no
+// partials in device memory, no atomics. int8 converts to f32 exactly with
+// an integer and an f32 add a value (Cache<int8_t>::to_float).
+constexpr int K1_WARPS = 4;
+constexpr int K1_THREADS = 32 * K1_WARPS;
+constexpr int K1_GROUP = 2;                      // steps a cp.async group
+constexpr int K1_GROUPS = 4;                     // groups in the ring
+constexpr int K1_DEPTH = K1_GROUP * K1_GROUPS;   // ring steps a warp
+constexpr int K1_STEP = 32 * 16;                 // bytes a warp step copies
+
+// dynamic shared memory of k1_decode_kernel, in bytes from the start
+constexpr int K1_RING = 0;                                            // [warp][step][lane] 16 B
+constexpr int K1_SIDE = K1_RING + K1_WARPS * K1_DEPTH * K1_STEP;      // [warp][2][3][split] f32
+constexpr int K1_SC = K1_SIDE + K1_WARPS * 2 * 3 * K1_SPLIT * 4;      // [warp][split] f32 scores
+constexpr int K1_PART = K1_SC + K1_WARPS * K1_SPLIT * 4;              // [S][DH] o, [S] m, [S] l
+constexpr long long k1_smem(long long S) { return K1_PART + S * (DH + 2) * 4; }
+
+// Scales (int8 only) are [L, B, M, H].
+template <typename T>
+__global__ void __launch_bounds__(K1_THREADS) k1_decode_kernel(
+    const T* __restrict__ k_cache,
+    const T* __restrict__ v_cache,
+    const float* __restrict__ k_scale,        // [L, B, M, H] or null
+    const float* __restrict__ v_scale,
+    const __nv_bfloat16* __restrict__ qw,     // [B, H, DH]
+    const float* __restrict__ bias,           // [B, H, M]
+    float* __restrict__ o_out,                // [B, H, DH]
+    float* __restrict__ m_out,                // [B, H]
+    float* __restrict__ l_out,                // [B, H]
+    int layer, int B, int M, int H, float scale) {
+  using C = Cache<T>;
+  constexpr int EPL = C::EPL;         // dims per lane
+  constexpr int LPR = DH / EPL;       // lanes per key row
+  constexpr int KPW = 32 / LPR;       // keys per warp step
+  constexpr int NKS = K1_SPLIT / KPW; // K (and V) steps a split
+  constexpr int SPS = 2 * NKS;        // steps a split
+  static_assert(NKS % K1_GROUP == 0 && K1_DEPTH <= SPS,
+                "a group stays in one phase; the ring runs at most a split ahead");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / LPR, sub = lane % LPR;
+  const int S = (M + K1_SPLIT - 1) / K1_SPLIT;
+  const int nls = S > warp ? (S - warp + K1_WARPS - 1) / K1_WARPS : 0;   // this warp's splits
+  const int ngroups = nls * SPS / K1_GROUP;
+  uint4* ring = reinterpret_cast<uint4*>(smem + K1_RING) + warp * K1_DEPTH * 32;
+  float* side = reinterpret_cast<float*>(smem + K1_SIDE) + warp * 2 * 3 * K1_SPLIT;
+  float* sc = reinterpret_cast<float*>(smem + K1_SC) + warp * K1_SPLIT;
+  float* part_o = reinterpret_cast<float*>(smem + K1_PART);
+  float* part_m = part_o + S * DH;
+  float* part_l = part_m + S;
+
+  const size_t row = (size_t)H * DH;
+  const size_t lbase = ((size_t)layer * B + b) * M;   // key 0 of (layer, b)
+  const size_t base = lbase * row + (size_t)h * DH + sub * EPL;
+  const float* brow = bias + ((size_t)b * H + h) * M;
+
+  // issue group gi: K1_GROUP steps, and at a split's first step its side data
+  const auto produce = [&](int gi) {
+    const int st0 = gi * K1_GROUP;
+    const int ls = st0 / SPS, k0 = st0 % SPS;
+    const int start = (warp + K1_WARPS * ls) * K1_SPLIT;
+    const T* src = k0 < NKS ? k_cache : v_cache;
+    const int key0 = start + (k0 % NKS) * KPW + grp;
+#pragma unroll
+    for (int u = 0; u < K1_GROUP; ++u) {
+      const int key = key0 + u * KPW;
+      const bool ok = key < M;
+      cp_async16(ring + ((st0 + u) % K1_DEPTH) * 32 + lane,
+                 ok ? src + base + (size_t)key * row : src, ok);
+    }
+    if (k0 == 0) {
+      float* sd = side + (ls & 1) * 3 * K1_SPLIT;
+#pragma unroll
+      if (lane < K1_SPLIT / 4) {   // bias rows are 16-byte aligned when M % 4 == 0
+        const int key = start + 4 * lane;
+        if ((M & 3) == 0) {
+          cp_async16n(sd + 4 * lane, key < M ? brow + key : brow, 4 * max(0, min(4, M - key)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            cp_async4(sd + 4 * lane + e, key + e < M ? brow + key + e : brow, key + e < M);
+        }
+      }
+#pragma unroll
+      for (int i = lane; i < K1_SPLIT; i += 32) {
+        const int key = start + i;
+        const bool ok = key < M;
+        if constexpr (C::kQuant) {
+          const size_t si = (lbase + (ok ? key : 0)) * H + h;
+          cp_async4(sd + K1_SPLIT + i, k_scale + si, ok);
+          cp_async4(sd + 2 * K1_SPLIT + i, v_scale + si, ok);
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int gi = 0; gi < K1_GROUPS - 1; ++gi) {
+    if (gi < ngroups) produce(gi);
+    cp_async_commit();
   }
-  o[((size_t)b * R + r) * DH + d] = acc;
-  if (d == 0) {
-    m[(size_t)b * R + r] = mf;
-    l[(size_t)b * R + r] = lacc;
+
+  float q[EPL];
+#pragma unroll
+  for (int c = 0; c < EPL; c += VEC)
+    bf16x8_to_float(load16(qw + ((size_t)b * H + h) * DH + sub * EPL + c), q + c);
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) q[j] = round_bf16(q[j] * scale);
+
+  float o[EPL];
+#pragma unroll
+  for (int j = 0; j < EPL; ++j) o[j] = 0.f;
+  float l = 0.f, mx = -INFINITY;
+  for (int gi = 0; gi < ngroups; ++gi) {
+    if (gi + K1_GROUPS - 1 < ngroups) produce(gi + K1_GROUPS - 1);
+    cp_async_commit();
+    cp_async_wait<K1_GROUPS - 1>();   // group gi has landed
+    __syncwarp();                     // and the side data other lanes copied
+    const int st0 = gi * K1_GROUP;
+    const int ls = st0 / SPS, k0 = st0 % SPS;
+    const int s = warp + K1_WARPS * ls, start = s * K1_SPLIT;
+    const float* sd = side + (ls & 1) * 3 * K1_SPLIT;
+    if (k0 < NKS) {   // K steps: the scores of keys k0 KPW .. and the running max
+      float dot[K1_GROUP];
+#pragma unroll
+      for (int u = 0; u < K1_GROUP; ++u) {
+        float kf[EPL];
+        C::to_float(ring[((st0 + u) % K1_DEPTH) * 32 + lane], kf);
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < EPL; ++j) acc = fmaf(q[j], kf[j], acc);
+        dot[u] = acc;
+      }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < K1_GROUP; ++u) dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+#pragma unroll
+      for (int u = 0; u < K1_GROUP; ++u) {
+        const int i = (k0 + u) * KPW + grp;
+        float sv = dot[u];
+        if constexpr (C::kQuant) sv *= sd[K1_SPLIT + i];
+        sv = start + i < M ? sv + sd[i] : -INFINITY;
+        if (sub == 0) sc[i] = sv;
+        mx = fmaxf(mx, sv);
+      }
+      if (k0 + K1_GROUP == NKS) {   // the split's last K steps: its max
+#pragma unroll
+        for (int off = LPR; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+    } else {          // V steps: p = exp(s - m), l += p, o += bf16(p * v_scale) * v
+#pragma unroll
+      for (int u = 0; u < K1_GROUP; ++u) {
+        const int i = (k0 - NKS + u) * KPW + grp;
+        if (start + i < M) {
+          const float p = expf(sc[i] - mx);
+          l += p;
+          float pv = p;
+          if constexpr (C::kQuant) pv *= sd[2 * K1_SPLIT + i];
+          const float pb = round_bf16(pv);
+          float vf[EPL];
+          C::to_float(ring[((st0 + u) % K1_DEPTH) * 32 + lane], vf);
+#pragma unroll
+          for (int j = 0; j < EPL; ++j) o[j] = fmaf(pb, vf[j], o[j]);
+        }
+      }
+      if (k0 + K1_GROUP == SPS) {   // the split's end: its (o, m, l)
+        // the KPW lane groups hold disjoint keys of the same dims
+#pragma unroll
+        for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+          for (int j = 0; j < EPL; ++j) o[j] += __shfl_xor_sync(0xffffffffu, o[j], off);
+          l += __shfl_xor_sync(0xffffffffu, l, off);
+        }
+        if (grp == 0) {
+          float4* op = reinterpret_cast<float4*>(part_o + s * DH + sub * EPL);
+#pragma unroll
+          for (int j = 0; j < EPL / 4; ++j)
+            op[j] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+        }
+        if (lane == 0) {
+          part_m[s] = mx;
+          part_l[s] = l;
+        }
+#pragma unroll
+        for (int j = 0; j < EPL; ++j) o[j] = 0.f;
+        l = 0.f;
+        mx = -INFINITY;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the splits in split order: m = max_s m_s, w_s = exp(m_s - m),
+  // o = sum_s w_s o_s, l = sum_s w_s l_s
+  const size_t orow = (size_t)b * H + h;
+  for (int d = threadIdx.x; d < DH; d += K1_THREADS) {
+    float mf = -INFINITY;
+    for (int s = 0; s < S; ++s) mf = fmaxf(mf, part_m[s]);
+    float acc = 0.f, lacc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float w = expf(part_m[s] - mf);
+      acc = fmaf(w, part_o[s * DH + d], acc);
+      lacc = fmaf(w, part_l[s], lacc);
+    }
+    o_out[orow * DH + d] = acc;
+    if (d == 0) {
+      m_out[orow] = mf;
+      l_out[orow] = lacc;
+    }
   }
 }
 
 template <typename T>
 cudaError_t launch_k1(const void* k_cache, const void* v_cache,
                       const void* k_scale, const void* v_scale, const void* qw,
-                      const void* bias, void* o_part, void* m_part,
-                      void* l_part, int layer, int B, int M, int H,
-                      float scale, int S, cudaStream_t st) {
-  k1_decode_kernel<T><<<dim3(S, B), H * 32, 0, st>>>(
+                      const void* bias, void* o, void* m, void* l, int layer,
+                      int B, int M, int H, float scale, cudaStream_t st) {
+  const int smem = static_cast<int>(k1_smem((M + K1_SPLIT - 1) / K1_SPLIT));
+  static int smem_set = 48 * 1024;   // above 48 KB only after this attribute
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k1_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  k1_decode_kernel<T><<<dim3(H, B), K1_THREADS, smem, st>>>(
       static_cast<const T*>(k_cache), static_cast<const T*>(v_cache),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(qw), static_cast<const float*>(bias),
-      static_cast<float*>(o_part), static_cast<float*>(m_part),
-      static_cast<float*>(l_part), layer, B, M, H, scale);
+      static_cast<float*>(o), static_cast<float*>(m), static_cast<float*>(l),
+      layer, B, M, H, scale);
   return cudaGetLastError();
 }
 
@@ -819,34 +919,30 @@ const char* bdm_cuda_error_string(int err) {
 }
 
 // K1 (k_scale == v_scale == null: bf16 cache) / K6 (int8 cache, f32 scales
-// [L, B, M, H]): o [B, H, DH], m [B, H], l [B, H] (all f32);
-// o_part/m_part/l_part are scratch of [B, S, H(, DH)] with
-// S = ceil(M / K1_SPLIT).
+// [L, B, M, H]): o [B, H, DH], m [B, H], l [B, H] (all f32), in one launch.
+// o_part, m_part and l_part are not read or written (the splits merge in
+// shared memory) and may be null.
 int bdm_flash_ring_decode(const void* k_cache, const void* v_cache,
                           const void* k_scale, const void* v_scale,
                           const void* qw, const void* bias, void* o_part,
                           void* m_part, void* l_part, void* o, void* m,
                           void* l, int layer, int B, int M, int H, float scale,
                           int device, void* stream) {
-  if (H < 1 || H > 32 || B < 1 || M < 1 || B > 65535 ||
+  (void)o_part;
+  (void)m_part;
+  (void)l_part;
+  if (H < 1 || H > 65535 || B < 1 || M < 1 || B > 65535 ||
+      k1_smem((M + K1_SPLIT - 1) / K1_SPLIT) > 232448 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int S = (M + K1_SPLIT - 1) / K1_SPLIT;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = k_scale ? launch_k1<int8_t>(k_cache, v_cache, k_scale, v_scale, qw,
-                                    bias, o_part, m_part, l_part, layer, B,
-                                    M, H, scale, S, st)
-                : launch_k1<__nv_bfloat16>(k_cache, v_cache, nullptr, nullptr,
-                                           qw, bias, o_part, m_part, l_part,
-                                           layer, B, M, H, scale, S, st);
-  if (err != cudaSuccess) return err;
-  merge_splits_kernel<<<dim3(H, B), DH, 0, st>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), S, H);
-  return cudaGetLastError();
+  return k_scale ? launch_k1<int8_t>(k_cache, v_cache, k_scale, v_scale, qw,
+                                     bias, o, m, l, layer, B, M, H, scale, st)
+                 : launch_k1<__nv_bfloat16>(k_cache, v_cache, nullptr, nullptr,
+                                            qw, bias, o, m, l, layer, B, M, H,
+                                            scale, st);
 }
 
 // K2 (no scales) / K7 (int8, scales [L, B, M, H], sm = H) / K8 (int8,

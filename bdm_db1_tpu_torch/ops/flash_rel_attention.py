@@ -49,8 +49,11 @@ NEG_INF = -1e30
 # the JAX gate's block size: it decides which shapes take the kernel route
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-# what csrc/flash_rel_attention.cu takes (checked against the library)
+# what csrc/flash_rel_attention.cu (K3) and csrc/flash_rel_attention_bwd.cu
+# (K4, K5) take (checked against the libraries): query rows a block, keys a
+# tile
 KERNEL_HEAD_DIM = 128
+K3_BLOCK_Q = 128
 KERNEL_BLOCK_Q = 64
 KERNEL_BLOCK_K = 64
 
@@ -192,7 +195,7 @@ def _lib() -> ctypes.CDLL:
     lib.bdm_rel_error_string.argtypes = [I]
     lib.bdm_rel_error_string.restype = ctypes.c_char_p
     for fn, want in (("bdm_rel_head_dim", KERNEL_HEAD_DIM),
-                     ("bdm_rel_block_q", KERNEL_BLOCK_Q),
+                     ("bdm_rel_block_q", K3_BLOCK_Q),
                      ("bdm_rel_block_k", KERNEL_BLOCK_K)):
         getattr(lib, fn).restype = I
         got = getattr(lib, fn)()

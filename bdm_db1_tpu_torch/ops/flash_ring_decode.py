@@ -49,7 +49,7 @@ MAX_PRIME_Q = 32
 # what csrc/flash_ring_decode.cu takes (checked against the library on load)
 KERNEL_HEAD_DIM = 128
 K1_MAX_HEADS = 32
-K1_SPLIT = 64          # keys per K1/K6 block: its softmax block size
+K1_SPLIT = 64          # keys per K1/K6 softmax block (split)
 K2_SPLIT = 128         # keys per K2/K7/K8 softmax block (split)
 
 # launches per kernel, counted where the wrapper launches it
@@ -236,8 +236,9 @@ def flash_ring_decode(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
     """K1 (bf16 cache) / K6 (int8 cache with scales [L, B, M, H]):
     attention of one query per (row, head) over layer ``layer`` of the
     stacked ring cache. qw [B, H, Dh] (q + r_w_bias, compute dtype), bias
-    [B, H, M] f32 -> (o [B, H, Dh], m [B, H, 1], l [B, H, 1]) f32. The
-    kernel reads the full stacked cache at the layer's offset."""
+    [B, H, M] f32 -> (o [B, H, Dh], m [B, H, 1], l [B, H, 1]) f32, in one
+    launch. The kernel reads the full stacked cache at the layer's
+    offset."""
     if k_cache.device.type == "cpu":
         return flash_ring_decode_plain(k_cache, v_cache, qw, bias, layer,
                                        k_scale, v_scale, scale=scale)
@@ -246,19 +247,15 @@ def flash_ring_decode(k_cache: Tensor, v_cache: Tensor, qw: Tensor,
     dev = k_cache.device
     check_operand("qw", qw, (B, H, Dh), torch.bfloat16, dev)
     check_operand("bias", bias, (B, H, M), torch.float32, dev)
-    S = -(-M // K1_SPLIT)
     f32 = dict(device=dev, dtype=torch.float32)
-    o_part = torch.empty(B, S, H, Dh, **f32)
-    m_part = torch.empty(B, S, H, **f32)
-    l_part = torch.empty(B, S, H, **f32)
     o = torch.empty(B, H, Dh, **f32)
     m = torch.empty(B, H, 1, **f32)
     l = torch.empty(B, H, 1, **f32)
+    # no split scratch: the kernel merges its splits in shared memory
     rc = _lib().bdm_flash_ring_decode(
         k_cache.data_ptr(), v_cache.data_ptr(), ks, vs, qw.data_ptr(),
-        bias.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-        layer, B, M, H, _bf16_scale(scale), *_stream(dev))
+        bias.data_ptr(), None, None, None, o.data_ptr(), m.data_ptr(),
+        l.data_ptr(), layer, B, M, H, _bf16_scale(scale), *_stream(dev))
     name = "flash_ring_decode" + (
         "_int8" if k_cache.dtype == torch.int8 else "")
     _raise_on(rc, name)

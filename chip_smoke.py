@@ -16,8 +16,8 @@ Phases, each printing one JSON line:
   on an int8 cache with scales made by ``quantize_kv_rows`` (B = 56), K8
   equal to K7 on the transposed scales (M = 1024, H = 16, Dh = 128; Q = 19
   and 26 for the primes; a layer index other than 0; untimed, a ragged
-  prime at Q 5 and one at Q 17 over M = 201 with more (head, row) pairs
-  than SMs), K9 at the four trunk
+  decode and prime at M = 200 (Q 5) and at M = 201 (Q 17 for the prime)
+  with more (head, row) pairs than SMs), K9 at the four trunk
   matrices and the four row counts of the int8 serve (56, 1064, 1456,
   14336: timed, two calls bitwise equal at 56 and 1064 rows) and at 24
   untimed edge shapes (a K split with a shorter last split among them),
@@ -75,15 +75,24 @@ times its K4 in turns with this tree's (old, new, new, old; both after the
 key terms, on the same delta) and its wrapper's two calls in turns with
 this tree's ``flash_rel_attention_bwd``. With ``--old-ring SRC`` (a copy
 of an earlier csrc/flash_ring_decode.cu, e.g. ``git show
-b145d4e:bdm_db1_tpu_torch/csrc/flash_ring_decode.cu``), at the timed K2
-and K7 cases its prime's (o, m, l) are held to this tree's within the
-kernel limits and the two are timed in turns (new, old, old, new), and
-its K8 (head-major scales) in turns with this tree's: ``old_ms`` and
-``turns_ms`` on the K2, K7 and K8 rows of the kernels line.
+9fdc92c:bdm_db1_tpu_torch/csrc/flash_ring_decode.cu``), at the timed K1,
+K6, K2 and K7 cases its decode's or prime's (o, m, l) are held to this
+tree's within the kernel limits and the two are timed in turns (new, old,
+old, new), and its K8 (head-major scales) in turns with this tree's; its
+split scratch is sized by that library's ``bdm_k1_split()`` and
+``bdm_k2_split()``. With ``--old-rel-fwd SRC`` (a copy of an earlier
+csrc/flash_rel_attention.cu, e.g. ``git show
+9fdc92c:bdm_db1_tpu_torch/csrc/flash_rel_attention.cu``), at the two timed
+K3 shapes its (out, m, l) are held to this tree's within the K3 limits
+and the two are timed in turns. Both put ``old_ms`` and ``turns_ms`` on
+their rows of the kernels line. ``--probe`` records how far those earlier
+kernels' outputs are from this tree's without failing on it, for probe
+builds with a part taken out.
 
 The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
-registers, stack, spill bytes and static shared memory of K4, K5 and the
-prime's two instances (``k2_prime_kernel<bf16>``, ``<int8>``). The
+registers, stack, spill bytes and static shared memory of K3, K4, K5 and
+the two instances each of K1 and the prime (``k1_decode_kernel<bf16>``,
+``<int8>``, ``k2_prime_kernel<bf16>``, ``<int8>``). The
 K4/K5 records of the kernels line say what each of their times is
 (``times``): ``ms`` is the kernel alone, ``train_profile_ms`` the kernel
 alone in the train profile, ``call_ms`` the whole backward call.
@@ -165,7 +174,8 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-PTXAS_KERNELS = ("k4_rel_bwd_dq_kernel", "k5_rel_bwd_dkv_kernel",
+PTXAS_KERNELS = ("k3_rel_attention_kernel", "k4_rel_bwd_dq_kernel",
+                 "k5_rel_bwd_dkv_kernel", "k1_decode_kernel",
                  "k2_prime_kernel")
 # the template arguments of a mangled kernel name (I<args>E after the name)
 _MANGLED_ARGS = {"I13__nv_bfloat16E": "<bf16>", "IaE": "<int8>"}
@@ -211,7 +221,8 @@ def phase_build() -> dict:
     for name, info in built.items():
         # ptxas resource lines (registers, shared memory, spills)
         print(f"[nvcc {name}]\n{info['log'].strip()}", file=sys.stderr)
-    rec["resources"] = {k: v for src in ("flash_rel_attention_bwd",
+    rec["resources"] = {k: v for src in ("flash_rel_attention",
+                                         "flash_rel_attention_bwd",
                                          "flash_ring_decode")
                         if src in built
                         for k, v in ptxas_resources(built[src]["log"]).items()}
@@ -243,9 +254,9 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False,
                  old=None):
     """One ring kernel (K1/K6 when Q is None, else K2/K7, and K8 for an
     int8 prime) against its plain version on the same inputs. Returns the
-    comparison and, when timed, the times. With ``old`` (OldRing, primes
-    only): its (o, m, l) held to this tree's within the same limits and,
-    when timed, the two timed in turns (new, old, old, new), K8 too."""
+    comparison and, when timed, the times. With ``old`` (OldRing): its
+    (o, m, l) held to this tree's within the same limits and, when timed,
+    the two timed in turns (new, old, old, new), K8 too."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     scale = 1.0 / Dh ** 0.5
@@ -283,17 +294,18 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False,
            "m_abs_err": m_err, "l_rel_err": l_rel, "tol": tol, "ok": bool(ok)}
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {rec}")
-    if old is not None and Q is not None:
-        o_o, m_o, l_o = old(k, v, qw, bias, layer, *sc, scale=scale)
+    if old is not None:
+        old_fn = old if Q is not None else old.decode
+        o_o, m_o, l_o = old_fn(k, v, qw, bias, layer, *sc, scale=scale)
         torch.cuda.synchronize()
-        rec["old_max_abs_err"] = float((o_o / l_o[..., None] - out).abs()
-                                       .max())
+        out_o = o_o / l_o[..., None] if Q is not None else o_o / l_o
+        rec["old_max_abs_err"] = float((out_o - out).abs().max())
         rec["old_m_abs_err"] = float((m_o - m).abs().max())
         rec["old_l_rel_err"] = float(((l_o - l).abs() / l.abs()).max())
-        if not (rec["old_max_abs_err"] <= tol["out_abs"]
-                and rec["old_m_abs_err"] <= tol["m_abs"]
-                and rec["old_l_rel_err"] <= tol["l_rel"]):
-            raise AssertionError(f"the old prime disagrees with this "
+        if old.checked and not (rec["old_max_abs_err"] <= tol["out_abs"]
+                                and rec["old_m_abs_err"] <= tol["m_abs"]
+                                and rec["old_l_rel_err"] <= tol["l_rel"]):
+            raise AssertionError(f"the old ring kernel disagrees with this "
                                  f"tree's: {rec}")
     k8 = None
     if int8 and Q is not None:
@@ -323,11 +335,12 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False,
         def new_fn(i):
             return kern(k, v, qw, bias, i % L, *sc, scale=scale)
 
-        if old is None or Q is None:
+        if old is None:
             rec["ms"] = time_ms(new_fn, iters=48)
         else:
             def old_fn(i):
-                return old(k, v, qw, bias, i % L, *sc, scale=scale)
+                return (old if Q is not None else old.decode)(
+                    k, v, qw, bias, i % L, *sc, scale=scale)
 
             times = [time_ms(f, iters=48)
                      for f in (new_fn, old_fn, old_fn, new_fn)]
@@ -389,7 +402,9 @@ QMM_EDGE = [(R, K, N) for R in (1, 8, 57, 64, 65, 200) for K in (96, 4128)
 
 def _build_copy(src: str):
     """nvcc (the port's flags) on a copy of an earlier CUDA source, next to
-    it: (the loaded library, nvcc's output)."""
+    it: (the loaded library, nvcc's output). The classes below that wrap
+    such a copy hold its outputs to this tree's unless ``checked`` is False
+    (--probe: probe builds with a part taken out)."""
     import ctypes
     import os
     from pathlib import Path
@@ -407,25 +422,52 @@ def _build_copy(src: str):
 
 
 class OldRing:
-    """An earlier K2/K7 prime with this tree's C interface
-    (``bdm_flash_ring_prime``), built from a copy of its
-    csrc/flash_ring_decode.cu given by --old-ring and called as its wrapper
-    called it, with split scratch sized by that library's
-    ``bdm_k2_split()`` (scales [L, B, M, H], or [L, B, H, M] with
-    ``head_major``, K8): timed in turns with this tree's prime on the same
-    card. Not part of the port."""
+    """An earlier K2/K7 prime and K1/K6 decode with this tree's C interface
+    (``bdm_flash_ring_prime``, ``bdm_flash_ring_decode``), built from a copy
+    of its csrc/flash_ring_decode.cu given by --old-ring and called as its
+    wrapper called them, with split scratch sized by that library's
+    ``bdm_k2_split()`` and ``bdm_k1_split()`` (scales [L, B, M, H], or
+    [L, B, H, M] with ``head_major``, K8): timed in turns with this tree's
+    kernels on the same card. Not part of the port."""
 
-    def __init__(self, src: str):
+    def __init__(self, src: str, checked: bool = True):
         import ctypes
 
         lib, log = _build_copy(src)
         self.resources = ptxas_resources(log)
+        self.checked = checked
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bdm_flash_ring_prime.argtypes = [P] * 12 + [I] * 6 + [Fl, I, P]
         lib.bdm_flash_ring_prime.restype = I
+        lib.bdm_flash_ring_decode.argtypes = [P] * 12 + [I] * 4 + [Fl, I, P]
+        lib.bdm_flash_ring_decode.restype = I
         lib.bdm_k2_split.restype = I
+        lib.bdm_k1_split.restype = I
         self.split = lib.bdm_k2_split()
+        self.k1_split = lib.bdm_k1_split()
         self.lib = lib
+
+    def decode(self, k, v, qw, bias, layer, ks=None, vs=None, *, scale):
+        """The old K1/K6: qw [B, H, Dh] -> (o [B, H, Dh], m, l [B, H, 1])."""
+        from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+
+        _, B, M, H, Dh = k.shape
+        dev = k.device
+        S = -(-M // self.k1_split)
+        f32 = dict(device=dev, dtype=torch.float32)
+        parts = (torch.empty(B, S, H, Dh, **f32), torch.empty(B, S, H, **f32),
+                 torch.empty(B, S, H, **f32))
+        outs = (torch.empty(B, H, Dh, **f32), torch.empty(B, H, 1, **f32),
+                torch.empty(B, H, 1, **f32))
+        rc = self.lib.bdm_flash_ring_decode(
+            k.data_ptr(), v.data_ptr(), None if ks is None else ks.data_ptr(),
+            None if vs is None else vs.data_ptr(), qw.data_ptr(),
+            bias.data_ptr(), *(t.data_ptr() for t in parts + outs), layer, B,
+            M, H, fro._bf16_scale(scale), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"old decode launch failed ({rc})")
+        return outs
 
     def __call__(self, k, v, qw, bias, layer, ks=None, vs=None, *, scale,
                  head_major=False):
@@ -451,6 +493,50 @@ class OldRing:
         if rc:
             raise RuntimeError(f"old prime launch failed ({rc})")
         return outs
+
+
+class OldRelFwd:
+    """An earlier K3 with this tree's C interface
+    (``bdm_flash_rel_attention``: the key terms, then the kernel), built
+    from a copy of its csrc/flash_rel_attention.cu given by --old-rel-fwd
+    and called as its wrapper called it: held to this tree's K3 and timed
+    in turns with it on the same card. Not part of the port."""
+
+    def __init__(self, src: str, checked: bool = True):
+        import ctypes
+
+        lib, log = _build_copy(src)
+        self.resources = ptxas_resources(log)
+        self.checked = checked
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bdm_flash_rel_attention.argtypes = (
+            [P] * 11 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
+        lib.bdm_flash_rel_attention.restype = I
+        self.lib = lib
+
+    def __call__(self, q, k, v, rk, r_w_bias, r_r_bias, *, mem_len,
+                 same_length, scale):
+        dev = q.device
+        B, qlen, H, Dh = q.shape
+        klen = k.shape[1]
+        rw = r_w_bias.float().contiguous()
+        rr = r_r_bias.float().contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = torch.empty(B, qlen, H, Dh, dtype=torch.bfloat16, device=dev)
+        m = torch.empty(B, H, qlen, **f32)
+        l = torch.empty(B, H, qlen, **f32)
+        rwk = torch.empty(B * H * klen, **f32)
+        rrk = torch.empty(H * klen, **f32)
+        rc = self.lib.bdm_flash_rel_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rk.data_ptr(),
+            rw.data_ptr(), rr.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), rwk.data_ptr(), rrk.data_ptr(), q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            B, H, qlen, klen, mem_len, int(same_length), scale,
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"old K3 launch failed ({rc})")
+        return out, m, l
 
 
 class OldQmm:
@@ -496,11 +582,12 @@ class OldRelBwd:
     tree's operands. Timed in turns with this tree's on the same card. Not
     part of the port."""
 
-    def __init__(self, src: str):
+    def __init__(self, src: str, checked: bool = True):
         import ctypes
 
         lib, log = _build_copy(src)
         self.resources = ptxas_resources(log)
+        self.checked = checked
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bdm_flash_rel_attention_bwd.argtypes = (
             [I] + [P] * 18 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
@@ -688,11 +775,14 @@ BWD_REL_TOL = {"dq": 2e-2, "dk": 2e-2, "dv": 2e-2, "drk": 2e-2,
                "drw": 1e-4, "drr": 1e-4}
 
 
-def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
+def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
+              old=None):
     """K3 on q, k, v sliced from one fused [B, klen, 3 * H * Dh] projection
     (as the trunk feeds it, through its strides) against its plain version:
     (out, m, l); when timed, its time, bound, plain time and the time of
-    F.scaled_dot_product_attention on the same function."""
+    F.scaled_dot_product_attention on the same function. With ``old``
+    (OldRelFwd): its (out, m, l) held to this tree's within the same limits
+    and, when timed, the two timed in turns (new, old, old, new)."""
     from bdm_db1_tpu_torch.ops.attention import (
         causal_mask, rel_shift_sliced, same_length_mask,
     )
@@ -714,25 +804,21 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
     torch.cuda.synchronize()
     out_p, m_p, l_p = fra.flash_rel_attention_plain(*args, **kw)
     torch.cuda.synchronize()
-    diff = (out.float() - out_p.float()).abs()
-    out_max = float(out_p.float().abs().max())
-    excess = float((diff - 2.0 ** -7 * out_p.float().abs()
-                    - OUT_REL_TOL * out_max).max())
-    err = float(diff.max())
-    m_err = float((m - m_p).abs().max())
-    l_rel = float(((l - l_p).abs() / l_p.abs()).max())
-    ok = (np.isfinite([err, m_err, l_rel]).all() and excess <= 0
-          and m_err <= K3_M_ABS_TOL and l_rel <= K3_L_REL_TOL)
     rec = {"shape": {"B": B, "qlen": qlen, "klen": klen, "H": H, "Dh": Dh,
                      "mem_len": mem_len, "same_length": same_length},
-           "max_abs_err": err, "out_plain_absmax": out_max,
-           "err_over_limit_max": excess, "m_abs_err": m_err,
-           "l_rel_err": l_rel,
+           **_k3_errors((out, m, l), (out_p, m_p, l_p)),
            "tol": {"out": "2^-7 |plain| + %g max|plain|" % OUT_REL_TOL,
-                   "m_abs": K3_M_ABS_TOL, "l_rel": K3_L_REL_TOL},
-           "ok": bool(ok)}
-    if not ok:
+                   "m_abs": K3_M_ABS_TOL, "l_rel": K3_L_REL_TOL}}
+    rec["ok"] = _k3_ok(rec)
+    if not rec["ok"]:
         raise AssertionError(f"K3 disagrees with its plain version: {rec}")
+    if old is not None:
+        got = old(*args, **kw)
+        torch.cuda.synchronize()
+        rec["old"] = _k3_errors(got, (out, m, l))
+        if old.checked and not _k3_ok(rec["old"]):
+            raise AssertionError(f"the old K3 disagrees with this tree's: "
+                                 f"{rec['old']}")
     if timed:
         banned = (same_length_mask(qlen, klen, mem_len, device="cuda")
                   if same_length else causal_mask(qlen, klen, device="cuda"))
@@ -742,8 +828,21 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
             + 4 * (2 * B * H * qlen + 2 * H * Dh)
         rec.update(bound(nbytes, 3 * 2 * Dh * pairs))
         rec["unbanned_pairs"] = pairs
-        rec["ms"] = time_ms(lambda i: fra.flash_rel_attention(*args, **kw),
-                            iters=20)
+
+        def new_fn(i):
+            return fra.flash_rel_attention(*args, **kw)
+
+        if old is None:
+            rec["ms"] = time_ms(new_fn, iters=20)
+        else:
+            def old_fn(i):
+                return old(*args, **kw)
+
+            times = [time_ms(f, iters=20)
+                     for f in (new_fn, old_fn, old_fn, new_fn)]
+            rec["ms"] = float(np.mean(times[::3]))
+            rec["old_ms"] = float(np.mean(times[1:3]))
+            rec["turns_ms"] = times
         rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_plain(
             *args, **kw), iters=3, warmup=1)
         # yardstick only (the port never calls it): SDPA of (q + r_w) over
@@ -762,6 +861,28 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed):
                           "the scaled BD term as a bf16 mask built "
                           "beforehand (undercounts the whole function)")
     return rec
+
+
+def _k3_errors(got, ref) -> dict:
+    """(out, m, l) of a K3 against a reference's: out's largest difference
+    and its excess over the limit 2^-7 |ref| + OUT_REL_TOL max |ref|, m's
+    largest absolute and l's largest relative difference."""
+    (out, m, l), (out_r, m_r, l_r) = got, ref
+    diff = (out.float() - out_r.float()).abs()
+    out_max = float(out_r.float().abs().max())
+    return {"max_abs_err": float(diff.max()), "out_plain_absmax": out_max,
+            "err_over_limit_max": float((diff - 2.0 ** -7 * out_r.float().abs()
+                                         - OUT_REL_TOL * out_max).max()),
+            "m_abs_err": float((m - m_r).abs().max()),
+            "l_rel_err": float(((l - l_r).abs() / l_r.abs()).max())}
+
+
+def _k3_ok(e: dict) -> bool:
+    return bool(np.isfinite([e["max_abs_err"], e["m_abs_err"],
+                             e["l_rel_err"]]).all()
+                and e["err_over_limit_max"] <= 0
+                and e["m_abs_err"] <= K3_M_ABS_TOL
+                and e["l_rel_err"] <= K3_L_REL_TOL)
 
 
 GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
@@ -862,8 +983,9 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
                                       / b.float().abs().max())
             torch.cuda.synchronize()
             rec["old_vs_new_rel_err"] = old_rel
-            if not all(np.isfinite(v) and v <= 2 * BWD_REL_TOL[n]
-                       for n, v in old_rel.items()):
+            if old.checked and not all(np.isfinite(v)
+                                       and v <= 2 * BWD_REL_TOL[n]
+                                       for n, v in old_rel.items()):
                 raise AssertionError(f"the old K4/K5 disagree with this "
                                      f"tree's: {old_rel}")
             # K4 after the key terms on both sides: the old entry runs them
@@ -920,7 +1042,8 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     return rec
 
 
-def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None) -> dict:
+def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
+                  old_rel_fwd=None, probe=False) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
@@ -929,22 +1052,24 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None) -> dict:
     full8 = dict(full, B=56, int8=True)
     ragged = dict(L=3, B=3, M=200, H=4, Dh=128, layer=2)
     ragged8 = dict(ragged, int8=True)
-    # M not a multiple of 4 (the prime's bias rows are then not 16-byte
-    # aligned), both row tiles at Q 17, more (head, row) pairs than SMs
+    # M not a multiple of 4 (the bias rows are then not 16-byte aligned),
+    # both of the prime's row tiles at Q 17, more (head, row) pairs than SMs
     odd = dict(L=2, B=48, M=201, H=4, Dh=128, layer=1)
-    ring = OldRing(old_ring) if old_ring else None
+    ring = OldRing(old_ring, not probe) if old_ring else None
     cases = {
         "flash_ring_decode": [
-            _kernel_case(fro, Q=None, seed=1, timed=True, **full),
-            _kernel_case(fro, Q=None, seed=2, timed=False, **ragged)],
+            _kernel_case(fro, Q=None, seed=1, timed=True, old=ring, **full),
+            _kernel_case(fro, Q=None, seed=2, timed=False, **ragged),
+            _kernel_case(fro, Q=None, seed=7, timed=False, **odd)],
         "flash_ring_prime_ap": [
             _kernel_case(fro, Q=19, seed=3, timed=True, old=ring, **full),
             _kernel_case(fro, Q=26, seed=4, timed=True, old=ring, **full),
             _kernel_case(fro, Q=5, seed=5, timed=False, **ragged),
             _kernel_case(fro, Q=17, seed=6, timed=False, **odd)],
         "flash_ring_decode_int8": [
-            _kernel_case(fro, Q=None, seed=11, timed=True, **full8),
-            _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8)],
+            _kernel_case(fro, Q=None, seed=11, timed=True, old=ring, **full8),
+            _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8),
+            _kernel_case(fro, Q=None, seed=17, timed=False, int8=True, **odd)],
         "flash_ring_prime_ap_int8": [
             _kernel_case(fro, Q=19, seed=13, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=26, seed=14, timed=True, old=ring, **full8),
@@ -966,19 +1091,20 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None) -> dict:
     cases["quant_matmul"] = qmm
     host_us = _qmm_host_us(qm, old)
     torch.cuda.empty_cache()
+    old_fwd = OldRelFwd(old_rel_fwd, not probe) if old_rel_fwd else None
     cases["flash_rel_attention"] = [
         # (a) the validation forward: seq 1024, no memory (causal: the
         # same_length window is empty at klen = mem_len)
         _rel_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
-                  same_length=True, seed=50, timed=True),
+                  same_length=True, seed=50, timed=True, old=old_fwd),
         # (b) the trunk over 1024 memory rows (decode_rl): window active
         _rel_case(fra, B=4, qlen=256, klen=1280, mem_len=1024,
-                  same_length=True, seed=51, timed=True),
+                  same_length=True, seed=51, timed=True, old=old_fwd),
         # (c) ragged, as the JAX anylen wrapper admits it
         _rel_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
                   same_length=True, seed=52, timed=False)]
     torch.cuda.empty_cache()
-    old_bwd = OldRelBwd(old_rel_bwd) if old_rel_bwd else None
+    old_bwd = OldRelBwd(old_rel_bwd, not probe) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
         # (a) the train step's shape: B 4, seq 1024, causal
         _rel_bwd_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
@@ -995,6 +1121,8 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None) -> dict:
         rec["old_rel_bwd_resources"] = old_bwd.resources
     if ring:
         rec["old_ring_resources"] = ring.resources
+    if old_fwd:
+        rec["old_rel_fwd_resources"] = old_fwd.resources
     return rec
 
 
@@ -1830,8 +1958,8 @@ BWD_TIMES = {
                    "with call_ms"}
 
 
-# --old-ring: the old prime's mean of its two turns, and the four turns
-# (new, old, old, new) in ms
+# --old-ring (K1, K2, K6, K7, K8) and --old-rel-fwd (K3): the old kernel's
+# mean of its two turns, and the four turns (new, old, old, new) in ms
 RING_TURNS = ("old_ms", "turns_ms")
 
 
@@ -1900,8 +2028,17 @@ def main(argv=None) -> int:
                          "with this tree's")
     ap.add_argument("--old-ring", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_ring_decode.cu: its "
-                         "prime (K2, K7) is held to this tree's and timed in "
-                         "turns with it")
+                         "decode (K1, K6) and prime (K2, K7, K8) are held to "
+                         "this tree's and timed in turns with them")
+    ap.add_argument("--probe", action="store_true",
+                    help="record, without failing on them, how far the "
+                         "--old-ring/--old-rel-fwd/--old-rel-bwd kernels' "
+                         "outputs are from this tree's (probe builds with a "
+                         "part taken out)")
+    ap.add_argument("--old-rel-fwd", default=None, metavar="SRC",
+                    help="a copy of an earlier csrc/flash_rel_attention.cu: "
+                         "its K3 is held to this tree's and timed in turns "
+                         "with it")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
@@ -1923,7 +2060,8 @@ def main(argv=None) -> int:
         emit(results["build"])
     if "kernels" in phases:
         results["kernels"] = phase_kernels(args.old_qmm, args.old_rel_bwd,
-                                           args.old_ring)
+                                           args.old_ring, args.old_rel_fwd,
+                                           args.probe)
         emit(results["kernels"])
     serves = {"serve": dict(batch=40),
               "serve_int8": dict(batch=56, decode_cache_dtype="int8",
