@@ -11,13 +11,21 @@ whose CPU form is the kernels' plain versions, "off" the plain ring branch).
 ``TrainConfig`` those of the train step and the trainer, every field kept
 (``TrainConfig.prng_impl`` names a JAX generator kind: torch has one kind,
 so the port keeps the field for the round trip and ignores it).
-``MeshConfig`` and the JSON/CLI round trip belong to later slices.
+``MeshConfig`` is kept field for field; the port runs on one card, so
+``mesh.multihost`` True raises in the entry points that read it.
+``DB1Config`` has the JAX package's JSON and CLI round trip
+(``to_dict``/``to_json``/``from_dict``/``from_json``/``parser``/
+``from_cli``): a JSON written by either package loads in both.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import typing
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 from bdm_db1_tpu_torch.core.vocab import VocabLayout
 
@@ -121,6 +129,23 @@ class ModelConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The device mesh of the JAX package: DP = ``data`` axis, TP =
+    ``model`` axis, PP (> 1) a ``pipe`` axis. The port runs on one card;
+    the fields are kept for the config round trip."""
+
+    data_parallel: int = -1  # -1: infer from device count / model_parallel
+    model_parallel: int = 1
+    pipeline_parallel: int = 1
+    # pipeline microbatches per (grad-accum) micro step; -1 -> 2 * stages
+    pipeline_microbatches: int = -1
+    axis_names: Tuple[str, str] = ("data", "model")
+    # multi-process bootstrap: None = auto-detect, True = force, False =
+    # never
+    multihost: Optional[bool] = None
+
+
+@dataclass
 class OptimizerConfig:
     optimizer: str = "adamw"
     lr: float = 1e-4
@@ -152,7 +177,9 @@ class TrainConfig:
     eval_interval: int = 1000
     eval_iters: int = 10
     save_interval: int = 1000
-    save_dir: Optional[str] = None   # checkpointing is not ported yet
+    # checkpoints (train/checkpoint.py), metrics.jsonl and, for
+    # evaluate_rl, results.output
+    save_dir: Optional[str] = None
     load_dir: Optional[str] = None
     ckpt_tag: str = "latest_model"
     tensorboard_dir: Optional[str] = None
@@ -214,9 +241,43 @@ class DB1Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     vocab: VocabConfig = field(default_factory=VocabConfig)
     vision: VisionConfig = field(default_factory=VisionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    # ---- serialization ---------------------------------------------------
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DB1Config":
+        return _from_dict(cls, d)
+
+    @classmethod
+    def from_json(cls, path: str) -> "DB1Config":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    # ---- CLI ---------------------------------------------------------------
+    @classmethod
+    def parser(cls) -> argparse.ArgumentParser:
+        p = argparse.ArgumentParser("bdm-db1-tpu-torch")
+        p.add_argument("--config", type=str, default=None,
+                       help="JSON config file")
+        _add_dataclass_args(p, cls, prefix="")
+        return p
+
+    @classmethod
+    def from_cli(cls, argv=None) -> "DB1Config":
+        args = cls.parser().parse_args(argv)
+        cfg = cls.from_json(args.config) if args.config else cls()
+        _apply_overrides(cfg, vars(args))
+        return cfg
 
 
 def db1_1p2b(**model_overrides) -> DB1Config:
@@ -247,3 +308,82 @@ def db1_tiny(**model_overrides) -> DB1Config:
     cfg.data.seq_length = 64
     return cfg
 
+
+
+# ---- generic dataclass <-> CLI/JSON plumbing --------------------------------
+
+def _is_dc(t) -> bool:
+    return dataclasses.is_dataclass(t) and isinstance(t, type)
+
+
+def _from_dict(cls, d: dict):
+    """Nested dicts -> nested dataclasses; keys the class does not have
+    are dropped, lists become tuples."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        t = _resolve_type(cls, f)
+        if isinstance(v, dict) and _is_dc(t):
+            kwargs[f.name] = _from_dict(t, v)
+        elif isinstance(v, list):
+            kwargs[f.name] = tuple(v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def _resolve_type(cls, f):
+    # the annotations are strings under the future import
+    t = f.type
+    if isinstance(t, str):
+        t = typing.get_type_hints(cls).get(f.name, Any)
+    return t
+
+
+def _add_dataclass_args(p, cls, prefix: str):
+    """One ``--section.field-name`` option per leaf field (``_`` -> ``-``);
+    Optional[X] takes X, tuples take a list of strings, bools
+    true/false/1/0."""
+    for f in dataclasses.fields(cls):
+        t = _resolve_type(cls, f)
+        name = f"{prefix}{f.name}".replace("_", "-")
+        if _is_dc(t):
+            _add_dataclass_args(p, t, prefix=f"{prefix}{f.name}.")
+            continue
+        origin = typing.get_origin(t)
+        if origin is typing.Union:  # Optional[X]
+            inner = [a for a in typing.get_args(t) if a is not type(None)]
+            t = inner[0] if inner else str
+            origin = typing.get_origin(t)
+        if t is bool:
+            p.add_argument(f"--{name}", type=_str2bool, default=None)
+        elif origin in (tuple, list):
+            p.add_argument(f"--{name}", type=str, nargs="*", default=None)
+        elif t in (int, float, str):
+            p.add_argument(f"--{name}", type=t, default=None)
+
+
+def _str2bool(x: str) -> bool:
+    if x in ("True", "true", "1"):
+        return True
+    if x in ("False", "false", "0"):
+        return False
+    raise ValueError(x)
+
+
+def _apply_overrides(cfg, flat: dict) -> None:
+    """Set every parsed option that was given (not None) on ``cfg``."""
+    for k, v in flat.items():
+        if v is None or k == "config":
+            continue
+        obj = cfg
+        parts = k.split(".")
+        for part in parts[:-1]:
+            obj = getattr(obj, part)
+        leaf = parts[-1]
+        if hasattr(obj, leaf):
+            if isinstance(getattr(obj, leaf), tuple) and isinstance(v, list):
+                v = tuple(v)
+            setattr(obj, leaf, v)

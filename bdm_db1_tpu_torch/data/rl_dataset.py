@@ -1,27 +1,38 @@
-"""RL trajectories, their tokenization and packed training samples: the
-in-memory subset of bdm_db1_tpu/data/rl_dataset.py.
+"""RL trajectories, their tokenization and packed training samples (the
+tensor-observation part of bdm_db1_tpu/data/rl_dataset.py).
 
-* ``TrajectoryStore`` — in-memory per-trajectory storage built from a
-  d4rl-style flat dataset.
+* ``TrajectoryStore`` — per-trajectory storage, built in memory from a
+  d4rl-style flat dataset or attached lazily (mmap) to an on-disk cache in
+  the reference's layout (``save_cache`` writes it: per-trajectory ``.npy``
+  files per obs-tree leaf, action and reward, plus ``path_lengths.npy`` and
+  ``traj_returns.npy``), so a cache written by either package is read by
+  both.
 * ``RLTokenizerSuite`` — per-obs-type tokenization with the unified vocab
   offsets.
 * ``RLFullDataset`` — the dataset meta (obs/action token widths, transition
   budget), the sample index, packed samples (``get``, with prompt
   conditioning drawn from ``self.rng`` in the JAX package's order, so one
   seed gives the same samples in both), and expert-prompt sampling.
+  With a ``cache_dir`` its meta and sample index are read from (or
+  written to) ``<cache_dir>/<name>/meta``, the JAX package's files.
 * ``RLDataset`` / ``split_rl_dataset`` — train/valid/test views.
+* ``build_rl_dataset_from_cache`` — the dataset of one env from its cache
+  (built from the live env first when absent).
 
 Tensor observations only: image and text observations raise
-``NotImplementedError``. The on-disk trajectory and meta caches, the
-few-shot view and the dataset-factory creators are not ported.
+``NotImplementedError``. The few-shot view and the dataset-factory
+creators are not ported.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch.distributed as dist
 
+from bdm_db1_tpu_torch.core.logging import process_index
 from bdm_db1_tpu_torch.core.vocab import VocabLayout
 from bdm_db1_tpu_torch.data import native
 from bdm_db1_tpu_torch.data.dataset_utils import get_train_valid_test_split_
@@ -53,6 +64,12 @@ def tree_leaves(tree: ObsTree) -> List[Any]:
     if isinstance(tree, dict):
         return [tree[k] for k in sorted(tree)]
     return [tree]
+
+
+def tree_paths(tree: ObsTree) -> List[Tuple[str, ...]]:
+    if isinstance(tree, dict):
+        return [(k,) for k in sorted(tree)]
+    return [()]
 
 
 def qlearning_dataset_with_timeouts(dataset: Dict[str, np.ndarray]) -> Dict:
@@ -142,6 +159,13 @@ class RLTokenizerSuite:
             act = act[:, None]
         return self.layout.encode_discrete(act.astype(np.int64))
 
+    def decode_action(self, tokens: np.ndarray, discrete: bool):
+        """Model tokens ``[action_length]`` -> one env action."""
+        if discrete:
+            return int(self.layout.decode_discrete(tokens)[0])
+        bins = self.layout.decode_continuous(tokens)
+        return self.scalar.decode_np(bins, is_action=True)
+
     def decode_action_batch(self, tokens: np.ndarray, discrete: bool):
         """Model tokens ``[B, action_length]`` -> env actions: ``[B]`` ints
         (discrete) or ``[B, action_length]`` floats."""
@@ -153,7 +177,7 @@ class RLTokenizerSuite:
 
 
 class TrajectoryStore:
-    """Per-env trajectory storage (in memory)."""
+    """Per-env trajectory storage with the reference cache layout."""
 
     def __init__(self, observations: Sequence[ObsTree],
                  actions: Sequence[np.ndarray],
@@ -164,6 +188,8 @@ class TrajectoryStore:
         self.path_lengths = np.array([len(a) for a in self.actions])
         self.traj_returns = np.array(
             [float(np.sum(r)) for r in self.rewards], dtype=np.float32)
+        self._lazy_dir: Optional[Path] = None
+        self._obs_paths: Optional[List[Tuple[str, ...]]] = None
 
     @classmethod
     def from_flat_dataset(cls, dataset: Dict[str, np.ndarray],
@@ -176,16 +202,101 @@ class TrajectoryStore:
         obs, act, rew = zip(*trajs)
         return cls(obs, act, rew)
 
+    @classmethod
+    def from_env_name(cls, env_name: str, cache_dir: str,
+                      max_path_length: Optional[int] = None
+                      ) -> "TrajectoryStore":
+        """Attach to the env's cache, building it first from the live env
+        when absent: process 0 resolves the env (``make_env``), takes its
+        offline dataset (``get_dataset`` for d4rl envs, ``make_dataset``
+        for the fakes), segments it and writes the cache; the other
+        processes wait at a barrier when a process group is up."""
+        root = Path(cache_dir) / env_name
+        if not (root / "path_lengths.npy").exists():
+            if process_index() == 0:
+                from bdm_db1_tpu_torch.eval.envs import make_env
+
+                env = make_env(env_name)
+                if hasattr(env, "get_dataset"):      # d4rl API
+                    flat = env.get_dataset()
+                elif hasattr(env, "make_dataset"):   # scripted fakes
+                    flat = env.make_dataset()
+                else:
+                    raise ValueError(
+                        f"env {env_name!r} has no offline dataset "
+                        "(get_dataset/make_dataset) and no cache at "
+                        f"{root}")
+                cls.from_flat_dataset(flat, max_path_length).save_cache(
+                    cache_dir, env_name)
+            if dist.is_available() and dist.is_initialized():
+                dist.barrier()
+        return cls.from_cache_dir(cache_dir, env_name)
+
+    @classmethod
+    def from_cache_dir(cls, cache_dir: str, env_name: str
+                       ) -> "TrajectoryStore":
+        """Attach lazily to a cache directory written by ``save_cache`` (or
+        by the reference or the JAX package; the same layout)."""
+        root = Path(cache_dir) / env_name
+        store = cls.__new__(cls)
+        store._lazy_dir = root
+        store.path_lengths = np.load(root / "path_lengths.npy")
+        store.traj_returns = np.load(root / "traj_returns.npy")
+        store.observations = store.actions = store.rewards = None
+        # the obs tree from the directory structure
+        obs_root = root / "observations"
+        subdirs = sorted(
+            d.name for d in obs_root.iterdir() if d.is_dir()
+        ) if obs_root.exists() else []
+        store._obs_paths = [(s,) for s in subdirs] if subdirs else [()]
+        return store
+
     @property
     def num_trajectories(self) -> int:
         return len(self.path_lengths)
 
     def get(self, path_idx: int, start: Optional[int] = None,
             end: Optional[int] = None) -> Tuple[ObsTree, np.ndarray]:
+        """Slice one trajectory (mmap reads when cache-attached)."""
         start = start or 0
+        if self._lazy_dir is not None:
+            root = self._lazy_dir
+            act = np.load(root / "actions" / f"{path_idx}.npy", mmap_mode="r")
+            end = end if end is not None else len(act)
+            if self._obs_paths == [()]:
+                obs = np.load(
+                    root / "observations" / f"{path_idx}.npy", mmap_mode="r"
+                )[start:end]
+            else:
+                obs = {
+                    p[0]: np.load(
+                        root / "observations" / p[0] / f"{path_idx}.npy",
+                        mmap_mode="r",
+                    )[start:end]
+                    for p in self._obs_paths
+                }
+            return obs, np.asarray(act[start:end])
         end = end if end is not None else len(self.actions[path_idx])
         obs = tree_map(lambda x: x[start:end], self.observations[path_idx])
         return obs, self.actions[path_idx][start:end]
+
+    def save_cache(self, cache_dir: str, env_name: str) -> None:
+        """Write the reference on-disk layout under
+        ``<cache_dir>/<env_name>``."""
+        root = Path(cache_dir) / env_name
+        (root / "actions").mkdir(parents=True, exist_ok=True)
+        (root / "rewards").mkdir(parents=True, exist_ok=True)
+        for p in tree_paths(self.observations[0]):
+            (root / "observations" / "/".join(p)).mkdir(
+                parents=True, exist_ok=True)
+        for i in range(self.num_trajectories):
+            obs = self.observations[i]
+            for p, leaf in zip(tree_paths(obs), tree_leaves(obs)):
+                np.save(root / "observations" / "/".join(p) / f"{i}.npy", leaf)
+            np.save(root / "actions" / f"{i}.npy", np.asarray(self.actions[i]))
+            np.save(root / "rewards" / f"{i}.npy", np.asarray(self.rewards[i]))
+        np.save(root / "path_lengths.npy", np.asarray(self.path_lengths))
+        np.save(root / "traj_returns.npy", self.traj_returns)
 
 
 class RLFullDataset:
@@ -204,6 +315,7 @@ class RLFullDataset:
         prompt_prob: float = 0.25,
         prompt_at_final_transition_prob: float = 0.5,
         prompt_strategy: str = "stochastic_subseq",
+        cache_dir: Optional[str] = None,
         seed: Optional[int] = None,
     ):
         self.name = name
@@ -216,10 +328,30 @@ class RLFullDataset:
         self.prompt_at_final_transition_prob = prompt_at_final_transition_prob
         self.prompt_strategy = prompt_strategy
         self.rng = np.random.RandomState(seed)
-        self._build_meta()
+
+        meta_dir = (
+            Path(cache_dir) / name / "meta" if cache_dir is not None else None
+        )
+        if meta_dir is not None and (meta_dir / "action_dim.npy").exists():
+            self._load_meta(meta_dir)
+        else:
+            self._build_meta()
+            if meta_dir is not None:
+                self._save_meta(meta_dir)
+
         # sample index: one sample per timestep of every trajectory
-        self.indices = native.build_rl_sample_idx(
-            self.store.path_lengths, self.transition_num)
+        index_path = (
+            meta_dir / f"indices_{seq_length}.npy" if meta_dir is not None
+            else None
+        )
+        if index_path is not None and index_path.exists():
+            self.indices = np.load(index_path, mmap_mode="r")
+        else:
+            self.indices = native.build_rl_sample_idx(
+                self.store.path_lengths, self.transition_num)
+            if index_path is not None:
+                index_path.parent.mkdir(parents=True, exist_ok=True)
+                np.save(index_path, self.indices)
         # top-return trajectories first, for expert-prompt sampling
         self._ret_order = np.argsort(-self.store.traj_returns, kind="stable")
 
@@ -236,6 +368,35 @@ class RLFullDataset:
         # whole transitions that fit seq_length + 1 tokens
         self.transition_num = (
             self.output_sequence_length + trans_dim) // (trans_dim + 1)
+        self.prompt_transition_num = int(self.prompt_ratio * self.transition_num)
+        self.predicted_transition_num = (
+            self.transition_num - self.prompt_transition_num)
+
+    def _save_meta(self, meta_dir: Path) -> None:
+        meta_dir.mkdir(parents=True, exist_ok=True)
+        np.save(meta_dir / "output_sequence_length.npy",
+                np.array(self.output_sequence_length))
+        np.save(meta_dir / "obs_type_spec.npy", np.array(self.obs_type_spec))
+        np.save(meta_dir / "observation_dims_for_spec.npy",
+                np.array(self.observation_dims_for_spec))
+        np.save(meta_dir / "observation_dim.npy", np.array(self.observation_dim))
+        np.save(meta_dir / "action_dim.npy", np.array(self.action_dim))
+        np.save(meta_dir / "transition_sequence_length.npy",
+                np.array(self.transition_num))
+
+    def _load_meta(self, meta_dir: Path) -> None:
+        def _load(name):
+            return np.load(meta_dir / f"{name}.npy", allow_pickle=True)
+
+        self.output_sequence_length = int(_load("output_sequence_length"))
+        spec = _load("obs_type_spec")
+        self.obs_type_spec = spec.item() if spec.shape == () else spec
+        dims = _load("observation_dims_for_spec")
+        self.observation_dims_for_spec = (
+            dims.item() if dims.shape == () else dims)
+        self.observation_dim = int(_load("observation_dim"))
+        self.action_dim = int(_load("action_dim"))
+        self.transition_num = int(_load("transition_sequence_length"))
         self.prompt_transition_num = int(self.prompt_ratio * self.transition_num)
         self.predicted_transition_num = (
             self.transition_num - self.prompt_transition_num)
@@ -446,3 +607,18 @@ def split_rl_dataset(full: RLFullDataset, splits_string: str = "90,5,5",
         sel = perm[cuts[i]: cuts[i + 1]]
         out.append(RLDataset(full, sel) if len(sel) else None)
     return tuple(out)
+
+
+def build_rl_dataset_from_cache(
+    env_name: str,
+    cache_dir: str,
+    seq_length: int,
+    tokenizer: RLTokenizerSuite,
+    **kwargs,
+) -> RLFullDataset:
+    """The dataset of ``env_name`` from its reference-format cache under
+    ``cache_dir`` (built from the live env first when absent,
+    ``TrajectoryStore.from_env_name``), with its meta cached there too."""
+    store = TrajectoryStore.from_env_name(env_name, cache_dir)
+    return RLFullDataset(env_name, store, tokenizer, seq_length,
+                         cache_dir=cache_dir, **kwargs)

@@ -1,9 +1,13 @@
-"""Minimal gym-style env protocol and the continuous fake env (copy of the
-parts of bdm_db1_tpu/eval/envs.py that the RL-evaluation slice needs).
+"""Minimal gym-style env protocol, the continuous and discrete fake envs and
+the env registry (copy of the parts of bdm_db1_tpu/eval/envs.py that RL
+evaluation of tensor observations needs).
 
-Real gym/d4rl envs stay pluggable (anything with reset/step/spaces works);
-the deterministic fake gives the eval loop an offline target and writes
-synthetic expert datasets in d4rl's ``get_dataset`` layout.
+Real gym/d4rl envs stay pluggable (anything with reset/step/spaces works;
+``make_env`` falls back to ``gym.make`` when gym is installed); the
+deterministic fakes give the eval loop an offline target and write
+synthetic expert datasets in d4rl's ``get_dataset`` layout. The image and
+text fakes of the JAX package are not ported: their names are unknown
+here, so ``make_env`` raises ``ValueError`` on them.
 """
 
 from __future__ import annotations
@@ -101,3 +105,80 @@ class FakeContinuousEnv:
             "rewards": np.asarray(rew_l, dtype=np.float32),
             "terminals": np.asarray(term_l, dtype=bool),
         }
+
+
+class FakeDiscreteEnv:
+    """Deterministic discrete env: reward 1 when action == obs % n_actions."""
+
+    def __init__(self, obs_dim: int = 3, n_actions: int = 4,
+                 episode_len: int = 15, seed: int = 0):
+        self.observation_space = BoxSpace((obs_dim,))
+        self.action_space = DiscreteSpace(n_actions)
+        self.episode_len = episode_len
+        self._rng = np.random.RandomState(seed)
+        self._t = 0
+        self._obs = None
+
+    def expert_action(self, obs: np.ndarray) -> int:
+        return int(abs(int(obs.sum()))) % self.action_space.n
+
+    def _next_obs(self) -> np.ndarray:
+        return self._rng.randint(0, 8, self.observation_space.shape).astype(
+            np.int64)
+
+    def reset(self):
+        self._t = 0
+        self._obs = self._next_obs()
+        return self._obs
+
+    def step(self, action):
+        reward = float(int(action) == self.expert_action(self._obs))
+        self._t += 1
+        self._obs = self._next_obs()
+        done = self._t >= self.episode_len
+        return self._obs, reward, done, {}
+
+    def seed(self, seed: int) -> None:
+        self._rng = np.random.RandomState(seed)
+
+    def make_dataset(self, num_episodes: int = 10) -> Dict[str, np.ndarray]:
+        obs_l, act_l, rew_l, term_l = [], [], [], []
+        for _ in range(num_episodes):
+            o = self.reset()
+            done = False
+            while not done:
+                a = self.expert_action(o)
+                obs_l.append(o)
+                act_l.append(a)
+                o, r, done, _ = self.step(a)
+                rew_l.append(r)
+                term_l.append(done)
+        return {
+            "observations": np.asarray(obs_l, dtype=np.int64),
+            "actions": np.asarray(act_l, dtype=np.int64),
+            "rewards": np.asarray(rew_l, dtype=np.float32),
+            "terminals": np.asarray(term_l, dtype=bool),
+        }
+
+
+_ENV_REGISTRY = {}
+
+
+def register_env(name: str, factory) -> None:
+    _ENV_REGISTRY[name] = factory
+
+
+def make_env(name: str):
+    """Resolve an env: registry first, then gym/d4rl if installed."""
+    if name in _ENV_REGISTRY:
+        return _ENV_REGISTRY[name]()
+    try:
+        import gym
+
+        return gym.make(name)
+    except Exception as e:
+        raise ValueError(f"unknown env {name!r} and gym unavailable: {e}")
+
+
+register_env("fake-continuous-v0", FakeContinuousEnv)
+register_env("fake-discrete-v0", FakeDiscreteEnv)

@@ -1,11 +1,15 @@
-"""Lockstep RL evaluation harness (counterpart of bdm_db1_tpu/eval/harness.py).
+"""RL evaluation harness (counterpart of bdm_db1_tpu/eval/harness.py): the
+one-episode loop, per-env evaluation, env sharding across processes and the
+lockstep batches.
 
-B same-geometry envs step in lockstep: one decode call per env step serves
-all B, the device holds the ring caches, and the host tokenizes
-observations and steps the envs. ``dispatch`` enqueues a cohort's decode
-without waiting for the device; ``harvest_and_step`` reads the actions back
-and steps the envs, so an interleaved loop overlaps one cohort's host work
-with another's device work.
+``run_episode`` / ``evaluate_env`` run one env's episodes one at a time in
+memory ("moving prompt") mode. In the lockstep path, B same-geometry envs
+step together: one decode call per env step serves all B, the device holds
+the ring caches, and the host tokenizes observations and steps the envs.
+``dispatch`` enqueues a cohort's decode without waiting for the device;
+``harvest_and_step`` reads the actions back and steps the envs, so an
+interleaved loop overlaps one cohort's host work with another's device
+work. The models carry their weights, so no entry takes a params tree.
 """
 
 from __future__ import annotations
@@ -15,8 +19,11 @@ from collections import defaultdict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
-from bdm_db1_tpu_torch.eval.decode import ActionDecoder, DecoderPool
+from bdm_db1_tpu_torch.eval.decode import (
+    ActionDecoder, DecoderPool, build_decoder_for_env,
+)
 from bdm_db1_tpu_torch.eval.envs import is_discrete_space
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 
@@ -26,6 +33,104 @@ class EpisodeResult:
     env_name: str
     episode_return: float
     episode_length: int
+
+
+def run_episode(
+    env: TokenizedEnv,
+    decoder: ActionDecoder,
+    *,
+    use_prompt: bool = True,
+    strict_length: bool = True,
+    minimal_expert_data: bool = False,
+    max_step_size: Optional[int] = None,
+    rng: Optional[np.random.RandomState] = None,
+) -> EpisodeResult:
+    """One episode in memory ("moving prompt") mode: the first prime is
+    [prompt || obs || sep], every later one the new [obs || sep] (with the
+    last action token in front when the decoder defers it). Observations
+    are tensors only, so no prime carries images, and a speculative config
+    raises where the decoder is built, so no speculative session runs."""
+    sep = np.array([env.separator_id], dtype=np.int64)
+
+    obs_tokens, _, action_mask = env.reset()
+    prime = np.concatenate([obs_tokens, sep])
+    if use_prompt:
+        prompt, _ = env.get_prompt(
+            strict_length=strict_length,
+            minimal_expert_data=minimal_expert_data, rng=rng)
+        prime = np.concatenate([prompt, prime])
+
+    episode_return, episode_length = 0.0, 0
+    done = False
+    deferred = None
+    mems = decoder.init_mems(1)
+
+    while not done:
+        act_tokens, mems = decoder.decode(
+            prime, mems, env_action_mask=action_mask, deferred_tok=deferred,
+            defer_last=decoder.defers)
+        if decoder.defers:
+            deferred = act_tokens[-1:]
+        action = env.tok.decode_action(act_tokens, env.discrete_action)
+        obs_tokens, _, action_mask, reward, done, _ = env.step(action)
+        episode_return += reward
+        episode_length += 1
+        if max_step_size is not None and episode_length >= max_step_size:
+            break
+        # memory carries history; feed only the new observation
+        prime = np.concatenate([obs_tokens, sep])
+
+    return EpisodeResult(env.ds.name, float(episode_return), episode_length)
+
+
+def evaluate_env(
+    model,
+    make_tokenized_env: Callable[[], TokenizedEnv],
+    *,
+    num_trials: int = 5,
+    seed: int = 100,
+    use_prompt: bool = True,
+    strict_length: bool = True,
+    minimal_expert_data: bool = False,
+    max_step_size: Optional[int] = None,
+    decoder_pool: Optional[DecoderPool] = None,
+) -> Dict[str, float]:
+    """Average return/length over ``num_trials`` episodes of one env, run
+    one after another by :func:`run_episode`."""
+    env = make_tokenized_env()
+    env.seed(seed)
+    rng = np.random.RandomState(seed)
+    decoder = (decoder_pool.get(env) if decoder_pool is not None
+               else build_decoder_for_env(model, env))
+    rets, lens = [], []
+    for _ in range(num_trials):
+        res = run_episode(
+            env, decoder, use_prompt=use_prompt, strict_length=strict_length,
+            minimal_expert_data=minimal_expert_data,
+            max_step_size=max_step_size, rng=rng)
+        rets.append(res.episode_return)
+        lens.append(res.episode_length)
+    return {
+        "env": env.ds.name,
+        "return_mean": float(np.mean(rets)),
+        "return_std": float(np.std(rets)),
+        "length_mean": float(np.mean(lens)),
+        "num_trials": num_trials,
+    }
+
+
+def shard_envs(env_names: Sequence[str],
+               process_index: Optional[int] = None,
+               process_count: Optional[int] = None) -> List[str]:
+    """Round-robin env sharding across processes: rank and world size from
+    ``torch.distributed`` when a process group is up, else 0 and 1."""
+    up = dist.is_available() and dist.is_initialized()
+    if process_index is None:
+        process_index = dist.get_rank() if up else 0
+    if process_count is None:
+        process_count = dist.get_world_size() if up else 1
+    return [e for i, e in enumerate(env_names)
+            if i % process_count == process_index]
 
 
 @dataclasses.dataclass

@@ -78,6 +78,13 @@ class TokenizedEnv:
         tokens, image = self.encode_obs(raw)
         return tokens, image, self.current_action_mask()
 
+    def step(self, action):
+        """``env.step`` with the new observation tokenized: (tokens, None,
+        action mask, reward, done, info)."""
+        raw, reward, done, info = self.env.step(action)
+        tokens, image = self.encode_obs(raw)
+        return tokens, image, self.current_action_mask(), reward, done, info
+
     def step_raw(self, action):
         """``env.step`` without tokenization — the lockstep cohort steps
         every env first, then tokenizes the whole batch of raw observations

@@ -1,0 +1,141 @@
+"""Checkpointing with resume (counterpart of bdm_db1_tpu/train/checkpoint.py),
+on ``torch.distributed.checkpoint``.
+
+One directory per step under ``directory``::
+
+    <directory>/<step>/.metadata        the tensors' index (dcp)
+    <directory>/<step>/__0_0.distcp     the tensors
+    <directory>/<step>/client.json      the client state, when given
+
+The tensors of a train state, by key: ``model.<parameter or buffer name>``
+(the model's state dict, so a model loads from ``model.*`` alone),
+``optimizer.count``, ``optimizer.mu.<name>``, ``optimizer.nu.<name>`` (the
+optimizer's ``state_dict``, train/step.py), ``step`` (int64) and
+``generator`` (the dropout ``torch.Generator``'s state bytes, when the
+state has one). A step is written under a temporary name and renamed when
+complete, so ``latest_step`` sees only finished steps; saving a step that
+exists replaces it. After each save only the newest ``max_to_keep`` steps
+stay. ``restore`` loads in place into the given state's own tensors, on
+their devices. Saves are synchronous, so ``wait`` has nothing to wait for,
+and made by one process (the port trains on one card).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import warnings
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed.checkpoint as dcp
+
+CLIENT_FILE = "client.json"
+_TMP_PREFIX = ".tmp-"
+# dcp says so on every call without a process group; one process is the
+# intended use here
+_SINGLE_PROCESS = ("torch.distributed is disabled, unavailable or "
+                   "uninitialized")
+
+
+def state_tensors(state) -> Dict[str, object]:
+    """The nested dict of tensors that a checkpoint holds for ``state`` (a
+    ``TrainState``): views of the state's own tensors, except ``step`` and
+    ``generator``, which are copies."""
+    out = {"model": state.model.state_dict(),
+           "optimizer": state.optimizer.state_dict(),
+           "step": torch.tensor(int(state.step), dtype=torch.int64)}
+    if state.generator is not None:
+        out["generator"] = state.generator.get_state()
+    return out
+
+
+def _quiet(fn, *args, **kwargs):
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=_SINGLE_PROCESS)
+        return fn(*args, **kwargs)
+
+
+def load_model(model: torch.nn.Module, path: str) -> None:
+    """Read only the ``model.*`` tensors of the step directory ``path``
+    into ``model``, in place, cast to its tensors' dtypes."""
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        raise ValueError(
+            f"{path} is not a checkpoint of this package (a JAX/orbax one?); "
+            "write JAX params as a DeepSpeed model_states.pt with "
+            "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead")
+    _quiet(dcp.load, {"model": model.state_dict()}, checkpoint_id=path)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(int(step)))
+
+    def all_steps(self) -> List[int]:
+        """The finished steps on disk, oldest first."""
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit()
+                      and os.path.isdir(os.path.join(self.directory, d)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, client_state: Optional[Dict] = None):
+        """Write ``state`` (a ``TrainState``) and the client JSON as step
+        ``step``, then prune to ``max_to_keep`` steps."""
+        tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{int(step)}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        _quiet(dcp.save, state_tensors(state), checkpoint_id=tmp)
+        if client_state is not None:
+            with open(os.path.join(tmp, CLIENT_FILE), "w") as f:
+                json.dump(client_state, f)
+        final = self.step_dir(step)
+        if os.path.exists(final):
+            old = os.path.join(self.directory, f"{_TMP_PREFIX}old-{int(step)}")
+            os.rename(final, old)
+            os.rename(tmp, final)
+            shutil.rmtree(old)
+        else:
+            os.rename(tmp, final)
+        for s in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(self.step_dir(s))
+
+    def restore(self, state, step: Optional[int] = None
+                ) -> Tuple[Optional[object], Optional[Dict]]:
+        """Load step ``step`` (default: the latest) into ``state``'s
+        tensors in place: the model, the optimizer (its moments created
+        first), ``state.step`` and the generator's state (kept as it is
+        when the checkpoint has none). Returns (state, client JSON or
+        None), or (None, None) when there is no checkpoint."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        path = self.step_dir(step)
+        sd = state_tensors(state)
+        saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        if "generator" not in saved:    # saved from a state without one
+            sd.pop("generator", None)
+        _quiet(dcp.load, sd, checkpoint_id=path)
+        state.optimizer.load_state_dict(sd["optimizer"])
+        state.step = int(sd["step"])
+        if "generator" in sd:
+            state.generator.set_state(sd["generator"])
+        client = None
+        client_path = os.path.join(path, CLIENT_FILE)
+        if os.path.exists(client_path):
+            with open(client_path) as f:
+                client = json.load(f)
+        return state, client
+
+    def wait(self) -> None:
+        """Saves are synchronous: nothing is in flight."""
+
+    def close(self) -> None:
+        self.wait()

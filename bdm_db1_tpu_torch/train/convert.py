@@ -1,16 +1,26 @@
-"""Weight bridge: the JAX package's param tree -> the port's state dict.
+"""Weight bridges into the port's model: the JAX package's param tree, and
+a torch/DeepSpeed checkpoint file of the reference.
 
-Follows bdm_db1_tpu/train/convert.py ``invert_state_dict`` (scan-stacked
+The JAX param tree -> the port's state dict follows
+bdm_db1_tpu/train/convert.py ``invert_state_dict`` (scan-stacked
 layers unstacked, flax kernels [in, out] transposed to torch [out, in],
 reference torch names), with the port's two layout choices: the word
 embedding and an untied head keep the padded vocab rows, and the shared
 ``r_w_bias``/``r_r_bias`` pair is listed under every layer. The vision
 subtree (a later slice) is skipped by name; any other leaf the bridge does
 not consume is an error.
+
+A DeepSpeed ``model_states.pt`` (bdm_db1_tpu/train/convert.py
+``load_torch_state_dict``, ``find_deepspeed_model_states``) holds the
+reference torch names already: :func:`load_deepspeed_checkpoint` pads the
+word embedding (and an untied head) to the padded vocab with zero rows, as
+the JAX converter does, skips the vision tower and loads the rest with
+``strict=True``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -28,6 +38,12 @@ def _leaf_paths(tree, prefix=()) -> List[Tuple[str, ...]]:
             out += _leaf_paths(tree[k], prefix + (k,))
         return out
     return [prefix]
+
+
+def _inv_freq(n_embed: int) -> np.ndarray:
+    """The sinusoidal positional buffer, as the JAX converter rebuilds it."""
+    return (1.0 / (10000.0 ** (np.arange(0.0, n_embed, 2.0) / n_embed))
+            ).astype(np.float32)
 
 
 def state_dict_from_jax(params_np: Mapping, cfg: DB1Config
@@ -49,9 +65,7 @@ def state_dict_from_jax(params_np: Mapping, cfg: DB1Config
         "word_embedding.weight": g("word_embedding", "embedding"),
         "rl_local_timestep_embedding.weight":
             g("rl_timestep_embedding", "embedding"),
-        "pos_emb.inv_freq": (
-            1.0 / (10000.0 ** (np.arange(0.0, m.n_embed, 2.0) / m.n_embed))
-        ).astype(np.float32),
+        "pos_emb.inv_freq": _inv_freq(m.n_embed),
     }
     if not m.untie_r:
         sd["r_w_bias"] = g("r_w_bias")
@@ -101,5 +115,79 @@ def load_jax_params(model: torch.nn.Module, params_np: Mapping) -> List[str]:
     leaf names."""
     cfg = DB1Config(model=model.cfg, vocab=model.vocab)
     sd, skipped = state_dict_from_jax(params_np, cfg)
+    model.load_state_dict(sd, strict=True)
+    return skipped
+
+
+def _np(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """Load a torch/DeepSpeed checkpoint file into numpy (f32).
+
+    Accepts either a raw ``state_dict`` file or a DeepSpeed engine state
+    (``module`` key), e.g. ``<dir>/<tag>/mp_rank_00_model_states.pt``.
+    """
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "module" in obj and isinstance(obj["module"], dict):
+        obj = obj["module"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    out = {}
+    for k, v in obj.items():
+        if hasattr(v, "numel"):
+            out[k.replace("module.", "", 1) if k.startswith("module.") else k] = _np(v)
+    return out
+
+
+def find_deepspeed_model_states(load_dir: str, tag: str) -> str:
+    cand = os.path.join(load_dir, tag, "mp_rank_00_model_states.pt")
+    if os.path.exists(cand):
+        return cand
+    for root, _, files in os.walk(os.path.join(load_dir, tag)):
+        for f in files:
+            if f.endswith("model_states.pt"):
+                return os.path.join(root, f)
+    raise FileNotFoundError(f"no model_states.pt under {load_dir}/{tag}")
+
+
+VISION_PREFIX = "vision_encoder."
+
+
+def state_dict_from_torch(sd: Mapping[str, np.ndarray], cfg: DB1Config
+                          ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """Reference torch names -> (the port's state dict as f32 CPU tensors,
+    the skipped vision tower names): the vocab rows padded with zeros and
+    ``pos_emb.inv_freq`` computed, not read (the file holds it rounded to
+    the checkpoint's dtype; the JAX converter does not read it either)."""
+    layout = cfg.vocab.layout()
+    out, skipped = {}, []
+    for k, v in sd.items():
+        if k.startswith(VISION_PREFIX):
+            skipped.append(k)
+            continue
+        v = (_inv_freq(cfg.model.n_embed) if k == "pos_emb.inv_freq"
+             else np.asarray(v, np.float32))
+        if k in ("word_embedding.weight", "lm_head.weight"):
+            if v.shape[0] != layout.total_vocab_size:
+                raise ValueError(f"{k}: {v.shape[0]} rows, expected "
+                                 f"{layout.total_vocab_size}")
+            v = np.concatenate([v, np.zeros(
+                (layout.padded_vocab_size - v.shape[0], v.shape[1]),
+                np.float32)], 0)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v))
+    return out, skipped
+
+
+def load_deepspeed_checkpoint(model: torch.nn.Module, path: str
+                              ) -> List[str]:
+    """Load a ``model_states.pt`` (``find_deepspeed_model_states``) into
+    ``model`` (``strict=True``; cast to the model's dtypes and device).
+    Returns the skipped vision tower names."""
+    cfg = DB1Config(model=model.cfg, vocab=model.vocab)
+    sd, skipped = state_dict_from_torch(load_torch_state_dict(path), cfg)
     model.load_state_dict(sd, strict=True)
     return skipped

@@ -92,13 +92,21 @@ def _adam_moments(g: Tensor, mu: Tensor, nu: Tensor, b1: float, b2: float,
 
 class _Base(torch.optim.Optimizer):
     """Parameters with their decay flags in one group; a host step count
-    (the JAX state's ``count``) that the schedules read."""
+    (the JAX state's ``count``) that the schedules read.
+
+    ``state_dict()`` is the whole optimizer state by parameter name:
+    ``{"count": int64 tensor, "mu": {name: tensor}, "nu": {name: tensor}}``
+    with the moments in their stored dtypes (no moments for "sgd").
+    ``load_state_dict`` copies such a dict into this optimizer's own
+    tensors, creating the moments first (zeros, as the first step would),
+    so a fresh optimizer can be loaded in place."""
 
     def __init__(self, model: torch.nn.Module, cfg: OptimizerConfig,
                  train_iters: int):
         mask = decay_mask(model)
         super().__init__(list(model.parameters()), {})
         self.cfg = cfg
+        self.names = list(mask)
         self.decay = list(mask.values())
         self.lr = lr_schedule(cfg, train_iters)
         self.wd = wd_schedule(cfg, train_iters)
@@ -107,12 +115,50 @@ class _Base(torch.optim.Optimizer):
     def _params(self) -> List[Tensor]:
         return self.param_groups[0]["params"]
 
+    def moment_dtypes(self):
+        """(mu, nu) storage dtypes (None: the parameter's), or None when
+        the optimizer keeps no moments."""
+        return _dtype(self.cfg.adam_mu_dtype), _dtype(self.cfg.adam_nu_dtype)
+
     def _moments(self, p: Tensor, mu_dtype, nu_dtype) -> Tuple[Tensor, Tensor]:
         st = self.state[p]
         if not st:
             st["mu"] = torch.zeros_like(p, dtype=mu_dtype or p.dtype)
             st["nu"] = torch.zeros_like(p, dtype=nu_dtype or p.dtype)
         return st["mu"], st["nu"]
+
+    def init_moments(self) -> None:
+        """Create every parameter's moments now (zeros, in their configured
+        dtypes) instead of at its first step; those that exist stay."""
+        dts = self.moment_dtypes()
+        if dts is not None:
+            for p in self._params():
+                self._moments(p, *dts)
+
+    def state_dict(self) -> Dict[str, object]:
+        self.init_moments()
+        out: Dict[str, object] = {
+            "count": torch.tensor(self.count, dtype=torch.int64)}
+        if self.moment_dtypes() is not None:
+            for key in ("mu", "nu"):
+                out[key] = {n: self.state[p][key]
+                            for n, p in zip(self.names, self._params())}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: Dict[str, object]) -> None:
+        own = self.state_dict()
+        if set(state_dict) != set(own):
+            raise ValueError(f"optimizer state keys {sorted(state_dict)}, "
+                             f"expected {sorted(own)}")
+        for key in ("mu", "nu"):
+            if key in own:
+                if set(state_dict[key]) != set(own[key]):
+                    raise ValueError(f"{key}: the parameter names differ")
+                for n, t in own[key].items():
+                    if state_dict[key][n] is not t:
+                        t.copy_(state_dict[key][n])
+        self.count = int(state_dict["count"])
 
 
 class ChainOptimizer(_Base):
@@ -123,6 +169,9 @@ class ChainOptimizer(_Base):
         if cfg.optimizer not in ("adamw", "adam", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
         super().__init__(model, cfg, train_iters)
+
+    def moment_dtypes(self):
+        return None if self.cfg.optimizer == "sgd" else super().moment_dtypes()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -163,6 +212,9 @@ class FusedAdamW(_Base):
     """``fused_adamw``: clip factor, moments, bias correction, decoupled
     weight decay and the schedule in one pass per parameter. The second
     moment is stored in the parameter's dtype, as there."""
+
+    def moment_dtypes(self):
+        return _dtype(self.cfg.adam_mu_dtype), None
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -208,12 +260,16 @@ def make_optimizer(model: torch.nn.Module, cfg: OptimizerConfig,
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count, the model (its parameters) and the optimizer (its
-    moments and schedule count)."""
+    """The step count, the model (its parameters), the optimizer (its
+    moments and schedule count) and the dropout generator the steps draw
+    from (the ``Trainer`` sets it; a checkpoint carries its state, because
+    it advances with every step where the JAX package folds the step into
+    a fixed key)."""
 
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    generator: Optional[torch.Generator] = None
 
 
 def init_train_state(model: torch.nn.Module, cfg: OptimizerConfig,

@@ -1,9 +1,9 @@
 """Training driver and validation loss (counterpart of
 bdm_db1_tpu/train/trainer.py): loader batches to typed device batches, the
 ``Trainer`` loop (train step, logging of loss and tokens/sec per window,
-the ``eval_fn`` hook) and the mean masked CE over held-out batches that the
-trainer logs every eval tick. Checkpointing (and so resume and the
-emergency checkpoint) is not ported yet: a ``save_dir`` raises."""
+the ``eval_fn`` hook, checkpointing with auto-resume and an emergency
+checkpoint on a crash) and the mean masked CE over held-out batches that
+the trainer logs every eval tick."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import MetricLogger, print_rank_0
 from bdm_db1_tpu_torch.data.input_specs import RLTaskBatch
+from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
 
 _BATCH_TYPES = {"rl": RLTaskBatch}
@@ -53,40 +54,72 @@ def to_gato_batch(raw: Dict[str, Dict[str, np.ndarray]],
 class Trainer:
     """The training loop over ``loader`` (numpy batches with [accum, micro,
     ...] fields): ``step_fn(state, batch, generator)`` per iteration, one
-    seeded ``torch.Generator`` on the model's device for the dropout masks,
-    every ``log_interval`` iterations a host read of the loss and the
-    tokens/sec of the window, every ``eval_interval`` the ``eval_fn(state,
-    iteration)`` hook."""
+    seeded ``torch.Generator`` on the model's device for the dropout masks
+    (``state.generator``), every ``log_interval`` iterations a host read of
+    the loss and the tokens/sec of the window, every ``eval_interval`` the
+    ``eval_fn(state, iteration)`` hook.
+
+    With ``cfg.train.save_dir``: metrics go to ``<save_dir>/metrics.jsonl``
+    (unless a ``logger`` is given); the run resumes from the latest
+    checkpoint there (model, optimizer, step, generator; the data stream
+    starts again from the loader's beginning, as in the JAX package),
+    saves every ``save_interval`` iterations and at the end, and on any
+    exception saves an emergency checkpoint at the current step before
+    raising. ``load_dir`` is not read here (evaluate_rl reads it)."""
 
     def __init__(self, cfg: DB1Config, model, step_fn: Callable, state,
                  loader: Iterable, *, eval_fn: Optional[Callable] = None,
                  logger: Optional[MetricLogger] = None):
-        if cfg.train.save_dir or cfg.train.load_dir:
-            raise NotImplementedError(
-                "checkpointing (save_dir/load_dir) is not ported yet")
         self.cfg = cfg
         self.model = model
         self.step_fn = step_fn
         self.state = state
         self.loader = loader
         self.eval_fn = eval_fn
-        self.logger = logger or MetricLogger()
+        self.logger = logger or MetricLogger(cfg.train.save_dir)
+        self.ckpt = (CheckpointManager(cfg.train.save_dir)
+                     if cfg.train.save_dir else None)
+
+    def maybe_resume(self) -> int:
+        """Restore the latest checkpoint into the state; the iteration to
+        go on from (0 without one)."""
+        if self.ckpt is None:
+            return 0
+        restored, client = self.ckpt.restore(self.state)
+        if restored is None:
+            return 0
+        self.state = restored
+        it = int(client["iteration"]) if client else int(restored.step)
+        print_rank_0(f"resumed from checkpoint at iteration {it}")
+        return it
 
     def train(self) -> None:
-        """Run the loop. Without checkpointing there is no emergency
-        checkpoint to save: an interruption is reported with its iteration
-        and raised."""
+        """Run the loop; on any exception, save an emergency checkpoint
+        first (when checkpointing), then raise."""
         try:
             self._train_loop()
         except BaseException:
-            print_rank_0(f"training interrupted at step {self.state.step}")
+            step = int(self.state.step)
+            if self.ckpt is None:
+                print_rank_0(f"training interrupted at step {step}")
+            else:
+                print_rank_0(f"training interrupted — saving emergency "
+                             f"checkpoint at iteration {step}")
+                try:
+                    self.ckpt.save(step, self.state,
+                                   client_state={"iteration": step,
+                                                 "emergency": True})
+                    self.ckpt.wait()
+                except Exception as e:  # keep the original traceback primary
+                    print_rank_0(f"emergency checkpoint failed: {e}")
             raise
 
     def _train_loop(self) -> None:
         tcfg = self.cfg.train
-        iteration = 0
         dev = self.model.device
-        gen = make_train_rng(tcfg.seed, dev)
+        if self.state.generator is None:
+            self.state.generator = make_train_rng(tcfg.seed, dev)
+        iteration = self.maybe_resume()
         data_iter = iter(self.loader)
         tokens_per_batch = None
         t_window = time.perf_counter()
@@ -97,7 +130,8 @@ class Trainer:
             if tokens_per_batch is None:
                 tokens_per_batch = sum(int(v.tokens.numel())
                                        for v in batch.values())
-            self.state, metrics = self.step_fn(self.state, batch, gen)
+            self.state, metrics = self.step_fn(self.state, batch,
+                                               self.state.generator)
             iteration += 1
             window_iters += 1
 
@@ -118,6 +152,15 @@ class Trainer:
                 eval_metrics = self.eval_fn(self.state, iteration)
                 if eval_metrics:
                     self.logger.log(iteration, eval_metrics, prefix="valid/")
+
+            if self.ckpt and iteration % tcfg.save_interval == 0:
+                self.ckpt.save(iteration, self.state,
+                               client_state={"iteration": iteration})
+
+        if self.ckpt:
+            self.ckpt.save(tcfg.train_iters, self.state,
+                           client_state={"iteration": tcfg.train_iters})
+            self.ckpt.wait()
         self.logger.close()
 
 

@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,eval_loss
     python3 chip_smoke.py --phases build,kernels,train
+    python3 chip_smoke.py --phases build,train,evaluate_rl
 
 Phases, each printing one JSON line:
 
@@ -61,7 +62,22 @@ Phases, each printing one JSON line:
   check (layer by layer the six attention gradients through K3-K5 against
   autograd through ``rel_attention``; the whole model's gradient through
   both routes under the same dropout masks); reads tokens/sec, the median
-  step, the device idle share and the peak memory.
+  step, the device idle share and the peak memory. Then, outside the
+  timed window, the resume check: the whole train state (f32 parameters
+  and moments, the step, the dropout generator) saved through
+  ``CheckpointManager``, one step on a fixed batch (loss L_a), a restore
+  into the same objects (every parameter and moment with its saved
+  float64 sum and raw-bit sum), the step again (L_b == L_a bitwise); reads
+  the bytes on disk and the save and restore seconds.
+* ``evaluate_rl`` — needs ``train``: the RL evaluation driver
+  ``evaluate_rl.main`` on the card, serving the train phase's checkpoint
+  as db1_1p2b in bf16 over two registered HalfCheetah-geometry envs
+  (caches written with ``save_cache``), 20 trials each in one lockstep
+  cohort of 40, 8 env steps; checks that ``load_params`` reads the port
+  checkpoint (every weight equal to the saved one cast to bf16), two
+  records of 20 finite-return trials, ``results.output`` with their two
+  lines and the K1/K2 launches of the serve's plan; reads the driver's
+  wall time and actions/sec. The checkpoint is deleted at the end.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -108,12 +124,17 @@ and imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,8 +144,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
-PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train")
-MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train")
+PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train",
+          "evaluate_rl")
+MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -1758,7 +1780,8 @@ def _train_setup(seed: int):
     return cfg, model, full, loader
 
 
-def phase_train(smi: str, seed: int = 0) -> dict:
+def phase_train(smi: str, ckpt_dir: str, saved_weights: dict,
+                seed: int = 0) -> dict:
     from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
     from bdm_db1_tpu_torch.train.trainer import Trainer, to_gato_batch
 
@@ -1833,6 +1856,8 @@ def phase_train(smi: str, seed: int = 0) -> dict:
         busy, top, _ = _profile_busy(lambda: step(state, batch, gen),
                                      keep=tuple(ALONE_KERNELS.values()))
         alone = kernel_alone_ms(top, _read_launches())
+        resume = _resume_check(state, step, batch, ckpt_dir, saved_weights,
+                               smi)
     finally:
         loader.stop()
     return {"phase": "train", "config": "db1_1p2b", "dtype": "bfloat16",
@@ -1853,7 +1878,75 @@ def phase_train(smi: str, seed: int = 0) -> dict:
             "device_idle_share": 1.0 - busy / step_s,
             "max_memory_allocated_gb": peak / 1e9,
             "top_device_ms": top, "kernel_alone_ms": alone,
-            "gradient_routes": routes}
+            "gradient_routes": routes, "resume": resume}
+
+
+def _leaf_sums(state) -> dict:
+    """Per leaf of the parameters and moments: the float64 sum of its
+    values and the int64 sum of its raw bits (a changed bit moves it)."""
+    opt = state.optimizer.state_dict()
+    leaves = dict(state.model.named_parameters())
+    for key in ("mu", "nu"):
+        leaves.update({f"{key}.{n}": t for n, t in opt[key].items()})
+    bits = {4: torch.int32, 2: torch.int16}
+    return {n: (float(t.detach().double().sum()),
+                int(t.detach().view(bits[t.element_size()]).sum(
+                    dtype=torch.int64)))
+            for n, t in leaves.items()}
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _resume_check(state, step, batch, ckpt_dir: str, saved_weights: dict,
+                  smi: str) -> dict:
+    """Save the train state through CheckpointManager, take one step on
+    ``batch`` with the live generator (loss L_a), restore into the same
+    objects and take the step again with the restored generator (L_b).
+    The restored parameters and moments must carry the saved sums and
+    bits, and L_b must equal L_a bitwise: the loss comes out of the
+    forward, which has no atomics (K5's f32 atomics touch only the
+    gradients after it), under the same dropout masks. The checkpoint
+    stays in ``ckpt_dir`` for evaluate_rl, and a host copy of the saved
+    weights in ``saved_weights``."""
+    from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state.step, state, client_state={"iteration": state.step})
+    save_s = time.perf_counter() - t0
+    saved = _leaf_sums(state)
+    saved_weights.update({n: p.to("cpu", copy=True)
+                          for n, p in state.model.state_dict().items()})
+    nbytes = _dir_bytes(mgr.step_dir(state.step))
+    gen_state = state.generator.get_state()
+    _, met = step(state, batch, state.generator)
+    loss_a = float(met["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, client = mgr.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored is not state or client != {"iteration": state.step}:
+        raise AssertionError(f"restore returned {client}")
+    sums = _leaf_sums(state)
+    bad = [n for n in saved if sums[n] != saved[n]]
+    if bad or not torch.equal(state.generator.get_state(), gen_state):
+        raise AssertionError(f"restored leaves differ from the saved ones: "
+                             f"{bad[:5]} ({len(bad)} of {len(saved)})")
+    _, met = step(state, batch, state.generator)
+    loss_b = float(met["loss"])
+    if loss_b != loss_a:
+        raise AssertionError(f"loss after restore {loss_b!r}, before "
+                             f"{loss_a!r}")
+    return {"card": smi, "step": state.step, "leaves": len(saved),
+            "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "save_gb_per_s": nbytes / save_s / 1e9,
+            "restore_gb_per_s": nbytes / restore_s / 1e9,
+            "loss_before": loss_a, "loss_after": loss_b}
 
 
 def _train_route_check(model, raw) -> dict:
@@ -1940,6 +2033,127 @@ def _train_route_check(model, raw) -> dict:
             and out["grad_cosine"] >= GRAD_COS_MIN):
         raise AssertionError(f"K3-K5 gradients vs rel_attention: {out}")
     return out
+
+
+EVAL_ENVS = ("halfcheetah-geometry-a-v0", "halfcheetah-geometry-b-v0")
+EVAL_TRIALS = 20
+EVAL_STEPS = 8
+
+
+def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
+                      seed: int = 0) -> dict:
+    """The RL evaluation driver on the train phase's checkpoint: write the
+    two envs' trajectory caches (FakeContinuousEnv(17, 6), the serve
+    phases' geometry) with ``save_cache`` and register the envs; read the
+    checkpoint once through ``load_params`` into a bf16 model and hold
+    every weight to the saved f32 weights cast to its dtype (bf16; the
+    positional buffer stays f32); then run
+    ``evaluate_rl.main`` on the card (counted): two records of 20 trials
+    of 8 steps with finite returns, ``results.output`` with their two
+    lines, the checkpoint line in its output, and the K1/K2 launches of
+    one 40-row lockstep cohort, derived as the serve phase derives them."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        TrajectoryStore, build_rl_dataset_from_cache,
+    )
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv, register_env
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        cache_dir, out_dir = (os.path.join(work, d) for d in ("rl", "out"))
+        for i, name in enumerate(EVAL_ENVS):
+            def env_fn(s=seed + 10 * i):
+                return FakeContinuousEnv(obs_dim=17, act_dim=6, seed=s)
+
+            register_env(name, env_fn)
+            TrajectoryStore.from_flat_dataset(
+                env_fn().make_dataset(10)).save_cache(cache_dir, name)
+        # db1_1p2b served in bf16 (weights too) from the checkpoint
+        cfg = db1_1p2b()
+        cfg.model.param_dtype = "bfloat16"
+        cfg.data.rl_dataset_cache_dir = cache_dir
+        cfg.train.load_dir, cfg.train.save_dir = ckpt_dir, out_dir
+        cfg.eval = dataclasses.replace(
+            cfg.eval, env_names=EVAL_ENVS, num_trials=EVAL_TRIALS,
+            batched=True, batch_size=len(EVAL_ENVS) * EVAL_TRIALS,
+            max_step_size=EVAL_STEPS, decode_obs_buckets=False)
+
+        # what load_params reads, held to the saved weights; the plan
+        model = TransformerXL(cfg.model, cfg.vocab, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        source = evaluate_rl.load_params(cfg, model)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if source != evaluate_rl.FROM_PORT:
+            raise AssertionError(f"load_params read {source!r}")
+        sd = model.state_dict()
+        bad = [n for n, t in saved_weights.items()
+               if not torch.equal(sd[n].cpu(), t.to(sd[n].dtype))]
+        if bad or sd.keys() != saved_weights.keys():
+            raise AssertionError(f"loaded weights differ from the saved "
+                                 f"ones cast to the model's dtypes: "
+                                 f"{bad[:5]}")
+        tok = evaluate_rl.build_tokenizer_suite(cfg)
+        tenv = TokenizedEnv(FakeContinuousEnv(obs_dim=17, act_dim=6),
+                            build_rl_dataset_from_cache(
+                                EVAL_ENVS[0], cache_dir,
+                                cfg.model.n_position, tok))
+        dec = build_decoder_for_env(model, tenv)
+        prompt, _ = tenv.get_prompt(strict_length=True,
+                                    rng=np.random.RandomState(0))
+        q0 = len(prompt) + dec.obs_length + 1
+        slices = dec.chunk_sizes(q0, 0) or [q0]
+        A = dec.action_length
+        del model, sd, dec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the main path, counted --------------------------------------
+        _reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = evaluate_rl.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        # ------------------------------------------------------------------
+        sys.stdout.write(out.getvalue())
+
+        L, steps = cfg.model.n_layer, EVAL_STEPS
+        want = dict.fromkeys(launches, 0)
+        want["flash_ring_decode"] = L * (steps * (A - 1) + slices.count(1))
+        want["flash_ring_prime_ap"] = L * (
+            steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+        if "restored port checkpoint" not in out.getvalue():
+            raise AssertionError("main did not read the port checkpoint")
+        if not ([r["env"] for r in res] == list(EVAL_ENVS) and all(
+                r["num_trials"] == EVAL_TRIALS and r["length_mean"] == steps
+                and np.isfinite(r["return_mean"]) for r in res)):
+            raise AssertionError(f"records off: {res}")
+        with open(os.path.join(out_dir, "results.output")) as f:
+            lines = f.read().splitlines()
+        if lines != [json.dumps(r) for r in res]:
+            raise AssertionError(f"results.output off: {lines}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    actions = len(EVAL_ENVS) * EVAL_TRIALS * steps
+    return {"phase": "evaluate_rl", "config": "db1_1p2b", "dtype": "bfloat16",
+            "param_dtype": "bfloat16", "card": smi, "envs": list(EVAL_ENVS),
+            "trials": EVAL_TRIALS, "batch": cfg.eval.batch_size,
+            "env_steps": steps, "prime_slices": slices,
+            "launches": launches, "launches_expected": want,
+            "records": res, "load_params_s": load_s, "wall_s": wall,
+            "actions_per_sec": actions / wall}
 
 
 # what each time of the K4/K5 rows of the kernels line is
@@ -2044,6 +2258,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
+    if "evaluate_rl" in phases and "train" not in phases:
+        raise SystemExit("the evaluate_rl phase serves the train phase's "
+                         "checkpoint: name train too")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2072,12 +2289,23 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             results[phase] = phase_serve(smi, phase=phase, **kw)
             emit(results[phase])
-    for phase, fn in (("eval_loss", phase_eval_loss), ("train", phase_train)):
-        if phase in phases:
-            gc.collect()
-            torch.cuda.empty_cache()
-            results[phase] = fn(smi)
-            emit(results[phase])
+    # the train phase's checkpoint and a host copy of its weights, served
+    # and checked by evaluate_rl; the directory is deleted at the end
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saved_weights = {}
+    try:
+        for phase, fn, args in (
+                ("eval_loss", phase_eval_loss, ()),
+                ("train", phase_train, (ckpt_dir, saved_weights)),
+                ("evaluate_rl", phase_evaluate_rl, (ckpt_dir, saved_weights))):
+            if phase in phases:
+                gc.collect()
+                torch.cuda.empty_cache()
+                results[phase] = fn(smi, *args)
+                emit(results[phase])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        saved_weights.clear()
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

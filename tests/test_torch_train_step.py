@@ -358,9 +358,8 @@ def test_stratified_loader_matches_jax():
 def test_trainer_runs_and_logs(tmp_path):
     """Three tiny steps through Trainer.train() on the CPU over the
     stratified loader of an RL dataset: one log record a step with a finite
-    loss and tokens/sec, the eval hook at its interval; a save_dir raises
-    (checkpointing is not ported)."""
-    from bdm_db1_tpu_torch.core.logging import MetricLogger
+    loss and tokens/sec, the eval hook at its interval; with a save_dir the
+    final checkpoint and metrics.jsonl land there."""
     from bdm_db1_tpu_torch.data.rl_dataset import (
         RLFullDataset, RLTokenizerSuite, TrajectoryStore)
     from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
@@ -370,7 +369,8 @@ def test_trainer_runs_and_logs(tmp_path):
     model = port_model(pnp)
     cfg = tcfg.db1_tiny(dtype="float32")
     cfg.train = dataclasses.replace(cfg.train, train_iters=3, log_interval=1,
-                                    eval_interval=2, micro_batch_size=2)
+                                    eval_interval=2, micro_batch_size=2,
+                                    save_dir=str(tmp_path))
     store = TrajectoryStore.from_flat_dataset(
         FakeContinuousEnv(5, 2, episode_len=60, seed=1).make_dataset(3))
     ds = RLFullDataset("fake", store, RLTokenizerSuite(
@@ -383,8 +383,7 @@ def test_trainer_runs_and_logs(tmp_path):
     state = tstep.init_train_state(model, cfg.train.optimizer,
                                    cfg.train.train_iters)
     trainer = Trainer(cfg, model, tstep.make_train_step(model), state, loader,
-                      eval_fn=lambda st, it: evals.append(it) or {"x": 1.0},
-                      logger=MetricLogger(str(tmp_path)))
+                      eval_fn=lambda st, it: evals.append(it) or {"x": 1.0})
     trainer.train()
     loader.stop()
     recs = [json.loads(line) for line in
@@ -394,6 +393,5 @@ def test_trainer_runs_and_logs(tmp_path):
     assert all(np.isfinite(r["train/loss"]) and r["train/tokens_per_sec"] > 0
                for r in train)
     assert evals == [2] and trainer.state.step == 3
-    cfg.train.save_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(cfg, model, None, state, loader)
+    assert trainer.ckpt.all_steps() == [3]
+    assert (tmp_path / "3" / "client.json").read_text() == '{"iteration": 3}'
