@@ -25,6 +25,15 @@ class RLTaskBatch:
     images: Optional[torch.Tensor] = None      # [B, T, H, W, C] float
 
 
+@dataclass
+class NLPTaskBatch:
+    """Packed text span: the word embedding alone, no timestep term."""
+
+    tokens: torch.Tensor                       # [B, L] int
+    loss_mask: Optional[torch.Tensor] = None   # [B, L]
+    label: Optional[torch.Tensor] = None       # [B, L] int
+
+
 # A mixed-modality batch: modality group name -> sub-batch.
 GatoBatch = Dict[str, object]
 

@@ -15,13 +15,16 @@ tensor-observation part of bdm_db1_tpu/data/rl_dataset.py).
   seed gives the same samples in both), and expert-prompt sampling.
   With a ``cache_dir`` its meta and sample index are read from (or
   written to) ``<cache_dir>/<name>/meta``, the JAX package's files.
-* ``RLDataset`` / ``split_rl_dataset`` — train/valid/test views.
+* ``RLDataset`` / ``split_rl_dataset`` — train/valid/test views;
+  ``RLFinetuneDataset`` — the few-shot view (the first N trajectories).
+* ``make_rl_creator`` — the dataset factory's "rl" and "rl_task_suite"
+  creators (data/dataset_utils.py).
 * ``build_rl_dataset_from_cache`` — the dataset of one env from its cache
   (built from the live env first when absent).
 
 Tensor observations only: image and text observations raise
-``NotImplementedError``. The few-shot view and the dataset-factory
-creators are not ported.
+``NotImplementedError`` (the suite takes a text tokenizer and a patch
+size, as the JAX package's does, for the slices that port them).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.distributed as dist
 from bdm_db1_tpu_torch.core.logging import process_index
 from bdm_db1_tpu_torch.core.vocab import VocabLayout
 from bdm_db1_tpu_torch.data import native
+from bdm_db1_tpu_torch.data.blendable import BlendableDataset
 from bdm_db1_tpu_torch.data.dataset_utils import get_train_valid_test_split_
 from bdm_db1_tpu_torch.data.packing import (
     action_flags_and_position_ids, truncate_or_pad,
@@ -125,11 +129,16 @@ def _tensor_only(obs_type: str) -> None:
 
 
 class RLTokenizerSuite:
-    """Per-modality tokenization with unified vocab offsets."""
+    """Per-modality tokenization with unified vocab offsets. The text
+    tokenizer and the vision patch size are held for text and image
+    observations, which are not ported yet."""
 
-    def __init__(self, layout: VocabLayout, scalar: ScalarTokenizer):
+    def __init__(self, layout: VocabLayout, scalar: ScalarTokenizer,
+                 text_tokenizer=None, vision_patch_size: int = 16):
         self.layout = layout
         self.scalar = scalar
+        self.text_tokenizer = text_tokenizer
+        self.vision_patch_size = vision_patch_size
 
     def obs_dim_of(self, x: np.ndarray, obs_type: str) -> int:
         """Token count contributed by one obs leaf per timestep."""
@@ -595,6 +604,18 @@ class RLDataset:
         return item
 
 
+class RLFinetuneDataset(RLDataset):
+    """Few-shot view: the samples of the first ``num_shots`` trajectories
+    only."""
+
+    def __init__(self, full: RLFullDataset, num_shots: int):
+        indices = np.nonzero(np.asarray(full.indices[:, 0]) < num_shots)[0]
+        if not len(indices):
+            raise ValueError(f"no samples within the first {num_shots} "
+                             "trajectories")
+        super().__init__(full, indices)
+
+
 def split_rl_dataset(full: RLFullDataset, splits_string: str = "90,5,5",
                      seed: int = 1234):
     """Shuffle the sample indices once and split them into (train, valid,
@@ -622,3 +643,53 @@ def build_rl_dataset_from_cache(
     store = TrajectoryStore.from_env_name(env_name, cache_dir)
     return RLFullDataset(env_name, store, tokenizer, seq_length,
                          cache_dir=cache_dir, **kwargs)
+
+
+def make_rl_creator(tokenizer: RLTokenizerSuite, cache_dir: str,
+                    suite_envs: Optional[Callable[[str], List[str]]] = None,
+                    num_fewshot_episodes: Optional[int] = None,
+                    **ds_kwargs):
+    """The dataset factory's creators for the types "rl" and
+    "rl_task_suite": (rl_creator, suite_creator).
+
+    "rl": the prefix is an env name, its dataset read from the trajectory
+    cache under ``cache_dir`` (``ds_kwargs`` go to ``RLFullDataset``) and
+    split by ``split_rl_dataset``; with ``num_fewshot_episodes`` the train
+    split is the few-shot view of the first N trajectories. "rl_task_suite":
+    the prefix is a suite, ``suite_envs(suite)`` its env names (default:
+    d4rl's ``ALL_ENVS``, which needs d4rl); each split blends the envs'
+    splits in index mode with equal weights."""
+
+    def rl_creator(prefix, splits_string, seq_length, num_samples, seed,
+                   **_ctx):
+        full = build_rl_dataset_from_cache(
+            prefix, cache_dir, seq_length, tokenizer, seed=seed, **ds_kwargs)
+        tr, va, te = split_rl_dataset(full, splits_string, seed)
+        if num_fewshot_episodes:
+            tr = RLFinetuneDataset(full, num_fewshot_episodes)
+        return tr, va, te
+
+    def suite_creator(prefix, splits_string, seq_length, num_samples, seed,
+                      **_ctx):
+        if suite_envs is not None:
+            envs = suite_envs(prefix)
+        else:
+            import importlib
+
+            envs = importlib.import_module(f"d4rl.{prefix}").ALL_ENVS
+        parts = [rl_creator(e, splits_string, seq_length, num_samples, seed)
+                 for e in envs]
+        out = []
+        for i in range(3):
+            live = [p[i] for p in parts if p[i] is not None]
+            if not live:
+                out.append(None)
+            elif len(live) == 1:
+                out.append(live[0])
+            else:
+                out.append(BlendableDataset(
+                    live, [1.0] * len(live), mode="index",
+                    size=sum(len(d) for d in live), seed=seed))
+        return tuple(out)
+
+    return rl_creator, suite_creator

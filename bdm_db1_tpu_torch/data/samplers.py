@@ -1,15 +1,16 @@
 """Sample order and host-side batch assembly (counterpart of
 bdm_db1_tpu/data/samplers.py): the sequential and random samplers, sharded
 by data-parallel rank with ``consumed_samples`` resume, the modality
-collate, the fixed per-modality mixture counts and the threaded
-stratified loader that yields ``{modality: {field: [accum, c_m, ...]}}``
-numpy batches of the same structure every step."""
+collate, ``RandomSeedDataset`` (global RNGs reseeded per sample), the
+fixed per-modality mixture counts, the threaded stratified loader that
+yields ``{modality: {field: [accum, c_m, ...]}}`` numpy batches of the
+same structure every step, and the single-dataset ``PrefetchLoader``."""
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -86,6 +87,30 @@ def collate_modalities(samples: Sequence[Dict[str, np.ndarray]],
         keys = [k for k in items[0] if k != "modality"]
         out[m] = {k: np.stack([it[k] for it in items]) for k in keys}
     return out
+
+
+class RandomSeedDataset:
+    """Reseeds Python's and numpy's global RNGs from ``base_seed + idx``
+    before each item, so worker threads cannot change what an item's
+    random augmentations draw."""
+
+    def __init__(self, dataset, base_seed: int = 1234):
+        self.dataset = dataset
+        self.base_seed = base_seed
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.base_seed += epoch
+
+    def __getitem__(self, idx: int):
+        import random
+
+        seed = self.base_seed + int(idx)
+        random.seed(seed)
+        np.random.seed(seed % (2 ** 32))
+        return self.dataset[idx]
 
 
 def mixture_counts(weights: Dict[str, float], micro_batch_size: int
@@ -182,3 +207,28 @@ class StratifiedGatoLoader:
         self._stop.set()
         for t in self._threads:
             t.join(timeout=1.0)
+
+
+class PrefetchLoader:
+    """Prefetching loader over one dataset: each item is the sampler's next
+    ``accum_steps`` index lists stacked to {field: [accum, micro, ...]}
+    (``to_batch`` applied when given), assembled by a
+    ``StratifiedGatoLoader`` of one group; ``stop()`` ends its workers."""
+
+    def __init__(self, dataset, sampler, *, accum_steps: int = 1,
+                 num_threads: int = 2, max_prefetch: int = 4,
+                 to_batch: Optional[Callable] = None):
+        self._loader = StratifiedGatoLoader(
+            {"": dataset}, {"": sampler}, {"": None}, accum_steps,
+            num_threads=num_threads, max_prefetch=max_prefetch)
+        self.to_batch = to_batch
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self._loader)[""]
+        return batch if self.to_batch is None else self.to_batch(batch)
+
+    def stop(self) -> None:
+        self._loader.stop()

@@ -35,9 +35,7 @@ import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import print_rank_0, process_index
-from bdm_db1_tpu_torch.data.rl_dataset import (
-    RLTokenizerSuite, build_rl_dataset_from_cache,
-)
+from bdm_db1_tpu_torch.data.rl_dataset import build_rl_dataset_from_cache
 from bdm_db1_tpu_torch.eval.decode import DecoderPool
 from bdm_db1_tpu_torch.eval.envs import make_env
 from bdm_db1_tpu_torch.eval.harness import (
@@ -45,11 +43,11 @@ from bdm_db1_tpu_torch.eval.harness import (
 )
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
-from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager, load_model
 from bdm_db1_tpu_torch.train.convert import (
     find_deepspeed_model_states, load_deepspeed_checkpoint,
 )
+from bdm_db1_tpu_torch.train.pretrain import build_tokenizer_suite
 
 # what load_params read
 FROM_DEEPSPEED, FROM_PORT, FROM_RANDOM = "deepspeed", "port", "random"
@@ -61,15 +59,6 @@ def suite_env_names(suite: str) -> List[str]:
 
     mod = importlib.import_module(f"d4rl.{suite}")
     return list(mod.ALL_ENVS)
-
-
-def build_tokenizer_suite(cfg: DB1Config) -> RLTokenizerSuite:
-    """The RL tokenizer suite of ``cfg`` (no text tokenizer: text
-    observations are not ported)."""
-    return RLTokenizerSuite(
-        cfg.vocab.layout(),
-        ScalarTokenizer(cfg.vocab.num_continuous_bin,
-                        cfg.vocab.discretize_mu, cfg.vocab.discretize_M))
 
 
 def load_params(cfg: DB1Config, model: TransformerXL) -> str:

@@ -1,6 +1,7 @@
-"""TransformerXL decoder: the RL subset of bdm_db1_tpu/models/transformer_xl.py
-(ring-cache decode, the full-sequence trunk with hidden-state memory, the
-loss and ``decode_rl``).
+"""TransformerXL decoder: the RL and text subset of
+bdm_db1_tpu/models/transformer_xl.py (ring-cache decode, the RL and text
+embeddings, the full-sequence trunk with hidden-state memory, the loss and
+``decode_rl``).
 
 Parameter names are the reference torch model's (``word_embedding.weight``,
 ``h.{i}.dec_attn.qkv_net.weight``, ``h.{i}.pos_ff.CoreNet.0.weight``, ...),
@@ -39,8 +40,8 @@ and on the positional embedding, ``drop`` on the o_net and FF outputs,
 ``rel_attention`` as the JAX gate does), drawing from the
 ``torch.Generator`` the caller passes.
 
-Not ported yet (raise ``NotImplementedError``): images and modalities
-other than RL, rematerialization (``remat``), pre-LN models, the
+Not ported yet (raise ``NotImplementedError``): images, captioning and
+VQA, rematerialization (``remat``), pre-LN models, the
 speculative tail and geometry-bucket padding.
 """
 
@@ -493,6 +494,10 @@ class TransformerXL(nn.Module):
             position_id, self.rl_local_timestep_embedding.weight
         ).to(self.dtype)
 
+    def embed_nlp(self, tokens: Tensor) -> Tensor:
+        """Text: the word embedding alone (no timestep term)."""
+        return F.embedding(tokens, self.word_embedding.weight).to(self.dtype)
+
     def logits(self, h: Tensor) -> Tensor:
         w = (self.word_embedding.weight if self.cfg.share_input_output_embedding
              else self.lm_head.weight)
@@ -504,9 +509,10 @@ class TransformerXL(nn.Module):
         (h, loss_mask f32, label clamped at 0), the last two None without
         targets. Groups go in ``MODALITY_ORDER``, then other keys sorted; a
         key routes to the embedder of its prefix before "_" ("rl_img" ->
-        "rl"). Only RL groups without images are ported (others raise
-        ``NotImplementedError``), and an unknown group key raises
-        ``ValueError`` where the JAX package drops it."""
+        "rl"), so a mixed batch is ``[rl rows || nlp rows]``. RL groups
+        without images and text ("nlp") groups are ported; "ic", "vqa" and
+        image RL groups raise ``NotImplementedError``, and an unknown group
+        key raises ``ValueError`` where the JAX package drops it."""
         names = [n for n in MODALITY_ORDER if n in batch]
         names += sorted(k for k in batch if k not in MODALITY_ORDER)
         embs, masks, labels = [], [], []
@@ -519,11 +525,14 @@ class TransformerXL(nn.Module):
             sub = batch[name]
             if sub is None:
                 continue
-            if base != "rl" or sub.images is not None:
+            if base == "nlp":
+                embs.append(self.embed_nlp(sub.tokens))
+            elif base == "rl" and sub.images is None:
+                embs.append(self.embed_rl(sub.tokens, sub.position_id))
+            else:
                 raise NotImplementedError(
-                    f"group {name!r}: only RL batches without images are "
-                    "ported")
-            embs.append(self.embed_rl(sub.tokens, sub.position_id))
+                    f"group {name!r}: image RL, captioning and VQA batches "
+                    "are not ported yet (ROADMAP queue 1 items 4 and 8)")
             if with_targets:
                 masks.append(sub.loss_mask)
                 labels.append(sub.label.clamp(min=0))

@@ -1,0 +1,235 @@
+"""Pretraining driver (counterpart of bdm_db1_tpu/train/pretrain.py): how DB1
+is trained on its multi-modal mixture.
+
+Usage, on the card:
+
+    python -m bdm_db1_tpu_torch.data.preprocess --input corpus.jsonl \
+        --json-key text --output-prefix /data/corpus
+    python -m bdm_db1_tpu_torch.train.pretrain --config cfg.json \
+        --data.data-path 0.5 /data/corpus nlp 0.5 halfcheetah-medium-v2 rl \
+        --data.rl-dataset-cache-dir /data/rl --train.train-iters 10000 \
+        --train.save-dir /ckpts
+
+Wires: config -> tokenizers -> dataset factory (indexed corpora as GPT
+spans, RL trajectory caches through the "rl" and "rl_task_suite"
+creators) -> blended mixture -> per-modality groups -> stratified loader
+-> model, optimizer and train step on the device -> ``Trainer`` (logging,
+the eval hook: validation loss and RL rollouts, checkpoints with resume).
+
+Not ported (``NotImplementedError``): more than one card (model, pipeline
+or data parallel, multi-host; ROADMAP queue 1 item 9) and captioning or
+VQA entries in the mixture (items 4 and 8).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from bdm_db1_tpu_torch.core.config import DB1Config
+from bdm_db1_tpu_torch.core.logging import (
+    MetricLogger, print_rank_0, process_index,
+)
+from bdm_db1_tpu_torch.data.blendable import BlendableDataset
+from bdm_db1_tpu_torch.data.dataset_utils import (
+    build_train_valid_test_datasets, get_datasets_weights_and_types,
+    register_creator,
+)
+from bdm_db1_tpu_torch.data.rl_dataset import (
+    RLTokenizerSuite, build_rl_dataset_from_cache, make_rl_creator,
+)
+from bdm_db1_tpu_torch.data.samplers import (
+    RandomSampler, StratifiedGatoLoader, mixture_counts,
+)
+from bdm_db1_tpu_torch.eval.envs import make_env
+from bdm_db1_tpu_torch.eval.harness import evaluate_env
+from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
+from bdm_db1_tpu_torch.tokenizers.text import build_text_tokenizer
+from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
+from bdm_db1_tpu_torch.train.trainer import (
+    Trainer, _check_device, evaluate_loss,
+)
+
+
+def build_tokenizer_suite(cfg: DB1Config) -> RLTokenizerSuite:
+    """The tokenizers of ``cfg``: the vocab layout, the scalar tokenizer
+    and the text tokenizer (``data.tokenizer_save_path``, then
+    ``$DB1_TOKENIZER_PATH``, then bytes)."""
+    return RLTokenizerSuite(
+        cfg.vocab.layout(),
+        ScalarTokenizer(cfg.vocab.num_continuous_bin,
+                        cfg.vocab.discretize_mu, cfg.vocab.discretize_M),
+        build_text_tokenizer(cfg.data.tokenizer_save_path,
+                             cfg.vocab.text_vocab_size),
+        vision_patch_size=cfg.vision.patch_size,
+    )
+
+
+def _process_count_and_index():
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def build_loader(cfg: DB1Config, datasets_by_modality: Dict[str, object],
+                 weights: Dict[str, float]) -> StratifiedGatoLoader:
+    """This process's loader (one card a process): {modality: {field:
+    [accum, micro, ...]}} with the fixed ``mixture_counts`` of the weights
+    over ``train.micro_batch_size``, accum = global batch / (micro x
+    processes), one ``RandomSampler`` a group from the start of the stream
+    (seed ``train.seed``, sharded by the ``torch.distributed`` rank when a
+    process group is up) and ``data.num_workers`` threads."""
+    n_proc, proc = _process_count_and_index()
+    micro = cfg.train.micro_batch_size
+    counts = mixture_counts(weights, micro)
+    accum = max(1, cfg.train.global_batch_size // (micro * n_proc))
+    samplers = {
+        m: RandomSampler(len(d), 0, counts[m], proc, n_proc,
+                         seed=cfg.train.seed)
+        for m, d in datasets_by_modality.items()
+    }
+    return StratifiedGatoLoader(
+        datasets_by_modality, samplers, counts, accum,
+        num_threads=cfg.data.num_workers)
+
+
+def group_by_modality(train_ds):
+    """({group: dataset}, {group: weight}): the stratified loader wants
+    one dataset per shape-homogeneous group, so a blended mixture splits
+    by the modality of a probe sample of each part (RL with images rides
+    as ``rl_img<T>x<H>x<W>x<C>``); parts of one group are blended again in
+    index mode."""
+    def group_key(probe) -> str:
+        m = probe.get("modality", "rl")
+        if m == "rl" and "images" in probe:
+            shape = "x".join(str(s) for s in probe["images"].shape)
+            return f"rl_img{shape}"
+        return m
+
+    if hasattr(train_ds, "datasets"):
+        groups: Dict[str, list] = {}
+        for d, w in zip(train_ds.datasets, train_ds.weights):
+            groups.setdefault(group_key(d[0]), []).append((d, float(w)))
+        out, weights = {}, {}
+        for m, pairs in groups.items():
+            if len(pairs) == 1:
+                out[m] = pairs[0][0]
+            else:
+                out[m] = BlendableDataset(
+                    [p[0] for p in pairs], [p[1] for p in pairs],
+                    mode="index", size=sum(len(p[0]) for p in pairs))
+            weights[m] = sum(p[1] for p in pairs)
+        return out, weights
+    m = group_key(train_ds[0])
+    return {m: train_ds}, {m: 1.0}
+
+
+def _check_supported(cfg: DB1Config) -> None:
+    m = cfg.mesh
+    n_proc, _ = _process_count_and_index()
+    if (m.model_parallel > 1 or m.pipeline_parallel > 1 or m.multihost
+            or m.data_parallel > 1 or n_proc > 1):
+        raise NotImplementedError(
+            "the port's pretraining runs on one card: model, pipeline and "
+            "data parallelism and multi-host runs are not ported yet "
+            "(ROADMAP queue 1 item 9, parallelism)")
+    _, _, types = get_datasets_weights_and_types(cfg.data.data_path)
+    if {"ic", "vqa"} & set(types):
+        raise NotImplementedError(
+            "captioning and VQA datasets (and their in-training metrics) "
+            "are not ported yet (ROADMAP queue 1 items 4 and 8)")
+
+
+def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
+    """Train ``cfg`` (default: the command line, ``DB1Config.from_cli``)
+    on ``device``."""
+    cfg = cfg or DB1Config.from_cli()
+    _check_supported(cfg)
+    dev = _check_device(device)
+    print_rank_0(f"device: {dev}"
+                 + (f" ({torch.cuda.get_device_name(dev)})"
+                    if dev.type == "cuda" else ""))
+
+    tok = build_tokenizer_suite(cfg)
+    if cfg.data.rl_dataset_cache_dir:
+        rl_creator, suite_creator = make_rl_creator(
+            tok, cfg.data.rl_dataset_cache_dir,
+            num_fewshot_episodes=cfg.data.num_rl_fewshot_episodes,
+            use_prompt=cfg.data.use_prompt,
+            prompt_ratio=cfg.data.prompt_ratio,
+            prompt_prob=cfg.data.prompt_prob,
+            prompt_at_final_transition_prob=(
+                cfg.data.prompt_at_final_transition_prob),
+            prompt_strategy=cfg.data.prompt_strategy.split(";")[0])
+        register_creator("rl", rl_creator)
+        register_creator("rl_task_suite", suite_creator)
+
+    n_train = cfg.train.train_iters * cfg.train.global_batch_size
+    train_ds, valid_ds, _, _ = build_train_valid_test_datasets(
+        cfg.data.data_path, cfg.data.split, cfg.data.seq_length,
+        (n_train, cfg.train.eval_iters * cfg.train.global_batch_size, 0),
+        cfg.train.seed, cfg.train.global_batch_size,
+        cache_dir=cfg.data.rl_dataset_cache_dir)
+
+    datasets, weights = group_by_modality(train_ds)
+    loader = build_loader(cfg, datasets, weights)
+    try:
+        # the JAX driver draws one batch to initialise its parameters; the
+        # port draws it too, so both train on the same stream
+        example = next(loader)
+        print_rank_0("batch groups: " + ", ".join(
+            f"{m} {list(f['tokens'].shape)}" for m, f in example.items()))
+
+        model = TransformerXL(
+            cfg.model, cfg.vocab, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
+        state = init_train_state(model, cfg.train.optimizer,
+                                 cfg.train.train_iters)
+        n_params = sum(p.numel() for p in model.parameters())
+        print_rank_0(f"model parameters: {n_params:,}")
+
+        def eval_fn(state, iteration):
+            """The validation loss over ``train.eval_iters`` batches and RL
+            rollouts of ``eval.env_names`` on the training weights."""
+            out = {}
+            if valid_ds is not None:
+                vd, vw = group_by_modality(valid_ds)
+                vloader = build_loader(cfg, vd, vw)
+                try:
+                    batches = [next(vloader)
+                               for _ in range(cfg.train.eval_iters)]
+                finally:
+                    vloader.stop()
+                out["loss"] = evaluate_loss(state.model, batches, device=dev)
+            if cfg.eval.env_names and process_index() == 0:
+                for name in cfg.eval.env_names:
+                    def make_tenv(n=name):
+                        ds = build_rl_dataset_from_cache(
+                            n, cfg.data.rl_dataset_cache_dir,
+                            cfg.model.n_position, tok,
+                            use_prompt=cfg.eval.use_prompt)
+                        return TokenizedEnv(make_env(n), ds)
+
+                    res = evaluate_env(
+                        state.model, make_tenv,
+                        num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
+                        max_step_size=cfg.eval.max_step_size)
+                    out[f"return/{name}"] = res["return_mean"]
+                    out[f"length/{name}"] = res["length_mean"]
+            return out
+
+        logger = MetricLogger(cfg.train.save_dir, cfg.train.tensorboard_dir)
+        trainer = Trainer(cfg, model, make_train_step(model), state, loader,
+                          eval_fn=eval_fn, logger=logger)
+        trainer.train()
+    finally:
+        loader.stop()
+    print_rank_0("training complete")
+
+
+if __name__ == "__main__":
+    main()

@@ -16,11 +16,11 @@ import torch
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import MetricLogger, print_rank_0
-from bdm_db1_tpu_torch.data.input_specs import RLTaskBatch
+from bdm_db1_tpu_torch.data.input_specs import NLPTaskBatch, RLTaskBatch
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
 
-_BATCH_TYPES = {"rl": RLTaskBatch}
+_BATCH_TYPES = {"rl": RLTaskBatch, "nlp": NLPTaskBatch}
 
 
 def _check_device(device) -> torch.device:
@@ -37,14 +37,16 @@ def to_gato_batch(raw: Dict[str, Dict[str, np.ndarray]],
     """Loader output {modality: {field: array}} -> {modality: typed batch}
     with tensors on ``device``. Fields the batch type does not have (host
     bookkeeping) are dropped; a sub-modality group ("rl_img") takes its
-    base modality's type. Only RL batches are ported."""
+    base modality's type. RL and text ("nlp") batches are ported; "ic" and
+    "vqa" raise ``NotImplementedError``."""
     dev = _check_device(device)
     out = {}
     for m, fields in raw.items():
         cls = _BATCH_TYPES.get(m.split("_")[0])
         if cls is None:
             raise NotImplementedError(
-                f"modality group {m!r}: only RL batches are ported")
+                f"modality group {m!r}: only RL and text batches are ported "
+                "(captioning and VQA are ROADMAP queue 1 items 4 and 8)")
         valid = {f.name for f in dataclasses.fields(cls)}
         out[m] = cls(**{k: torch.as_tensor(np.asarray(v), device=dev)
                         for k, v in fields.items() if k in valid})

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels,eval_loss
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,train,evaluate_rl
+    python3 chip_smoke.py --phases build,pretrain
 
 Phases, each printing one JSON line:
 
@@ -18,7 +19,8 @@ Phases, each printing one JSON line:
   equal to K7 on the transposed scales (M = 1024, H = 16, Dh = 128; Q = 19
   and 26 for the primes; a layer index other than 0; untimed, a ragged
   decode and prime at M = 200 (Q 5) and at M = 201 (Q 17 for the prime)
-  with more (head, row) pairs than SMs), K9 at the four trunk
+  with more (head, row) pairs than SMs, and K1/K2 at the pretrain
+  rollouts' B 1 with Q 19 and 26), K9 at the four trunk
   matrices and the four row counts of the int8 serve (56, 1064, 1456,
   14336: timed, two calls bitwise equal at 56 and 1064 rows) and at 24
   untimed edge shapes (a K split with a shorter last split among them),
@@ -78,6 +80,24 @@ Phases, each printing one JSON line:
   records of 20 finite-return trials, ``results.output`` with their two
   lines and the K1/K2 launches of the serve's plan; reads the driver's
   wall time and actions/sec. The checkpoint is deleted at the end.
+* ``pretrain``   — the pretraining driver ``pretrain.main(cfg,
+  device="cuda")`` at db1_1p2b (bf16 activations, f32 parameters, random
+  weights from ``train.seed``) on a 0.5 text / 0.5 RL mixture: a seeded
+  synthetic English-like corpus (2,000 documents of 5-100 sentences)
+  through ``preprocess.main`` with the byte tokenizer, and the
+  HalfCheetah-geometry cache (20 episodes x 200 steps) with its env
+  registered; micro-batch 4 x 1024 (2 text rows, 2 RL rows), accum 2, 6
+  iterations, the eval hook at the 6th (the validation loss over one
+  batch, 2 rollouts of 8 steps on the training weights), the final
+  checkpoint. Checks every batch's groups, the launches of K3-K5 (24 x 2
+  x 6 training forwards and backwards, 24 x 2 validation forwards) and
+  K1/K2 (the rollouts' plan), finite losses (the first within 1.0 of
+  log V, the last below it), the metric keys and the step-6 checkpoint;
+  reads tokens/sec over steps 2-6, the median step, the peak memory, the
+  eval tick, the save and the preprocessing. Then, outside the counted
+  run, on the trained model: the kernel route against the plain ring
+  branch layer by layer at B 1 (one prime, one q = 1 forward), and one
+  more step on the last batch, profiled (device busy and idle share).
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -145,8 +165,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train",
-          "evaluate_rl")
-MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl")
+          "evaluate_rl", "pretrain")
+MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl",
+              "pretrain")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -1077,17 +1098,22 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
     # M not a multiple of 4 (the bias rows are then not 16-byte aligned),
     # both of the prime's row tiles at Q 17, more (head, row) pairs than SMs
     odd = dict(L=2, B=48, M=201, H=4, Dh=128, layer=1)
+    # the pretrain phase's rollouts: one env, so B 1
+    one = dict(full, B=1)
     ring = OldRing(old_ring, not probe) if old_ring else None
     cases = {
         "flash_ring_decode": [
             _kernel_case(fro, Q=None, seed=1, timed=True, old=ring, **full),
             _kernel_case(fro, Q=None, seed=2, timed=False, **ragged),
-            _kernel_case(fro, Q=None, seed=7, timed=False, **odd)],
+            _kernel_case(fro, Q=None, seed=7, timed=False, **odd),
+            _kernel_case(fro, Q=None, seed=8, timed=False, **one)],
         "flash_ring_prime_ap": [
             _kernel_case(fro, Q=19, seed=3, timed=True, old=ring, **full),
             _kernel_case(fro, Q=26, seed=4, timed=True, old=ring, **full),
             _kernel_case(fro, Q=5, seed=5, timed=False, **ragged),
-            _kernel_case(fro, Q=17, seed=6, timed=False, **odd)],
+            _kernel_case(fro, Q=17, seed=6, timed=False, **odd),
+            _kernel_case(fro, Q=19, seed=9, timed=False, **one),
+            _kernel_case(fro, Q=26, seed=10, timed=False, **one)],
         "flash_ring_decode_int8": [
             _kernel_case(fro, Q=None, seed=11, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8),
@@ -2062,6 +2088,7 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
     from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.train import pretrain
 
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
@@ -2099,7 +2126,7 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
             raise AssertionError(f"loaded weights differ from the saved "
                                  f"ones cast to the model's dtypes: "
                                  f"{bad[:5]}")
-        tok = evaluate_rl.build_tokenizer_suite(cfg)
+        tok = pretrain.build_tokenizer_suite(cfg)
         tenv = TokenizedEnv(FakeContinuousEnv(obs_dim=17, act_dim=6),
                             build_rl_dataset_from_cache(
                                 EVAL_ENVS[0], cache_dir,
@@ -2154,6 +2181,289 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
             "launches": launches, "launches_expected": want,
             "records": res, "load_params_s": load_s, "wall_s": wall,
             "actions_per_sec": actions / wall}
+
+
+PRETRAIN_ENV = "halfcheetah-geometry-pretrain-v0"
+PRETRAIN_ITERS = 6
+PRETRAIN_DOCS = 2000
+PRETRAIN_TRIALS = 2
+PRETRAIN_STEPS = 8
+# the synthetic corpus: English-like sentences of 4-14 words from this list
+WORDS = tuple((
+    "the of and to in is was he for it with as his on be at by had are but "
+    "from or have an they which one you were her all she there would their "
+    "we him been has when who will more no if out so said what up its about "
+    "into than them can only other new some could time these two may then "
+    "do first any my now such like our over man me even most made after "
+    "also did many before must through back years where much your way well "
+    "down should because each just those people how too little state good "
+    "very make world still own see men work long get here between both life "
+    "being under never day same another know while last might us great old "
+    "year off come since against go came right used take three").split())
+
+
+def _write_corpus(path: str, seed: int) -> int:
+    """A jsonl of PRETRAIN_DOCS documents of 5-100 sentences of 4-14 words
+    from WORDS, seeded; returns its bytes."""
+    rng = np.random.RandomState(seed)
+    words = np.asarray(WORDS)
+    ends = np.asarray(list(".?!"))
+    with open(path, "w") as f:
+        for _ in range(PRETRAIN_DOCS):
+            n_sent = rng.randint(5, 101)
+            lens = rng.randint(4, 15, size=n_sent)
+            picks = words[rng.randint(0, len(words), size=int(lens.sum()))]
+            marks = ends[rng.choice(3, size=n_sent, p=(0.8, 0.1, 0.1))]
+            cuts = np.cumsum(lens)[:-1]
+            sents = [" ".join(ws).capitalize() + m
+                     for ws, m in zip(np.split(picks, cuts), marks)]
+            f.write(json.dumps({"text": " ".join(sents)}) + "\n")
+    return os.path.getsize(path)
+
+
+def phase_pretrain(smi: str, seed: int = 0) -> dict:
+    """The pretraining driver at db1_1p2b on a 0.5 text / 0.5 RL mixture:
+    a seeded synthetic corpus through ``preprocess.main`` (byte tokenizer,
+    uint16 ``.bin/.idx``), the HalfCheetah-geometry RL cache written with
+    ``save_cache`` and its env registered, then ``pretrain.main(cfg,
+    device="cuda")`` (counted): micro-batch 4 x 1024 (2 text rows and 2 RL
+    rows) with accum 2 for PRETRAIN_ITERS iterations, the eval hook at the
+    last one (the validation loss over one batch, RL rollouts of
+    PRETRAIN_TRIALS episodes of PRETRAIN_STEPS steps on the training
+    weights) and the final checkpoint. Checks the groups of every batch,
+    the launches of K3-K5 (training forwards and backwards, the validation
+    forwards) and K1/K2 (the rollouts' plan), finite losses (the first
+    within 1.0 of log V, the last below it), the metric keys and the step
+    checkpoint. Reads tokens/sec over steps 2-6 and the median step from
+    metrics.jsonl, the peak memory, the eval tick and the save. After the
+    counted run, on the trained model: the kernel route against the plain
+    ring branch layer by layer at B 1 (``_route_check``: the rollouts'
+    shape), and one more step on the last batch, profiled (device busy,
+    as the ``train`` phase profiles a warmed step)."""
+    from types import SimpleNamespace
+
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data import preprocess
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        TrajectoryStore, build_rl_dataset_from_cache,
+    )
+    from bdm_db1_tpu_torch.eval.decode import ActionDecoder
+    from bdm_db1_tpu_torch.eval.envs import (
+        FakeContinuousEnv, make_env, register_env,
+    )
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.train import checkpoint, pretrain, trainer
+    from bdm_db1_tpu_torch.train.step import make_train_step
+
+    allocated_at_start = torch.cuda.memory_allocated()
+    work = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    patched = []
+
+    def patch(obj, name, value):
+        patched.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    try:
+        corpus_json = os.path.join(work, "corpus.jsonl")
+        corpus = os.path.join(work, "corpus")
+        cache_dir = os.path.join(work, "rl")
+        save_dir = os.path.join(work, "run")
+        t0 = time.perf_counter()
+        json_bytes = _write_corpus(corpus_json, seed)
+        gen_s = time.perf_counter() - t0
+        with contextlib.redirect_stderr(io.StringIO()):
+            pre = preprocess.main(["--input", corpus_json, "--json-key",
+                                   "text", "--output-prefix", corpus])
+
+        def env_fn():
+            return FakeContinuousEnv(obs_dim=17, act_dim=6, seed=seed + 3)
+
+        register_env(PRETRAIN_ENV, env_fn)
+        TrajectoryStore.from_flat_dataset(FakeContinuousEnv(
+            obs_dim=17, act_dim=6, episode_len=200,
+            seed=999).make_dataset(20)).save_cache(cache_dir, PRETRAIN_ENV)
+
+        cfg = db1_1p2b()
+        cfg.data.data_path = ("0.5", corpus, "nlp", "0.5", PRETRAIN_ENV, "rl")
+        cfg.data.rl_dataset_cache_dir = cache_dir
+        cfg.train = dataclasses.replace(
+            cfg.train, micro_batch_size=TRAIN_MICRO,
+            global_batch_size=TRAIN_MICRO * TRAIN_ACCUM,
+            train_iters=PRETRAIN_ITERS, log_interval=1,
+            eval_interval=PRETRAIN_ITERS, eval_iters=1,
+            save_interval=PRETRAIN_ITERS + 1, save_dir=save_dir)
+        cfg.eval = dataclasses.replace(
+            cfg.eval, env_names=(PRETRAIN_ENV,), num_trials=PRETRAIN_TRIALS,
+            max_step_size=PRETRAIN_STEPS)
+
+        # what the run hands the model, the last step's arguments, the save
+        groups, last, saves = [], {}, []
+
+        def recording_batch(raw, device="cuda"):
+            groups.append({m: tuple(f["tokens"].shape)
+                           for m, f in raw.items()})
+            return to_gato_batch(raw, device)
+
+        def capturing_step(model, **kw):
+            step = make_train_step(model, **kw)
+            last["model"], last["step"] = model, step
+
+            def run(state, batch, gen):
+                last["args"] = (state, batch, gen)
+                return step(state, batch, gen)
+            return run
+
+        def timed_save(mgr, step, state, client_state=None):
+            t = time.perf_counter()
+            save(mgr, step, state, client_state)
+            mgr.wait()
+            torch.cuda.synchronize()
+            saves.append((step, time.perf_counter() - t))
+
+        to_gato_batch = trainer.to_gato_batch
+        save = checkpoint.CheckpointManager.save
+        patch(trainer, "to_gato_batch", recording_batch)
+        patch(pretrain, "make_train_step", capturing_step)
+        patch(checkpoint.CheckpointManager, "save", timed_save)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path, counted --------------------------------------
+        _reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            pretrain.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        for obj, name, value in reversed(patched):
+            setattr(obj, name, value)
+        patched.clear()
+        sys.stdout.write(out.getvalue())
+
+        L = cfg.model.n_layer
+        micro = {"rl": TRAIN_MICRO // 2, "nlp": TRAIN_MICRO // 2}
+        L_seq = cfg.data.seq_length
+        want_train = {m: (TRAIN_ACCUM, c, L_seq) for m, c in micro.items()}
+        want_eval = {m: (c, L_seq) for m, c in micro.items()}
+        # the Trainer's batches, then evaluate_loss's micro-batches
+        if groups != ([want_train] * PRETRAIN_ITERS
+                      + [want_eval] * TRAIN_ACCUM):
+            raise AssertionError(f"batch groups off: {groups}")
+        # the rollouts' plan, as evaluate_rl's: per episode a prompt prime
+        # in ring slices, then per env step A - 1 single-token forwards
+        # and a deferred [action || obs || sep] prime
+        tenv = TokenizedEnv(env_fn(), build_rl_dataset_from_cache(
+            PRETRAIN_ENV, cache_dir, cfg.model.n_position,
+            pretrain.build_tokenizer_suite(cfg)))
+        prompt, _ = tenv.get_prompt(strict_length=True,
+                                    rng=np.random.RandomState(cfg.eval.seed))
+        q0 = len(prompt) + tenv.obs_length + 1
+        slices = ActionDecoder.chunk_sizes(
+            SimpleNamespace(model=SimpleNamespace(cfg=cfg.model)), q0, 0) \
+            or [q0]
+        A, steps, n = tenv.action_length, PRETRAIN_STEPS, PRETRAIN_TRIALS
+        want = dict.fromkeys(launches, 0)
+        fwd = L * TRAIN_ACCUM * PRETRAIN_ITERS
+        want["flash_rel_attention"] = fwd + L * TRAIN_ACCUM
+        want["flash_rel_attention_bwd_dq"] = fwd
+        want["flash_rel_attention_bwd_dkv"] = fwd
+        want["flash_ring_decode"] = n * L * (steps * (A - 1)
+                                             + slices.count(1))
+        want["flash_ring_prime_ap"] = n * L * (
+            steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+
+        recs = [json.loads(line) for line in
+                open(os.path.join(save_dir, "metrics.jsonl"))]
+        train = [r for r in recs if "train/loss" in r]
+        valid = [r for r in recs if "valid/loss" in r]
+        log_v = float(np.log(cfg.vocab.layout().total_vocab_size))
+        losses = [r["train/loss"] for r in train]
+        want_keys = {"valid/loss", f"valid/return/{PRETRAIN_ENV}",
+                     f"valid/length/{PRETRAIN_ENV}"}
+        # a random init starts near log V; the byte-level text (a few
+        # dozen symbols) is learned within the run, so later losses fall
+        # well below it
+        if not ([r["step"] for r in train] == list(range(1,
+                                                         PRETRAIN_ITERS + 1))
+                and np.isfinite(losses).all()
+                and abs(losses[0] - log_v) <= 1.0 and losses[-1] < losses[0]
+                and all("train/tokens_per_sec" in r for r in train)):
+            raise AssertionError(f"train records off: {train}")
+        if not (len(valid) == 1 and want_keys <= set(valid[0])
+                and valid[0]["step"] == PRETRAIN_ITERS
+                and np.isfinite(valid[0]["valid/loss"])
+                and valid[0][f"valid/length/{PRETRAIN_ENV}"] == steps
+                and np.isfinite(valid[0][f"valid/return/{PRETRAIN_ENV}"])):
+            raise AssertionError(f"valid records off: {valid}")
+        step_dir = os.path.join(save_dir, str(PRETRAIN_ITERS))
+        with open(os.path.join(step_dir, "client.json")) as f:
+            client = json.load(f)
+        if client != {"iteration": PRETRAIN_ITERS} or [
+                s for s, _ in saves] != [PRETRAIN_ITERS]:
+            raise AssertionError(f"checkpoint off: {client}, saves {saves}")
+        ckpt_bytes = _dir_bytes(step_dir)
+
+        # ---- after the counted run: the route at B 1, a warmed step --------
+        model, step = last["model"], last["step"]
+        routes = _route_check(model, cfg.vocab.layout(), 1, lambda name: (
+            TokenizedEnv(make_env(name), build_rl_dataset_from_cache(
+                name, cache_dir, cfg.model.n_position,
+                pretrain.build_tokenizer_suite(cfg)))),
+            [PRETRAIN_ENV], f32_copy=False)
+        torch.cuda.empty_cache()
+        _reset_launches()
+        busy, top, prof_wall = _profile_busy(lambda: step(*last["args"]),
+                                             keep=tuple(ALONE_KERNELS.values()))
+        alone = kernel_alone_ms(top, _read_launches())
+        del model, step
+    finally:
+        last.clear()
+        for obj, name, value in reversed(patched):
+            setattr(obj, name, value)
+        shutil.rmtree(work, ignore_errors=True)
+
+    tokens = TRAIN_ACCUM * TRAIN_MICRO * cfg.data.seq_length
+    step_s = [tokens / r["train/tokens_per_sec"] for r in train]
+    steady = step_s[1:]
+    median = float(np.median(steady))
+    eval_s = valid[0]["time"] - train[-1]["time"]
+    save_s = saves[0][1]
+    return {"phase": "pretrain", "config": "db1_1p2b", "dtype": "bfloat16",
+            "param_dtype": "float32", "card": smi,
+            "data_path": ["0.5", "<corpus> nlp", "0.5", PRETRAIN_ENV, "rl"],
+            "micro_batch": micro, "accum": TRAIN_ACCUM,
+            "seq_length": cfg.data.seq_length, "iters": PRETRAIN_ITERS,
+            "allocated_at_start_gb": allocated_at_start / 1e9,
+            "corpus": {"docs": pre["docs"], "tokens": pre["tokens"],
+                       "jsonl_bytes": json_bytes, "generate_s": gen_s,
+                       "preprocess_s": pre["seconds"],
+                       "preprocess_tokens_per_sec":
+                           pre["tokens"] / pre["seconds"]},
+            "launches": launches, "launches_expected": want,
+            "prime_slices": slices, "losses": losses, "log_vocab": log_v,
+            "valid": valid[0],
+            "tokens_per_sec": tokens * len(steady) / float(sum(steady)),
+            "tokens_per_sec_over": "steps 2-%d" % PRETRAIN_ITERS,
+            "step_ms_median": median * 1e3,
+            "step_ms": [t * 1e3 for t in step_s],
+            "profiled_step_ms": prof_wall * 1e3,
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / median,
+            "top_device_ms": top, "kernel_alone_ms": alone,
+            "kernel_vs_plain": routes,
+            "max_memory_allocated_gb": peak / 1e9,
+            "eval_tick_s": eval_s, "save_s": save_s,
+            "checkpoint_bytes": ckpt_bytes,
+            "save_gb_per_s": ckpt_bytes / 1e9 / save_s, "wall_s": wall}
 
 
 # what each time of the K4/K5 rows of the kernels line is
@@ -2306,6 +2616,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         saved_weights.clear()
+    if "pretrain" in phases:
+        # the train phase's model and optimizer state are garbage by now
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["pretrain"] = phase_pretrain(smi)
+        emit(results["pretrain"])
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

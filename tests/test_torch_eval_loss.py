@@ -287,5 +287,7 @@ def test_unported_paths_raise():
         tm.cfg.remat = False
     with pytest.raises(ValueError, match="unknown modality"):
         tm({"rl": rl, "audio": rl})
+    # text groups are ported (tests/test_torch_pretrain.py); captioning is
+    # not
     with pytest.raises(NotImplementedError):
-        tm({"nlp": rl})
+        tm({"ic": rl})
