@@ -2,8 +2,8 @@
 dataclasses of tensors in place of flax pytrees.
 
 Every modality group packs to one sequence length ``L`` and the model
-concatenates the groups along the batch. Only the RL batch is ported; the
-text, captioning and VQA batches come with their embedders.
+concatenates the groups along the batch. Images are NHWC, as in the JAX
+batches; the vision embedder permutes them for its convolutions.
 """
 
 from __future__ import annotations
@@ -30,6 +30,29 @@ class NLPTaskBatch:
     """Packed text span: the word embedding alone, no timestep term."""
 
     tokens: torch.Tensor                       # [B, L] int
+    loss_mask: Optional[torch.Tensor] = None   # [B, L]
+    label: Optional[torch.Tensor] = None       # [B, L] int
+
+
+@dataclass
+class ICTaskBatch:
+    """Image captioning: [prompt | image patches | caption]."""
+
+    prompt: torch.Tensor                       # [B, P] int
+    images: torch.Tensor                       # [B, H, W, C] float
+    text: torch.Tensor                         # [B, Lt] int
+    loss_mask: Optional[torch.Tensor] = None   # [B, L] over the sequence
+    label: Optional[torch.Tensor] = None       # [B, L] int
+
+
+@dataclass
+class VQATaskBatch:
+    """VQA: [prompt | image patches | question + answer]."""
+
+    prompt: torch.Tensor                       # [B, P] int
+    images: torch.Tensor                       # [B, H, W, C] float
+    text: torch.Tensor                         # [B, Lt] int
+    ques_len: torch.Tensor                     # [B] int
     loss_mask: Optional[torch.Tensor] = None   # [B, L]
     label: Optional[torch.Tensor] = None       # [B, L] int
 

@@ -1,5 +1,5 @@
 """RL trajectories, their tokenization and packed training samples (the
-tensor-observation part of bdm_db1_tpu/data/rl_dataset.py).
+tensor- and image-observation part of bdm_db1_tpu/data/rl_dataset.py).
 
 * ``TrajectoryStore`` — per-trajectory storage, built in memory from a
   d4rl-style flat dataset or attached lazily (mmap) to an on-disk cache in
@@ -22,9 +22,11 @@ tensor-observation part of bdm_db1_tpu/data/rl_dataset.py).
 * ``build_rl_dataset_from_cache`` — the dataset of one env from its cache
   (built from the live env first when absent).
 
-Tensor observations only: image and text observations raise
-``NotImplementedError`` (the suite takes a text tokenizer and a patch
-size, as the JAX package's does, for the slices that port them).
+Image observations ([T, 3, H, W] leaves) take ``(H/p)(W/p)`` -1 token
+slots a timestep (one image leaf an observation); a sample carries its
+frames as ``images`` [transition_num, H, W, C], zero-padded, with the slots
+of the padded transitions marked -1. Text observations raise
+``NotImplementedError`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -121,17 +123,15 @@ def obs_type_of(x: np.ndarray) -> str:
     raise ValueError(f"unsupported obs dtype {x.dtype}")
 
 
-def _tensor_only(obs_type: str) -> None:
-    if obs_type in ("image", "text"):
+def _no_text(obs_type: str) -> None:
+    if obs_type == "text":
         raise NotImplementedError(
-            f"{obs_type} observations are not ported yet; the port's RL "
-            "evaluation takes tensor (float/discrete) observations")
+            "text observations are not ported yet (ROADMAP queue 1 item 8)")
 
 
 class RLTokenizerSuite:
     """Per-modality tokenization with unified vocab offsets. The text
-    tokenizer and the vision patch size are held for text and image
-    observations, which are not ported yet."""
+    tokenizer is held for text observations, which are not ported yet."""
 
     def __init__(self, layout: VocabLayout, scalar: ScalarTokenizer,
                  text_tokenizer=None, vision_patch_size: int = 16):
@@ -142,13 +142,19 @@ class RLTokenizerSuite:
 
     def obs_dim_of(self, x: np.ndarray, obs_type: str) -> int:
         """Token count contributed by one obs leaf per timestep."""
-        _tensor_only(obs_type)
+        _no_text(obs_type)
+        if obs_type == "image":
+            _, _, h, w = x.shape
+            p = self.vision_patch_size
+            return (h // p) * (w // p)
         return int(np.prod(x.shape[1:])) if x.ndim > 1 else 1
 
     def encode_obs_leaf(self, x: np.ndarray, obs_type: str, obs_dim: int):
-        """-> (text_tokens, image, tensor_tokens); only the tensor part is
-        ported, so the first two are always None."""
-        _tensor_only(obs_type)
+        """-> (text_tokens, image, tensor_tokens), exactly one non-None
+        (text is not ported, so the first is always None)."""
+        _no_text(obs_type)
+        if obs_type == "image":
+            return None, x, None
         if obs_type == "float":
             bins = self.scalar.discretize_np(x, is_action=False)
             tok = self.layout.encode_continuous(bins.astype(np.int64))
@@ -433,15 +439,28 @@ class RLFullDataset:
             np.asarray(act))
 
     def assemble_obs_tokens(self, o_text, o_image, o_tensor):
-        """Concat obs token streams in the canonical order. Returns
-        (obs_tokens [T, obs_dim], None): only tensor leaves are ported."""
-        for tree in (o_text, o_image):
-            if tree is not None and any(
-                    leaf is not None for leaf in tree_leaves(tree)):
-                raise NotImplementedError(
-                    "text/image observation tokens are not ported yet")
-        parts = [leaf for leaf in tree_leaves(o_tensor) if leaf is not None]
-        return np.concatenate(parts, axis=1).astype(np.int64), None
+        """Concat obs token streams in the canonical order (image
+        placeholders, then tensor leaves). Returns (obs_tokens [T,
+        obs_dim] with -1 image slots, image [T, C, H, W] or None)."""
+        if o_text is not None and any(
+                leaf is not None for leaf in tree_leaves(o_text)):
+            raise NotImplementedError(
+                "text observation tokens are not ported yet (ROADMAP "
+                "queue 1 item 8)")
+        parts = []
+        image = None
+        img_leaves = [
+            v for v in (tree_leaves(o_image) if o_image is not None else [])
+            if v is not None
+        ]
+        assert len(img_leaves) <= 1, "only one image obs supported"
+        if img_leaves:
+            image = np.asarray(img_leaves[0])
+            n, _, h, w = image.shape
+            p = self.tok.vision_patch_size
+            parts.append(np.full((n, (h // p) * (w // p)), -1, np.int64))
+        parts += [leaf for leaf in tree_leaves(o_tensor) if leaf is not None]
+        return np.concatenate(parts, axis=1).astype(np.int64), image
 
     def prepend_prompt(self, path_idx: int, obs: ObsTree, act: np.ndarray):
         """With probability ``prompt_prob``, prepend ``prompt_transition_num``
@@ -489,7 +508,10 @@ class RLFullDataset:
         its index row, prompt-conditioned when ``use_prompt``, packed to
         ``seq_length + 1`` tokens and split into ``tokens`` / ``label``
         (int32), ``loss_mask`` (f32: action tokens outside the prompt and
-        before the trajectory's end) and ``position_id`` (int32)."""
+        before the trajectory's end) and ``position_id`` (int32); with an
+        image observation also ``images`` [transition_num, H, W, C] f32,
+        the frames zero-padded to transition_num and the obs slots of the
+        padded transitions -1."""
         idx = idx % len(self.indices)
         path_idx, start, end = (int(v) for v in self.indices[idx])
         path_length = int(self.store.path_lengths[path_idx])
@@ -503,7 +525,7 @@ class RLFullDataset:
 
         (o_text, o_image, o_tensor), act_tok = self.postprocess_obs_and_act(
             obs, act)
-        obs_tok, _ = self.assemble_obs_tokens(o_text, o_image, o_tensor)
+        obs_tok, image = self.assemble_obs_tokens(o_text, o_image, o_tensor)
 
         T = obs_tok.shape[0]
         sep = np.full((T, 1), self.tok.layout.separator_id, dtype=np.int64)
@@ -519,12 +541,26 @@ class RLFullDataset:
         joined = truncate_or_pad(joined, L)
         flags = truncate_or_pad(flags, L)
         pos = truncate_or_pad(pos, L)
-        return {
+        out = {
             "tokens": joined[:-1].astype(np.int32),
             "label": joined[1:].astype(np.int32),
             "loss_mask": flags[1:].astype(np.float32),
             "position_id": pos[:-1].astype(np.int32),
         }
+        if image is not None:
+            n = image.shape[0]
+            if n < self.transition_num:
+                padded = np.zeros(
+                    (self.transition_num,) + image.shape[1:], np.float32)
+                padded[:n] = image
+                image = padded
+            for i in range(T, self.transition_num):
+                lo = i * self.step_size
+                hi = min(L - 1, lo + self.observation_dim)
+                out["tokens"][lo:hi] = -1
+            out["images"] = np.transpose(
+                image.astype(np.float32), (0, 2, 3, 1))      # CHW -> HWC
+        return out
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.get(idx)

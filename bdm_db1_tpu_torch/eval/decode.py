@@ -2,9 +2,10 @@
 classic path of bdm_db1_tpu/eval/decode.py.
 
 One env step of a batch of envs: a prime forward over [obs || sep] (or
-[prompt || obs || sep] at episode start, in <= 256-token ring slices), then
-one single-token forward per action dim feeding back the previous masked
-argmax with local-timestep id 0. With ``defer_last`` the last action token
+[prompt || obs || sep] at episode start, in <= 256-token ring slices; an
+image prime in slices cut at transition boundaries, each with its
+frames), then one single-token forward per action dim feeding back the
+previous masked argmax with local-timestep id 0. With ``defer_last`` the last action token
 is not fed: the caller carries it into the next step's prime as
 ``deferred_tok``, which saves one forward per step (exact under
 same_length ring attention, where every query sees exactly mem_len keys
@@ -14,8 +15,8 @@ Python loop whose tokens stay on the device; only the finished
 
 With ``decode_weight_dtype`` "int8"/"int8a8", :func:`build_decoder_for_env`
 (and so :class:`DecoderPool`) quantizes the model's trunk weights once, as
-the JAX package's does. Speculative decode, geometry buckets and images are
-not ported yet.
+the JAX package's does. Speculative decode and geometry buckets are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -149,22 +150,68 @@ class ActionDecoder:
         act = act.cpu().numpy()
         return (act[0] if single else act), new_mems
 
-    def chunk_sizes(self, q: int, lead: int) -> Optional[List[int]]:
+    def chunk_plan(self, q: int, lead: int, n_frames: Optional[int] = None
+                   ) -> Tuple[Optional[List[int]], Optional[Tuple[int, ...]]]:
         """The ring slices of a q-token prime whose first ``lead`` tokens
-        are deferred action tokens, or None for a one-slice prime."""
+        are deferred action tokens, and with ``n_frames`` (an image prime)
+        the frames of each slice: (sizes, frames), or (None, None) for a
+        one-slice prime (chunking is exact only under same_length, and an
+        image prime that :meth:`_image_chunk_plan` cannot cut goes whole).
+        A lead token rides in the first slice, or in its own slice of no
+        frames when that slice is full."""
         chunk = _prime_chunk(self.model.cfg)
         if q <= chunk or not self.model.cfg.same_length:
-            return None
+            return None, None
         qp = q - lead
-        sizes = [chunk] * (qp // chunk)
-        if qp % chunk:
-            sizes.append(qp % chunk)
+        frames = None
+        if n_frames is None:
+            sizes = [chunk] * (qp // chunk)
+            if qp % chunk:
+                sizes.append(qp % chunk)
+        else:
+            plan = self._image_chunk_plan(qp, n_frames)
+            if plan is None:
+                return None, None
+            sizes, frames = plan
         if lead:
             if sizes[0] + lead <= chunk:
                 sizes[0] += lead
             else:
                 sizes.insert(0, lead)
-        return sizes
+                if frames is not None:
+                    frames = (0,) + tuple(frames)
+        return sizes, frames
+
+    def _image_chunk_plan(self, q: int, n_frames: int):
+        """Transition-aligned slices of an image prime [T whole transitions
+        || obs || sep] with one frame an observation: (slice sizes, frames
+        per slice), or None when the prime does not decompose so (another
+        frame count, a prime off the transition grid, or a transition
+        longer than the slice budget). Every slice's -1 count is then
+        whole frames, so each slice takes its own frames."""
+        step = self.obs_length + self.action_length + 1
+        tail = self.obs_length + 1
+        chunk = _prime_chunk(self.model.cfg)
+        if (q - tail) % step != 0 or step > chunk:
+            return None
+        n_trans = (q - tail) // step
+        if n_frames != n_trans + 1:  # one frame per obs region, + reset obs
+            return None
+        t_per = chunk // step
+        sizes, frames = [], []
+        rem = n_trans
+        while rem > 0:
+            t = min(t_per, rem)
+            sizes.append(t * step)
+            frames.append(t)
+            rem -= t
+        if sizes and sizes[-1] + tail <= chunk:
+            sizes[-1] += tail
+            frames[-1] += 1
+        else:
+            sizes.append(tail)
+            frames.append(1)
+        return sizes, tuple(frames)
 
     @torch.no_grad()
     def decode_async(self, prime_tokens: np.ndarray, mems,
@@ -177,12 +224,14 @@ class ActionDecoder:
 
         ``defer_last=True`` (only when :attr:`defers`) skips the trailing
         cache-fold forward; the caller then feeds this call's last action
-        token back as the next call's ``deferred_tok`` ([B] or [] int)."""
-        if prime_images is not None:
-            raise NotImplementedError("image primes are not ported yet")
+        token back as the next call's ``deferred_tok`` ([B] or [] int).
+        ``prime_images`` ([T, H, W, C], or [B, T, H, W, C] with a batch of
+        primes) are the frames of the prime's -1 slots, in order."""
         single = prime_tokens.ndim == 1
         if single:
             prime_tokens = prime_tokens[None]
+            if prime_images is not None:
+                prime_images = prime_images[None]
         defer_last = defer_last and self.defers
         lead = 0
         if deferred_tok is not None:
@@ -200,7 +249,8 @@ class ActionDecoder:
         # [B, H, q, M+q] score buffers of a ~1000-token expert prompt are
         # what would not fit at large batch; a deferred lead token rides in
         # the first slice
-        sizes = self.chunk_sizes(q, lead)
+        sizes, frame_splits = self.chunk_plan(
+            q, lead, None if prime_images is None else prime_images.shape[1])
         dev = self.device
 
         def _make_pos():
@@ -223,33 +273,47 @@ class ActionDecoder:
             bias = bias.clone()
             bias[:, lo:lo + m.shape[1]] -= (1.0 - m) * 1e10
         tokens = torch.as_tensor(prime_tokens, dtype=torch.int64, device=dev)
+        images = (None if prime_images is None else torch.as_tensor(
+            np.asarray(prime_images, np.float32), device=dev))
         rk_chunks = ([self._rk.get(s) for s in sizes] if sizes is not None
                      else [self._rk.get(q)])
         return _decode_step(self.model, self.action_length, tokens, pos,
                             mems, bias, rk_chunks, self._rk.get(1),
-                            defer_last)
+                            defer_last, images, frame_splits)
 
 
 def _decode_step(model, action_length: int, tokens: torch.Tensor,
                  pos: torch.Tensor, mems, bias: torch.Tensor,
                  rk_chunks, rk_step: torch.Tensor,
-                 defer_last: bool = False):
-    """Prime forward (one ring call per slice) + the per-dim loop.
-    tokens/pos [B, q]; bias [B, V]; returns ([B, action_length], mems)."""
+                 defer_last: bool = False, images=None, frame_splits=None):
+    """Prime forward (one ring call per slice, slice ci taking
+    ``frame_splits[ci]`` frames of ``images`` [B, T, H, W, C]) + the
+    per-dim loop. tokens/pos [B, q]; bias [B, V]; returns ([B,
+    action_length], mems). A one-slice prime longer than mem_len (an image
+    prime off the transition grid, or no same_length chunking) cannot
+    scatter into the ring in one call: the ring is rotated to age order,
+    the prime runs over the aligned cache (``decode_rl_kv``; an int8 cache
+    dequantized first and its result quantized again) and the ring
+    continues at cursor 0."""
     b, q = tokens.shape
     M = model.cfg.mem_len
-    if len(rk_chunks) == 1 and q > M:
-        raise NotImplementedError(
-            "a one-slice prime longer than mem_len (no same_length "
-            "chunking) is not ported yet")
-    start = 0
     logits = None
-    for rk_c in rk_chunks:
-        size = rk_c.shape[1] - M
-        logits, mems = model.decode_rl_kv_ring(
-            tokens[:, start:start + size], pos[:, start:start + size], mems,
-            rk_c)
-        start += size
+    if len(rk_chunks) == 1 and q > M:
+        logits, mems = _prime_aligned(model, tokens, pos, mems, rk_chunks[0],
+                                      images)
+    else:
+        start = f0 = 0
+        for ci, rk_c in enumerate(rk_chunks):
+            size = rk_c.shape[1] - M
+            img_c = images
+            if images is not None and len(rk_chunks) > 1:
+                nf = frame_splits[ci]
+                img_c = images[:, f0:f0 + nf] if nf else None
+                f0 += nf
+            logits, mems = model.decode_rl_kv_ring(
+                tokens[:, start:start + size], pos[:, start:start + size],
+                mems, rk_c, img_c)
+            start += size
     tok = torch.argmax(logits + bias, dim=-1)
     acts = [tok]
     zero_pos = torch.zeros((b, 1), dtype=torch.int64, device=tokens.device)
@@ -262,6 +326,28 @@ def _decode_step(model, action_length: int, tokens: torch.Tensor,
         if len(acts) < action_length:
             acts.append(tok)
     return torch.stack(acts, dim=1), mems
+
+
+def _prime_aligned(model, tokens, pos, mems, rk, images):
+    """The one-slice prime longer than mem_len over the aligned cache:
+    (logits, the new ring cache at cursor 0)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import (
+        dequantize_kv, quantize_kv_rows,
+    )
+
+    quant = "k_scale" in mems
+    ring = mems
+    if quant:
+        ring = {"k": dequantize_kv(mems["k"], mems["k_scale"], model.dtype),
+                "v": dequantize_kv(mems["v"], mems["v_scale"], model.dtype),
+                "cursor": mems["cursor"]}
+    logits, aligned = model.decode_rl_kv(
+        tokens, pos, model.align_ring_cache(ring), rk, images)
+    if quant:
+        (kq, ks), (vq, vs) = (quantize_kv_rows(aligned[k]) for k in "kv")
+        aligned = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+                   "cursor": 0}
+    return logits, aligned
 
 
 class DecoderPool:

@@ -1,13 +1,13 @@
-"""Minimal gym-style env protocol, the continuous and discrete fake envs and
-the env registry (copy of the parts of bdm_db1_tpu/eval/envs.py that RL
-evaluation of tensor observations needs).
+"""Minimal gym-style env protocol, the continuous, discrete and image fake
+envs and the env registry (copy of the parts of bdm_db1_tpu/eval/envs.py
+that RL evaluation of tensor and image observations needs).
 
 Real gym/d4rl envs stay pluggable (anything with reset/step/spaces works;
 ``make_env`` falls back to ``gym.make`` when gym is installed); the
 deterministic fakes give the eval loop an offline target and write
-synthetic expert datasets in d4rl's ``get_dataset`` layout. The image and
-text fakes of the JAX package are not ported: their names are unknown
-here, so ``make_env`` raises ``ValueError`` on them.
+synthetic expert datasets in d4rl's ``get_dataset`` layout. The text fake
+of the JAX package is not ported (ROADMAP queue 1 item 8): its name is
+unknown here, so ``make_env`` raises ``ValueError`` on it.
 """
 
 from __future__ import annotations
@@ -107,6 +107,59 @@ class FakeContinuousEnv:
         }
 
 
+class FakeContinuousImageEnv:
+    """Image observation + multi-dim continuous action (carracing-like):
+    exercises the image-prime decode paths for speculable (multi-token)
+    actions — image frames in the episode-start prompt AND per-step obs."""
+
+    def __init__(self, hw: int = 32, act_dim: int = 2,
+                 episode_len: int = 8, seed: int = 0):
+        self.observation_space = BoxSpace((3, hw, hw))
+        self.action_space = BoxSpace((act_dim,))
+        self.episode_len = episode_len
+        self.hw = hw
+        self._rng = np.random.RandomState(seed)
+        self._t = 0
+
+    def _next_obs(self) -> np.ndarray:
+        return self._rng.rand(3, self.hw, self.hw).astype(np.float32)
+
+    def reset(self):
+        self._t = 0
+        self._obs = self._next_obs()
+        return self._obs
+
+    def step(self, action):
+        action = np.asarray(action, dtype=np.float32)
+        reward = float(-np.linalg.norm(action))
+        self._t += 1
+        self._obs = self._next_obs()
+        return self._obs, reward, self._t >= self.episode_len, {}
+
+    def seed(self, seed: int) -> None:
+        self._rng = np.random.RandomState(seed)
+
+    def make_dataset(self, num_episodes: int = 4) -> Dict[str, np.ndarray]:
+        obs_l, act_l, rew_l, term_l = [], [], [], []
+        for _ in range(num_episodes):
+            o = self.reset()
+            done = False
+            while not done:
+                a = self._rng.uniform(
+                    -1, 1, self.action_space.shape).astype(np.float32)
+                obs_l.append(o)
+                act_l.append(a)
+                o, r, done, _ = self.step(a)
+                rew_l.append(r)
+                term_l.append(done)
+        return {
+            "observations": np.asarray(obs_l, dtype=np.float32),
+            "actions": np.asarray(act_l, dtype=np.float32),
+            "rewards": np.asarray(rew_l, dtype=np.float32),
+            "terminals": np.asarray(term_l, dtype=bool),
+        }
+
+
 class FakeDiscreteEnv:
     """Deterministic discrete env: reward 1 when action == obs % n_actions."""
 
@@ -161,6 +214,54 @@ class FakeDiscreteEnv:
         }
 
 
+class FakeImageEnv:
+    """Atari-like env: image observation (CHW float), discrete actions."""
+
+    def __init__(self, hw: int = 32, n_actions: int = 4,
+                 episode_len: int = 8, seed: int = 0):
+        self.observation_space = BoxSpace((3, hw, hw))
+        self.action_space = DiscreteSpace(n_actions)
+        self.episode_len = episode_len
+        self.hw = hw
+        self._rng = np.random.RandomState(seed)
+        self._t = 0
+
+    def _next_obs(self) -> np.ndarray:
+        return self._rng.rand(3, self.hw, self.hw).astype(np.float32)
+
+    def reset(self):
+        self._t = 0
+        self._obs = self._next_obs()
+        return self._obs
+
+    def step(self, action):
+        self._t += 1
+        self._obs = self._next_obs()
+        return self._obs, 1.0, self._t >= self.episode_len, {}
+
+    def seed(self, seed: int) -> None:
+        self._rng = np.random.RandomState(seed)
+
+    def make_dataset(self, num_episodes: int = 4) -> Dict[str, np.ndarray]:
+        obs_l, act_l, rew_l, term_l = [], [], [], []
+        for _ in range(num_episodes):
+            o = self.reset()
+            done = False
+            while not done:
+                a = int(self._rng.randint(self.action_space.n))
+                obs_l.append(o)
+                act_l.append(a)
+                o, r, done, _ = self.step(a)
+                rew_l.append(r)
+                term_l.append(done)
+        return {
+            "observations": np.asarray(obs_l, dtype=np.float32),
+            "actions": np.asarray(act_l, dtype=np.int64),
+            "rewards": np.asarray(rew_l, dtype=np.float32),
+            "terminals": np.asarray(term_l, dtype=bool),
+        }
+
+
 _ENV_REGISTRY = {}
 
 
@@ -182,3 +283,4 @@ def make_env(name: str):
 
 register_env("fake-continuous-v0", FakeContinuousEnv)
 register_env("fake-discrete-v0", FakeDiscreteEnv)
+register_env("fake-image-v0", FakeImageEnv)

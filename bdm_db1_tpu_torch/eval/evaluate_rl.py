@@ -117,7 +117,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
             "false; pass device='cpu' to run on the CPU")
 
     model = TransformerXL(
-        cfg.model, cfg.vocab, device=dev,
+        cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
         generator=torch.Generator(device=dev).manual_seed(cfg.eval.seed))
     load_params(cfg, model)
     n_params = sum(p.numel() for p in model.parameters())

@@ -47,18 +47,20 @@ def run_episode(
 ) -> EpisodeResult:
     """One episode in memory ("moving prompt") mode: the first prime is
     [prompt || obs || sep], every later one the new [obs || sep] (with the
-    last action token in front when the decoder defers it). Observations
-    are tensors only, so no prime carries images, and a speculative config
-    raises where the decoder is built, so no speculative session runs."""
+    last action token in front when the decoder defers it), each with the
+    frames of its -1 image slots. A speculative config raises where the
+    decoder is built, so no speculative session runs."""
     sep = np.array([env.separator_id], dtype=np.int64)
 
-    obs_tokens, _, action_mask = env.reset()
+    obs_tokens, obs_img, action_mask = env.reset()
     prime = np.concatenate([obs_tokens, sep])
+    prime_img = obs_img
     if use_prompt:
-        prompt, _ = env.get_prompt(
+        prompt, prompt_img = env.get_prompt(
             strict_length=strict_length,
             minimal_expert_data=minimal_expert_data, rng=rng)
         prime = np.concatenate([prompt, prime])
+        prime_img = _cat_frames(prompt_img, obs_img)
 
     episode_return, episode_length = 0.0, 0
     done = False
@@ -67,18 +69,19 @@ def run_episode(
 
     while not done:
         act_tokens, mems = decoder.decode(
-            prime, mems, env_action_mask=action_mask, deferred_tok=deferred,
-            defer_last=decoder.defers)
+            prime, mems, prime_images=prime_img, env_action_mask=action_mask,
+            deferred_tok=deferred, defer_last=decoder.defers)
         if decoder.defers:
             deferred = act_tokens[-1:]
         action = env.tok.decode_action(act_tokens, env.discrete_action)
-        obs_tokens, _, action_mask, reward, done, _ = env.step(action)
+        obs_tokens, obs_img, action_mask, reward, done, _ = env.step(action)
         episode_return += reward
         episode_length += 1
         if max_step_size is not None and episode_length >= max_step_size:
             break
         # memory carries history; feed only the new observation
         prime = np.concatenate([obs_tokens, sep])
+        prime_img = obs_img
 
     return EpisodeResult(env.ds.name, float(episode_return), episode_length)
 
@@ -133,30 +136,41 @@ def shard_envs(env_names: Sequence[str],
             if i % process_count == process_index]
 
 
+def _cat_frames(*parts: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """The frames [T, H, W, C] of a prime's parts in order, or None."""
+    parts = [p for p in parts if p is not None]
+    return np.concatenate(parts, axis=0) if parts else None
+
+
 @dataclasses.dataclass
 class _SlotState:
     """Reset-time state of one lockstep slot (env already reset, expert
     prompt already sampled)."""
     prime: np.ndarray                # [prompt || obs || sep] token ids
+    prime_img: Optional[np.ndarray]  # frames of every -1 slot in prime
+    obs_img: Optional[np.ndarray]    # frames of the reset obs only
     mask: Optional[np.ndarray]       # env-supplied action mask
 
 
 def _reset_env_state(env, *, use_prompt, strict_length,
                      minimal_expert_data, rng) -> _SlotState:
     sep = np.array([env.separator_id], dtype=np.int64)
-    obs, _, mask = env.reset()
+    obs, img, mask = env.reset()
     if use_prompt:
-        prompt, _ = env.get_prompt(
+        prompt, pimg = env.get_prompt(
             strict_length=strict_length,
             minimal_expert_data=minimal_expert_data, rng=rng)
-        return _SlotState(np.concatenate([prompt, obs, sep]), mask)
-    return _SlotState(np.concatenate([obs, sep]), mask)
+        return _SlotState(np.concatenate([prompt, obs, sep]),
+                          _cat_frames(pimg, img), img, mask)
+    return _SlotState(np.concatenate([obs, sep]), img, img, mask)
 
 
 def _cohort_key(st: _SlotState) -> Tuple:
     """What must agree for slots to share one device batch: the sampled
-    prime shape and the action-mask layout."""
-    return (st.prime.shape, None if st.mask is None else st.mask.shape)
+    prime shape, the frames' shape and the action-mask layout."""
+    return (st.prime.shape,
+            None if st.prime_img is None else st.prime_img.shape,
+            None if st.mask is None else st.mask.shape)
 
 
 class _LockstepCohort:
@@ -184,7 +198,8 @@ class _LockstepCohort:
         keys = {_cohort_key(s) for s in states}
         if len(keys) > 1:
             raise ValueError(
-                "lockstep cohort is not homogeneous — prime/action-mask "
+                "lockstep cohort is not homogeneous — prime/image/"
+                "action-mask "
                 f"shapes differ across slots: {sorted(map(str, keys))}. "
                 "Group work items by sampled prime geometry "
                 "(evaluate_envs_lockstep does) or use strict_length=True "
@@ -200,10 +215,14 @@ class _LockstepCohort:
         b = len(envs)
         self._sep = np.array([envs[0].separator_id], dtype=np.int64)
         self.prime = np.stack([s.prime for s in states])
+        self.prime_img = (np.stack([s.prime_img for s in states])
+                          if states[0].prime_img is not None else None)
         self.action_mask = (np.stack([s.mask for s in states])
                             if states[0].mask is not None else None)
         obs_sep = envs[0].obs_length + 1
         self.last_tokens = np.stack([s.prime[-obs_sep:] for s in states])
+        self.last_imgs = (np.stack([s.obs_img for s in states])
+                          if states[0].obs_img is not None else None)
         self.last_masks = (np.stack([s.mask for s in states])
                            if states[0].mask is not None else None)
         self.mems = decoder.init_mems(b)
@@ -219,7 +238,8 @@ class _LockstepCohort:
 
     def dispatch(self) -> None:
         self._pending, self.mems = self.decoder.decode_async(
-            self.prime, self.mems, env_action_mask=self.action_mask,
+            self.prime, self.mems, prime_images=self.prime_img,
+            env_action_mask=self.action_mask,
             deferred_tok=self._deferred, defer_last=self._defers)
 
     def harvest_and_step(self) -> bool:
@@ -252,6 +272,7 @@ class _LockstepCohort:
         self.done[live] = done_now
         # batch-tokenize the stepped observations, grouped by dataset
         tok_new = self.last_tokens.copy()
+        img_new = self.last_imgs.copy() if self.last_imgs is not None else None
         mask_new = (self.last_masks.copy()
                     if self.last_masks is not None else None)
         groups: Dict[int, List[int]] = {}
@@ -259,17 +280,19 @@ class _LockstepCohort:
             groups.setdefault(id(self.envs[i].ds), []).append(j)
         for idxs in groups.values():
             rows = live[idxs]
-            obs_tok, _ = self.envs[int(rows[0])].encode_obs_batch(
+            obs_tok, img = self.envs[int(rows[0])].encode_obs_batch(
                 [raws[j] for j in idxs])
             tok_new[rows, :-1] = obs_tok
             tok_new[rows, -1] = self._sep[0]
+            if img_new is not None:
+                img_new[rows] = img[:, None]
         if mask_new is not None:
             mask_new[live] = np.stack(masks)
-        self.last_tokens = tok_new
+        self.last_tokens, self.last_imgs = tok_new, img_new
         self.last_masks = mask_new
         if self.done.all():
             return True
-        self.prime = tok_new
+        self.prime, self.prime_img = tok_new, img_new
         self.action_mask = mask_new
         return False
 

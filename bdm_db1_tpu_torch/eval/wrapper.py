@@ -1,10 +1,10 @@
 """Tokenizing env wrapper: raw observations -> unified token sequences
 (counterpart of bdm_db1_tpu/eval/wrapper.py).
 
-Tokenizes observations with the dataset's vocab offsets and builds expert
-prompts from the dataset's demonstration sampler. Pure host-side numpy; the
-device only sees fixed-shape integer arrays. Image observations are not
-ported yet, so the image part of every return is None.
+Tokenizes observations with the dataset's vocab offsets, emits -1
+placeholders for image patches beside the frames (NHWC float32), and
+builds expert prompts from the dataset's demonstration sampler. Pure
+host-side numpy.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ class TokenizedEnv:
 
     # -- per-step tokenization -----------------------------------------------
     def encode_obs(self, raw_obs) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Raw obs -> (token vector [obs_length], None)."""
+        """Raw obs -> (token vector [obs_length] with -1 image slots,
+        image [1, H, W, C] or None)."""
         obs = tree_map(
             lambda x: np.asarray(x)[None], raw_obs
         )  # add a time axis so dataset-side encoders see [T, ...]
@@ -45,14 +46,15 @@ class TokenizedEnv:
         tokens = obs_tok.reshape(-1)
         assert tokens.shape[0] == self.obs_length, (
             tokens.shape, self.obs_length)
-        return tokens, image
+        return tokens, _nhwc(image)
 
     def encode_obs_batch(
         self, raw_obs_list
     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Tokenize B raw observations in one vectorized pass; the encoders
         are elementwise over the leading axis, so this equals B
-        :meth:`encode_obs` calls. Returns (tokens [B, obs_length], None)."""
+        :meth:`encode_obs` calls. Returns (tokens [B, obs_length] with -1
+        image slots, images [B, H, W, C] or None)."""
         b = len(raw_obs_list)
         first = raw_obs_list[0]
         if isinstance(first, dict):
@@ -65,7 +67,7 @@ class TokenizedEnv:
         obs_tok, image = self.ds.assemble_obs_tokens(o_text, o_image, o_tensor)
         assert obs_tok.shape == (b, self.obs_length), (
             obs_tok.shape, (b, self.obs_length))
-        return obs_tok, image
+        return obs_tok, _nhwc(image)
 
     def _dummy_action(self, b: int = 1) -> np.ndarray:
         if self.discrete_action:
@@ -79,7 +81,7 @@ class TokenizedEnv:
         return tokens, image, self.current_action_mask()
 
     def step(self, action):
-        """``env.step`` with the new observation tokenized: (tokens, None,
+        """``env.step`` with the new observation tokenized: (tokens, image,
         action mask, reward, done, info)."""
         raw, reward, done, info = self.env.step(action)
         tokens, image = self.encode_obs(raw)
@@ -105,8 +107,8 @@ class TokenizedEnv:
     def get_prompt(self, strict_length: bool = True,
                    minimal_expert_data: bool = False,
                    rng: Optional[np.random.RandomState] = None):
-        """Expert demonstration -> flattened [obs || sep || act] token
-        stream, and None for the (unported) prompt images."""
+        """Expert demonstration -> (flattened [obs || sep || act] token
+        stream, its frames [T, H, W, C] or None)."""
         demo = self.ds.sample_expert_demonstration(
             strategy=self.eval_prompt_strategy,
             strict_length=strict_length,
@@ -118,4 +120,11 @@ class TokenizedEnv:
         act_tok = demo["actions"].reshape(len(obs_tok), -1)
         sep = np.full((len(obs_tok), 1), self.separator_id, dtype=np.int64)
         prompt = np.concatenate([obs_tok, sep, act_tok], axis=1).reshape(-1)
-        return prompt, image
+        return prompt, _nhwc(image)
+
+
+def _nhwc(image: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """Dataset frames [T, C, H, W] -> the model's [T, H, W, C] f32."""
+    if image is None:
+        return None
+    return np.transpose(image.astype(np.float32), (0, 2, 3, 1))

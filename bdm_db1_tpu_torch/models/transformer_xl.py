@@ -1,7 +1,7 @@
-"""TransformerXL decoder: the RL and text subset of
-bdm_db1_tpu/models/transformer_xl.py (ring-cache decode, the RL and text
-embeddings, the full-sequence trunk with hidden-state memory, the loss and
-``decode_rl``).
+"""TransformerXL decoder: the port of bdm_db1_tpu/models/transformer_xl.py
+(ring-cache decode, the RL, text, captioning and VQA embeddings with the
+vision tower, the full-sequence trunk with hidden-state memory, the loss
+and ``decode_rl``).
 
 Parameter names are the reference torch model's (``word_embedding.weight``,
 ``h.{i}.dec_attn.qkv_net.weight``, ``h.{i}.pos_ff.CoreNet.0.weight``, ...),
@@ -40,9 +40,16 @@ and on the positional embedding, ``drop`` on the o_net and FF outputs,
 ``rel_attention`` as the JAX gate does), drawing from the
 ``torch.Generator`` the caller passes.
 
-Not ported yet (raise ``NotImplementedError``): images, captioning and
-VQA, rematerialization (``remat``), pre-LN models, the
-speculative tail and geometry-bucket padding.
+Images: ``vision_encoder`` (models/vision.py) is always built, as in the
+reference torch model; a batch without images leaves its gradients None.
+An RL row's j-th -1 token slot takes the j-th patch embedding of its
+frames (``embed_rl``); captioning and VQA rows are ``[prompt | patches |
+text]`` (``embed_ic``/``embed_vqa``). In training the patch positions are
+drawn from the training generator.
+
+Not ported yet (raise ``NotImplementedError``): rematerialization
+(``remat``), pre-LN models, the speculative tail and geometry-bucket
+padding.
 """
 
 from __future__ import annotations
@@ -53,9 +60,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bdm_db1_tpu_torch.core.config import ModelConfig, VocabConfig
+from bdm_db1_tpu_torch.core.config import (
+    ModelConfig, VisionConfig, VocabConfig,
+)
 from bdm_db1_tpu_torch.data.input_specs import MODALITY_ORDER, GatoBatch
 from bdm_db1_tpu_torch.models.activations import ACT2FN
+from bdm_db1_tpu_torch.models.vision import VisionEmbedding
 from bdm_db1_tpu_torch.ops.attention import (
     causal_mask, rel_attention, rel_shift, rel_shift_sliced, same_length_mask,
 )
@@ -233,15 +243,45 @@ class RelMultiHeadAttn(nn.Module):
         q = q[:, -qlen:].unflatten(-1, (h, dh))
         k, v = k.unflatten(-1, (h, dh)), v.unflatten(-1, (h, dh))
         r_k = _dense(r.to(dtype), self.r_net, dtype).view(klen, h, dh)
+        return self._attention(q, k, v, r_k, mask, use_kernel, drop)
+
+    def _attention(self, q: Tensor, k: Tensor, v: Tensor, r_k: Tensor,
+                   mask: Tensor, use_kernel: bool,
+                   drop: Optional[torch.Generator] = None) -> Tensor:
+        """q [B, q, H, Dh] over k/v [B, klen, H, Dh] (memory rows first),
+        r_k [klen, H, Dh]: K3 when ``use_kernel`` (f32 biases, as the JAX
+        kernel route takes them), else ``rel_attention`` with ``mask``."""
+        cfg = self.cfg
+        dtype = q.dtype
         if use_kernel:
             return flash_rel_attention(
                 q, k, v, r_k, self.r_w_bias.float(), self.r_r_bias.float(),
                 mem_len=cfg.mem_len, same_length=cfg.same_length,
-                scale=1.0 / dh ** 0.5).to(dtype)
+                scale=1.0 / cfg.d_head ** 0.5).to(dtype)
         rate = cfg.dropattn if drop is not None else 0.0
         return rel_attention(q, k, v, r_k, self.r_w_bias, self.r_r_bias,
                              mask, compute_dtype=dtype, dropout_rate=rate,
                              generator=drop)
+
+    def attend_kv(self, x: Tensor, rk: Tensor, k_cache: Tensor,
+                  v_cache: Tensor, mask: Tensor, use_kernel: bool
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+        """Attention over an aligned K/V cache (k_cache/v_cache [B, M, H,
+        Dh], oldest first) and the new tokens: the JAX package's cache mode.
+        Only x [B, q, D] is projected; rk [M+q, H, Dh] is this layer's
+        precomputed r_net projection; mask [q, M+q]. The route is the
+        trunk's: K3 over [cache || new] when ``use_kernel``, else
+        ``rel_attention``. Returns (attn [B, q, H, Dh] before o_net, k_x,
+        v_x)."""
+        cfg = self.cfg
+        dtype = x.dtype
+        b, qlen = x.shape[:2]
+        q, k_x, v_x = _dense(x, self.qkv_net, dtype, _a8(cfg)).view(
+            b, qlen, 3, cfg.n_head, cfg.d_head).unbind(2)
+        k = torch.cat([k_cache.to(dtype), k_x], dim=1)
+        v = torch.cat([v_cache.to(dtype), v_x], dim=1)
+        return (self._attention(q, k, v, rk.to(dtype), mask, use_kernel),
+                k_x, v_x)
 
     def forward_ring(self, x: Tensor, rk: Tensor, cache: RingCache,
                      layer: int, mask: Tensor, mask_s: Tensor,
@@ -401,15 +441,23 @@ class DecoderLayer(nn.Module):
             x, rk, cache, layer, mask, mask_s, use_kernels)
         return self.pos_ff(h), k_x, v_x
 
+    def forward_kv(self, x, rk, k_cache, v_cache, mask, use_kernel):
+        a = self.dec_attn
+        attn, k_x, v_x = a.attend_kv(x, rk, k_cache, v_cache, mask,
+                                     use_kernel)
+        return self.pos_ff(a._residual(x, attn)), k_x, v_x
+
 
 class TransformerXL(nn.Module):
     """The decoder. ``device`` defaults to the card and CUDA is never
     swapped for the CPU: asking for it where there is none raises. Weights
     are drawn from ``generator`` (normal(0.02) matrices and embeddings,
-    zero biases, unit LayerNorm scales) directly in ``cfg.param_dtype`` on
-    that device."""
+    zero biases, unit LayerNorm scales; the vision tower's convolutions
+    lecun-normal) directly in ``cfg.param_dtype`` on that device.
+    ``vision`` defaults to ``VisionConfig()``."""
 
     def __init__(self, cfg: ModelConfig, vocab: VocabConfig, *,
+                 vision: Optional[VisionConfig] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.pre_lnorm:
@@ -427,6 +475,7 @@ class TransformerXL(nn.Module):
                 "is false; pass device='cpu' to run on the CPU")
         self.cfg = cfg
         self.vocab = vocab
+        self.vision = vision if vision is not None else VisionConfig()
         self.layout = vocab.layout()
         self.dtype = getattr(torch, cfg.dtype)
         pdt = getattr(torch, cfg.param_dtype)
@@ -451,6 +500,7 @@ class TransformerXL(nn.Module):
                 layer.dec_attn.r_r_bias = self.r_r_bias
         if not cfg.share_input_output_embedding:
             self.lm_head = _linear(d, V, False, dev, pdt)
+        self.vision_encoder = VisionEmbedding(cfg, self.vision, dev, pdt)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.reset_parameters(generator)
@@ -486,17 +536,49 @@ class TransformerXL(nn.Module):
                 ln.bias.zero_()
         if not cfg.share_input_output_embedding:
             normal(self.lm_head.weight)
+        self.vision_encoder.reset_parameters(gen)
 
     # ---- embedding and head -------------------------------------------------
-    def embed_rl(self, tokens: Tensor, position_id: Tensor) -> Tensor:
-        emb = F.embedding(tokens, self.word_embedding.weight).to(self.dtype)
+    def _word(self, tokens: Tensor) -> Tensor:
+        return F.embedding(tokens, self.word_embedding.weight).to(self.dtype)
+
+    def embed_rl(self, tokens: Tensor, position_id: Tensor,
+                 images: Optional[Tensor] = None, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Word-embed ids >= 0, splice patch embeddings at the -1 slots
+        (the j-th slot of a row takes the j-th patch of the row's frames
+        ``images`` [B, T, H, W, C]; without images a slot embeds to 0),
+        add the local-timestep embedding."""
+        img_slot = tokens < 0
+        emb = self._word(tokens.clamp(min=0))
+        emb = emb.masked_fill(img_slot[..., None], 0.0)
+        if images is not None:
+            b = tokens.shape[0]
+            vis = self.vision_encoder(
+                images.reshape((-1,) + tuple(images.shape[2:])),
+                deterministic, generator).reshape(b, -1, self.cfg.n_embed)
+            slot = (torch.cumsum(img_slot.to(torch.int64), dim=1) - 1).clamp(
+                0, vis.shape[1] - 1)
+            gathered = torch.gather(
+                vis, 1, slot[..., None].expand(-1, -1, vis.shape[-1]))
+            emb = torch.where(img_slot[..., None], gathered, emb)
         return emb + F.embedding(
             position_id, self.rl_local_timestep_embedding.weight
         ).to(self.dtype)
 
     def embed_nlp(self, tokens: Tensor) -> Tensor:
         """Text: the word embedding alone (no timestep term)."""
-        return F.embedding(tokens, self.word_embedding.weight).to(self.dtype)
+        return self._word(tokens)
+
+    def embed_ic(self, prompt: Tensor, images: Tensor, text: Tensor,
+                 deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Captioning and VQA rows: [prompt | patches of images [B, H, W,
+        C] | text], word embeddings without the timestep term."""
+        vis = self.vision_encoder(images, deterministic, generator)
+        return torch.cat([self._word(prompt), vis, self._word(text)], dim=1)
+
+    embed_vqa = embed_ic
 
     def logits(self, h: Tensor) -> Tensor:
         w = (self.word_embedding.weight if self.cfg.share_input_output_embedding
@@ -504,15 +586,16 @@ class TransformerXL(nn.Module):
         return F.linear(h.to(self.dtype), w.to(self.dtype)).float()
 
     def embed_concat(self, batch: GatoBatch, deterministic: bool = True,
-                     with_targets: bool = True):
+                     with_targets: bool = True,
+                     generator: Optional[torch.Generator] = None):
         """Embed every modality group and concatenate along the batch:
         (h, loss_mask f32, label clamped at 0), the last two None without
         targets. Groups go in ``MODALITY_ORDER``, then other keys sorted; a
         key routes to the embedder of its prefix before "_" ("rl_img" ->
-        "rl"), so a mixed batch is ``[rl rows || nlp rows]``. RL groups
-        without images and text ("nlp") groups are ported; "ic", "vqa" and
-        image RL groups raise ``NotImplementedError``, and an unknown group
-        key raises ``ValueError`` where the JAX package drops it."""
+        "rl"), so a mixed batch is ``[rl || nlp || ic || vqa || rl_img
+        rows]``. An unknown group key raises ``ValueError`` where the JAX
+        package drops it. With ``deterministic=False`` the patch positions
+        draw from ``generator``."""
         names = [n for n in MODALITY_ORDER if n in batch]
         names += sorted(k for k in batch if k not in MODALITY_ORDER)
         embs, masks, labels = [], [], []
@@ -527,12 +610,13 @@ class TransformerXL(nn.Module):
                 continue
             if base == "nlp":
                 embs.append(self.embed_nlp(sub.tokens))
-            elif base == "rl" and sub.images is None:
-                embs.append(self.embed_rl(sub.tokens, sub.position_id))
-            else:
-                raise NotImplementedError(
-                    f"group {name!r}: image RL, captioning and VQA batches "
-                    "are not ported yet (ROADMAP queue 1 items 4 and 8)")
+            elif base == "rl":
+                embs.append(self.embed_rl(sub.tokens, sub.position_id,
+                                          sub.images, deterministic,
+                                          generator))
+            else:                                       # "ic", "vqa"
+                embs.append(self.embed_ic(sub.prompt, sub.images, sub.text,
+                                          deterministic, generator))
             if with_targets:
                 masks.append(sub.loss_mask)
                 labels.append(sub.label.clamp(min=0))
@@ -618,7 +702,8 @@ class TransformerXL(nn.Module):
         if compute_loss and mems is not None:
             raise ValueError("training does not use segment memory")
         h, loss_mask, label = self.embed_concat(
-            batch, deterministic, with_targets=compute_loss)
+            batch, deterministic, with_targets=compute_loss,
+            generator=generator)
         h, new_mems = self.trunk(h, mems, deterministic, generator)
         if compute_loss and loss_only and self.cfg.share_input_output_embedding:
             return None, self.loss_from_hidden(h, loss_mask, label)
@@ -635,11 +720,10 @@ class TransformerXL(nn.Module):
     def decode_rl(self, tokens: Tensor, position_id: Tensor, mems: Tensor,
                   images=None) -> Tuple[Tensor, Tensor]:
         """One step over hidden-state memory: tokens/position_id [B, q],
-        mems [n_layer, B, mem_len, D] -> (last-position logits [B, V] f32,
-        new mems)."""
-        if images is not None:
-            raise NotImplementedError("image observations are not ported yet")
-        h, new_mems = self.trunk(self.embed_rl(tokens, position_id), mems)
+        mems [n_layer, B, mem_len, D], images [B, T, H, W, C] or None ->
+        (last-position logits [B, V] f32, new mems)."""
+        h, new_mems = self.trunk(self.embed_rl(tokens, position_id, images),
+                                 mems)
         return self.logits(h[:, -1]), new_mems
 
     # ---- ring-cache decode ------------------------------------------------
@@ -735,11 +819,11 @@ class TransformerXL(nn.Module):
         cache; returns (last-position logits [B, V] f32, the cache with the
         q new K/V rows written at the cursor and the cursor advanced). The
         cache tensors are updated in place; an int8 cache stores the rows
-        quantized, with their scales."""
-        if images is not None or spec_tail or real_q is not None:
+        quantized, with their scales. ``images`` [B, T, H, W, C] fill the
+        prime's -1 slots."""
+        if spec_tail or real_q is not None:
             raise NotImplementedError(
-                "images, speculative tails and geometry buckets are not "
-                "ported yet")
+                "speculative tails and geometry buckets are not ported yet")
         cfg = self.cfg
         M = cfg.mem_len
         qlen = tokens.shape[1]
@@ -748,7 +832,7 @@ class TransformerXL(nn.Module):
                              f"got {qlen}")
         cursor = int(cache["cursor"])
         dev = cache["k"].device
-        h = self.embed_rl(tokens, position_id)
+        h = self.embed_rl(tokens, position_id, images)
         mask, mask_s = self.ring_masks(qlen, cursor, dev)
         use_kernels = self.use_kernels(qlen, cache)
         quantized = "k_scale" in cache
@@ -771,3 +855,43 @@ class TransformerXL(nn.Module):
                     cache[key][li].index_copy_(1, idx, new)
         logits = self.logits(h[:, -1])
         return logits, {**cache, "cursor": (cursor + qlen) % M}
+
+    def align_ring_cache(self, cache: RingCache) -> RingCache:
+        """The ring rotated back to age order (oldest at slot 0), cursor 0,
+        as :meth:`decode_rl_kv` takes it."""
+        shift = -int(cache["cursor"])
+        out = {k: torch.roll(v, shift, dims=2) for k, v in cache.items()
+               if k != "cursor"}
+        return {**out, "cursor": 0}
+
+    @torch.no_grad()
+    def decode_rl_kv(self, tokens: Tensor, position_id: Tensor,
+                     cache: RingCache, rk: Tensor, images=None
+                     ) -> Tuple[Tensor, RingCache]:
+        """One forward of any q tokens over an aligned K/V cache (cursor
+        0, oldest first, in the compute dtype): the JAX package's
+        ``decode_rl_kv``, taken by a prime longer than mem_len that the
+        ring cannot scatter in one call. rk [n_layer, M+q, H, Dh]. Each
+        layer attends over [cache || new rows] by the trunk's route
+        (:func:`use_rel_kernel`: K3 on the card), and its cache becomes the
+        trailing mem_len rows of them. Returns (last-position logits [B, V]
+        f32, the new aligned cache, cursor 0)."""
+        cfg = self.cfg
+        M = cfg.mem_len
+        qlen = tokens.shape[1]
+        klen = cache["k"].shape[2] + qlen
+        h = self.embed_rl(tokens, position_id, images)
+        dev = h.device
+        mask = (same_length_mask(qlen, klen, M, device=dev)
+                if cfg.same_length else causal_mask(qlen, klen, device=dev))
+        use_kernel = use_rel_kernel(cfg, qlen, klen, dev)
+        new = {"k": [], "v": []}
+        for li, layer in enumerate(self.h):
+            h, k_x, v_x = layer.forward_kv(h, rk[li], cache["k"][li],
+                                           cache["v"][li], mask, use_kernel)
+            for key, rows in (("k", k_x), ("v", v_x)):
+                new[key].append(torch.cat(
+                    [cache[key][li], rows.to(cache[key].dtype)], 1)[:, -M:])
+        return (self.logits(h[:, -1]),
+                {"k": torch.stack(new["k"]), "v": torch.stack(new["v"]),
+                 "cursor": 0})

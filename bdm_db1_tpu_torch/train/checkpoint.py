@@ -57,6 +57,20 @@ def _quiet(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
+def _check_model_keys(model: torch.nn.Module, path: str) -> None:
+    """Raise, naming them, when the step directory ``path`` lacks model
+    tensors (a checkpoint written before the model had them, e.g. one
+    without the vision tower)."""
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    missing = [k for k in model.state_dict() if f"model.{k}" not in saved]
+    if missing:
+        raise ValueError(
+            f"checkpoint {path} has no tensors for {len(missing)} model "
+            f"names: {', '.join(missing[:8])}"
+            + (", ..." if len(missing) > 8 else "")
+            + " (written by an older version of the port?)")
+
+
 def load_model(model: torch.nn.Module, path: str) -> None:
     """Read only the ``model.*`` tensors of the step directory ``path``
     into ``model``, in place, cast to its tensors' dtypes."""
@@ -65,6 +79,7 @@ def load_model(model: torch.nn.Module, path: str) -> None:
             f"{path} is not a checkpoint of this package (a JAX/orbax one?); "
             "write JAX params as a DeepSpeed model_states.pt with "
             "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead")
+    _check_model_keys(model, path)
     _quiet(dcp.load, {"model": model.state_dict()}, checkpoint_id=path)
 
 
@@ -118,6 +133,7 @@ class CheckpointManager:
         if step is None:
             return None, None
         path = self.step_dir(step)
+        _check_model_keys(state.model, path)
         sd = state_tensors(state)
         saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
         if "generator" not in saved:    # saved from a state without one

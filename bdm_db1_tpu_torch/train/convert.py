@@ -4,18 +4,21 @@ a torch/DeepSpeed checkpoint file of the reference.
 The JAX param tree -> the port's state dict follows
 bdm_db1_tpu/train/convert.py ``invert_state_dict`` (scan-stacked
 layers unstacked, flax kernels [in, out] transposed to torch [out, in],
-reference torch names), with the port's two layout choices: the word
-embedding and an untied head keep the padded vocab rows, and the shared
-``r_w_bias``/``r_r_bias`` pair is listed under every layer. The vision
-subtree (a later slice) is skipped by name; any other leaf the bridge does
-not consume is an error.
+reference torch names, conv kernels HWIO -> OIHW), with the port's two
+layout choices: the word embedding and an untied head keep the padded
+vocab rows, and the shared ``r_w_bias``/``r_r_bias`` pair is listed under
+every layer. Any leaf the bridge does not consume is an error.
 
 A DeepSpeed ``model_states.pt`` (bdm_db1_tpu/train/convert.py
 ``load_torch_state_dict``, ``find_deepspeed_model_states``) holds the
 reference torch names already: :func:`load_deepspeed_checkpoint` pads the
 word embedding (and an untied head) to the padded vocab with zero rows, as
-the JAX converter does, skips the vision tower and loads the rest with
-``strict=True``.
+the JAX converter does, and loads it.
+
+A JAX tree without the ``vision`` subtree (a model initialised on a batch
+without images), or a DeepSpeed file without ``vision_encoder.*``, leaves
+the port's vision tower at its init: the loaders then return its names,
+and every other name must be present and taken.
 """
 
 from __future__ import annotations
@@ -29,6 +32,11 @@ import torch
 from bdm_db1_tpu_torch.core.config import DB1Config
 
 VISION_KEY = "vision"
+VISION_PREFIX = "vision_encoder."
+# flax name -> the reference torch module under vision_encoder.patch_embeddings
+_PATCH_CONVS = {"conv_in": "conv1", "conv_mid1": "residual_path.2",
+                "conv_mid2": "residual_path.5", "projection": "projection"}
+_PATCH_NORMS = {"gn1": "residual_path.0", "gn2": "residual_path.3"}
 
 
 def _leaf_paths(tree, prefix=()) -> List[Tuple[str, ...]]:
@@ -49,7 +57,9 @@ def _inv_freq(n_embed: int) -> np.ndarray:
 def state_dict_from_jax(params_np: Mapping, cfg: DB1Config
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX params (nested dicts of arrays, boxes already removed) -> (the
-    port's state dict as f32 CPU tensors, the skipped vision leaf names)."""
+    port's state dict as f32 CPU tensors, the JAX leaves it did not take:
+    none, since every leaf is taken or raises). The vision tower's names
+    are in the state dict only when the tree has the ``vision`` subtree."""
     m = cfg.model
     L = m.n_layer
     used = set()
@@ -98,25 +108,52 @@ def state_dict_from_jax(params_np: Mapping, cfg: DB1Config
     unstack("h.{i}.pos_ff.layer_norm.bias", g(*f, "layer_norm", "bias"))
     if not m.share_input_output_embedding:
         sd["lm_head.weight"] = g("lm_head", "kernel").T
+    if VISION_KEY in params_np:
+        vp = VISION_PREFIX + "patch_embeddings."
+        patch = (VISION_KEY, "patch")
+        for flax_name, torch_name in _PATCH_CONVS.items():
+            # flax HWIO -> torch OIHW
+            sd[vp + torch_name + ".weight"] = np.transpose(
+                g(*patch, flax_name, "kernel"), (3, 2, 0, 1))
+            sd[vp + torch_name + ".bias"] = g(*patch, flax_name, "bias")
+        for flax_name, torch_name in _PATCH_NORMS.items():
+            sd[vp + torch_name + ".weight"] = g(*patch, flax_name, "scale")
+            sd[vp + torch_name + ".bias"] = g(*patch, flax_name, "bias")
+        for axis in ("row", "col"):
+            sd[f"{VISION_PREFIX}{axis}_position_embeddings.weight"] = g(
+                VISION_KEY, f"{axis}_pos", "embedding")
 
-    leaves = _leaf_paths(params_np)
-    skipped = ["/".join(p) for p in leaves if p[0] == VISION_KEY]
-    left = [p for p in leaves if p[0] != VISION_KEY and p not in used]
+    left = [p for p in _leaf_paths(params_np) if p not in used]
     if left:
         raise ValueError("JAX params the port does not take: "
                          + ", ".join("/".join(p) for p in left))
     out = {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
-    return out, skipped
+    return out, []
+
+
+def load_into(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]
+              ) -> List[str]:
+    """``model.load_state_dict(sd)`` (cast to the model's dtypes and
+    device), strict except that the vision tower may be absent as a whole:
+    then it stays at its init and its names are returned (else [])."""
+    own = model.state_dict().keys()
+    missing = sorted(set(own) - set(sd))
+    vision = sorted(k for k in own if k.startswith(VISION_PREFIX))
+    unexpected = sorted(set(sd) - set(own))
+    if unexpected or missing not in ([], vision):
+        raise ValueError(f"state dict does not fit the model: missing "
+                         f"{missing[:8]}, unexpected {unexpected[:8]}")
+    model.load_state_dict(sd, strict=not missing)
+    return missing
 
 
 def load_jax_params(model: torch.nn.Module, params_np: Mapping) -> List[str]:
-    """Load JAX params into ``model`` (``strict=True``; values are cast to
-    the model's parameter dtype and device). Returns the skipped vision
-    leaf names."""
+    """Load JAX params into ``model`` (values cast to the model's parameter
+    dtype and device). Returns the names left at their init: the vision
+    tower's when the tree has no ``vision`` subtree, else none."""
     cfg = DB1Config(model=model.cfg, vocab=model.vocab)
-    sd, skipped = state_dict_from_jax(params_np, cfg)
-    model.load_state_dict(sd, strict=True)
-    return skipped
+    sd, _ = state_dict_from_jax(params_np, cfg)
+    return load_into(model, sd)
 
 
 def _np(x) -> np.ndarray:
@@ -154,21 +191,15 @@ def find_deepspeed_model_states(load_dir: str, tag: str) -> str:
     raise FileNotFoundError(f"no model_states.pt under {load_dir}/{tag}")
 
 
-VISION_PREFIX = "vision_encoder."
-
-
 def state_dict_from_torch(sd: Mapping[str, np.ndarray], cfg: DB1Config
-                          ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """Reference torch names -> (the port's state dict as f32 CPU tensors,
-    the skipped vision tower names): the vocab rows padded with zeros and
-    ``pos_emb.inv_freq`` computed, not read (the file holds it rounded to
-    the checkpoint's dtype; the JAX converter does not read it either)."""
+                          ) -> Dict[str, torch.Tensor]:
+    """Reference torch names -> the port's state dict as f32 CPU tensors:
+    the vocab rows padded with zeros and ``pos_emb.inv_freq`` computed, not
+    read (the file holds it rounded to the checkpoint's dtype; the JAX
+    converter does not read it either)."""
     layout = cfg.vocab.layout()
-    out, skipped = {}, []
+    out = {}
     for k, v in sd.items():
-        if k.startswith(VISION_PREFIX):
-            skipped.append(k)
-            continue
         v = (_inv_freq(cfg.model.n_embed) if k == "pos_emb.inv_freq"
              else np.asarray(v, np.float32))
         if k in ("word_embedding.weight", "lm_head.weight"):
@@ -179,15 +210,14 @@ def state_dict_from_torch(sd: Mapping[str, np.ndarray], cfg: DB1Config
                 (layout.padded_vocab_size - v.shape[0], v.shape[1]),
                 np.float32)], 0)
         out[k] = torch.from_numpy(np.ascontiguousarray(v))
-    return out, skipped
+    return out
 
 
 def load_deepspeed_checkpoint(model: torch.nn.Module, path: str
                               ) -> List[str]:
     """Load a ``model_states.pt`` (``find_deepspeed_model_states``) into
-    ``model`` (``strict=True``; cast to the model's dtypes and device).
-    Returns the skipped vision tower names."""
+    ``model`` (cast to the model's dtypes and device). Returns the names
+    left at their init: the vision tower's when the file has none of it."""
     cfg = DB1Config(model=model.cfg, vocab=model.vocab)
-    sd, skipped = state_dict_from_torch(load_torch_state_dict(path), cfg)
-    model.load_state_dict(sd, strict=True)
-    return skipped
+    return load_into(model, state_dict_from_torch(
+        load_torch_state_dict(path), cfg))

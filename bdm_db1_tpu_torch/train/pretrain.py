@@ -12,13 +12,16 @@ Usage, on the card:
 
 Wires: config -> tokenizers -> dataset factory (indexed corpora as GPT
 spans, RL trajectory caches through the "rl" and "rl_task_suite"
-creators) -> blended mixture -> per-modality groups -> stratified loader
+creators, COCO captions and VQA v2 through the "ic" and "vqa" creators of
+data/vit_dataset.py, prefix "<image root>:<annotation json>[:<question
+json>]") -> blended mixture -> per-modality groups -> stratified loader
 -> model, optimizer and train step on the device -> ``Trainer`` (logging,
 the eval hook: validation loss and RL rollouts, checkpoints with resume).
 
 Not ported (``NotImplementedError``): more than one card (model, pipeline
-or data parallel, multi-host; ROADMAP queue 1 item 9) and captioning or
-VQA entries in the mixture (items 4 and 8).
+or data parallel, multi-host; ROADMAP queue 1 item 9) and the in-training
+caption and VQA metrics (``eval.ic_vqa_num_samples > 0`` with an "ic" or
+"vqa" entry in the mixture; item 8).
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ from bdm_db1_tpu_torch.data.rl_dataset import (
 )
 from bdm_db1_tpu_torch.data.samplers import (
     RandomSampler, StratifiedGatoLoader, mixture_counts,
+)
+from bdm_db1_tpu_torch.data.vit_dataset import (
+    make_ic_creator, make_vqa_creator,
 )
 from bdm_db1_tpu_torch.eval.envs import make_env
 from bdm_db1_tpu_torch.eval.harness import evaluate_env
@@ -138,10 +144,11 @@ def _check_supported(cfg: DB1Config) -> None:
             "data parallelism and multi-host runs are not ported yet "
             "(ROADMAP queue 1 item 9, parallelism)")
     _, _, types = get_datasets_weights_and_types(cfg.data.data_path)
-    if {"ic", "vqa"} & set(types):
+    if {"ic", "vqa"} & set(types) and cfg.eval.ic_vqa_num_samples > 0:
         raise NotImplementedError(
-            "captioning and VQA datasets (and their in-training metrics) "
-            "are not ported yet (ROADMAP queue 1 items 4 and 8)")
+            "the in-training caption and VQA metrics "
+            "(eval.ic_vqa_num_samples > 0) are not ported yet (ROADMAP "
+            "queue 1 item 8); set eval.ic_vqa_num_samples 0")
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
@@ -167,6 +174,14 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
             prompt_strategy=cfg.data.prompt_strategy.split(";")[0])
         register_creator("rl", rl_creator)
         register_creator("rl_task_suite", suite_creator)
+    _, _, types = get_datasets_weights_and_types(cfg.data.data_path)
+    if {"ic", "vqa"} & set(types):
+        kw = dict(n_position=cfg.model.n_position,
+                  image_size=cfg.vision.image_size,
+                  patch_size=cfg.vision.patch_size,
+                  eos_token_id=tok.text_tokenizer.eos_token_id)
+        register_creator("ic", make_ic_creator(**kw))
+        register_creator("vqa", make_vqa_creator(**kw))
 
     n_train = cfg.train.train_iters * cfg.train.global_batch_size
     train_ds, valid_ds, _, _ = build_train_valid_test_datasets(
@@ -182,10 +197,10 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         # port draws it too, so both train on the same stream
         example = next(loader)
         print_rank_0("batch groups: " + ", ".join(
-            f"{m} {list(f['tokens'].shape)}" for m, f in example.items()))
+            f"{m} {list(f['label'].shape)}" for m, f in example.items()))
 
         model = TransformerXL(
-            cfg.model, cfg.vocab, device=dev,
+            cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
             generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
         state = init_train_state(model, cfg.train.optimizer,
                                  cfg.train.train_iters)

@@ -295,7 +295,12 @@ def micro_batch(batch: Dict[str, object], a: int) -> Dict[str, object]:
 
 def accum_steps(batch: Dict[str, object]) -> int:
     sub = next(iter(batch.values()))
-    return int(sub.tokens.shape[0])
+    return int(sub.label.shape[0])
+
+
+# parameters a batch may leave without a gradient: the vision tower, on a
+# batch without images
+UNREACHED_OK = ("vision_encoder.",)
 
 
 def make_loss_fn(model: torch.nn.Module) -> Callable:
@@ -311,37 +316,59 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
                     loss_fn: Optional[Callable] = None) -> Callable:
     """``train_step(state, batch, generator) -> (state, metrics)`` with
     metrics {"loss", "step"} (+ "grad_norm", the global norm of the
-    averaged gradients). ``batch`` holds [accum, micro, ...] fields."""
+    averaged gradients). ``batch`` holds [accum, micro, ...] fields. The
+    vision tower's parameters, which a batch without images does not
+    reach, keep ``grad`` None and the optimizer skips them (JAX's AdamW
+    sees zero gradients there: it decays and moves them; the port leaves
+    them as they are). Any other parameter the loss does not reach raises."""
     if loss_fn is None:
         loss_fn = make_loss_fn(model)
 
     def train_step(state: TrainState, batch, generator):
         accum = accum_steps(batch)
-        params = [p for p in state.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+        params = [p for _, p in named]
+
+        def grads_of(l):
+            gs = torch.autograd.grad(l, params, allow_unused=True)
+            lost = [n for (n, _), g in zip(named, gs)
+                    if g is None and not n.startswith(UNREACHED_OK)]
+            if lost:
+                raise RuntimeError(f"the loss reaches no gradient to "
+                                   f"{len(lost)} parameters: {lost[:4]}")
+            return gs
+
         if accum == 1:
             loss = loss_fn(micro_batch(batch, 0), generator)
-            grads = torch.autograd.grad(loss, params)
+            grads = grads_of(loss)
             loss = loss.detach()
         else:
             gsum, lsum = None, None
             for a in range(accum):
                 l = loss_fn(micro_batch(batch, a), generator)
-                gs = torch.autograd.grad(l, params)
+                gs = grads_of(l)
                 if gsum is None:
-                    gsum = [g.float() for g in gs]
+                    gsum = [None if g is None else g.float() for g in gs]
                     lsum = l.detach()
                 else:
-                    for s, g in zip(gsum, gs):
-                        s.add_(g)
+                    for i, g in enumerate(gs):
+                        if g is None:
+                            continue
+                        if gsum[i] is None:
+                            gsum[i] = g.float()
+                        else:
+                            gsum[i].add_(g)
                     lsum = lsum + l.detach()
                 del gs, l
-            grads = [s.div_(accum) for s in gsum]
+            grads = [None if s is None else s.div_(accum) for s in gsum]
             loss = lsum / accum
         for p, g in zip(params, grads):
-            p.grad = g.to(p.dtype)
+            p.grad = None if g is None else g.to(p.dtype)
         metrics = {"loss": loss, "step": state.step}
         if with_grad_norm:
-            metrics["grad_norm"] = global_norm(list(grads))
+            metrics["grad_norm"] = global_norm(
+                [g for g in grads if g is not None])
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return dataclasses.replace(state, step=state.step + 1), metrics

@@ -16,11 +16,14 @@ import torch
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import MetricLogger, print_rank_0
-from bdm_db1_tpu_torch.data.input_specs import NLPTaskBatch, RLTaskBatch
+from bdm_db1_tpu_torch.data.input_specs import (
+    ICTaskBatch, NLPTaskBatch, RLTaskBatch, VQATaskBatch,
+)
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
 
-_BATCH_TYPES = {"rl": RLTaskBatch, "nlp": NLPTaskBatch}
+_BATCH_TYPES = {"rl": RLTaskBatch, "nlp": NLPTaskBatch, "ic": ICTaskBatch,
+                "vqa": VQATaskBatch}
 
 
 def _check_device(device) -> torch.device:
@@ -36,17 +39,16 @@ def to_gato_batch(raw: Dict[str, Dict[str, np.ndarray]],
                   device="cuda") -> Dict[str, object]:
     """Loader output {modality: {field: array}} -> {modality: typed batch}
     with tensors on ``device``. Fields the batch type does not have (host
-    bookkeeping) are dropped; a sub-modality group ("rl_img") takes its
-    base modality's type. RL and text ("nlp") batches are ported; "ic" and
-    "vqa" raise ``NotImplementedError``."""
+    bookkeeping: ``img_id``, ``ques_id``, ...) are dropped; a sub-modality
+    group ("rl_img") takes its base modality's type."""
     dev = _check_device(device)
     out = {}
     for m, fields in raw.items():
         cls = _BATCH_TYPES.get(m.split("_")[0])
         if cls is None:
-            raise NotImplementedError(
-                f"modality group {m!r}: only RL and text batches are ported "
-                "(captioning and VQA are ROADMAP queue 1 items 4 and 8)")
+            raise ValueError(f"unknown modality group {m!r}; the groups are "
+                             f"{tuple(_BATCH_TYPES)} and their "
+                             "'<group>_<suffix>' sub-groups")
         valid = {f.name for f in dataclasses.fields(cls)}
         out[m] = cls(**{k: torch.as_tensor(np.asarray(v), device=dev)
                         for k, v in fields.items() if k in valid})
@@ -130,7 +132,9 @@ class Trainer:
         while iteration < tcfg.train_iters:
             batch = to_gato_batch(next(data_iter), dev)
             if tokens_per_batch is None:
-                tokens_per_batch = sum(int(v.tokens.numel())
+                # every group's rows are L positions long (captioning and
+                # VQA rows too, which the JAX Trainer leaves out)
+                tokens_per_batch = sum(int(v.label.numel())
                                        for v in batch.values())
             self.state, metrics = self.step_fn(self.state, batch,
                                                self.state.generator)

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,train,evaluate_rl
     python3 chip_smoke.py --phases build,pretrain
+    python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_image
 
 Phases, each printing one JSON line:
 
@@ -98,6 +99,23 @@ Phases, each printing one JSON line:
   run, on the trained model: the kernel route against the plain ring
   branch layer by layer at B 1 (one prime, one q = 1 forward), and one
   more step on the last batch, profiled (device busy and idle share).
+* ``pretrain_vision`` — ``pretrain.main`` at db1_1p2b on a four-group
+  mixture made from a seed: 0.4 RL tensor rows (the pretrain phase's
+  cache), 0.2 image RL (``fake-image-v0`` trajectories of 80 x 80 frames,
+  25 patches a frame), 0.2 captioning and 0.2 VQA (COCO-format JSONs with
+  8 inline 224 x 224 images each: 196 patches, caption budget 829); a row
+  of each group a micro-batch, accum 2, 6 iterations, the validation loss
+  at the 6th, the final checkpoint. Checks the groups, K3-K5 launches,
+  finite losses, the checkpoint and that no PIL was imported; then the
+  ``train`` phase's gradient route check on an image micro-batch, one
+  warmed step profiled and the vision tower's forward and backward over
+  that step's frames profiled alone (its share of the step).
+* ``evaluate_rl_image`` — needs ``pretrain_vision``: ``evaluate_rl.main``
+  serves its checkpoint in bf16 on ``fake-image-v0`` at 80 x 80, 40
+  episodes x 8 steps in one cohort with an expert prompt whose first prime
+  ``_image_chunk_plan`` slices; checks the weights read, the serve route
+  check on the image geometry (B 40), the records and the K1/K2 launches
+  of the slice plan.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -165,9 +183,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train",
-          "evaluate_rl", "pretrain")
+          "evaluate_rl", "pretrain", "pretrain_vision", "evaluate_rl_image")
 MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl",
-              "pretrain")
+              "pretrain", "pretrain_vision", "evaluate_rl_image")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -1113,7 +1131,9 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             _kernel_case(fro, Q=5, seed=5, timed=False, **ragged),
             _kernel_case(fro, Q=17, seed=6, timed=False, **odd),
             _kernel_case(fro, Q=19, seed=9, timed=False, **one),
-            _kernel_case(fro, Q=26, seed=10, timed=False, **one)],
+            _kernel_case(fro, Q=26, seed=10, timed=False, **one),
+            # the image rollouts' [action || 25 patch slots || sep] prime
+            _kernel_case(fro, Q=27, seed=18, timed=False, **full)],
         "flash_ring_decode_int8": [
             _kernel_case(fro, Q=None, seed=11, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8),
@@ -1150,7 +1170,14 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
                   same_length=True, seed=51, timed=True, old=old_fwd),
         # (c) ragged, as the JAX anylen wrapper admits it
         _rel_case(fra, B=1, qlen=100, klen=1124, mem_len=1024,
-                  same_length=True, seed=52, timed=False)]
+                  same_length=True, seed=52, timed=False),
+        # (d) the realigned one-shot prime (decode_rl_kv): the image
+        # phase's 1052-token expert prompt whole over 1024 cache rows, with
+        # the window and without it
+        _rel_case(fra, B=2, qlen=1052, klen=2076, mem_len=1024,
+                  same_length=True, seed=53, timed=False),
+        _rel_case(fra, B=2, qlen=1052, klen=2076, mem_len=1024,
+                  same_length=False, seed=54, timed=False)]
     torch.cuda.empty_cache()
     old_bwd = OldRelBwd(old_rel_bwd, not probe) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
@@ -1339,7 +1366,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
     prompt, _ = make_tenv(names[0]).get_prompt(
         strict_length=True, rng=np.random.RandomState(0))
     q0 = len(prompt) + dec.obs_length + 1
-    slices = dec.chunk_sizes(q0, 0) or [q0]
+    slices = dec.chunk_plan(q0, 0)[0] or [q0]
     forwards = len(slices) + steps * (A - 1) + (steps - 1)
     suffix = "_int8" if int8_cache else ""
     want = dict.fromkeys(launches, 0)
@@ -1484,7 +1511,9 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     ``f32_copy`` (a bf16 cache and weights), an f32 copy of the model reads
     how far bf16 alone moves each layer's output from the same bf16 input
     ("local"), the running hidden state ("propagated") and the
-    last-position logits."""
+    last-position logits. An image env's primes carry their frames: the
+    prompt's and the reset observation's in the cache-filling prime, the
+    new observation's in the prime under the check."""
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
 
@@ -1492,10 +1521,20 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     dec = build_decoder_for_env(model, tenvs[0])
     rng = np.random.RandomState(9)
     sep = np.full((B, 1), layout.separator_id, np.int64)
-    start = np.stack([np.concatenate([t.get_prompt(rng=rng)[0],
-                                      t.reset()[0], sep[0]]) for t in tenvs])
-    act, cache = dec.decode(start, dec.init_mems(B), defer_last=True)
-    obs = np.stack([t.reset()[0] for t in tenvs])
+    starts, frames = [], []
+    for t in tenvs:
+        prompt, prompt_img = t.get_prompt(rng=rng)
+        obs, img, _ = t.reset()
+        starts.append(np.concatenate([prompt, obs, sep[0]]))
+        frames.append(None if img is None
+                      else np.concatenate([prompt_img, img]))
+    act, cache = dec.decode(
+        np.stack(starts), dec.init_mems(B), defer_last=True,
+        prime_images=None if frames[0] is None else np.stack(frames))
+    resets = [t.reset() for t in tenvs]
+    obs = np.stack([r[0] for r in resets])
+    img = (None if resets[0][1] is None else
+           torch.as_tensor(np.stack([r[1] for r in resets]), device="cuda"))
     prime = torch.as_tensor(np.concatenate([act[:, -1:], obs, sep], axis=1),
                             device="cuda")
     pos = torch.as_tensor(np.broadcast_to(
@@ -1515,14 +1554,16 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
         return float((a.float() - b.float()).abs().max()
                      / b.float().abs().max())
 
-    out = {"attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL}
-    for name, tok, tpos in (("prime", prime, pos), ("q1", one, zero)):
+    out = {"attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL,
+           "prime_q": prime.shape[1], "images": img is not None}
+    for name, tok, tpos, tim in (("prime", prime, pos, img),
+                                 ("q1", one, zero, None)):
         q = tok.shape[1]
         mask, mask_s = model.ring_masks(q, cache["cursor"], "cuda")
         rk = model.precompute_rk(q)
-        h = model.embed_rl(tok, tpos)
+        h = model.embed_rl(tok, tpos, tim)
         if f32_copy:
-            rk32, h32 = m32.precompute_rk(q), m32.embed_rl(tok, tpos)
+            rk32, h32 = m32.precompute_rk(q), m32.embed_rl(tok, tpos, tim)
         attn_err, local, prop = [], [], []
         for li, layer in enumerate(model.h):
             ring = (rk[li], cache, li, mask, mask_s)
@@ -1815,7 +1856,9 @@ def phase_train(smi: str, ckpt_dir: str, saved_weights: dict,
     L = cfg.model.n_layer
     try:
         raw = next(loader)
-        routes = _train_route_check(model, raw)
+        routes = _train_route_check(model, to_gato_batch(
+            {m: {k: v[0] for k, v in f.items()} for m, f in raw.items()},
+            "cuda"))
         torch.cuda.empty_cache()
         state = init_train_state(model, cfg.train.optimizer,
                                  cfg.train.train_iters)
@@ -1865,14 +1908,20 @@ def phase_train(smi: str, ckpt_dir: str, saved_weights: dict,
                 and 0.5 * log_v < losses[0] < 2 * log_v
                 and losses[-1] < losses[0]):
             raise AssertionError(f"training losses off: {losses}")
-        changed = [not torch.equal(a, p) for a, p in
-                   zip(before, model.parameters())]
+        # an RL batch reaches every parameter but the vision tower's, which
+        # keep no gradient and are skipped by the optimizer
+        changed = {n: not torch.equal(a, p) for a, (n, p) in
+                   zip(before, model.named_parameters())}
         finite = all(bool(torch.isfinite(p).all())
                      for p in model.parameters())
         del before
-        if not (finite and all(changed)):
-            raise AssertionError(f"parameters finite: {finite}, changed: "
-                                 f"{sum(changed)} of {len(changed)}")
+        vision = {n for n in changed if n.startswith("vision_encoder.")}
+        if not (finite and vision and all(
+                changed[n] != (n in vision) for n in changed)):
+            raise AssertionError(
+                f"parameters finite: {finite}, changed: "
+                f"{sum(changed.values())} of {len(changed)}, vision tower "
+                f"changed: {sum(changed[n] for n in vision)}")
         times = np.diff(marks)
         tokens = TRAIN_ACCUM * TRAIN_MICRO * cfg.data.seq_length
         step_s = float(np.median(times))
@@ -1975,25 +2024,26 @@ def _resume_check(state, step, batch, ckpt_dir: str, saved_weights: dict,
             "loss_before": loss_a, "loss_after": loss_b}
 
 
-def _train_route_check(model, raw) -> dict:
-    """One micro-batch of a loader batch. Layer by layer (under no_grad
-    between layers): the six attention gradients through K3-K5 against
-    autograd through ``rel_attention`` in f32 on the same inputs and one
-    seeded upstream gradient (GRAD_REL_TOL). Then the whole model's
-    gradient through both routes (attention_impl "auto" and "xla") from one
-    generator seed, so that the dropout masks are equal: global norms
-    within GRAD_NORM_RTOL, cosine similarity at least GRAD_COS_MIN."""
+def _train_route_check(model, batch) -> dict:
+    """One typed micro-batch on the card (any groups: its rows embedded
+    by ``embed_concat`` at eval patch positions). Layer by layer (under
+    no_grad between layers): the six attention gradients through K3-K5
+    against autograd through ``rel_attention`` in f32 on the same inputs
+    and one seeded upstream gradient (GRAD_REL_TOL). Then the whole
+    model's gradient through both routes (attention_impl "auto" and "xla")
+    from one generator seed, so that the dropout masks and the patch
+    positions are equal: global norms within GRAD_NORM_RTOL, cosine
+    similarity at least GRAD_COS_MIN, over the parameters the batch
+    reaches (the vision tower only with images)."""
     from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops.attention import rel_attention, same_length_mask
     from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
-    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
 
     cfg = model.cfg
-    batch = to_gato_batch({m: {k: v[0] for k, v in f.items()}
-                           for m, f in raw.items()}, device="cuda")
-    rl = batch["rl"]
-    qlen = rl.tokens.shape[1]
+    with torch.no_grad():
+        h = model.embed_concat(batch, with_targets=False)[0]
+    qlen = h.shape[1]
     if not use_rel_kernel(cfg, qlen, qlen, "cuda"):
         raise AssertionError("the training forward does not take K3-K5")
     H, Dh, D = cfg.n_head, cfg.d_head, cfg.n_embed
@@ -2004,8 +2054,6 @@ def _train_route_check(model, raw) -> dict:
     kw = dict(mem_len=cfg.mem_len, same_length=cfg.same_length,
               scale=1.0 / Dh ** 0.5)
     worst = dict.fromkeys(GRAD_NAMES, 0.0)
-    with torch.no_grad():
-        h = model.embed_rl(rl.tokens, rl.position_id)
     for layer in model.h:
         a = layer.dec_attn
         with torch.no_grad():
@@ -2039,17 +2087,23 @@ def _train_route_check(model, raw) -> dict:
                             loss_only=True,
                             generator=torch.Generator(
                                 device="cuda").manual_seed(4))
-            flat[name] = [gr.float() for gr in
-                          torch.autograd.grad(loss, params)]
+            flat[name] = [None if gr is None else gr.float() for gr in
+                          torch.autograd.grad(loss, params,
+                                              allow_unused=True)]
             del loss
     finally:
         cfg.attention_impl = impl
+    reached = [i for i, g in enumerate(flat["kernel"]) if g is not None]
+    if reached != [i for i, g in enumerate(flat["plain"]) if g is not None]:
+        raise AssertionError("the two routes reach other parameters")
+    flat = {k: [v[i] for i in reached] for k, v in flat.items()}
     dot = sum(float((x.double() * y.double()).sum())
               for x, y in zip(flat["kernel"], flat["plain"]))
     nk = sum(float(x.double().square().sum()) for x in flat["kernel"]) ** 0.5
     npl = sum(float(y.double().square().sum()) for y in flat["plain"]) ** 0.5
     del flat
     out = {"grad_tol": GRAD_REL_TOL, "attn_grad_rel_err": worst,
+           "params_reached": len(reached), "params": len(params),
            "grad_norm_kernel": nk, "grad_norm_plain": npl,
            "grad_norm_rel_diff": abs(nk - npl) / npl,
            "grad_norm_rtol": GRAD_NORM_RTOL, "grad_cosine": dot / (nk * npl),
@@ -2135,7 +2189,7 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
         prompt, _ = tenv.get_prompt(strict_length=True,
                                     rng=np.random.RandomState(0))
         q0 = len(prompt) + dec.obs_length + 1
-        slices = dec.chunk_sizes(q0, 0) or [q0]
+        slices = dec.chunk_plan(q0, 0)[0] or [q0]
         A = dec.action_length
         del model, sd, dec
         gc.collect()
@@ -2221,6 +2275,68 @@ def _write_corpus(path: str, seed: int) -> int:
     return os.path.getsize(path)
 
 
+def _run_pretrain(cfg) -> dict:
+    """``pretrain.main(cfg, device="cuda")``, counted: the launches of the
+    call, its wall time and peak memory, what it hands the model (each
+    batch's groups by their label shapes), the last step's model, step
+    function and arguments, and each save with its seconds. Its output is
+    written out after the call."""
+    from bdm_db1_tpu_torch.train import checkpoint, pretrain, trainer
+    from bdm_db1_tpu_torch.train.step import make_train_step
+
+    groups, last, saves, patched = [], {}, [], []
+    to_gato_batch = trainer.to_gato_batch
+    save = checkpoint.CheckpointManager.save
+
+    def recording_batch(raw, device="cuda"):
+        groups.append({m: tuple(f["label"].shape) for m, f in raw.items()})
+        return to_gato_batch(raw, device)
+
+    def capturing_step(model, **kw):
+        step = make_train_step(model, **kw)
+        last["model"], last["step"] = model, step
+
+        def run(state, batch, gen):
+            last["args"] = (state, batch, gen)
+            return step(state, batch, gen)
+        return run
+
+    def timed_save(mgr, step, state, client_state=None):
+        t = time.perf_counter()
+        save(mgr, step, state, client_state)
+        mgr.wait()
+        torch.cuda.synchronize()
+        saves.append((step, time.perf_counter() - t))
+
+    for obj, name, value in ((trainer, "to_gato_batch", recording_batch),
+                             (pretrain, "make_train_step", capturing_step),
+                             (checkpoint.CheckpointManager, "save",
+                              timed_save)):
+        patched.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+    out = io.StringIO()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path, counted --------------------------------------
+        _reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            pretrain.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        # ------------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for obj, name, value in reversed(patched):
+            setattr(obj, name, value)
+        sys.stdout.write(out.getvalue())
+    return {"groups": groups, "last": last, "saves": saves,
+            "launches": launches, "wall": wall, "peak": peak}
+
+
 def phase_pretrain(smi: str, seed: int = 0) -> dict:
     """The pretraining driver at db1_1p2b on a 0.5 text / 0.5 RL mixture:
     a seeded synthetic corpus through ``preprocess.main`` (byte tokenizer,
@@ -2253,17 +2369,11 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
     )
     from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
-    from bdm_db1_tpu_torch.train import checkpoint, pretrain, trainer
-    from bdm_db1_tpu_torch.train.step import make_train_step
+    from bdm_db1_tpu_torch.train import pretrain
 
     allocated_at_start = torch.cuda.memory_allocated()
     work = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
-    patched = []
-
-    def patch(obj, name, value):
-        patched.append((obj, name, getattr(obj, name)))
-        setattr(obj, name, value)
-
+    last = {}
     try:
         corpus_json = os.path.join(work, "corpus.jsonl")
         corpus = os.path.join(work, "corpus")
@@ -2297,54 +2407,10 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
             cfg.eval, env_names=(PRETRAIN_ENV,), num_trials=PRETRAIN_TRIALS,
             max_step_size=PRETRAIN_STEPS)
 
-        # what the run hands the model, the last step's arguments, the save
-        groups, last, saves = [], {}, []
-
-        def recording_batch(raw, device="cuda"):
-            groups.append({m: tuple(f["tokens"].shape)
-                           for m, f in raw.items()})
-            return to_gato_batch(raw, device)
-
-        def capturing_step(model, **kw):
-            step = make_train_step(model, **kw)
-            last["model"], last["step"] = model, step
-
-            def run(state, batch, gen):
-                last["args"] = (state, batch, gen)
-                return step(state, batch, gen)
-            return run
-
-        def timed_save(mgr, step, state, client_state=None):
-            t = time.perf_counter()
-            save(mgr, step, state, client_state)
-            mgr.wait()
-            torch.cuda.synchronize()
-            saves.append((step, time.perf_counter() - t))
-
-        to_gato_batch = trainer.to_gato_batch
-        save = checkpoint.CheckpointManager.save
-        patch(trainer, "to_gato_batch", recording_batch)
-        patch(pretrain, "make_train_step", capturing_step)
-        patch(checkpoint.CheckpointManager, "save", timed_save)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
-        # ---- the main path, counted --------------------------------------
-        _reset_launches()
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            pretrain.main(cfg, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _read_launches()
-        # ------------------------------------------------------------------
-        peak = torch.cuda.max_memory_allocated()
-        for obj, name, value in reversed(patched):
-            setattr(obj, name, value)
-        patched.clear()
-        sys.stdout.write(out.getvalue())
+        # the main path, counted
+        run = _run_pretrain(cfg)
+        groups, last, saves = run["groups"], run["last"], run["saves"]
+        launches, wall, peak = run["launches"], run["wall"], run["peak"]
 
         L = cfg.model.n_layer
         micro = {"rl": TRAIN_MICRO // 2, "nlp": TRAIN_MICRO // 2}
@@ -2364,8 +2430,8 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
         prompt, _ = tenv.get_prompt(strict_length=True,
                                     rng=np.random.RandomState(cfg.eval.seed))
         q0 = len(prompt) + tenv.obs_length + 1
-        slices = ActionDecoder.chunk_sizes(
-            SimpleNamespace(model=SimpleNamespace(cfg=cfg.model)), q0, 0) \
+        slices = ActionDecoder.chunk_plan(
+            SimpleNamespace(model=SimpleNamespace(cfg=cfg.model)), q0, 0)[0] \
             or [q0]
         A, steps, n = tenv.action_length, PRETRAIN_STEPS, PRETRAIN_TRIALS
         want = dict.fromkeys(launches, 0)
@@ -2427,8 +2493,6 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
         del model, step
     finally:
         last.clear()
-        for obj, name, value in reversed(patched):
-            setattr(obj, name, value)
         shutil.rmtree(work, ignore_errors=True)
 
     tokens = TRAIN_ACCUM * TRAIN_MICRO * cfg.data.seq_length
@@ -2464,6 +2528,461 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
             "eval_tick_s": eval_s, "save_s": save_s,
             "checkpoint_bytes": ckpt_bytes,
             "save_gb_per_s": ckpt_bytes / 1e9 / save_s, "wall_s": wall}
+
+
+VISION_ENV = "fake-image-v0"
+VISION_HW = 80              # 5 x 5 patches of 16 a frame
+VISION_EPISODES = 12
+VISION_EPISODE_LEN = 50
+VISION_IMAGES = 8           # inline 224 x 224 images of each of IC and VQA
+VISION_ITERS = 6
+VISION_TRIALS = 40
+VISION_STEPS = 8
+
+
+def _register_image_env(seed: int) -> None:
+    """``fake-image-v0`` at 80 x 80 frames (the JAX registry's is 32)."""
+    from bdm_db1_tpu_torch.eval.envs import FakeImageEnv, register_env
+
+    def env_fn():
+        return FakeImageEnv(hw=VISION_HW, seed=seed)
+
+    register_env(VISION_ENV, env_fn)
+
+
+def _write_ic_vqa(work: str, seed: int, size: int, eos: int) -> tuple:
+    """A COCO caption JSON and a VQA v2 annotation + question pair with
+    VISION_IMAGES inline ``pixels`` images each (CHW, size x size, 3
+    decimals), byte-token captions (2 an image, 8-40 tokens, eos-ended),
+    questions (5-15 tokens) and answers (1-3 tokens, eos-ended), all from
+    ``seed``; returns the two mixture prefixes."""
+    rng = np.random.RandomState(seed)
+
+    def images():
+        return [{"id": i, "file_name": f"{i}.jpg",
+                 "pixels": np.round(rng.rand(3, size, size), 3).tolist()}
+                for i in range(VISION_IMAGES)]
+
+    def text(lo, hi):
+        return rng.randint(32, 127, rng.randint(lo, hi + 1)).tolist() + [eos]
+
+    prompt_items = [[68, 101, 115, 99, 114, 105, 98, 101, 58], [81, 58],
+                    [65, 58]]
+    coco = os.path.join(work, "captions.json")
+    with open(coco, "w") as f:
+        json.dump({"images": images(), "prompt_items": prompt_items,
+                   "annotations": [{"image_id": i, "caption": text(8, 40)}
+                                   for i in range(VISION_IMAGES)
+                                   for _ in range(2)]}, f)
+    ann, ques = (os.path.join(work, n) for n in ("vqa_ann.json",
+                                                 "vqa_q.json"))
+    with open(ann, "w") as f:
+        json.dump({"images": images(), "prompt_items": prompt_items,
+                   "annotations": [{
+                       "question_id": 100 + i, "image_id": i,
+                       "answer_type": "other", "question_type": "what",
+                       "answers": [{"answer": "x"}],
+                       "answer_tokens": [text(1, 3)]}
+                       for i in range(VISION_IMAGES)]}, f)
+    with open(ques, "w") as f:
+        json.dump({"questions": [{"question_id": 100 + i, "image_id": i,
+                                  "question_tokens": text(5, 15)[:-1]}
+                                 for i in range(VISION_IMAGES)]}, f)
+    return f"{work}:{coco}", f"{work}:{ann}:{ques}"
+
+
+def _vision_profile(model, batch, gen) -> tuple:
+    """The vision tower's forward and backward over a step's frames, as
+    the step runs them (per micro-batch, each image group, training patch
+    positions), profiled alone: (device busy s, top kernels by name)."""
+    from bdm_db1_tpu_torch.train.step import accum_steps, micro_batch
+
+    enc = model.vision_encoder
+    params = list(enc.parameters())
+
+    def run():
+        for a in range(accum_steps(batch)):
+            for sub in micro_batch(batch, a).values():
+                images = getattr(sub, "images", None)
+                if images is None:
+                    continue
+                if images.dim() == 5:       # RL rows: [B, T, H, W, C]
+                    images = images.flatten(0, 1)
+                out = enc(images, False, gen)
+                torch.autograd.grad(out.float().sum(), params)
+
+    run()                                   # warm-up (cuDNN plans)
+    busy, top, _ = _profile_busy(run)
+    return busy, top
+
+
+def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
+                          seed: int = 0) -> dict:
+    """The pretraining driver at db1_1p2b on a four-group mixture, all
+    data made from ``seed`` under ``vis_dir``: 0.4 RL tensor rows (the
+    pretrain phase's HalfCheetah-geometry cache), 0.2 image RL (FakeImageEnv
+    trajectories of 3 x 80 x 80 frames, 25 patches a frame, written with
+    ``save_cache`` as ``fake-image-v0``), 0.2 captioning (a COCO JSON of 8
+    inline 224 x 224 images, 196 patches, caption budget 829) and 0.2 VQA
+    (8 inline images). ``pretrain.main`` (counted): micro-batch 4 x 1024 (a
+    row of each group), accum 2, VISION_ITERS iterations, the validation
+    loss over one batch at the last, the final checkpoint (served by
+    ``evaluate_rl_image``; a host copy of its weights in
+    ``saved_weights``). Checks every batch's groups, the launches of K3-K5
+    (24 x 2 x 6 training forwards and backwards, 24 x 2 validation
+    forwards; no rollout, so no K1/K2), finite losses, the metric keys and
+    the checkpoint, and that the phase imported no PIL. After the counted
+    run: the gradient route check of the ``train`` phase on the first
+    micro-batch of the last step, the last step profiled again, and the
+    vision tower's forward and backward over that step's frames profiled
+    alone (its share of the step's device time)."""
+    import importlib.util
+
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.coco import ic_caption_budget
+    from bdm_db1_tpu_torch.data.rl_dataset import TrajectoryStore
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv, FakeImageEnv
+    from bdm_db1_tpu_torch.tokenizers.text import ByteTextTokenizer
+    from bdm_db1_tpu_torch.train.step import micro_batch
+
+    pil_before = "PIL" in sys.modules
+    cache_dir = os.path.join(vis_dir, "rl")
+    save_dir = os.path.join(vis_dir, "run")
+    cfg = db1_1p2b()
+    size, patch = cfg.vision.image_size, cfg.vision.patch_size
+    t0 = time.perf_counter()
+    TrajectoryStore.from_flat_dataset(FakeContinuousEnv(
+        obs_dim=17, act_dim=6, episode_len=200,
+        seed=999).make_dataset(20)).save_cache(cache_dir, PRETRAIN_ENV)
+    TrajectoryStore.from_flat_dataset(FakeImageEnv(
+        hw=VISION_HW, episode_len=VISION_EPISODE_LEN,
+        seed=seed + 5).make_dataset(VISION_EPISODES)).save_cache(
+        cache_dir, VISION_ENV)
+    _register_image_env(seed + 6)
+    ic, vqa = _write_ic_vqa(vis_dir, seed, size,
+                            ByteTextTokenizer().eos_token_id)
+    data_s = time.perf_counter() - t0
+
+    cfg.data.data_path = ("0.4", PRETRAIN_ENV, "rl", "0.2", VISION_ENV, "rl",
+                          "0.2", ic, "ic", "0.2", vqa, "vqa")
+    cfg.data.rl_dataset_cache_dir = cache_dir
+    cfg.train = dataclasses.replace(
+        cfg.train, micro_batch_size=TRAIN_MICRO,
+        global_batch_size=TRAIN_MICRO * TRAIN_ACCUM,
+        train_iters=VISION_ITERS, log_interval=1,
+        eval_interval=VISION_ITERS, eval_iters=1,
+        save_interval=VISION_ITERS + 1, save_dir=save_dir)
+    cfg.eval = dataclasses.replace(cfg.eval, env_names=(),
+                                   ic_vqa_num_samples=0)
+    run = _run_pretrain(cfg)
+    last = run["last"]
+    try:
+        L, L_seq = cfg.model.n_layer, cfg.data.seq_length
+        # a transition: the frame's patch slots, sep, one action token
+        trans = (VISION_HW // patch) ** 2 + 2
+        frames = (L_seq + trans - 1) // trans
+        img_group = f"rl_img{frames}x{VISION_HW}x{VISION_HW}x3"
+        names = ("rl", "ic", "vqa", img_group)
+        want_groups = ([{m: (TRAIN_ACCUM, 1, L_seq) for m in names}]
+                       * VISION_ITERS + [{m: (1, L_seq) for m in names}]
+                       * TRAIN_ACCUM)
+        if run["groups"] != want_groups:
+            raise AssertionError(f"batch groups off: {run['groups'][:2]}")
+        launches = run["launches"]
+        want = dict.fromkeys(launches, 0)
+        fwd = L * TRAIN_ACCUM * VISION_ITERS
+        want["flash_rel_attention"] = fwd + L * TRAIN_ACCUM
+        want["flash_rel_attention_bwd_dq"] = fwd
+        want["flash_rel_attention_bwd_dkv"] = fwd
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+        recs = [json.loads(line) for line in
+                open(os.path.join(save_dir, "metrics.jsonl"))]
+        train = [r for r in recs if "train/loss" in r]
+        valid = [r for r in recs if "valid/loss" in r]
+        losses = [r["train/loss"] for r in train]
+        log_v = float(np.log(cfg.vocab.layout().total_vocab_size))
+        if not ([r["step"] for r in train] == list(
+                range(1, VISION_ITERS + 1)) and np.isfinite(losses).all()
+                and abs(losses[0] - log_v) <= 1.0
+                and all("train/tokens_per_sec" in r for r in train)):
+            raise AssertionError(f"train records off: {train}")
+        if not (len(valid) == 1 and valid[0]["step"] == VISION_ITERS
+                and np.isfinite(valid[0]["valid/loss"])):
+            raise AssertionError(f"valid records off: {valid}")
+        with open(os.path.join(save_dir, str(VISION_ITERS),
+                               "client.json")) as f:
+            if json.load(f) != {"iteration": VISION_ITERS}:
+                raise AssertionError("checkpoint client state off")
+        pil_imported = "PIL" in sys.modules and not pil_before
+        if pil_imported:
+            raise AssertionError("the phase imported PIL")
+
+        # ---- after the counted run ---------------------------------------
+        model, step = last["model"], last["step"]
+        state, batch, _ = last["args"]
+        saved_weights.update({n: p.to("cpu", copy=True)
+                              for n, p in model.state_dict().items()})
+        torch.cuda.empty_cache()
+        routes = _train_route_check(model, micro_batch(batch, 0))
+        torch.cuda.empty_cache()
+        _reset_launches()
+        busy, top, prof_wall = _profile_busy(
+            lambda: step(*last["args"]), keep=tuple(ALONE_KERNELS.values()))
+        alone = kernel_alone_ms(top, _read_launches())
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        vis_busy, vis_top = _vision_profile(model, batch, gen)
+        del model, step, state, batch
+    finally:
+        last.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tokens = TRAIN_ACCUM * TRAIN_MICRO * L_seq
+    step_s = [tokens / r["train/tokens_per_sec"] for r in train]
+    median = float(np.median(step_s[1:]))
+    return {"phase": "pretrain_vision", "config": "db1_1p2b",
+            "dtype": "bfloat16", "param_dtype": "float32", "card": smi,
+            "data_path": ["0.4", PRETRAIN_ENV, "rl", "0.2", VISION_ENV, "rl",
+                          "0.2", "<coco> ic", "0.2", "<vqa> vqa"],
+            "groups": list(names), "frame_hw": VISION_HW,
+            "patches_a_frame": (VISION_HW // patch) ** 2,
+            "ic_patches": (size // patch) ** 2,
+            "ic_caption_budget": ic_caption_budget(L_seq, size, patch),
+            "micro_batch": TRAIN_MICRO, "accum": TRAIN_ACCUM,
+            "seq_length": L_seq, "iters": VISION_ITERS, "data_s": data_s,
+            "launches": launches, "launches_expected": want,
+            "losses": losses, "log_vocab": log_v, "valid": valid[0],
+            "tokens_per_sec": tokens * len(step_s[1:]) / sum(step_s[1:]),
+            "tokens_per_sec_over": "steps 2-%d" % VISION_ITERS,
+            "step_ms_median": median * 1e3,
+            "step_ms": [t * 1e3 for t in step_s],
+            "profiled_step_ms": prof_wall * 1e3,
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / median,
+            "top_device_ms": top, "kernel_alone_ms": alone,
+            "vision_busy_ms": vis_busy * 1e3,
+            "vision_share_of_step": vis_busy / busy,
+            "vision_top_device_ms": vis_top,
+            "gradient_routes": routes,
+            "max_memory_allocated_gb": run["peak"] / 1e9,
+            "save_s": run["saves"][0][1],
+            "pillow_importable": importlib.util.find_spec("PIL") is not None,
+            "pil_imported": pil_imported, "wall_s": run["wall"]}
+
+
+ALIGNED_B = 4
+
+
+@torch.no_grad()
+def _aligned_prime_check(model, tenvs) -> dict:
+    """The realigned one-shot prime on the card (``decode_rl_kv``, which
+    the decoder takes for a prime longer than mem_len that
+    ``_image_chunk_plan`` cannot cut): the expert-prompt image prime whole,
+    over a ring that the sliced first prime filled, rotated to age order.
+    Each layer's attention through K3 (``attend_kv``, the kernel route) is
+    held against ``rel_attention`` on the same input, and so are the logits
+    after the last layer run both ways, within the serve route check's
+    limits. Then ``_prime_aligned`` as the decoder calls it: one K3 launch a
+    layer, logits equal to the layer-by-layer run's within LOGIT_REL_TOL,
+    the new cache aligned at cursor 0."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.eval.decode import (
+        _prime_aligned, build_decoder_for_env,
+    )
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+    from bdm_db1_tpu_torch.ops.attention import causal_mask, same_length_mask
+
+    cfg = model.cfg
+    B, M = len(tenvs), cfg.mem_len
+    dec = build_decoder_for_env(model, tenvs[0])
+    rng = np.random.RandomState(11)
+    sep = [tenvs[0].separator_id]
+    starts, frames = [], []
+    for t in tenvs:
+        prompt, prompt_img = t.get_prompt(strict_length=True, rng=rng)
+        obs, img, _ = t.reset()
+        starts.append(np.concatenate([prompt, obs, sep]))
+        frames.append(np.concatenate([prompt_img, img]))
+    starts, frames = np.stack(starts), np.stack(frames)
+    _, ring = dec.decode(starts, dec.init_mems(B), prime_images=frames,
+                         defer_last=True)
+    q = starts.shape[1]
+    _, p = action_flags_and_position_ids(q, dec.obs_length,
+                                         dec.action_length, 0)
+    tok = torch.as_tensor(starts, device="cuda")
+    pos = torch.as_tensor(np.broadcast_to(p, (B, q)).copy(), device="cuda")
+    img = torch.as_tensor(frames, dtype=torch.float32, device="cuda")
+    if not (q > M and use_rel_kernel(cfg, q, M + q, "cuda")):
+        raise AssertionError(f"a {q}-token prime over {M} rows is not on "
+                             f"the K3 route")
+    aligned = model.align_ring_cache(ring)
+    rk = model.precompute_rk(q)
+    mask = (same_length_mask(q, M + q, M, device="cuda") if cfg.same_length
+            else causal_mask(q, M + q, device="cuda"))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    h = model.embed_rl(tok, pos, img)
+    attn_err = []
+    for li, layer in enumerate(model.h):
+        kv = (rk[li], aligned["k"][li], aligned["v"][li], mask)
+        attn = layer.dec_attn.attend_kv(h, *kv, True)[0]
+        attn_p = layer.dec_attn.attend_kv(h, *kv, False)[0]
+        attn_err.append(rel(attn, attn_p))
+        del attn, attn_p
+        h_in = h
+        h = layer.forward_kv(h, *kv, True)[0]
+    logits = model.logits(h[:, -1])
+    logits_p = model.logits(layer.forward_kv(h_in, *kv, False)[0][:, -1])
+    before = fra.LAUNCHES["flash_rel_attention"]
+    logits_d, new = _prime_aligned(model, tok, pos, ring, rk, img)
+    torch.cuda.synchronize()
+    out = {"q": q, "frames": frames.shape[1], "batch": B, "klen": M + q,
+           "attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL,
+           "attn_rel_err_max": max(attn_err),
+           "last_layer_logits_rel_err": rel(logits, logits_p),
+           "prime_aligned_vs_layers_rel_err": rel(logits_d, logits),
+           "k3_launches": fra.LAUNCHES["flash_rel_attention"] - before,
+           "k3_launches_expected": cfg.n_layer}
+    if not (torch.isfinite(logits_d).all()
+            and out["attn_rel_err_max"] <= ATTN_REL_TOL
+            and out["last_layer_logits_rel_err"] <= LOGIT_REL_TOL
+            and out["prime_aligned_vs_layers_rel_err"] <= LOGIT_REL_TOL
+            and out["k3_launches"] == cfg.n_layer
+            and new["cursor"] == 0
+            and new["k"].shape == ring["k"].shape == new["v"].shape):
+        raise AssertionError(f"the realigned prime on the card: {out}")
+    return out
+
+
+def phase_evaluate_rl_image(smi: str, vis_dir: str, saved_weights: dict,
+                            seed: int = 0) -> dict:
+    """Needs ``pretrain_vision``: ``evaluate_rl.main`` on the card serving
+    its checkpoint as db1_1p2b in bf16 on ``fake-image-v0`` (80 x 80
+    frames, one discrete action token), VISION_TRIALS episodes of
+    VISION_STEPS steps in one lockstep cohort with an expert prompt, whose
+    first prime ``_image_chunk_plan`` cuts into transition-aligned slices.
+    Before the counted run: ``load_params`` reads the port checkpoint
+    (every weight the saved one cast to bf16) and the serve route check
+    runs on this geometry at B 40 (a 27-token image prime on K2 and a q =
+    1 forward on K1, each layer against the plain ring branch), and so
+    does the realigned one-shot prime's (:func:`_aligned_prime_check`, K3
+    against ``rel_attention``). Checks the
+    records (finite returns, VISION_STEPS steps), ``results.output``, the
+    K1/K2 launches derived from the slice plan (with one action token the
+    deferred token rides in the next prime: no q = 1 forward, so K1 0) and
+    that the phase imported no PIL."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import build_rl_dataset_from_cache
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+    from bdm_db1_tpu_torch.eval.envs import make_env
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.train import pretrain
+
+    pil_before = "PIL" in sys.modules
+    cache_dir = os.path.join(vis_dir, "rl")
+    out_dir = os.path.join(vis_dir, "out")
+    _register_image_env(seed + 6)
+    cfg = db1_1p2b()
+    cfg.model.param_dtype = "bfloat16"
+    cfg.data.rl_dataset_cache_dir = cache_dir
+    cfg.train.load_dir = os.path.join(vis_dir, "run")
+    cfg.train.save_dir = out_dir
+    cfg.eval = dataclasses.replace(
+        cfg.eval, env_names=(VISION_ENV,), num_trials=VISION_TRIALS,
+        batched=True, batch_size=VISION_TRIALS,
+        max_step_size=VISION_STEPS, decode_obs_buckets=False)
+
+    model = TransformerXL(cfg.model, cfg.vocab, vision=cfg.vision,
+                          device="cuda")
+    if evaluate_rl.load_params(cfg, model) != evaluate_rl.FROM_PORT:
+        raise AssertionError("load_params did not read the port checkpoint")
+    sd = model.state_dict()
+    bad = [n for n, t in saved_weights.items()
+           if not torch.equal(sd[n].cpu(), t.to(sd[n].dtype))]
+    if bad or sd.keys() != saved_weights.keys():
+        raise AssertionError(f"loaded weights differ from the saved ones: "
+                             f"{bad[:5]}")
+    del sd
+    tok = pretrain.build_tokenizer_suite(cfg)
+
+    def make_tenv(name):
+        return TokenizedEnv(make_env(name), build_rl_dataset_from_cache(
+            name, cache_dir, cfg.model.n_position, tok))
+
+    tenv = make_tenv(VISION_ENV)
+    dec = build_decoder_for_env(model, tenv)
+    prompt, prompt_img = tenv.get_prompt(strict_length=True,
+                                         rng=np.random.RandomState(0))
+    q0 = len(prompt) + dec.obs_length + 1
+    n0 = len(prompt_img) + 1
+    slices, frames = dec.chunk_plan(q0, 0, n0)
+    if not (slices and len(slices) > 1 and sum(frames) == n0):
+        raise AssertionError(f"the first prime ({q0} tokens, {n0} frames) "
+                             f"is not sliced: {slices}")
+    A = dec.action_length
+    routes = _route_check(model, cfg.vocab.layout(), VISION_TRIALS,
+                          make_tenv, [VISION_ENV] * VISION_TRIALS,
+                          f32_copy=False)
+    aligned = _aligned_prime_check(
+        model, [make_tenv(VISION_ENV) for _ in range(ALIGNED_B)])
+    del model, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = evaluate_rl.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    sys.stdout.write(out.getvalue())
+
+    L, steps = cfg.model.n_layer, VISION_STEPS
+    want = dict.fromkeys(launches, 0)
+    want["flash_ring_decode"] = L * (steps * (A - 1) + slices.count(1))
+    want["flash_ring_prime_ap"] = L * (
+        steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if "restored port checkpoint" not in out.getvalue():
+        raise AssertionError("main did not read the port checkpoint")
+    if not (len(res) == 1 and res[0]["env"] == VISION_ENV
+            and res[0]["num_trials"] == VISION_TRIALS
+            and res[0]["length_mean"] == steps
+            and np.isfinite(res[0]["return_mean"])):
+        raise AssertionError(f"records off: {res}")
+    with open(os.path.join(out_dir, "results.output")) as f:
+        if f.read().splitlines() != [json.dumps(r) for r in res]:
+            raise AssertionError("results.output off")
+    pil_imported = "PIL" in sys.modules and not pil_before
+    if pil_imported:
+        raise AssertionError("the phase imported PIL")
+    actions = VISION_TRIALS * steps
+    return {"phase": "evaluate_rl_image", "config": "db1_1p2b",
+            "dtype": "bfloat16", "param_dtype": "bfloat16", "card": smi,
+            "env": VISION_ENV, "frame_hw": VISION_HW,
+            "obs_tokens": tenv.obs_length, "action_tokens": A,
+            "trials": VISION_TRIALS, "batch": cfg.eval.batch_size,
+            "env_steps": steps, "first_prime": {"q": q0, "frames": n0},
+            "prime_slices": slices, "slice_frames": list(frames),
+            "launches": launches, "launches_expected": want,
+            "kernel_vs_plain": routes, "aligned_prime": aligned,
+            "records": res, "wall_s": wall,
+            "actions_per_sec": actions / wall,
+            "pil_imported": pil_imported}
 
 
 # what each time of the K4/K5 rows of the kernels line is
@@ -2571,6 +3090,10 @@ def main(argv=None) -> int:
     if "evaluate_rl" in phases and "train" not in phases:
         raise SystemExit("the evaluate_rl phase serves the train phase's "
                          "checkpoint: name train too")
+    if "evaluate_rl_image" in phases and "pretrain_vision" not in phases:
+        raise SystemExit("the evaluate_rl_image phase serves the "
+                         "pretrain_vision phase's checkpoint: name "
+                         "pretrain_vision too")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -2622,6 +3145,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["pretrain"] = phase_pretrain(smi)
         emit(results["pretrain"])
+    # the image mixture's data and checkpoint, and a host copy of its
+    # weights, served by evaluate_rl_image; deleted at the end
+    vis_dir = tempfile.mkdtemp(prefix="chip_smoke_vision_")
+    saved_weights = {}
+    try:
+        for phase, fn in (("pretrain_vision", phase_pretrain_vision),
+                          ("evaluate_rl_image", phase_evaluate_rl_image)):
+            if phase in phases:
+                gc.collect()
+                torch.cuda.empty_cache()
+                results[phase] = fn(smi, vis_dir, saved_weights)
+                emit(results[phase])
+    finally:
+        shutil.rmtree(vis_dir, ignore_errors=True)
+        saved_weights.clear()
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

@@ -287,7 +287,10 @@ def test_unported_paths_raise():
         tm.cfg.remat = False
     with pytest.raises(ValueError, match="unknown modality"):
         tm({"rl": rl, "audio": rl})
-    # text groups are ported (tests/test_torch_pretrain.py); captioning is
-    # not
-    with pytest.raises(NotImplementedError):
-        tm({"ic": rl})
+    # text, captioning and VQA groups are ported (tests/test_torch_pretrain.py,
+    # tests/test_torch_vision.py); speculative tails and geometry buckets
+    # in the ring forward are not
+    cache, rk = tm.init_kv_cache_ring(1), tm.precompute_rk(8)
+    for kw in (dict(spec_tail=1), dict(real_q=4)):
+        with pytest.raises(NotImplementedError, match="speculative"):
+            tm.decode_rl_kv_ring(tok, tok, cache, rk, **kw)

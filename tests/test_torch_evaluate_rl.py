@@ -182,9 +182,13 @@ def _port_model(cfg, seed):
 
 def test_load_params_reads_the_deepspeed_checkpoint(workspace):
     """The DeepSpeed weights (the JAX params rounded to fp16) in the port's
-    layout, padded vocab rows included."""
+    layout, padded vocab rows included. The file has no vision tower (the
+    JAX model was initialised on RL batches): the port's stays at its
+    seeded init."""
     _, pcfg = _cfgs(workspace)
     model = _port_model(pcfg, 3)
+    init = {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("vision_encoder.")}
     assert ter.load_params(pcfg, model) == ter.FROM_DEEPSPEED
     import jax
 
@@ -195,9 +199,11 @@ def test_load_params_reads_the_deepspeed_checkpoint(workspace):
     want["word_embedding.weight"][
         pcfg.vocab.layout().total_vocab_size:] = 0.0
     got = model.state_dict()
-    assert got.keys() == want.keys()
+    assert got.keys() == want.keys() | init.keys() and len(init) == 14
     for k in want:
         assert torch.equal(got[k], want[k]), k
+    for k in init:
+        assert torch.equal(got[k], init[k]), k
 
 
 def test_load_params_reads_the_port_checkpoint(workspace, tmp_path):
@@ -288,6 +294,12 @@ def test_unported_options_raise(field, value, match):
 @pytest.mark.parametrize("name", ["fake-image-v0", "fake-text-v0",
                                   "no-such-env-v0"])
 def test_make_env_rejects_unported_and_unknown_names(name):
+    if name == "fake-image-v0":
+        # ported with the image path: made as the JAX registry makes it
+        env = te.make_env(name)
+        assert isinstance(env, te.FakeImageEnv)
+        assert env.reset().shape == (3, 32, 32) and env.action_space.n == 4
+        return
     with pytest.raises(ValueError, match="unknown env"):
         te.make_env(name)
 

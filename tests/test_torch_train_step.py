@@ -197,16 +197,21 @@ def test_fused_ce_backward_matches_jax(dtype):
 
 def test_decay_mask_decays_what_jax_decays():
     """The JAX mask (rank >= 2 of the scan-stacked leaves) carried onto the
-    port's names through the weight bridge: every parameter is decayed,
-    as in the JAX package, biases and LayerNorms included."""
+    port's names through the weight bridge: every parameter of the trunk
+    is decayed, as in the JAX package, biases and LayerNorms included. The
+    tree has no vision subtree (an RL-only init); the vision tower's names
+    are held to JAX's mask in tests/test_torch_vision.py."""
     cfg, _, params, pnp = jax_tiny()
     jmask = jax.tree.map(
         lambda p: np.full(p.shape, float(np.ndim(p) >= 2), np.float32), pnp)
     sd, _ = state_dict_from_jax(jmask, tcfg.db1_tiny())
     model = port_model(pnp)
     mask = tstep.decay_mask(model)
-    assert mask and all(mask.values())
-    for name, decayed in mask.items():
+    trunk = {n: d for n, d in mask.items()
+             if not n.startswith("vision_encoder.")}
+    assert len(mask) - len(trunk) == 14 and set(trunk) <= set(sd)
+    assert trunk and all(trunk.values())
+    for name, decayed in trunk.items():
         assert bool(sd[name].all()) == decayed, name
 
 
@@ -281,14 +286,18 @@ def test_train_step_matches_jax(seq, impl, opt):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     batch = _port_batch(nb)
     # gradients of the first step, averaged over the two micro-batches
-    params = list(model.parameters())
+    # the vision tower takes no part in an RL batch (and the JAX tree,
+    # initialised on one, has no vision subtree)
+    named = [(n, p) for n, p in model.named_parameters()
+             if not n.startswith("vision_encoder.")]
+    params = [p for _, p in named]
     grads = [torch.zeros_like(p) for p in params]
     for a in range(2):
         _, loss = model(tstep.micro_batch(batch, a), deterministic=False,
                         loss_only=True, generator=torch.Generator())
         for s, g in zip(grads, torch.autograd.grad(loss, params)):
             s.add_(g / 2)
-    by_name = dict(zip([n for n, _ in model.named_parameters()], grads))
+    by_name = dict(zip([n for n, _ in named], grads))
     j_sd, _ = state_dict_from_jax(j_grads, pcfg)
     for name, g in by_name.items():
         ref = j_sd[name].numpy()
@@ -313,11 +322,48 @@ def test_train_step_matches_jax(seq, impl, opt):
     j_after, _ = state_dict_from_jax(j_params, pcfg)
     after = model.state_dict()
     for name, p in after.items():
+        if name.startswith("vision_encoder."):
+            # no gradient reached it: the optimizer skipped it
+            assert torch.equal(p, before[name]), name
+            continue
         if name == "pos_emb.inv_freq":
             continue
         dp, dj = p - before[name], j_after[name] - before[name]
         assert float((dp - dj).abs().max()) <= PARAM_ATOL, name
         assert float((dp - dj).norm()) <= UPDATE_RTOL * float(dj.norm()), name
+
+
+@pytest.mark.parametrize("left_out", [(), ("h.1.",)])
+def test_only_the_vision_tower_may_go_without_a_gradient(left_out):
+    """A loss that reaches every parameter but the vision tower steps
+    (accum 2), the tower's values unchanged and every other moved; one that also leaves out
+    a trunk layer raises, naming that layer's parameters."""
+    _, _, _, pnp = jax_tiny()
+    model = port_model(pnp, **_NO_DROP)
+    skip = ("vision_encoder.",) + left_out
+    z = torch.zeros(2, 1, 8, dtype=torch.int64)
+    batch = {"rl": TBatch(tokens=z, position_id=z, loss_mask=z.float(),
+                          label=z)}
+
+    def loss_fn(micro, generator):
+        return sum((p.float().square() + p.float()).sum()
+                   for n, p in model.named_parameters()
+                   if not n.startswith(skip))
+
+    state = tstep.init_train_state(
+        model, tcfg.OptimizerConfig(lr=1e-4, lr_warmup_iters=1), 20)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = tstep.make_train_step(model, loss_fn=loss_fn)
+    if left_out:
+        with pytest.raises(RuntimeError, match="h.1."):
+            step(state, batch, torch.Generator())
+        return
+    for _ in range(2):     # the warmup's first lr is 0
+        state, _ = step(state, batch, torch.Generator())
+    assert state.step == 2
+    for n, p in model.named_parameters():
+        moved = not torch.equal(p, before[n])
+        assert moved != n.startswith("vision_encoder."), n
 
 
 # ---- samplers, loader, trainer ---------------------------------------------

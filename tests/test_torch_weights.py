@@ -43,8 +43,13 @@ def test_load_strict_and_read_back(tiny):
     _, _, _, pnp = tiny
     pcfg = port_config.db1_tiny(dtype="float32")
     model = TransformerXL(pcfg.model, pcfg.vocab, device="cpu")
-    assert load_jax_params(model, pnp) == []
+    init = {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("vision_encoder.")}
+    # the tree was initialised on RL batches: no vision subtree, so the
+    # port's tower keeps its init and the loader names it
+    assert load_jax_params(model, pnp) == sorted(init) and len(init) == 14
     sd = model.state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in init.items())
     np.testing.assert_array_equal(
         sd["h.1.dec_attn.qkv_net.weight"].numpy(),
         pnp["layers"]["attn"]["qkv_net"]["kernel"][1].T)
@@ -55,10 +60,14 @@ def test_load_strict_and_read_back(tiny):
 
 
 def test_vision_leaves_are_skipped_by_name():
-    """A tree with the vision tower: every vision leaf is named as skipped,
-    every other leaf is consumed, and the load stays strict."""
+    """A tree with the vision tower (initialised on an image-RL batch): no
+    leaf is skipped; the state dict has invert_state_dict's names and
+    values (conv kernels HWIO -> OIHW); it loads with strict=True; and the
+    port's state dict goes back through the JAX package's
+    ``convert_state_dict`` to the same leaves."""
     from bdm_db1_tpu.core.config import db1_tiny
     from bdm_db1_tpu.models.transformer_xl import TransformerXL as JaxTXL
+    from bdm_db1_tpu.train.convert import convert_state_dict
 
     cfg = db1_tiny()
     cfg.model.dtype = "float32"
@@ -70,16 +79,27 @@ def test_vision_leaves_are_skipped_by_name():
         label=jnp.abs(tok),
         images=jnp.zeros((1, 1, hw, hw, 3), jnp.float32))})["params"]
     pnp = to_numpy(params)
-    vision_leaves = ["vision/" + "/".join(str(k.key) for k in path)
-                     for path, _ in jax.tree_util.tree_leaves_with_path(
-                         pnp["vision"])]
-    assert vision_leaves
+    assert "vision" in pnp
     pcfg = port_config.db1_tiny(dtype="float32")
-    model = TransformerXL(pcfg.model, pcfg.vocab, device="cpu")
-    assert sorted(load_jax_params(model, pnp)) == sorted(vision_leaves)
     ref = invert_state_dict(params, cfg)
-    sd, _ = state_dict_from_jax(pnp, pcfg)
-    assert set(sd) == {k for k in ref if not k.startswith("vision_encoder.")}
+    sd, skipped = state_dict_from_jax(pnp, pcfg)
+    assert skipped == [] and set(sd) == set(ref)
+    for name in (k for k in ref if k.startswith("vision_encoder.")):
+        np.testing.assert_array_equal(sd[name].numpy(), ref[name],
+                                      err_msg=name)
+    model = TransformerXL(pcfg.model, pcfg.vocab, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    assert load_jax_params(model, pnp) == []
+    back = {k: v.numpy() for k, v in model.state_dict().items()}
+    total = cfg.vocab.layout().total_vocab_size
+    back["word_embedding.weight"] = back["word_embedding.weight"][:total]
+    again = to_numpy(convert_state_dict(back, cfg))
+    flat = jax.tree_util.tree_leaves_with_path
+    want = dict(flat(pnp["vision"]))
+    got = dict(flat(again["vision"]))
+    assert got.keys() == want.keys() and len(want) == 14
+    for path, leaf in want.items():
+        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
 
 
 def test_unknown_leaves_raise(tiny):

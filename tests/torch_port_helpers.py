@@ -20,28 +20,40 @@ from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL as PortTXL
 from bdm_db1_tpu_torch.train.convert import load_jax_params
 
 
-def jax_tiny(decode_flash: str = "off", seed: int = 0, **model_overrides):
+def jax_tiny(decode_flash: str = "off", seed: int = 0, vision: bool = False,
+             **model_overrides):
     """db1_tiny in f32: (cfg, model, params, params as numpy). The params
-    are the unquantized ones whatever ``decode_weight_dtype`` says."""
+    are the unquantized ones whatever ``decode_weight_dtype`` says; with
+    ``vision`` the model was initialised on an image-RL batch, so the tree
+    has the vision subtree."""
     cfg = db1_tiny()
     cfg.model.dtype = "float32"
     cfg.model.decode_flash = decode_flash
     for key, val in model_overrides.items():
         setattr(cfg.model, key, val)
-    params, pnp = _tiny_params(seed)
+    params, pnp = _tiny_params(seed, vision)
     return cfg, JaxTXL(cfg.model, cfg.vocab, cfg.vision), params, pnp
 
 
 @functools.lru_cache(maxsize=None)
-def _tiny_params(seed: int):
+def _tiny_params(seed: int, vision: bool = False):
     """One init per seed for every test file of a process (the weights do
     not depend on the decode switches)."""
     cfg = db1_tiny()
     cfg.model.dtype = "float32"
     model = JaxTXL(cfg.model, cfg.vocab, cfg.vision)
     tok = jnp.zeros((1, cfg.model.n_position), jnp.int32)
-    params = model.init(jax.random.PRNGKey(seed), {"rl": RLTaskBatch(
-        tokens=tok, position_id=tok, loss_mask=tok, label=tok)})["params"]
+    if not vision:
+        params = model.init(jax.random.PRNGKey(seed), {"rl": RLTaskBatch(
+            tokens=tok, position_id=tok, loss_mask=tok, label=tok)})["params"]
+        return params, to_numpy(params)
+    tok = tok.at[0, 0].set(-1)
+    hw = 2 * cfg.vision.patch_size
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed), {
+        "rl": RLTaskBatch(tokens=tok, position_id=jnp.abs(tok),
+                          loss_mask=jnp.abs(tok), label=jnp.abs(tok),
+                          images=jnp.zeros((1, 1, hw, hw, 3), jnp.float32))
+    })["params"]
     return params, to_numpy(params)
 
 
