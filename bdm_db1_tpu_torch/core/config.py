@@ -226,13 +226,15 @@ class EvalConfig:
     batched: bool = True
     batch_size: int = 24
     interleave: int = 2
-    # fields of eval entry points that later slices port
+    # pretrain's in-training caption and VQA metrics (eval/evaluate_ic.py,
+    # eval/evaluate_vqa.py): samples per valid set (0: off), batch
     ic_vqa_num_samples: int = 64
     ic_vqa_batch_size: int = 8
     baselines_path: Optional[str] = None
     score_threshold: float = 0.5
     sharded_decode: bool = False
-    # geometry-bucket padding: not ported yet (raises NotImplementedError)
+    # geometry buckets: evaluate_rl pads primes to DEFAULT_OBS_BUCKETS
+    # widths (eval/decode.py)
     decode_obs_buckets: bool = True
 
 

@@ -13,10 +13,17 @@ however the token stream is cut into forwards). The per-dim loop is a
 Python loop whose tokens stay on the device; only the finished
 ``[B, action_length]`` block is read back, by the caller.
 
+With ``pad_buckets`` (geometry buckets: ``"default"`` is
+``DEFAULT_OBS_BUCKETS``) a one-slice prime, or the last slice of a chunked
+prime, is padded up to the smallest bucket width that holds it with
+query-only rows (token 0, position id 0) that the ring forward never
+commits (``decode_rl_kv_ring(real_q=...)``), so envs whose observation
+lengths differ share one positional projection per bucket width, and the
+prime kernel sees a few fixed widths. The chains equal the unpadded ones.
+
 With ``decode_weight_dtype`` "int8"/"int8a8", :func:`build_decoder_for_env`
 (and so :class:`DecoderPool`) quantizes the model's trunk weights once, as
-the JAX package's does. Speculative decode and geometry buckets are not
-ported yet.
+the JAX package's does. Speculative decode is not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +79,18 @@ def fold_env_mask_bias(base_bias: np.ndarray, layout: VocabLayout,
     return bias
 
 
+DEFAULT_OBS_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _bucket_for(width: int, buckets) -> Optional[int]:
+    """Smallest bucket >= width (None: beyond the ladder, the prime keeps
+    its exact width)."""
+    for b in buckets:
+        if b >= width:
+            return b
+    return None
+
+
 def _prime_chunk(model_cfg) -> int:
     """Most tokens per ring prime slice (also bounds q <= mem_len)."""
     return min(256, model_cfg.mem_len)
@@ -79,14 +98,27 @@ def _prime_chunk(model_cfg) -> int:
 
 class RkCache:
     """Positional projections per prime width, shared by the decoders of a
-    :class:`DecoderPool` (a function of the model and the width only)."""
+    :class:`DecoderPool` (a function of the model and the width only). The
+    q == 1 projection, which every action token after the first takes, is
+    held apart from the LRU of ``cap`` prime widths, so no mix of widths
+    (the ten bucket widths, the 256-token slices, a chunked prime's last
+    slice) ages it out."""
 
     def __init__(self, model, cap: int = 8):
         self.model = model
         self._lru = _LRU(cap)
+        self._step = None
 
     def get(self, qlen: int) -> torch.Tensor:
+        if qlen == 1:
+            if self._step is None:
+                self._step = self.model.precompute_rk(1)
+            return self._step
         return self._lru.get(qlen, lambda: self.model.precompute_rk(qlen))
+
+    def widths(self) -> List[int]:
+        """The widths held, q == 1 first when it is."""
+        return [1] * (self._step is not None) + list(self._lru._d)
 
 
 class ActionDecoder:
@@ -104,8 +136,6 @@ class ActionDecoder:
         pad_buckets=None,
     ):
         cfg = model.cfg
-        if pad_buckets:
-            raise NotImplementedError("geometry buckets are not ported yet")
         if not discrete_action and action_length > 1 and (
                 cfg.decode_speculative or cfg.decode_spec_adaptive):
             raise NotImplementedError("speculative decode is not ported yet")
@@ -127,6 +157,12 @@ class ActionDecoder:
         # deferring the last action token into the next prime is exact
         # only under same_length ring attention
         self.defers = bool(cfg.same_length)
+        # geometry buckets: exact only where chunking is (same_length ring
+        # attention), as in the JAX package
+        if pad_buckets == "default":
+            pad_buckets = DEFAULT_OBS_BUCKETS
+        self.pad_buckets = (tuple(sorted(pad_buckets))
+                            if pad_buckets and cfg.same_length else None)
         self._rk = rk_cache if rk_cache is not None else RkCache(model)
         self._bias_dev_cache = _LRU(8)
         self._pos_cache = _LRU(16)
@@ -181,6 +217,29 @@ class ActionDecoder:
                 if frames is not None:
                     frames = (0,) + tuple(frames)
         return sizes, frames
+
+    def prime_plan(self, q: int, lead: int, n_frames: Optional[int] = None
+                   ) -> Tuple[List[int], Optional[Tuple[int, ...]],
+                              Optional[int]]:
+        """The ring calls of a q-token prime as :meth:`chunk_plan` cuts it,
+        with the geometry-bucket padding: (the widths of the calls, frames
+        per call or None, the real rows of the last call or None when it is
+        not padded). The one slice, or a chunked prime's last slice, of t
+        tokens is padded to ``_bucket_for(t)`` when t < that width <=
+        min(slice budget, mem_len); a one-slice prime longer than mem_len
+        (the realigned prime) is not."""
+        sizes, frames = self.chunk_plan(q, lead, n_frames)
+        one = sizes is None
+        widths = [q] if one else list(sizes)
+        real_last = None
+        M = self.model.cfg.mem_len
+        if self.pad_buckets is not None and (not one or q <= M):
+            t = widths[-1]
+            w = _bucket_for(t, self.pad_buckets)
+            if w is not None and t < w <= min(_prime_chunk(self.model.cfg),
+                                              M):
+                widths[-1], real_last = w, t
+        return widths, frames, real_last
 
     def _image_chunk_plan(self, q: int, n_frames: int):
         """Transition-aligned slices of an image prime [T whole transitions
@@ -249,8 +308,13 @@ class ActionDecoder:
         # [B, H, q, M+q] score buffers of a ~1000-token expert prompt are
         # what would not fit at large batch; a deferred lead token rides in
         # the first slice
-        sizes, frame_splits = self.chunk_plan(
+        # the last (or only) slice may be padded to its bucket width with
+        # query-only rows: token 0, position id 0
+        sizes, frame_splits, real_last = self.prime_plan(
             q, lead, None if prime_images is None else prime_images.shape[1])
+        pad_n = 0 if real_last is None else sizes[-1] - real_last
+        if pad_n:
+            prime_tokens = np.pad(prime_tokens, ((0, 0), (0, pad_n)))
         dev = self.device
 
         def _make_pos():
@@ -258,10 +322,11 @@ class ActionDecoder:
                 q - lead, self.obs_length, self.action_length, 0)
             if lead:  # deferred action tokens carry the action slot id 0
                 p = np.concatenate([np.zeros(lead, p.dtype), p])
+            p = np.concatenate([p, np.zeros(pad_n, p.dtype)])
             return torch.as_tensor(
-                np.broadcast_to(p[None], (b, q)).copy(), device=dev)
+                np.broadcast_to(p[None], (b, q + pad_n)).copy(), device=dev)
 
-        pos = self._pos_cache.get((b, q, lead), _make_pos)
+        pos = self._pos_cache.get((b, q, lead, pad_n), _make_pos)
         bias = self._bias_dev_cache.get(b, lambda: torch.as_tensor(
             np.broadcast_to(self._base_bias,
                             (b,) + self._base_bias.shape).copy(),
@@ -275,21 +340,22 @@ class ActionDecoder:
         tokens = torch.as_tensor(prime_tokens, dtype=torch.int64, device=dev)
         images = (None if prime_images is None else torch.as_tensor(
             np.asarray(prime_images, np.float32), device=dev))
-        rk_chunks = ([self._rk.get(s) for s in sizes] if sizes is not None
-                     else [self._rk.get(q)])
+        rk_chunks = [self._rk.get(s) for s in sizes]
         return _decode_step(self.model, self.action_length, tokens, pos,
                             mems, bias, rk_chunks, self._rk.get(1),
-                            defer_last, images, frame_splits)
+                            defer_last, images, frame_splits, real_last)
 
 
 def _decode_step(model, action_length: int, tokens: torch.Tensor,
                  pos: torch.Tensor, mems, bias: torch.Tensor,
                  rk_chunks, rk_step: torch.Tensor,
-                 defer_last: bool = False, images=None, frame_splits=None):
+                 defer_last: bool = False, images=None, frame_splits=None,
+                 real_last: Optional[int] = None):
     """Prime forward (one ring call per slice, slice ci taking
     ``frame_splits[ci]`` frames of ``images`` [B, T, H, W, C]) + the
     per-dim loop. tokens/pos [B, q]; bias [B, V]; returns ([B,
-    action_length], mems). A one-slice prime longer than mem_len (an image
+    action_length], mems). ``real_last`` is the real rows of the last
+    slice when it is padded to its bucket width. A one-slice prime longer than mem_len (an image
     prime off the transition grid, or no same_length chunking) cannot
     scatter into the ring in one call: the ring is rotated to age order,
     the prime runs over the aligned cache (``decode_rl_kv``; an int8 cache
@@ -303,6 +369,7 @@ def _decode_step(model, action_length: int, tokens: torch.Tensor,
                                       images)
     else:
         start = f0 = 0
+        last = len(rk_chunks) - 1
         for ci, rk_c in enumerate(rk_chunks):
             size = rk_c.shape[1] - M
             img_c = images
@@ -312,7 +379,8 @@ def _decode_step(model, action_length: int, tokens: torch.Tensor,
                 f0 += nf
             logits, mems = model.decode_rl_kv_ring(
                 tokens[:, start:start + size], pos[:, start:start + size],
-                mems, rk_c, img_c)
+                mems, rk_c, img_c,
+                real_q=real_last if ci == last else None)
             start += size
     tok = torch.argmax(logits + bias, dim=-1)
     acts = [tok]
@@ -352,11 +420,14 @@ def _prime_aligned(model, tokens, pos, mems, rk, images):
 
 class DecoderPool:
     """Shares decoders, and one positional-projection cache, across envs
-    with the same decode geometry."""
+    with the same decode geometry. With ``pad_buckets`` (``"default"`` or
+    a ladder of widths) every decoder pads its primes to bucket widths, so
+    envs of different observation lengths share one projection a bucket."""
 
-    def __init__(self, model):
+    def __init__(self, model, pad_buckets=None):
         self.model = model
         self.rk_cache = RkCache(model)
+        self.pad_buckets = pad_buckets
         self._cache = {}
 
     def get(self, tokenized_env) -> ActionDecoder:
@@ -365,7 +436,8 @@ class DecoderPool:
         key = decode_geometry(tokenized_env)
         if key not in self._cache:
             self._cache[key] = build_decoder_for_env(
-                self.model, tokenized_env, rk_cache=self.rk_cache)
+                self.model, tokenized_env, rk_cache=self.rk_cache,
+                pad_buckets=self.pad_buckets)
         return self._cache[key]
 
 
@@ -377,8 +449,8 @@ def _maybe_quantize_weights(model) -> None:
         model.quantize_decode_weights()
 
 
-def build_decoder_for_env(model, tokenized_env,
-                          rk_cache=None) -> ActionDecoder:
+def build_decoder_for_env(model, tokenized_env, rk_cache=None,
+                          pad_buckets=None) -> ActionDecoder:
     _maybe_quantize_weights(model)
     discrete = is_discrete_space(tokenized_env.action_space)
     return ActionDecoder(
@@ -389,4 +461,5 @@ def build_decoder_for_env(model, tokenized_env,
         discrete_action=discrete,
         num_actions=tokenized_env.action_space.n if discrete else None,
         rk_cache=rk_cache,
+        pad_buckets=pad_buckets,
     )

@@ -5,12 +5,13 @@ Usage, on the card:
 
     python -m bdm_db1_tpu_torch.eval.evaluate_rl --config cfg.json \
         --eval.env-names halfcheetah-medium-v2 ... \
-        --eval.decode-obs-buckets false \
         --train.load-dir /ckpts --train.ckpt-tag db1_870task_checkpoint
 
 Builds the model on the device, loads its weights (:func:`load_params`),
 shards the env list across processes, evaluates each env (the batched
-lockstep decoder, or one episode at a time with ``eval.batched`` false)
+lockstep decoder, or one episode at a time with ``eval.batched`` false;
+primes padded to geometry-bucket widths with ``eval.decode_obs_buckets``,
+the default)
 and writes one JSON record per env to ``<train.save_dir>/results.output``,
 then, with ``eval.baselines_path``, the suite summary.
 
@@ -20,8 +21,7 @@ DeepSpeed ``model_states.pt`` with the JAX package's
 ``train.load_dir``/``train.ckpt_tag`` at that.
 
 Not ported (``NotImplementedError``, ROADMAP queue 1): ``eval.sharded_decode``
-and ``mesh.multihost`` True (item 9, parallelism) and
-``eval.decode_obs_buckets`` True (item 7, geometry buckets).
+and ``mesh.multihost`` True (item 9, parallelism).
 """
 
 from __future__ import annotations
@@ -97,10 +97,6 @@ def _check_supported(cfg: DB1Config) -> None:
         raise NotImplementedError(
             "sharded decode and multi-host runs are not ported yet "
             "(ROADMAP queue 1 item 9, parallelism)")
-    if cfg.eval.decode_obs_buckets:
-        raise NotImplementedError(
-            "geometry-bucket padding is not ported yet (ROADMAP queue 1 "
-            "item 7); pass --eval.decode-obs-buckets false")
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
@@ -147,7 +143,8 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
             env, ds_cache[name],
             eval_prompt_strategy=cfg.eval.prompt_strategy.split(";")[-1])
 
-    pool = DecoderPool(model)
+    pool = DecoderPool(model, pad_buckets=(
+        "default" if cfg.eval.decode_obs_buckets else None))
     results = []
     out_path = None
     if cfg.train.save_dir:

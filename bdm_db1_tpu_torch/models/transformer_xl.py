@@ -47,9 +47,15 @@ frames (``embed_rl``); captioning and VQA rows are ``[prompt | patches |
 text]`` (``embed_ic``/``embed_vqa``). In training the patch positions are
 drawn from the training generator.
 
+Geometry buckets: ``decode_rl_kv_ring(real_q=...)`` takes a prime padded
+with query-only rows and commits the real rows only. Captioning, VQA and
+text generation fold their prefix in over the aligned cache
+(``prime_ic_kv``, or ``decode_text_kv`` on a long prompt: the trunk's
+route, K3 on the card) and then take one ring step a token
+(``decode_text_kv``: K1 on the card).
+
 Not ported yet (raise ``NotImplementedError``): rematerialization
-(``remat``), pre-LN models, the speculative tail and geometry-bucket
-padding.
+(``remat``), pre-LN models and the speculative tail.
 """
 
 from __future__ import annotations
@@ -813,48 +819,69 @@ class TransformerXL(nn.Module):
     @torch.no_grad()
     def decode_rl_kv_ring(self, tokens: Tensor, position_id: Tensor,
                           cache: RingCache, rk_full: Tensor,
-                          images=None, spec_tail: int = 0, real_q=None
+                          images=None, spec_tail: int = 0,
+                          real_q: Optional[int] = None
                           ) -> Tuple[Tensor, RingCache]:
-        """One forward of ``q <= mem_len`` tokens [B, q] over the ring
-        cache; returns (last-position logits [B, V] f32, the cache with the
-        q new K/V rows written at the cursor and the cursor advanced). The
-        cache tensors are updated in place; an int8 cache stores the rows
-        quantized, with their scales. ``images`` [B, T, H, W, C] fill the
-        prime's -1 slots."""
-        if spec_tail or real_q is not None:
+        """One forward of ``q <= mem_len`` RL tokens [B, q] over the ring
+        cache; returns (logits [B, V] f32 at the last real token, the cache
+        with the real rows' K/V written at the cursor and the cursor
+        advanced past them). ``images`` [B, T, H, W, C] fill the prime's -1
+        slots. ``real_q`` (a host int, geometry buckets) marks the first
+        ``real_q`` rows as the real tokens and the rest as query-only pads:
+        see :meth:`ring_forward`."""
+        if spec_tail:
             raise NotImplementedError(
-                "speculative tails and geometry buckets are not ported yet")
+                "speculative tails are not ported yet (ROADMAP queue 1 "
+                "item 6)")
+        return self.ring_forward(self.embed_rl(tokens, position_id, images),
+                                 cache, rk_full, real_q)
+
+    def ring_forward(self, h: Tensor, cache: RingCache, rk_full: Tensor,
+                     real_q: Optional[int] = None
+                     ) -> Tuple[Tensor, RingCache]:
+        """Every layer over the ring cache for embedded tokens h [B, q, D]
+        (q <= mem_len; rk_full [n_layer, M+q, H, Dh]). The cache tensors
+        are updated in place; an int8 cache stores the rows quantized, with
+        their scales. With ``real_q`` only the first ``real_q`` rows are
+        written, at (cursor + t) % M, the logits come from row real_q - 1
+        and the cursor advances by real_q: the pad rows after them attend
+        but are never committed, so the slots they would take (the oldest
+        rows, which the next forward still attends) keep their values. The
+        real rows come first and the attention is causal, so they never see
+        the pads, and the masks are row-index arithmetic: the real rows'
+        outputs equal an unpadded forward's."""
         cfg = self.cfg
         M = cfg.mem_len
-        qlen = tokens.shape[1]
+        qlen = h.shape[1]
         if qlen > M:
             raise ValueError(f"a ring forward takes q <= mem_len ({M}), "
                              f"got {qlen}")
+        n = qlen if real_q is None else int(real_q)
+        if not 1 <= n <= qlen:
+            raise ValueError(f"real_q={real_q} outside 1..{qlen}")
         cursor = int(cache["cursor"])
         dev = cache["k"].device
-        h = self.embed_rl(tokens, position_id, images)
         mask, mask_s = self.ring_masks(qlen, cursor, dev)
         use_kernels = self.use_kernels(qlen, cache)
         quantized = "k_scale" in cache
-        idx = (None if qlen == 1 else
-               (torch.arange(qlen, device=dev) + cursor) % M)
+        idx = None if n == 1 else (torch.arange(n, device=dev) + cursor) % M
         for li, layer in enumerate(self.h):
             h, k_x, v_x = layer.forward_ring(
                 h, rk_full[li], cache, li, mask, mask_s, use_kernels)
-            rows = {"k": k_x, "v": v_x}
+            rows = {"k": k_x[:, :n], "v": v_x[:, :n]}
             if quantized:
                 for key in ("k", "v"):
                     rows[key], rows[key + "_scale"] = quantize_kv_rows(
                         rows[key])
-            # write the q new rows at (cursor + t) % M: a q == 1 write never
-            # wraps and is a slice assignment
+            # write the n real rows at (cursor + t) % M: a one-row write
+            # never wraps and is a slice assignment
             for key, new in rows.items():
-                if qlen == 1:
+                if n == 1:
                     cache[key][li, :, cursor] = new[:, 0]
                 else:
                     cache[key][li].index_copy_(1, idx, new)
-        logits = self.logits(h[:, -1])
-        return logits, {**cache, "cursor": (cursor + qlen) % M}
+        logits = self.logits(h[:, n - 1])
+        return logits, {**cache, "cursor": (cursor + n) % M}
 
     def align_ring_cache(self, cache: RingCache) -> RingCache:
         """The ring rotated back to age order (oldest at slot 0), cursor 0,
@@ -864,23 +891,43 @@ class TransformerXL(nn.Module):
                if k != "cursor"}
         return {**out, "cursor": 0}
 
+    def init_kv_cache(self, batch_size: int) -> RingCache:
+        """Zero aligned K/V cache [n_layer, B, mem_len, H, Dh] in the
+        compute dtype, cursor 0 (whatever ``decode_cache_dtype`` says, as
+        the JAX package's ``init_kv_cache``): the cache of the caption, VQA
+        and text generators. Read as a ring it is at cursor 0."""
+        cfg = self.cfg
+        shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "cursor": 0}
+
     @torch.no_grad()
     def decode_rl_kv(self, tokens: Tensor, position_id: Tensor,
                      cache: RingCache, rk: Tensor, images=None
                      ) -> Tuple[Tensor, RingCache]:
-        """One forward of any q tokens over an aligned K/V cache (cursor
+        """One forward of any q RL tokens over an aligned K/V cache (cursor
         0, oldest first, in the compute dtype): the JAX package's
         ``decode_rl_kv``, taken by a prime longer than mem_len that the
-        ring cannot scatter in one call. rk [n_layer, M+q, H, Dh]. Each
-        layer attends over [cache || new rows] by the trunk's route
-        (:func:`use_rel_kernel`: K3 on the card), and its cache becomes the
-        trailing mem_len rows of them. Returns (last-position logits [B, V]
-        f32, the new aligned cache, cursor 0)."""
+        ring cannot scatter in one call. See :meth:`kv_forward`."""
+        return self.kv_forward(self.embed_rl(tokens, position_id, images),
+                               cache, rk)
+
+    def kv_forward(self, h: Tensor, cache: RingCache,
+                   rk: Optional[Tensor] = None) -> Tuple[Tensor, RingCache]:
+        """Every layer over an aligned K/V cache for embedded tokens h [B,
+        q, D], any q: the JAX package's ``trunk_kv``. rk [n_layer, M+q, H,
+        Dh] (made here when None). Each layer attends over [cache || new
+        rows] by the trunk's route (:func:`use_rel_kernel`: K3 on the
+        card), and its cache becomes the trailing mem_len rows of them.
+        Returns (last-position logits [B, V] f32, the new aligned cache,
+        cursor 0)."""
         cfg = self.cfg
         M = cfg.mem_len
-        qlen = tokens.shape[1]
+        qlen = h.shape[1]
         klen = cache["k"].shape[2] + qlen
-        h = self.embed_rl(tokens, position_id, images)
+        if rk is None:
+            rk = self.precompute_rk(qlen)
         dev = h.device
         mask = (same_length_mask(qlen, klen, M, device=dev)
                 if cfg.same_length else causal_mask(qlen, klen, device=dev))
@@ -895,3 +942,41 @@ class TransformerXL(nn.Module):
         return (self.logits(h[:, -1]),
                 {"k": torch.stack(new["k"]), "v": torch.stack(new["v"]),
                  "cursor": 0})
+
+    def _aligned(self, cache: RingCache) -> RingCache:
+        if "k_scale" in cache:
+            raise ValueError("the text and caption generators take the "
+                             "compute-dtype cache of init_kv_cache, not an "
+                             "int8 ring")
+        return self.align_ring_cache(cache) if int(cache["cursor"]) else cache
+
+    @torch.no_grad()
+    def prime_ic_kv(self, prompt: Tensor, images: Tensor, text: Tensor,
+                    cache: RingCache, rk: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, RingCache]:
+        """Fold a [prompt | image patches | text] prefix (prompt [B, P],
+        images [B, H, W, C], text [B, T]) into the K/V cache over the
+        aligned route (K3 on the card): (last-position logits [B, V] f32,
+        the new cache at cursor 0, which :meth:`decode_text_kv` continues
+        as a ring)."""
+        h = self.embed_ic(prompt, images, text, deterministic=True)
+        return self.kv_forward(h, self._aligned(cache), rk)
+
+    @torch.no_grad()
+    def decode_text_kv(self, tokens: Tensor, cache: RingCache,
+                       rk: Optional[Tensor] = None
+                       ) -> Tuple[Tensor, RingCache]:
+        """Text tokens [B, q] (the word embedding alone, no timestep term)
+        over the K/V cache: (last-position logits [B, V] f32, the new
+        cache). rk [n_layer, M+q, H, Dh] (made here when None). Up to
+        ``MAX_PRIME_Q`` tokens take the ring (K1 at q == 1, K2 above, on
+        the card): the cache keeps exactly M rows, so a ring forward sees
+        the keys that the JAX package's ``trunk_kv`` over [cache || new]
+        sees, and writing over the oldest rows leaves its trailing M. A
+        longer prompt takes the aligned route (K3 on the card)."""
+        h = self.embed_nlp(tokens)
+        if rk is None:
+            rk = self.precompute_rk(tokens.shape[1])
+        if tokens.shape[1] <= min(MAX_PRIME_Q, self.cfg.mem_len):
+            return self.ring_forward(h, cache, rk)
+        return self.kv_forward(h, self._aligned(cache), rk)

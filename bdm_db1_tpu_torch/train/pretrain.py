@@ -16,12 +16,12 @@ creators, COCO captions and VQA v2 through the "ic" and "vqa" creators of
 data/vit_dataset.py, prefix "<image root>:<annotation json>[:<question
 json>]") -> blended mixture -> per-modality groups -> stratified loader
 -> model, optimizer and train step on the device -> ``Trainer`` (logging,
-the eval hook: validation loss and RL rollouts, checkpoints with resume).
+the eval hook: validation loss, RL rollouts and, with
+``eval.ic_vqa_num_samples`` > 0, the caption and VQA metrics on the
+unblended valid splits; checkpoints with resume).
 
 Not ported (``NotImplementedError``): more than one card (model, pipeline
-or data parallel, multi-host; ROADMAP queue 1 item 9) and the in-training
-caption and VQA metrics (``eval.ic_vqa_num_samples > 0`` with an "ic" or
-"vqa" entry in the mixture; item 8).
+or data parallel, multi-host; ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ from bdm_db1_tpu_torch.data.vit_dataset import (
     make_ic_creator, make_vqa_creator,
 )
 from bdm_db1_tpu_torch.eval.envs import make_env
+from bdm_db1_tpu_torch.eval.evaluate_ic import evaluate_ic
+from bdm_db1_tpu_torch.eval.evaluate_vqa import evaluate_vqa
 from bdm_db1_tpu_torch.eval.harness import evaluate_env
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
@@ -143,12 +145,6 @@ def _check_supported(cfg: DB1Config) -> None:
             "the port's pretraining runs on one card: model, pipeline and "
             "data parallelism and multi-host runs are not ported yet "
             "(ROADMAP queue 1 item 9, parallelism)")
-    _, _, types = get_datasets_weights_and_types(cfg.data.data_path)
-    if {"ic", "vqa"} & set(types) and cfg.eval.ic_vqa_num_samples > 0:
-        raise NotImplementedError(
-            "the in-training caption and VQA metrics "
-            "(eval.ic_vqa_num_samples > 0) are not ported yet (ROADMAP "
-            "queue 1 item 8); set eval.ic_vqa_num_samples 0")
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
@@ -184,7 +180,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         register_creator("vqa", make_vqa_creator(**kw))
 
     n_train = cfg.train.train_iters * cfg.train.global_batch_size
-    train_ds, valid_ds, _, _ = build_train_valid_test_datasets(
+    train_ds, valid_ds, _, valid_no_blend = build_train_valid_test_datasets(
         cfg.data.data_path, cfg.data.split, cfg.data.seq_length,
         (n_train, cfg.train.eval_iters * cfg.train.global_batch_size, 0),
         cfg.train.seed, cfg.train.global_batch_size,
@@ -208,8 +204,16 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         print_rank_0(f"model parameters: {n_params:,}")
 
         def eval_fn(state, iteration):
-            """The validation loss over ``train.eval_iters`` batches and RL
-            rollouts of ``eval.env_names`` on the training weights."""
+            """The validation loss over ``train.eval_iters`` batches, RL
+            rollouts of ``eval.env_names`` and the caption and VQA metrics
+            on the training weights, the model in eval mode meanwhile."""
+            state.model.eval()
+            try:
+                return _eval(state)
+            finally:
+                state.model.train()
+
+        def _eval(state):
             out = {}
             if valid_ds is not None:
                 vd, vw = group_by_modality(valid_ds)
@@ -235,6 +239,26 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
                         max_step_size=cfg.eval.max_step_size)
                     out[f"return/{name}"] = res["return_mean"]
                     out[f"length/{name}"] = res["length_mean"]
+            # the in-training caption and VQA metrics on the unblended
+            # valid splits (reference: train.py:24-25, 173-207)
+            n_icvqa = cfg.eval.ic_vqa_num_samples
+            if n_icvqa and valid_no_blend and process_index() == 0:
+                layout = cfg.vocab.layout()
+                eos = tok.text_tokenizer.eos_token_id
+                for i, ds in enumerate(valid_no_blend.get("ic", [])):
+                    metrics = evaluate_ic(
+                        state.model, ds, layout, eos, num_samples=n_icvqa,
+                        batch_size=cfg.eval.ic_vqa_batch_size)
+                    for k, v in metrics.items():
+                        out[f"ic{i}/{k}"] = v
+                for i, ds in enumerate(valid_no_blend.get("vqa", [])):
+                    metrics = evaluate_vqa(
+                        state.model, ds, layout, eos,
+                        text_tokenizer=tok.text_tokenizer,
+                        num_samples=n_icvqa,
+                        batch_size=cfg.eval.ic_vqa_batch_size)
+                    for k, v in metrics.items():
+                        out[f"vqa{i}/{k}"] = v
             return out
 
         logger = MetricLogger(cfg.train.save_dir, cfg.train.tensorboard_dir)

@@ -299,8 +299,9 @@ def accum_steps(batch: Dict[str, object]) -> int:
 
 
 # parameters a batch may leave without a gradient: the vision tower, on a
-# batch without images
-UNREACHED_OK = ("vision_encoder.",)
+# batch without images, and the RL timestep embedding, on a batch without
+# RL rows (a text, captioning or VQA mixture)
+UNREACHED_OK = ("vision_encoder.", "rl_local_timestep_embedding.")
 
 
 def make_loss_fn(model: torch.nn.Module) -> Callable:
@@ -318,9 +319,11 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
     metrics {"loss", "step"} (+ "grad_norm", the global norm of the
     averaged gradients). ``batch`` holds [accum, micro, ...] fields. The
     vision tower's parameters, which a batch without images does not
-    reach, keep ``grad`` None and the optimizer skips them (JAX's AdamW
-    sees zero gradients there: it decays and moves them; the port leaves
-    them as they are). Any other parameter the loss does not reach raises."""
+    reach, and the RL timestep embedding, which a batch without RL rows
+    does not reach, keep ``grad`` None and the optimizer skips them (JAX's
+    AdamW sees zero gradients there: it decays and moves them; the port
+    leaves them as they are). Any other parameter the loss does not reach
+    raises."""
     if loss_fn is None:
         loss_fn = make_loss_fn(model)
 

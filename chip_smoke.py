@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,train,evaluate_rl
     python3 chip_smoke.py --phases build,pretrain
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_image
+    python3 chip_smoke.py --phases build,generate
 
 Phases, each printing one JSON line:
 
@@ -21,24 +22,32 @@ Phases, each printing one JSON line:
   and 26 for the primes; a layer index other than 0; untimed, a ragged
   decode and prime at M = 200 (Q 5) and at M = 201 (Q 17 for the prime)
   with more (head, row) pairs than SMs, and K1/K2 at the pretrain
-  rollouts' B 1 with Q 19 and 26), K9 at the four trunk
-  matrices and the four row counts of the int8 serve (56, 1064, 1456,
-  14336: timed, two calls bitwise equal at 56 and 1064 rows) and at 24
+  rollouts' B 1 with Q 19 and 26); timed too: K2/K7 at the bucket widths
+  Q 24 and 32 and K1 at the generators' B 8. K9 at the four trunk
+  matrices and the row counts of the int8 serve (56, 1064, 1344, 1456,
+  14336: timed, two calls bitwise equal at 56, 1064 and 1344 rows) and at 24
   untimed edge shapes (a K split with a shorter last split among them),
   the host time of a K9 call, the W8A8 int32 product against the exact
   one, and K3 (out, m, l) at the validation
   forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
   (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
-  qlen 100, klen 1124); K4 and K5 (the six gradients of the rel-attention
+  qlen 100, klen 1124), the realigned image prime (untimed) and, timed,
+  the caption prime (B 8, qlen 206, klen 1230) and the 64-token text
+  prompt (B 8, klen 1088); K4 and K5 (the six gradients of the rel-attention
   backward) and the preparation's delta at the same three shapes from a
   seeded upstream gradient.
 * ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
   40 lockstep HalfCheetah-geometry envs (17 obs tokens, 6 continuous
   actions) with strict-length expert prompts through the port's
-  ``evaluate_envs_lockstep``; checks the kernels' launch counts against the
-  chunk plan, the action tokens' range, and, layer by layer, the kernel
-  route against the plain ring branch on one prime and one single-token
-  forward; reads how far bf16 moves each layer from an f32 copy.
+  ``evaluate_envs_lockstep`` and a ``DecoderPool`` with the default
+  geometry buckets (the 19-token steady prime padded to 24, the prompt's
+  last slice to its bucket; the widths are printed); checks the kernels'
+  launch counts against the chunk plan, the action tokens' range, and,
+  layer by layer, the kernel route against the plain ring branch on one
+  prime and one single-token forward; reads how far bf16 moves each layer
+  from an f32 copy. Then 8 envs from one cache, padded and unpadded: the
+  first steady prime's logits both ways and the share of equal actions
+  over 4 env steps.
 * ``serve_int8`` — the same at 56 envs with the int8 ring cache and int8
   trunk weights (decode_cache_dtype = decode_weight_dtype = "int8", bf16
   activations, one cohort): K6, K7 and K9 launches against the plan (K9
@@ -73,7 +82,8 @@ Phases, each printing one JSON line:
   float64 sum and raw-bit sum), the step again (L_b == L_a bitwise); reads
   the bytes on disk and the save and restore seconds.
 * ``evaluate_rl`` — needs ``train``: the RL evaluation driver
-  ``evaluate_rl.main`` on the card, serving the train phase's checkpoint
+  ``evaluate_rl.main`` at its default geometry buckets on the card,
+  serving the train phase's checkpoint
   as db1_1p2b in bf16 over two registered HalfCheetah-geometry envs
   (caches written with ``save_cache``), 20 trials each in one lockstep
   cohort of 40, 8 env steps; checks that ``load_params`` reads the port
@@ -105,17 +115,28 @@ Phases, each printing one JSON line:
   25 patches a frame), 0.2 captioning and 0.2 VQA (COCO-format JSONs with
   8 inline 224 x 224 images each: 196 patches, caption budget 829); a row
   of each group a micro-batch, accum 2, 6 iterations, the validation loss
-  at the 6th, the final checkpoint. Checks the groups, K3-K5 launches,
-  finite losses, the checkpoint and that no PIL was imported; then the
+  at the 6th with the default ``eval.ic_vqa_num_samples``: the 8
+  captions and 8 VQA answers of the valid splits (one K3 prime and a K1
+  step a further token each); the final checkpoint. Checks the groups,
+  K3-K5 and K1 launches, finite losses, the caption and VQA metric keys,
+  the checkpoint and that no PIL was imported; then the
   ``train`` phase's gradient route check on an image micro-batch, one
-  warmed step profiled and the vision tower's forward and backward over
-  that step's frames profiled alone (its share of the step).
+  warmed step profiled, the vision tower's forward and backward over
+  that step's frames profiled alone (its share of the step), and the
+  caption generator on the trained model: tokens/sec, launches per prime
+  and per token, and the share of tokens equal to the plain routes'.
 * ``evaluate_rl_image`` — needs ``pretrain_vision``: ``evaluate_rl.main``
   serves its checkpoint in bf16 on ``fake-image-v0`` at 80 x 80, 40
   episodes x 8 steps in one cohort with an expert prompt whose first prime
   ``_image_chunk_plan`` slices; checks the weights read, the serve route
   check on the image geometry (B 40), the records and the K1/K2 launches
-  of the slice plan.
+  of the slice plan (the 27-token steady prime padded to 32).
+* ``generate``   — ``TextGenerator`` at db1_1p2b in bf16 (random weights
+  from a seed): 8 byte-token prompts of 64 tokens, 32 greedy tokens each;
+  checks one K3 launch a layer for the prompt and one K1 launch a layer
+  for each further token, and that every token is a text id; reads the
+  generated tokens/sec and the share of tokens equal to the plain
+  routes' chain.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -183,9 +204,10 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train",
-          "evaluate_rl", "pretrain", "pretrain_vision", "evaluate_rl_image")
+          "evaluate_rl", "pretrain", "pretrain_vision", "evaluate_rl_image",
+          "generate")
 MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl",
-              "pretrain", "pretrain_vision", "evaluate_rl_image")
+              "pretrain", "pretrain_vision", "evaluate_rl_image", "generate")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -451,9 +473,10 @@ def _kernel_case(fro, *, L, B, M, H, Dh, Q, layer, seed, timed, int8=False,
 # the trunk matrices (K, N) of db1_1p2b: qkv_net, o_net, CoreNet.0, .2
 TRUNK = {"qkv_net": (2048, 6144), "o_net": (2048, 2048),
          "CoreNet.0": (2048, 8192), "CoreNet.2": (4096, 2048)}
-# K9's rows in the int8 serve: 56 envs x q = 1, 19 (steady prime), 26
-# (the prompt's tail slice), 256 (a prompt slice)
-QMM_ROWS = (56, 1064, 1456, 14336)
+# K9's rows in the int8 serve: 56 envs x q = 1, 19 (the steady prime
+# before geometry buckets), 24 (its bucket width), 26 (the prompt's tail
+# slice before buckets), 32 (its bucket width), 256 (a prompt slice)
+QMM_ROWS = (56, 1064, 1344, 1456, 1792, 14336)
 # K9's untimed edge shapes: rows around the one-tile limit (64) and past
 # it, ragged N, a K tail of half a step (96, 4128 = 64.5 x 64); 56 x 4128
 # x 2056 splits K 4 ways with a shorter last split
@@ -711,8 +734,8 @@ class OldRelBwd:
 
 def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
     """K9 against its plain version on one weight made by quantize_weight
-    from seeded values, with its plan; at 56 and 1064 rows two calls must
-    agree bit for bit. When timed, its time, bound, plain time and the time
+    from seeded values, with its plan; at 56, 1064 and 1344 rows two calls
+    must agree bit for bit. When timed, its time, bound, plain time and the time
     of F.linear on the pre-dequantized bf16 weight; with ``old``, the old
     kernel and this one timed in turns (new, old, old, new)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -731,7 +754,7 @@ def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
            "plan": {"bn": plan.bn, "bm": plan.bm, "split": plan.split,
                     "kps": plan.kps, "nk": plan.nk, "ctas": plan.ctas},
            "ok": bool(np.isfinite(err) and err <= QMM_REL_TOL * ymax)}
-    if R in (56, 1064):
+    if R in (56, 1064, 1344):
         rec["bitwise_repeat"] = bool(torch.equal(y, qm.quant_matmul(x, w_q,
                                                                     s)))
         rec["ok"] = rec["ok"] and rec["bitwise_repeat"]
@@ -1124,7 +1147,10 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             _kernel_case(fro, Q=None, seed=1, timed=True, old=ring, **full),
             _kernel_case(fro, Q=None, seed=2, timed=False, **ragged),
             _kernel_case(fro, Q=None, seed=7, timed=False, **odd),
-            _kernel_case(fro, Q=None, seed=8, timed=False, **one)],
+            _kernel_case(fro, Q=None, seed=8, timed=False, **one),
+            # the caption, VQA and text generators' token steps at B 8
+            _kernel_case(fro, Q=None, seed=23, timed=True,
+                         **dict(full, B=GEN_B))],
         "flash_ring_prime_ap": [
             _kernel_case(fro, Q=19, seed=3, timed=True, old=ring, **full),
             _kernel_case(fro, Q=26, seed=4, timed=True, old=ring, **full),
@@ -1133,7 +1159,11 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             _kernel_case(fro, Q=19, seed=9, timed=False, **one),
             _kernel_case(fro, Q=26, seed=10, timed=False, **one),
             # the image rollouts' [action || 25 patch slots || sep] prime
-            _kernel_case(fro, Q=27, seed=18, timed=False, **full)],
+            _kernel_case(fro, Q=27, seed=18, timed=False, **full),
+            # the bucket widths of the serve's 19-token steady prime and of
+            # the image serve's 27-token one
+            _kernel_case(fro, Q=24, seed=21, timed=True, **full),
+            _kernel_case(fro, Q=32, seed=22, timed=True, **full)],
         "flash_ring_decode_int8": [
             _kernel_case(fro, Q=None, seed=11, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8),
@@ -1142,7 +1172,9 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             _kernel_case(fro, Q=19, seed=13, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=26, seed=14, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8),
-            _kernel_case(fro, Q=17, seed=16, timed=False, int8=True, **odd)],
+            _kernel_case(fro, Q=17, seed=16, timed=False, int8=True, **odd),
+            _kernel_case(fro, Q=24, seed=24, timed=True, **full8),
+            _kernel_case(fro, Q=32, seed=25, timed=True, **full8)],
     }
     torch.cuda.empty_cache()
     old = OldQmm(old_qmm) if old_qmm else None
@@ -1177,7 +1209,14 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
         _rel_case(fra, B=2, qlen=1052, klen=2076, mem_len=1024,
                   same_length=True, seed=53, timed=False),
         _rel_case(fra, B=2, qlen=1052, klen=2076, mem_len=1024,
-                  same_length=False, seed=54, timed=False)]
+                  same_length=False, seed=54, timed=False),
+        # (e) the caption prime of pretrain_vision's eval tick: [9 prompt
+        # tokens | 196 patches | one EOS] over 1024 cache rows, B 8
+        _rel_case(fra, B=GEN_B, qlen=IC_PRIME_Q, klen=1024 + IC_PRIME_Q,
+                  mem_len=1024, same_length=True, seed=55, timed=True),
+        # (f) the generate phase's 64-token text prompt over 1024 rows
+        _rel_case(fra, B=GEN_B, qlen=GEN_PROMPT, klen=1024 + GEN_PROMPT,
+                  mem_len=1024, same_length=True, seed=56, timed=True)]
     torch.cuda.empty_cache()
     old_bwd = OldRelBwd(old_rel_bwd, not probe) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
@@ -1334,7 +1373,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
     L, A = cfg.model.n_layer, 6
     run = dict(num_trials=1, seed=100, batch_size=batch, interleave=1,
                strict_length=True)
-    pool = _RecordingPool(DecoderPool(model))
+    pool = _RecordingPool(DecoderPool(model, pad_buckets="default"))
     # warm-up: allocator, cuBLAS handles, the positional projections (and,
     # with int8 weights, the one-off weight quantization)
     evaluate_envs_lockstep(model, names, make_tenv, decoder_pool=pool,
@@ -1358,15 +1397,15 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
 
     # the chunk plan: step 0 primes [prompt || obs || sep] in ring slices
     # (at 1.2B: 256-token slices on the plain ring branch, the last, 26
-    # tokens, on the prime kernel); every later step primes [deferred
-    # action || obs || sep], 19 tokens; each step then runs A - 1
-    # single-token forwards. Every forward runs L layers, each with 4 trunk
-    # matrices.
+    # tokens padded to its bucket, 32, on the prime kernel); every later
+    # step primes [deferred action || obs || sep], 19 tokens padded to 24;
+    # each step then runs A - 1 single-token forwards. Every forward runs L
+    # layers, each with 4 trunk matrices.
     dec = pool.get(make_tenv(names[0])).inner
     prompt, _ = make_tenv(names[0]).get_prompt(
         strict_length=True, rng=np.random.RandomState(0))
     q0 = len(prompt) + dec.obs_length + 1
-    slices = dec.chunk_plan(q0, 0)[0] or [q0]
+    slices, widths = _prime_widths(dec, q0)
     forwards = len(slices) + steps * (A - 1) + (steps - 1)
     suffix = "_int8" if int8_cache else ""
     want = dict.fromkeys(launches, 0)
@@ -1383,7 +1422,7 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
     rows_want = {}
     if int8_weights:
         for rows, n in ([(q * batch, 1) for q in slices]
-                        + [((dec.obs_length + 2) * batch, steps - 1),
+                        + [(widths["steady"] * batch, steps - 1),
                            (batch, steps * (A - 1))]):
             rows_want[rows] = rows_want.get(rows, 0) + 4 * L * n
         rows_want = dict(sorted(rows_want.items()))
@@ -1402,18 +1441,158 @@ def phase_serve(smi: str, *, phase: str, batch: int, steps: int = 8,
         raise AssertionError(f"action tokens off: shape {acts.shape}, "
                              f"range {acts.min()}..{acts.max()}")
 
-    steady = _steady_steps(model, pool, make_tenv, names, layout, A)
+    # buckets on and off on one host, in turns (on, off, off, on, off, on,
+    # on, off; the unpadded pool warmed first): steady rates, idle shares
+    # and the host's largest costs of both
+    unpadded = _RecordingPool(DecoderPool(model))
+    _steady_steps(model, unpadded, make_tenv, names, layout, A, n=1)
+    pools = {"padded": pool, "unpadded": unpadded}
+    turns = [(name, _steady_steps(model, pools[name], make_tenv, names,
+                                  layout, A))
+             for name in ("padded", "unpadded", "unpadded", "padded",
+                          "unpadded", "padded", "padded", "unpadded")]
+    steady = turns[0][1]
+    buckets_ab = {name: {key: [t[key] for n, t in turns if n == name]
+                         for key in ("steady_actions_per_sec",
+                                     "steady_step_ms_median",
+                                     "device_busy_ms", "device_idle_share",
+                                     "host_top_ms")}
+                  for name in pools}
     routes = _route_check(model, layout, batch, make_tenv, names,
                           f32_copy=not (int8_cache or int8_weights))
+    buckets = _bucket_check(model, make_tenv, names, layout)
     return {"phase": phase, "config": "db1_1p2b", "dtype": "bfloat16",
             "decode_cache_dtype": cfg.model.decode_cache_dtype,
             "decode_weight_dtype": cfg.model.decode_weight_dtype,
             "batch": batch, "env_steps": steps, "card": smi,
-            "prime_slices": slices, "forwards": forwards,
+            "prime_slices": slices, "prime_widths": widths,
+            "forwards": forwards,
             "launches": launches, "launches_expected": want,
             "qmm_launches_by_rows": qmm_rows,
             "wall_s": wall, "actions_per_sec": batch * steps / wall,
-            **steady, "kernel_vs_plain": routes}
+            **steady, "buckets_ab": buckets_ab, "kernel_vs_plain": routes,
+            "buckets": buckets}
+
+
+def _prime_widths(dec, q0: int, n_frames=None) -> tuple:
+    """A bucketed decoder's ring calls: (the first prime's widths, {the
+    first prime's widths and real rows of its last call, the steady
+    [deferred || obs || sep] prime's width and real rows}). Raises unless
+    the steady prime is padded to one width the prime kernel takes."""
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+
+    slices, _, first_real = dec.prime_plan(q0, 0, n_frames)
+    steady, _, real = dec.prime_plan(dec.obs_length + 2, 1,
+                                     None if n_frames is None else 1)
+    if real is None or len(steady) != 1 or steady[0] > fro.MAX_PRIME_Q:
+        raise AssertionError(f"the steady prime is not padded to one prime "
+                             f"kernel width: {steady}, real {real}")
+    return slices, {"first": slices, "first_real_last": first_real,
+                    "steady": steady[0], "steady_real": real}
+
+
+# Geometry buckets on the card: the first-action logits of one steady
+# prime padded to its bucket width against the same prime unpadded, from
+# one cache: max |diff| / max |logit|. The real rows see the same keys
+# through the same masks, so only rounding may differ (cuBLAS may take
+# another algorithm at 24 rows than at 19); a logit read off a pad row
+# moves them by O(1). A pad committed into the ring, or a wrong cursor,
+# shows only in the next forward: the slots the pads point at must keep
+# their values bit for bit, the cursor must advance by the real rows, and
+# over BUCKET_STEPS env steps the bucketed decoder's actions must equal
+# the unpadded decoder's in at least BUCKET_ACTION_SHARE of the tokens.
+BUCKET_LOGIT_TOL = 1e-3
+BUCKET_ACTION_SHARE = 0.9
+BUCKET_B = 8
+BUCKET_STEPS = 4
+
+
+@torch.no_grad()
+def _bucket_check(model, make_tenv, names, layout) -> dict:
+    """BUCKET_B envs of the serve geometry: one episode-start prime
+    through the unpadded decoder into one cache, copied; the first steady
+    prime's logits and caches from both copies, padded to its bucket width
+    (real_q) and unpadded (``decode_rl_kv_ring`` directly): the logits'
+    gap, the pads' slots against the cache before, the cursors; then
+    BUCKET_STEPS env steps through the bucketed and the unpadded decoder,
+    one copy each, the envs stepped by the unpadded decoder's actions: the
+    share of equal action tokens. Gated as BUCKET_* say."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+
+    tenvs = [make_tenv(nm) for nm in names[:BUCKET_B]]
+    plain = build_decoder_for_env(model, tenvs[0])
+    padded = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
+    B = len(tenvs)
+    rng = np.random.RandomState(7)
+    sep = np.full((B, 1), layout.separator_id, np.int64)
+    start = np.stack([np.concatenate([t.get_prompt(rng=rng)[0],
+                                      t.reset()[0], sep[0]]) for t in tenvs])
+    act, mems = plain.decode(start, plain.init_mems(B), defer_last=True)
+
+    def copy(c):
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in c.items()}
+
+    def obs_after(act):
+        obs, _ = tenvs[0].encode_obs_batch(
+            [np.asarray(t.env.step(a)[0]) for t, a in zip(
+                tenvs, tenvs[0].tok.decode_action_batch(act, False))])
+        return np.concatenate([obs, sep], 1)
+
+    prime = np.concatenate([act[:, -1:], obs_after(act)], 1)
+    q = prime.shape[1]
+    widths, _, real = padded.prime_plan(q, 1)
+    w = widths[0]
+    _, p = action_flags_and_position_ids(q - 1, plain.obs_length,
+                                         plain.action_length, 0)
+    pos = np.broadcast_to(np.concatenate([[0], p]), (B, q))
+    tok_t = torch.as_tensor(prime, device="cuda")
+    pos_t = torch.as_tensor(pos.copy(), device="cuda")
+    pad = torch.zeros((B, w - q), dtype=torch.int64, device="cuda")
+    lg_p, ring_p = model.decode_rl_kv_ring(
+        torch.cat([tok_t, pad], 1), torch.cat([pos_t, pad], 1), copy(mems),
+        model.precompute_rk(w), real_q=real)
+    lg_u, ring_u = model.decode_rl_kv_ring(tok_t, pos_t, copy(mems),
+                                           model.precompute_rk(q))
+    err = float((lg_p - lg_u).abs().max() / lg_u.abs().max())
+    M = model.cfg.mem_len
+    c = int(mems["cursor"])
+    pad_slots = torch.as_tensor([(c + t) % M for t in range(q, w)],
+                                device="cuda")
+    tensors = [k for k, v in mems.items() if torch.is_tensor(v)]
+    pads_kept = all(torch.equal(ring_p[k].index_select(2, pad_slots),
+                                mems[k].index_select(2, pad_slots))
+                    for k in tensors)
+    cursors = [int(ring_p["cursor"]), int(ring_u["cursor"])]
+    cache_diff = max(float((ring_p[k].float() - ring_u[k].float()).abs()
+                           .max()) for k in tensors)
+
+    caches = {"padded": copy(mems), "plain": mems}
+    deferred = {"padded": act[:, -1], "plain": act[:, -1]}
+    equal = total = 0
+    for _ in range(BUCKET_STEPS):
+        obs = obs_after(act) if total else prime[:, 1:]
+        acts = {}
+        for name, dec in (("padded", padded), ("plain", plain)):
+            acts[name], caches[name] = dec.decode(
+                obs, caches[name], deferred_tok=deferred[name],
+                defer_last=True)
+            deferred[name] = acts[name][:, -1]
+        equal += int((acts["padded"] == acts["plain"]).sum())
+        total += acts["plain"].size
+        act = acts["plain"]
+    rec = {"batch": B, "steady_prime": q, "bucket_width": w,
+           "first_action_logits_rel_diff": err, "tol": BUCKET_LOGIT_TOL,
+           "pad_slots_kept": pads_kept, "cursors": cursors,
+           "cache_max_abs_diff": cache_diff, "env_steps": BUCKET_STEPS,
+           "equal_action_share": equal / total,
+           "share_min": BUCKET_ACTION_SHARE}
+    if not (np.isfinite(err) and err <= BUCKET_LOGIT_TOL and pads_kept
+            and cursors == [(c + q) % M] * 2
+            and equal / total >= BUCKET_ACTION_SHARE):
+        raise AssertionError(f"padded against unpadded prime: {rec}")
+    return rec
 
 
 def _steady_steps(model, pool, make_tenv, names, layout, A,
@@ -1445,7 +1624,7 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
         act, mems = step(act, mems)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    busy, top, prof_wall = _profile_busy(lambda: step(act, mems))
+    busy, top, prof_wall, host = _profile_busy(lambda: step(act, mems))
     step_s = float(np.median(times))
     return {"steady_actions_per_sec": n * B / sum(times),
             "steady_step_ms_median": step_s * 1e3,
@@ -1453,13 +1632,15 @@ def _steady_steps(model, pool, make_tenv, names, layout, A,
             "profiled_step_ms": prof_wall * 1e3,
             "device_busy_ms": busy * 1e3,
             "device_idle_share": 1.0 - busy / step_s,
-            "top_device_ms": top}
+            "top_device_ms": top, "host_top_ms": host}
 
 
 def _profile_busy(fn, keep=()):
     """One profiled call of fn ending in a device sync: (summed device time
     s, the largest kernels by name in ms and any whose name holds one of
-    ``keep``, the call's wall time s)."""
+    ``keep``, the call's wall time s, the 8 host events (operators and CUDA
+    runtime calls) with the most self CPU time in ms and, under "all",
+    their sum over all host events)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1470,16 +1651,22 @@ def _profile_busy(fn, keep=()):
         wall = time.perf_counter() - t0
     # kernels only: a user annotation (the optimizer's step range) spans
     # kernels on the device timeline and would count them twice
-    kern = [e for e in prof.key_averages()
+    events = prof.key_averages()
+    kern = [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+    host = sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    host_ms = {e.key[:60]: e.self_cpu_time_total / 1e3 for e in host[:8]}
+    host_ms["all"] = sum(e.self_cpu_time_total for e in host) / 1e3
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     ranked = sorted(kern, key=lambda e: -e.self_device_time_total)
     top = ranked[:8] + [e for e in ranked[8:] if any(k in e.key for k in keep)]
     # names without the namespace noise, long enough that the template
     # instantiations of one kernel stay apart
     return busy, {e.key.replace("(anonymous namespace)::", "")[:100]:
-                  e.self_device_time_total / 1e3 for e in top}, wall
+                  e.self_device_time_total / 1e3 for e in top}, wall, host_ms
 
 
 # kernels timed alone in the train profile, by the row of the kernels line
@@ -1682,8 +1869,8 @@ def phase_eval_loss(smi: str, seed: int = 0) -> dict:
         raise AssertionError(f"validation losses off: {losses}")
     tokens = EVAL_MICRO * seq
     step = float(np.median(times))
-    busy, top, _ = _profile_busy(lambda: evaluate_loss(model, [batches[0]],
-                                                       device="cuda"))
+    busy, top, _, _ = _profile_busy(
+        lambda: evaluate_loss(model, [batches[0]], device="cuda"))
     routes = _eval_route_check(model, batches[0])
     del model
     gc.collect()
@@ -1928,7 +2115,7 @@ def phase_train(smi: str, ckpt_dir: str, saved_weights: dict,
         batch = to_gato_batch(next(loader), "cuda")
         gen = torch.Generator(device="cuda").manual_seed(1)
         _reset_launches()
-        busy, top, _ = _profile_busy(lambda: step(state, batch, gen),
+        busy, top, _, _ = _profile_busy(lambda: step(state, batch, gen),
                                      keep=tuple(ALONE_KERNELS.values()))
         alone = kernel_alone_ms(top, _read_launches())
         resume = _resume_check(state, step, batch, ckpt_dir, saved_weights,
@@ -2162,7 +2349,10 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
         cfg.eval = dataclasses.replace(
             cfg.eval, env_names=EVAL_ENVS, num_trials=EVAL_TRIALS,
             batched=True, batch_size=len(EVAL_ENVS) * EVAL_TRIALS,
-            max_step_size=EVAL_STEPS, decode_obs_buckets=False)
+            max_step_size=EVAL_STEPS)
+        if not cfg.eval.decode_obs_buckets:
+            raise AssertionError("db1_1p2b's eval config leaves the "
+                                 "geometry buckets off")
 
         # what load_params reads, held to the saved weights; the plan
         model = TransformerXL(cfg.model, cfg.vocab, device="cuda")
@@ -2185,11 +2375,11 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
                             build_rl_dataset_from_cache(
                                 EVAL_ENVS[0], cache_dir,
                                 cfg.model.n_position, tok))
-        dec = build_decoder_for_env(model, tenv)
+        dec = build_decoder_for_env(model, tenv, pad_buckets="default")
         prompt, _ = tenv.get_prompt(strict_length=True,
                                     rng=np.random.RandomState(0))
         q0 = len(prompt) + dec.obs_length + 1
-        slices = dec.chunk_plan(q0, 0)[0] or [q0]
+        slices, widths = _prime_widths(dec, q0)
         A = dec.action_length
         del model, sd, dec
         gc.collect()
@@ -2232,6 +2422,7 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
             "param_dtype": "bfloat16", "card": smi, "envs": list(EVAL_ENVS),
             "trials": EVAL_TRIALS, "batch": cfg.eval.batch_size,
             "env_steps": steps, "prime_slices": slices,
+            "prime_widths": widths,
             "launches": launches, "launches_expected": want,
             "records": res, "load_params_s": load_s, "wall_s": wall,
             "actions_per_sec": actions / wall}
@@ -2487,8 +2678,8 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
             [PRETRAIN_ENV], f32_copy=False)
         torch.cuda.empty_cache()
         _reset_launches()
-        busy, top, prof_wall = _profile_busy(lambda: step(*last["args"]),
-                                             keep=tuple(ALONE_KERNELS.values()))
+        busy, top, prof_wall, _ = _profile_busy(
+            lambda: step(*last["args"]), keep=tuple(ALONE_KERNELS.values()))
         alone = kernel_alone_ms(top, _read_launches())
         del model, step
     finally:
@@ -2538,6 +2729,8 @@ VISION_IMAGES = 8           # inline 224 x 224 images of each of IC and VQA
 VISION_ITERS = 6
 VISION_TRIALS = 40
 VISION_STEPS = 8
+# the caption prime: [9 prompt tokens | 196 patches | one EOS]
+IC_PRIME_Q = 9 + 196 + 1
 
 
 def _register_image_env(seed: int) -> None:
@@ -2612,7 +2805,7 @@ def _vision_profile(model, batch, gen) -> tuple:
                 torch.autograd.grad(out.float().sum(), params)
 
     run()                                   # warm-up (cuDNN plans)
-    busy, top, _ = _profile_busy(run)
+    busy, top, _, _ = _profile_busy(run)
     return busy, top
 
 
@@ -2672,8 +2865,10 @@ def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
         train_iters=VISION_ITERS, log_interval=1,
         eval_interval=VISION_ITERS, eval_iters=1,
         save_interval=VISION_ITERS + 1, save_dir=save_dir)
-    cfg.eval = dataclasses.replace(cfg.eval, env_names=(),
-                                   ic_vqa_num_samples=0)
+    cfg.eval = dataclasses.replace(cfg.eval, env_names=())
+    if cfg.eval.ic_vqa_num_samples < VISION_IMAGES:
+        raise AssertionError("the default eval.ic_vqa_num_samples does not "
+                             "reach every image")
     run = _run_pretrain(cfg)
     last = run["last"]
     try:
@@ -2691,9 +2886,16 @@ def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
         launches = run["launches"]
         want = dict.fromkeys(launches, 0)
         fwd = L * TRAIN_ACCUM * VISION_ITERS
-        want["flash_rel_attention"] = fwd + L * TRAIN_ACCUM
+        from bdm_db1_tpu_torch.eval.evaluate_ic import MAX_CAPTION_TOKENS
+        from bdm_db1_tpu_torch.eval.evaluate_vqa import MAX_ANSWER_TOKENS
+        # the eval tick: the validation forwards, then one caption and one
+        # VQA batch of VISION_IMAGES rows, each a prime (K3) and a ring step
+        # a further token (K1)
+        want["flash_rel_attention"] = fwd + L * TRAIN_ACCUM + L * 2
         want["flash_rel_attention_bwd_dq"] = fwd
         want["flash_rel_attention_bwd_dkv"] = fwd
+        want["flash_ring_decode"] = L * (MAX_CAPTION_TOKENS - 1
+                                         + MAX_ANSWER_TOKENS - 1)
         if launches != want:
             raise AssertionError(f"kernel launches {launches}, expected "
                                  f"{want}")
@@ -2711,6 +2913,15 @@ def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
         if not (len(valid) == 1 and valid[0]["step"] == VISION_ITERS
                 and np.isfinite(valid[0]["valid/loss"])):
             raise AssertionError(f"valid records off: {valid}")
+        caption_keys = {f"valid/ic0/{k}" for k in (
+            "Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr")}
+        vqa_keys = {"valid/vqa0/vqa_accuracy", "valid/vqa0/num_evaluated"}
+        tick = {k: v for k, v in valid[0].items()
+                if k.startswith(("valid/ic", "valid/vqa"))}
+        if not (tick.keys() == caption_keys | vqa_keys
+                and np.isfinite(list(tick.values())).all()
+                and tick["valid/vqa0/num_evaluated"] == VISION_IMAGES):
+            raise AssertionError(f"caption/VQA metrics off: {tick}")
         with open(os.path.join(save_dir, str(VISION_ITERS),
                                "client.json")) as f:
             if json.load(f) != {"iteration": VISION_ITERS}:
@@ -2728,11 +2939,12 @@ def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
         routes = _train_route_check(model, micro_batch(batch, 0))
         torch.cuda.empty_cache()
         _reset_launches()
-        busy, top, prof_wall = _profile_busy(
+        busy, top, prof_wall, _ = _profile_busy(
             lambda: step(*last["args"]), keep=tuple(ALONE_KERNELS.values()))
         alone = kernel_alone_ms(top, _read_launches())
         gen = torch.Generator(device="cuda").manual_seed(seed + 7)
         vis_busy, vis_top = _vision_profile(model, batch, gen)
+        captions = _caption_check(model, cfg, ic)
         del model, step, state, batch
     finally:
         last.clear()
@@ -2765,11 +2977,137 @@ def phase_pretrain_vision(smi: str, vis_dir: str, saved_weights: dict,
             "vision_busy_ms": vis_busy * 1e3,
             "vision_share_of_step": vis_busy / busy,
             "vision_top_device_ms": vis_top,
-            "gradient_routes": routes,
+            "gradient_routes": routes, "eval_tick_metrics": tick,
+            "captions": captions,
             "max_memory_allocated_gb": run["peak"] / 1e9,
             "save_s": run["saves"][0][1],
             "pillow_importable": importlib.util.find_spec("PIL") is not None,
             "pil_imported": pil_imported, "wall_s": run["wall"]}
+
+
+@torch.no_grad()
+def _caption_check(model, cfg, ic_prefix: str) -> dict:
+    """The eval tick's caption generator on the trained model, outside the
+    counted run: VISION_IMAGES captions of the IC valid split, warmed, then
+    timed with their launches (one K3 prime, a K1 step per further token,
+    24 layers each); then the same chain through the plain routes
+    (``decode_flash`` "off": the plain ring branch; ``attention_impl``
+    "xla": rel_attention) and the share of equal tokens. Both routes run
+    in bf16 and a greedy chain follows its first differing token, so the
+    share is read, not gated."""
+    from bdm_db1_tpu_torch.data.vit_dataset import get_ic_coco_dataset
+    from bdm_db1_tpu_torch.eval.evaluate_ic import CaptionGenerator
+    from bdm_db1_tpu_torch.tokenizers.text import ByteTextTokenizer
+
+    root, ann = ic_prefix.split(":")
+    eos = ByteTextTokenizer().eos_token_id
+    ds = get_ic_coco_dataset(
+        root, ann, n_position=cfg.model.n_position,
+        image_size=cfg.vision.image_size, patch_size=cfg.vision.patch_size,
+        eos_token_id=eos, train=False)
+    items = [ds.dataset[i] for i in range(VISION_IMAGES)]
+    prompt = np.stack([it["prompt"] for it in items])
+    images = np.stack([np.transpose(it["img"], (1, 2, 0)) for it in items])
+    seed = np.full((len(items), 1), eos, np.int64)
+    gen = CaptionGenerator(model, cfg.vocab.layout(), eos)
+    gen.generate_tokens(prompt, images, seed)          # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    toks = gen.generate_tokens(prompt, images, seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    L, n = cfg.model.n_layer, gen.max_tokens
+    want = dict.fromkeys(launches, 0)
+    want["flash_rel_attention"] = L
+    want["flash_ring_decode"] = L * (n - 1)
+    if launches != want:
+        raise AssertionError(f"caption launches {launches}, expected {want}")
+    plain = _plain_routes(model, lambda: gen.generate_tokens(
+        prompt, images, seed))
+    q = prompt.shape[1] + (cfg.vision.image_size
+                           // cfg.vision.patch_size) ** 2 + 1
+    ins = [torch.as_tensor(a, dtype=dt, device="cuda") for a, dt in (
+        (prompt, torch.int64), (images, torch.float32), (seed, torch.int64))]
+    routes = _generator_route_check(model, model.embed_ic(*ins), toks[:, :1])
+    return {"batch": len(items), "prime_q": q, "tokens": n,
+            "tokens_per_sec": len(items) * n / wall, "wall_s": wall,
+            "k3_launches_per_prime": launches["flash_rel_attention"],
+            "k1_launches_per_token": launches["flash_ring_decode"] / (n - 1),
+            "equal_token_share_vs_plain": float(
+                (toks == plain).float().mean()),
+            "equal_first_token_share_vs_plain": float(
+                (toks[:, 0] == plain[:, 0]).float().mean()),
+            "kernel_vs_plain": routes}
+
+
+@torch.no_grad()
+def _generator_route_check(model, h, tok) -> dict:
+    """The generators' two forwards layer by layer, each layer's attention
+    through the kernel route and the plain route on the same input (gated
+    at ATTN_REL_TOL, as the serve's route check): the embedded prefix h
+    [B, q, D] over the zero aligned cache (``kv_forward``: K3 against
+    ``rel_attention``), then one text token tok [B, 1] over the ring the
+    kernel route's prefix leaves (K1 against the plain ring branch)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import causal_mask, same_length_mask
+
+    cfg = model.cfg
+    B, q = h.shape[:2]
+    M = cfg.mem_len
+    cache = model.init_kv_cache(B)
+    rk = model.precompute_rk(q)
+    _, ring = model.kv_forward(h, cache, rk)
+    mask = (same_length_mask(q, M + q, M, device="cuda") if cfg.same_length
+            else causal_mask(q, M + q, device="cuda"))
+    x = model.embed_nlp(tok)
+    mask1, mask1_s = model.ring_masks(1, ring["cursor"], "cuda")
+    if not (use_rel_kernel(cfg, q, M + q, "cuda")
+            and model.use_kernels(1, ring)):
+        raise AssertionError("the generators' forwards do not take K3 and "
+                             "K1")
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    rk1 = model.precompute_rk(1)
+    prime, step = [], []
+    for li, layer in enumerate(model.h):
+        a = layer.dec_attn
+        kv = (rk[li], cache["k"][li], cache["v"][li], mask)
+        attn = a.attend_kv(h, *kv, True)[0]
+        prime.append(rel(attn, a.attend_kv(h, *kv, False)[0]))
+        h = layer.pos_ff(a._residual(h, attn))
+        args = (rk1[li], ring, li, mask1, mask1_s)
+        attn = a.attend_ring(x, *args, True)[0]
+        step.append(rel(attn, a.attend_ring(x, *args, False)[0]))
+        x = layer.forward_ring(x, *args, True)[0]
+    rec = {"attn_tol": ATTN_REL_TOL, "prime_q": q,
+           "prime_attn_rel_err_max": max(prime),
+           "step_attn_rel_err_max": max(step)}
+    if not max(prime + step) <= ATTN_REL_TOL:
+        raise AssertionError(f"generator kernel route vs plain: {rec}")
+    return rec
+
+
+def _plain_routes(model, fn):
+    """fn() with the model on its plain routes (``decode_flash`` "off",
+    ``attention_impl`` "xla"), counted to launch nothing."""
+    cfg = model.cfg
+    saved = cfg.decode_flash, cfg.attention_impl
+    cfg.decode_flash, cfg.attention_impl = "off", "xla"
+    try:
+        _reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        if any(_read_launches().values()):
+            raise AssertionError(f"the plain routes launched kernels: "
+                                 f"{_read_launches()}")
+    finally:
+        cfg.decode_flash, cfg.attention_impl = saved
+    return out
 
 
 ALIGNED_B = 4
@@ -2899,7 +3237,7 @@ def phase_evaluate_rl_image(smi: str, vis_dir: str, saved_weights: dict,
     cfg.eval = dataclasses.replace(
         cfg.eval, env_names=(VISION_ENV,), num_trials=VISION_TRIALS,
         batched=True, batch_size=VISION_TRIALS,
-        max_step_size=VISION_STEPS, decode_obs_buckets=False)
+        max_step_size=VISION_STEPS)
 
     model = TransformerXL(cfg.model, cfg.vocab, vision=cfg.vision,
                           device="cuda")
@@ -2919,13 +3257,14 @@ def phase_evaluate_rl_image(smi: str, vis_dir: str, saved_weights: dict,
             name, cache_dir, cfg.model.n_position, tok))
 
     tenv = make_tenv(VISION_ENV)
-    dec = build_decoder_for_env(model, tenv)
+    dec = build_decoder_for_env(model, tenv, pad_buckets="default")
     prompt, prompt_img = tenv.get_prompt(strict_length=True,
                                          rng=np.random.RandomState(0))
     q0 = len(prompt) + dec.obs_length + 1
     n0 = len(prompt_img) + 1
-    slices, frames = dec.chunk_plan(q0, 0, n0)
-    if not (slices and len(slices) > 1 and sum(frames) == n0):
+    frames = dec.chunk_plan(q0, 0, n0)[1]
+    slices, widths = _prime_widths(dec, q0, n0)
+    if not (len(slices) > 1 and sum(frames) == n0):
         raise AssertionError(f"the first prime ({q0} tokens, {n0} frames) "
                              f"is not sliced: {slices}")
     A = dec.action_length
@@ -2977,12 +3316,90 @@ def phase_evaluate_rl_image(smi: str, vis_dir: str, saved_weights: dict,
             "obs_tokens": tenv.obs_length, "action_tokens": A,
             "trials": VISION_TRIALS, "batch": cfg.eval.batch_size,
             "env_steps": steps, "first_prime": {"q": q0, "frames": n0},
-            "prime_slices": slices, "slice_frames": list(frames),
+            "prime_slices": slices, "prime_widths": widths,
+            "slice_frames": list(frames),
             "launches": launches, "launches_expected": want,
             "kernel_vs_plain": routes, "aligned_prime": aligned,
             "records": res, "wall_s": wall,
             "actions_per_sec": actions / wall,
             "pil_imported": pil_imported}
+
+
+GEN_B = 8            # the eval config's ic_vqa_batch_size
+GEN_PROMPT = 64
+GEN_TOKENS = 32
+
+
+def phase_generate(smi: str, seed: int = 0) -> dict:
+    """Text generation at db1_1p2b in bf16 (random weights from ``seed``):
+    ``TextGenerator`` on GEN_B byte-token prompts of GEN_PROMPT tokens (a
+    seeded synthetic text), GEN_TOKENS greedy tokens each. Warmed once,
+    then counted: the prompt over the aligned cache (K3: a prompt longer
+    than the ring kernels' 32 rows), then a ring step a further token (K1),
+    24 layers each. Checks the launches, the shape and that every token is
+    a text id; then the same chain through the plain routes
+    (``decode_flash`` "off", ``attention_impl`` "xla"): the share of equal
+    tokens, read, not gated (bf16 both ways; a greedy chain follows its
+    first differing token). Reads the generated tokens/sec."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.eval.generate import TextGenerator
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.tokenizers.text import ByteTextTokenizer
+
+    cfg = db1_1p2b()
+    cfg.model.param_dtype = "bfloat16"
+    model = TransformerXL(cfg.model, cfg.vocab, vision=cfg.vision,
+                          device="cuda", generator=torch.Generator(
+                              device="cuda").manual_seed(seed))
+    layout = cfg.vocab.layout()
+    tok = ByteTextTokenizer()
+    rng = np.random.RandomState(seed)
+    texts = [" ".join(rng.choice(WORDS, 40)) for _ in range(GEN_B)]
+    prompts = np.stack([tok.encode(t)[:GEN_PROMPT] for t in texts])
+    if prompts.shape != (GEN_B, GEN_PROMPT):
+        raise AssertionError(f"prompts {prompts.shape}")
+    gen = TextGenerator(model, layout, tok.eos_token_id,
+                        max_tokens=GEN_TOKENS)
+    gen.generate_tokens(prompts)                       # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    toks = gen.generate_tokens(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    L = cfg.model.n_layer
+    want = dict.fromkeys(launches, 0)
+    want["flash_rel_attention"] = L
+    want["flash_ring_decode"] = L * (GEN_TOKENS - 1)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if toks.shape != (GEN_B, GEN_TOKENS) or not bool(
+            (toks < layout.text_vocab_size).all()):
+        raise AssertionError(f"generated tokens off: {toks.shape}, "
+                             f"{int(toks.max())}")
+    plain = _plain_routes(model, lambda: gen.generate_tokens(prompts))
+    prompts_t = torch.as_tensor(prompts, device="cuda")
+    routes = _generator_route_check(model, model.embed_nlp(prompts_t),
+                                    toks[:, :1])
+    out = gen.generate(prompts)
+    return {"phase": "generate", "config": "db1_1p2b", "dtype": "bfloat16",
+            "param_dtype": "bfloat16", "card": smi, "batch": GEN_B,
+            "prompt_tokens": GEN_PROMPT, "new_tokens": GEN_TOKENS,
+            "launches": launches, "launches_expected": want,
+            "k3_launches_per_prompt": launches["flash_rel_attention"],
+            "k1_launches_per_token": launches["flash_ring_decode"]
+            / (GEN_TOKENS - 1),
+            "wall_s": wall, "tokens_per_sec": GEN_B * GEN_TOKENS / wall,
+            "equal_token_share_vs_plain": float(
+                (toks == plain).float().mean()),
+            "equal_first_token_share_vs_plain": float(
+                (toks[:, 0] == plain[:, 0]).float().mean()),
+            "kernel_vs_plain": routes,
+            "sample": tok.decode(out[0])}
 
 
 # what each time of the K4/K5 rows of the kernels line is
@@ -3160,6 +3577,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(vis_dir, ignore_errors=True)
         saved_weights.clear()
+    if "generate" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["generate"] = phase_generate(smi)
+        emit(results["generate"])
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

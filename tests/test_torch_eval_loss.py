@@ -288,9 +288,11 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="unknown modality"):
         tm({"rl": rl, "audio": rl})
     # text, captioning and VQA groups are ported (tests/test_torch_pretrain.py,
-    # tests/test_torch_vision.py); speculative tails and geometry buckets
-    # in the ring forward are not
+    # tests/test_torch_vision.py), and so are geometry buckets in the ring
+    # forward (tests/test_torch_geometry_buckets.py); speculative tails
+    # are not
     cache, rk = tm.init_kv_cache_ring(1), tm.precompute_rk(8)
-    for kw in (dict(spec_tail=1), dict(real_q=4)):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            tm.decode_rl_kv_ring(tok, tok, cache, rk, **kw)
+    with pytest.raises(NotImplementedError, match="speculative"):
+        tm.decode_rl_kv_ring(tok, tok, cache, rk, spec_tail=1)
+    assert tm.decode_rl_kv_ring(tok, tok, cache, rk, real_q=4)[1][
+        "cursor"] == 4

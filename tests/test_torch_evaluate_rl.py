@@ -2,9 +2,10 @@
 against the JAX package's, on the CPU at db1_tiny in f32: the trajectory
 caches of tests/test_drivers.py written by both packages byte for byte,
 ``main`` through both packages on the same DeepSpeed weights and caches
-(one-env loop, batched over 3 envs of 2 geometries, the suite summary)
-with equal records and ``results.output`` lines, ``load_params``' three
-sources, ``shard_envs``, the discrete fake env and what raises."""
+(one-env loop, batched over 3 envs of 2 geometries, the suite summary;
+the first two also at the default geometry buckets) with equal records
+and ``results.output`` lines, ``load_params``' three sources,
+``shard_envs``, the discrete fake env and what raises."""
 
 import dataclasses
 import filecmp
@@ -23,6 +24,7 @@ from bdm_db1_tpu_torch.core import config as tcfg
 from bdm_db1_tpu_torch.data import rl_dataset as td
 from bdm_db1_tpu_torch.eval import envs as te
 from bdm_db1_tpu_torch.eval import evaluate_rl as ter
+from bdm_db1_tpu_torch.eval.decode import DEFAULT_OBS_BUCKETS
 from bdm_db1_tpu_torch.eval import harness as th
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
@@ -76,7 +78,9 @@ def workspace(tmp_path_factory):
 
 def _cfgs(tmp, **eval_kw):
     """(JAX config, port config): db1_tiny in f32 on the JAX-written
-    caches and the DeepSpeed weights, geometry buckets off."""
+    caches and the DeepSpeed weights, geometry buckets off unless
+    ``eval_kw`` turns them on."""
+    eval_kw = {"decode_obs_buckets": False, **eval_kw}
     out = []
     for mk in (jdb1_tiny, tcfg.db1_tiny):
         cfg = mk()
@@ -84,8 +88,7 @@ def _cfgs(tmp, **eval_kw):
         cfg.data.rl_dataset_cache_dir = str(tmp / "rl_jax")
         cfg.data.seq_length = cfg.model.n_position
         cfg.train.load_dir, cfg.train.ckpt_tag = str(tmp / "ckpt"), TAG
-        cfg.eval = dataclasses.replace(cfg.eval, decode_obs_buckets=False,
-                                       **eval_kw)
+        cfg.eval = dataclasses.replace(cfg.eval, **eval_kw)
         out.append(cfg)
     return out
 
@@ -136,7 +139,8 @@ def test_dataset_meta_and_index_match_jax(name, workspace, tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-# the three evaluate_rl cases of tests/test_drivers.py (:114, :131, :176)
+# the three evaluate_rl cases of tests/test_drivers.py (:114, :131, :176),
+# and the first two at the default config (geometry buckets on)
 MAIN_CASES = {
     "unbatched": dict(env_names=("fake-continuous-v0",), num_trials=1,
                       max_step_size=4, batched=False),
@@ -146,6 +150,9 @@ MAIN_CASES = {
     "suite_summary": dict(env_names=("fake-continuous-v0",), num_trials=1,
                           max_step_size=3, batched=False),
 }
+for _case in ("unbatched", "batched"):
+    MAIN_CASES[_case + "_buckets"] = dict(MAIN_CASES[_case],
+                                          decode_obs_buckets=True)
 
 
 @pytest.mark.parametrize("case", list(MAIN_CASES))
@@ -162,7 +169,26 @@ def test_main_matches_jax(case, workspace, tmp_path, capsys):
     jcfg.train.save_dir = str(tmp_path / "jax")
     pcfg.train.save_dir = str(tmp_path / "port")
     want = jmain(jcfg)
-    got = ter.main(pcfg, device="cpu")
+    pools = []
+    real_pool = ter.DecoderPool
+
+    def keeping(*a, **k):
+        pools.append(real_pool(*a, **k))
+        return pools[-1]
+
+    ter.DecoderPool = keeping
+    try:
+        got = ter.main(pcfg, device="cpu")
+    finally:
+        ter.DecoderPool = real_pool
+    widths = set(pools[0].rk_cache.widths())
+    if kw.get("decode_obs_buckets"):
+        # every prime padded to a bucket width (the 32-token prompt
+        # slices are one), the action tokens at q == 1
+        assert pools[0].pad_buckets == "default"
+        assert widths <= {1, *DEFAULT_OBS_BUCKETS}, widths
+    else:
+        assert not widths <= {1, *DEFAULT_OBS_BUCKETS}, widths
     assert "loading DeepSpeed checkpoint" in capsys.readouterr().out
     assert got == want
     lines = {k: (tmp_path / k / "results.output").read_text().splitlines()
@@ -280,8 +306,7 @@ def test_fake_discrete_env_matches_jax(kw):
 
 @pytest.mark.parametrize("field,value,match", [
     ("sharded_decode", True, "item 9"),
-    ("multihost", True, "item 9"),
-    ("decode_obs_buckets", True, "item 7")])
+    ("multihost", True, "item 9")])
 def test_unported_options_raise(field, value, match):
     cfg = tcfg.db1_tiny(dtype="float32")
     cfg.eval.decode_obs_buckets = False

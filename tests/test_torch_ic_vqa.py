@@ -4,7 +4,8 @@ the CPU: the ``ic``/``vqa`` creators array-equal on the inline-pixel
 fixture and on JPEG files, the transform and every AutoAugment op equal
 under the same python ``random`` seed, image-RL samples equal,
 ``pretrain.main`` on an nlp + ic + vqa + image-RL mixture (save, then
-resume) and the refusal of the in-training caption/VQA metrics."""
+resume), and its in-training caption/VQA metrics against the JAX
+package's on the same weights."""
 
 import json
 import random
@@ -287,9 +288,90 @@ def test_pretrain_main_on_an_image_mixture(image_workspace):
     assert not torch.equal(resumed, first)
 
 
-def test_in_training_caption_metrics_still_refused(image_workspace):
-    cfg = _image_cfg(image_workspace, "refused", 1)
-    cfg.eval.ic_vqa_num_samples = 4
-    with pytest.raises(NotImplementedError, match="item 8"):
+# the mixtures of the refusal cases these replaced: _image_cfg's four
+# groups, captions alone, text + VQA (tests/test_torch_pretrain.py)
+HOOK_MIXTURES = {
+    "four_groups": None,
+    "ic": ("1.0", "{ic}", "ic"),
+    "nlp_vqa": ("0.5", "{corpus}", "nlp", "0.5", "{vqa}", "vqa"),
+}
+
+
+@pytest.mark.parametrize("mixture", list(HOOK_MIXTURES))
+def test_in_training_caption_metrics_match_jax(image_workspace, mixture):
+    """``pretrain.main`` at the default ``eval.ic_vqa_num_samples`` (64),
+    one step, the eval tick after it: the tick logs ``ic0/*`` for a
+    captioning entry and ``vqa0/*`` for a VQA entry, and the trained
+    weights through the JAX package's ``evaluate_ic``/``evaluate_vqa`` on
+    its own valid split of the same entries (the JAX driver's hook) give
+    the same keys and values."""
+    from bdm_db1_tpu.core.config import db1_tiny as jdb1_tiny
+    from bdm_db1_tpu.eval.evaluate_ic import evaluate_ic as jeval_ic
+    from bdm_db1_tpu.eval.evaluate_vqa import evaluate_vqa as jeval_vqa
+    from bdm_db1_tpu.models.transformer_xl import TransformerXL as JaxTXL
+    from bdm_db1_tpu.tokenizers.text import ByteTextTokenizer as JByte
+    from bdm_db1_tpu.train.convert import convert_state_dict
+
+    ws = image_workspace
+    cfg = _image_cfg(ws, f"hook_{mixture}", 1)
+    cfg.eval.ic_vqa_num_samples = tcfg.EvalConfig().ic_vqa_num_samples
+    assert cfg.eval.ic_vqa_num_samples == 64
+    cfg.train.eval_interval = 1
+    if HOOK_MIXTURES[mixture] is not None:
+        parts = dict(ic=cfg.data.data_path[4], vqa=cfg.data.data_path[7],
+                     corpus=cfg.data.data_path[1])
+        cfg.data.data_path = tuple(x.format(**parts)
+                                   for x in HOOK_MIXTURES[mixture])
+    models = []
+    orig_trainer = tpt.Trainer
+
+    def keeping(cfg, model, *a, **kw):
+        models.append(model)
+        return orig_trainer(cfg, model, *a, **kw)
+
+    tpt.Trainer = keeping
+    try:
         tpt.main(cfg, device="cpu")
-    assert not (image_workspace / "refused").exists()
+    finally:
+        tpt.Trainer = orig_trainer
+    recs = [json.loads(line) for line in
+            (ws / f"hook_{mixture}" / "metrics.jsonl").read_text()
+            .splitlines()]
+    valid = [r for r in recs if "valid/loss" in r]
+    assert [r["step"] for r in valid] == [1]
+    got = {k[len("valid/"):]: v for k, v in valid[0].items()
+           if k.startswith(("valid/ic", "valid/vqa"))}
+
+    jcfg = jdb1_tiny()
+    jcfg.model.dtype = "float32"
+    jcfg.vision.image_size = HW
+    layout = jcfg.vocab.layout()
+    sd = {k: v.detach().numpy() for k, v in models[-1].state_dict().items()}
+    sd["word_embedding.weight"] = sd["word_embedding.weight"][
+        :layout.total_vocab_size]
+    jm = JaxTXL(jcfg.model, jcfg.vocab, jcfg.vision)
+    params = convert_state_dict(sd, jcfg)
+    jtok = JByte()
+    kw = dict(n_position=SEQ, image_size=HW, patch_size=16,
+              eos_token_id=jtok.eos_token_id)
+    want = {}
+    path = cfg.data.data_path
+    seen = {"ic": 0, "vqa": 0}
+    for prefix, typ in zip(path[1::3], path[2::3]):
+        if typ not in seen:
+            continue
+        make = {"ic": jvit.make_ic_creator, "vqa": jvit.make_vqa_creator}
+        ds = make[typ](**kw)(prefix, cfg.data.split, SEQ, (0, 0, 0), 0)[1]
+        if typ == "ic":
+            metrics = jeval_ic(jm, params, ds, layout, jtok.eos_token_id,
+                               num_samples=64, batch_size=8)
+        else:
+            metrics = jeval_vqa(jm, params, ds, layout, jtok.eos_token_id,
+                                text_tokenizer=jtok, num_samples=64,
+                                batch_size=8)
+        for k, v in metrics.items():
+            want[f"{typ}{seen[typ]}/{k}"] = v
+        seen[typ] += 1
+    assert got == want
+    assert any(k.startswith("ic0/") for k in got) == ("ic" in path)
+    assert ("vqa0/num_evaluated" in got) == ("vqa" in path)

@@ -4,7 +4,8 @@ FakeImageEnv (one discrete action token) and FakeContinuousImageEnv (two
 continuous tokens) with an expert prompt that ``_image_chunk_plan`` cuts
 into ring slices, then one-slice [deferred || obs || sep] primes; a
 prompt prime longer than mem_len that the plan cannot cut (the aligned
-realign); and ``_image_chunk_plan`` over a grid of (q, n_frames)."""
+realign); the same chains on an int8 cache, with and without geometry
+buckets; and ``_image_chunk_plan`` over a grid of (q, n_frames)."""
 
 import numpy as np
 import pytest
@@ -95,24 +96,45 @@ def test_image_chains_match_jax(kind, hw, flash):
     frames; at hw 96 (36 patches, a transition longer than the 32-token
     slice budget) the plan refuses and the prime, longer than mem_len,
     runs once over the realigned cache. Later primes are one slice."""
+    _check_image_chains(kind, hw, flash)
+
+
+@pytest.mark.parametrize("kind,hw,flash,buckets", [
+    ("discrete", 32, "on", None), ("continuous", 32, "off", None),
+    ("discrete", 96, "off", None), ("continuous", 96, "on", None),
+    ("discrete", 32, "off", "default"), ("continuous", 32, "on", "default")])
+def test_image_chains_on_an_int8_cache_match_jax(kind, hw, flash, buckets):
+    """The same chains with ``decode_cache_dtype="int8"`` in both packages:
+    the sliced prime writes quantized rows; the realigned prime (hw 96)
+    dequantizes the ring, primes the aligned cache and quantizes it again.
+    With buckets the steady [deferred || obs || sep] primes (6 tokens at
+    hw 32) and the last prompt slice are padded to their bucket widths."""
+    _check_image_chains(kind, hw, flash, buckets,
+                        decode_cache_dtype="int8")
+
+
+def _check_image_chains(kind, hw, flash, buckets=None, **over):
     from bdm_db1_tpu.eval.decode import build_decoder_for_env as jbuild
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env as tbuild
 
-    _, model, params, pnp = jax_tiny("off", vision=True)
+    _, model, params, pnp = jax_tiny("off", vision=True, **over)
     jt, tt = _image_envs(kind, hw)
     primes = _primes(jt, 4)
     tprimes = _primes(tt, 4)
     for (a, fa), (b, fb) in zip(primes, tprimes):
         np.testing.assert_array_equal(b, a)
         np.testing.assert_array_equal(fb, fa)
-    jdec = jbuild(model, params, jt[0])
-    tdec = tbuild(port_model(pnp, flash), tt[0])
+    jdec = jbuild(model, params, jt[0], pad_buckets=buckets)
+    tdec = tbuild(port_model(pnp, flash, **over), tt[0], pad_buckets=buckets)
     q0, n0 = primes[0][0].shape[1], primes[0][1].shape[1]
     sizes, frames = tdec.chunk_plan(q0, 0, n0)
     if hw == 32:
         assert sizes is not None and len(sizes) > 1 and sum(frames) == n0
     else:
         assert sizes is None and q0 > tdec.model.cfg.mem_len
+    if buckets:
+        q1 = primes[1][0].shape[1] + 1
+        assert tdec.prime_plan(q1, 1, 1)[::2] == ([8], q1)
     want = _chain(jdec, primes)
     got = _chain(tdec, primes)
     for i, (w, g) in enumerate(zip(want, got)):

@@ -188,6 +188,45 @@ def test_mixed_batch_step_matches_jax(dtype):
     assert cos >= BF16_GRAD_COS_MIN, (cos, gap)
 
 
+def test_text_only_step_matches_jax():
+    """A batch of text rows alone (a text, captioning or VQA mixture has
+    no RL rows): the port's step leaves the RL timestep embedding and the
+    vision tower without a gradient, where JAX's are zero, and its loss and
+    every other gradient are JAX's within the f32 bars."""
+    _, model, params, pnp = jax_tiny(attention_impl="xla", **_NO_DROP)
+    nb = {"nlp": _mixed_numpy(accum=1)["nlp"]}
+    micro = {"nlp": JNLP(**{k: jnp.asarray(v[0])
+                            for k, v in nb["nlp"].items()})}
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jstep.make_loss_fn(model)))(
+        params, micro, jax.random.PRNGKey(0))
+    j_sd, _ = state_dict_from_jax(to_numpy(j_grads), tcfg.db1_tiny())
+    port = _port_model(pnp, "float32")
+    state = tstep.init_train_state(port, tcfg.OptimizerConfig(lr=1e-4), 20)
+    grads = {}
+    named = list(port.named_parameters())
+    opt_step = state.optimizer.step
+
+    def reading_step():
+        grads.update({n: p.grad.detach().clone() for n, p in named
+                      if p.grad is not None})
+        return opt_step()
+
+    state.optimizer.step = reading_step
+    _, met = tstep.make_train_step(port)(state, to_gato_batch(nb, "cpu"),
+                                         torch.Generator())
+    assert grads.keys() == {
+        n for n, _ in named if not n.startswith(
+            ("vision_encoder.", "rl_local_timestep_embedding."))}
+    assert not j_sd["rl_local_timestep_embedding.weight"].any()
+    assert abs(float(met["loss"]) - float(j_loss)) <= LOSS_RTOL * abs(
+        float(j_loss))
+    for name, g in grads.items():
+        ref = j_sd[name].numpy()
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                                   atol=GRAD_RTOL * np.abs(ref).max(),
+                                   err_msg=name)
+
+
 # ---- pretrain.main -----------------------------------------------------------
 
 ENV = "fake-continuous-v0"
@@ -289,14 +328,9 @@ def test_pretrain_main_on_cpu(workspace):
     (("mesh", "model_parallel", 2), "item 9"),
     (("mesh", "pipeline_parallel", 2), "item 9"),
     (("mesh", "multihost", True), "item 9"),
-    # captioning and VQA data train; their in-training metrics
-    # (eval.ic_vqa_num_samples, 64 by default) are still refused (the ids
-    # are the cases' names from before they were ported)
-    pytest.param(("data", "data_path", ("1.0", "coco", "ic")), "item 8",
-                 id="change3-items 4 and 8"),
-    pytest.param(("data", "data_path", ("0.5", "corpus", "nlp", "0.5",
-                                        "vqa-set", "vqa")), "item 8",
-                 id="change4-items 4 and 8"),
+    # a captioning or VQA mixture at the default eval.ic_vqa_num_samples
+    # runs: tests/test_torch_ic_vqa.py::test_in_training_caption_metrics_
+    # match_jax holds its metrics to the JAX package's
 ])
 def test_pretrain_main_refuses(workspace, change, match):
     cfg = _main_cfg(workspace, "refused")
