@@ -107,8 +107,14 @@ class ModelConfig:
     # 1 <= q <= 32 whatever the device (the plain kernel versions on the
     # CPU); "off" = always the plain ring branch
     decode_flash: str = "auto"
-    # speculative decode: not ported yet (raises NotImplementedError)
+    # speculative (Jacobi) greedy action decode (eval/decode.py): the
+    # previous step's action block guesses this step's, verified as a
+    # query-only tail of the prime and by verify forwards until the
+    # greedy fixed point; the actions equal the sequential decode's.
+    # Ignored for one-token (discrete) actions and without same_length
     decode_speculative: bool = False
+    # adaptive speculation: each episode or cohort switches between the
+    # speculative and the classic decode by its verify rounds' average
     decode_spec_adaptive: bool = False
     # a variant of the TPU prime kernel; the CUDA prime kernel computes the
     # same function for both values

@@ -1,5 +1,5 @@
 """RL trajectories, their tokenization and packed training samples (the
-tensor- and image-observation part of bdm_db1_tpu/data/rl_dataset.py).
+counterpart of bdm_db1_tpu/data/rl_dataset.py).
 
 * ``TrajectoryStore`` — per-trajectory storage, built in memory from a
   d4rl-style flat dataset or attached lazily (mmap) to an on-disk cache in
@@ -25,8 +25,8 @@ tensor- and image-observation part of bdm_db1_tpu/data/rl_dataset.py).
 Image observations ([T, 3, H, W] leaves) take ``(H/p)(W/p)`` -1 token
 slots a timestep (one image leaf an observation); a sample carries its
 frames as ``images`` [transition_num, H, W, C], zero-padded, with the slots
-of the padded transitions marked -1. Text observations raise
-``NotImplementedError`` (ROADMAP queue 1 item 8).
+of the padded transitions marked -1. A text observation leaf (strings)
+takes its tokenized length in slots, first in the observation.
 """
 
 from __future__ import annotations
@@ -123,15 +123,8 @@ def obs_type_of(x: np.ndarray) -> str:
     raise ValueError(f"unsupported obs dtype {x.dtype}")
 
 
-def _no_text(obs_type: str) -> None:
-    if obs_type == "text":
-        raise NotImplementedError(
-            "text observations are not ported yet (ROADMAP queue 1 item 8)")
-
-
 class RLTokenizerSuite:
-    """Per-modality tokenization with unified vocab offsets. The text
-    tokenizer is held for text observations, which are not ported yet."""
+    """Per-modality tokenization with unified vocab offsets."""
 
     def __init__(self, layout: VocabLayout, scalar: ScalarTokenizer,
                  text_tokenizer=None, vision_patch_size: int = 16):
@@ -141,8 +134,11 @@ class RLTokenizerSuite:
         self.vision_patch_size = vision_patch_size
 
     def obs_dim_of(self, x: np.ndarray, obs_type: str) -> int:
-        """Token count contributed by one obs leaf per timestep."""
-        _no_text(obs_type)
+        """Token count contributed by one obs leaf per timestep (a text
+        leaf: the tokenized length of its first string)."""
+        if obs_type == "text":
+            enc = self.text_tokenizer(list(x.reshape(-1)[:1]))["input_ids"]
+            return max(len(t) for t in enc)
         if obs_type == "image":
             _, _, h, w = x.shape
             p = self.vision_patch_size
@@ -150,9 +146,14 @@ class RLTokenizerSuite:
         return int(np.prod(x.shape[1:])) if x.ndim > 1 else 1
 
     def encode_obs_leaf(self, x: np.ndarray, obs_type: str, obs_dim: int):
-        """-> (text_tokens, image, tensor_tokens), exactly one non-None
-        (text is not ported, so the first is always None)."""
-        _no_text(obs_type)
+        """-> (text_tokens, image, tensor_tokens), exactly one non-None.
+        Text is padded or cut to ``obs_dim`` tokens a timestep."""
+        if obs_type == "text":
+            ids = self.text_tokenizer(
+                [str(s) for s in x.reshape(-1)], padding="max_length",
+                truncation=True, max_length=obs_dim,
+            )["input_ids"]
+            return np.asarray(ids, dtype=np.int64), None, None
         if obs_type == "image":
             return None, x, None
         if obs_type == "float":
@@ -439,15 +440,11 @@ class RLFullDataset:
             np.asarray(act))
 
     def assemble_obs_tokens(self, o_text, o_image, o_tensor):
-        """Concat obs token streams in the canonical order (image
+        """Concat obs token streams in the canonical order (text, image
         placeholders, then tensor leaves). Returns (obs_tokens [T,
         obs_dim] with -1 image slots, image [T, C, H, W] or None)."""
-        if o_text is not None and any(
-                leaf is not None for leaf in tree_leaves(o_text)):
-            raise NotImplementedError(
-                "text observation tokens are not ported yet (ROADMAP "
-                "queue 1 item 8)")
-        parts = []
+        parts = [leaf for leaf in (tree_leaves(o_text) if o_text is not None
+                                   else []) if leaf is not None]
         image = None
         img_leaves = [
             v for v in (tree_leaves(o_image) if o_image is not None else [])

@@ -1,5 +1,5 @@
-"""Greedy autoregressive action decoding over the ring K/V cache, the
-classic path of bdm_db1_tpu/eval/decode.py.
+"""Greedy autoregressive action decoding over the ring K/V cache
+(counterpart of bdm_db1_tpu/eval/decode.py).
 
 One env step of a batch of envs: a prime forward over [obs || sep] (or
 [prompt || obs || sep] at episode start, in <= 256-token ring slices; an
@@ -21,9 +21,24 @@ commits (``decode_rl_kv_ring(real_q=...)``), so envs whose observation
 lengths differ share one positional projection per bucket width, and the
 prime kernel sees a few fixed widths. The chains equal the unpadded ones.
 
+Speculative (Jacobi) decode (``decode_speculative``, continuous actions of
+more than one token): the whole previous action block is the deferred
+lead of the next prime, and it is also the guess for this step's first
+S = action_length - 1 tokens. The guesses ride the prime's last ring call
+as a query-only tail (``spec_tail``), so that one forward gives candidates
+for every action dim; verify forwards of the S guess rows, which commit
+nothing, then repeat until each row's guesses equal its candidates. The
+actions equal the sequential decode's (the same same_length argument).
+``decode_spec_adaptive`` adds :class:`AdaptiveSpecSession`, which picks
+the speculative or the classic path for each step from the verify rounds.
+
 With ``decode_weight_dtype`` "int8"/"int8a8", :func:`build_decoder_for_env`
 (and so :class:`DecoderPool`) quantizes the model's trunk weights once, as
-the JAX package's does. Speculative decode is not ported yet.
+the JAX package's does.
+
+:class:`WindowDecoder` is the stateless decode (no memory): a fixed padded
+window of ``n_position`` tokens, one full forward through the trunk per
+action dim.
 """
 
 from __future__ import annotations
@@ -136,9 +151,6 @@ class ActionDecoder:
         pad_buckets=None,
     ):
         cfg = model.cfg
-        if not discrete_action and action_length > 1 and (
-                cfg.decode_speculative or cfg.decode_spec_adaptive):
-            raise NotImplementedError("speculative decode is not ported yet")
         if cfg.mem_len <= 0:
             raise NotImplementedError(
                 "decode without a ring cache (mem_len 0) is not ported yet")
@@ -157,6 +169,24 @@ class ActionDecoder:
         # deferring the last action token into the next prime is exact
         # only under same_length ring attention
         self.defers = bool(cfg.same_length)
+        # speculative (Jacobi) decode: every action token defers into the
+        # next prime, and the previous step's block is this step's guess
+        self.speculates = ((cfg.decode_speculative or cfg.decode_spec_adaptive)
+                           and self.defers and not discrete_action
+                           and self.action_length > 1)
+        # adaptive: an AdaptiveSpecSession picks the path per call; a bare
+        # decode() still speculates every step
+        self.spec_adaptive = self.speculates and cfg.decode_spec_adaptive
+        # the trailing action tokens of a decode the caller carries into the
+        # next call's deferred_tok
+        self.defer_width = self.action_length if self.speculates else 1
+        # cold-start guess: the mid-range continuous bin (~action 0.0); a
+        # wrong guess costs verify rounds, never correctness
+        self._default_guess = int(layout.continuous_offset
+                                  + layout.num_continuous_bin // 2)
+        self.last_spec_rounds = None
+        # set by the first AdaptiveSpecSession.prewarm on this decoder
+        self.spec_prewarmed = False
         # geometry buckets: exact only where chunking is (same_length ring
         # attention), as in the JAX package
         if pad_buckets == "default":
@@ -176,13 +206,15 @@ class ActionDecoder:
 
     def decode(self, prime_tokens: np.ndarray, mems, prime_images=None,
                env_action_mask=None, deferred_tok=None,
-               defer_last: bool = False) -> Tuple[np.ndarray, object]:
+               defer_last: bool = False, speculate: Optional[bool] = None,
+               guess_tok=None) -> Tuple[np.ndarray, object]:
         """Greedy-decode one action per batch row; returns (action token ids
         [action_length] or [B, action_length] on the host, new mems)."""
         single = prime_tokens.ndim == 1
         act, new_mems = self.decode_async(
             prime_tokens, mems, prime_images, env_action_mask,
-            deferred_tok=deferred_tok, defer_last=defer_last)
+            deferred_tok=deferred_tok, defer_last=defer_last,
+            speculate=speculate, guess_tok=guess_tok)
         act = act.cpu().numpy()
         return (act[0] if single else act), new_mems
 
@@ -218,7 +250,8 @@ class ActionDecoder:
                     frames = (0,) + tuple(frames)
         return sizes, frames
 
-    def prime_plan(self, q: int, lead: int, n_frames: Optional[int] = None
+    def prime_plan(self, q: int, lead: int, n_frames: Optional[int] = None,
+                   speculate: bool = False
                    ) -> Tuple[List[int], Optional[Tuple[int, ...]],
                               Optional[int]]:
         """The ring calls of a q-token prime as :meth:`chunk_plan` cuts it,
@@ -226,8 +259,9 @@ class ActionDecoder:
         per call or None, the real rows of the last call or None when it is
         not padded). The one slice, or a chunked prime's last slice, of t
         tokens is padded to ``_bucket_for(t)`` when t < that width <=
-        min(slice budget, mem_len); a one-slice prime longer than mem_len
-        (the realigned prime) is not."""
+        min(slice budget, mem_len), and on the speculative path (where the
+        S guesses ride the padded call) <= mem_len - S; a one-slice prime
+        longer than mem_len (the realigned prime) is not."""
         sizes, frames = self.chunk_plan(q, lead, n_frames)
         one = sizes is None
         widths = [q] if one else list(sizes)
@@ -236,10 +270,36 @@ class ActionDecoder:
         if self.pad_buckets is not None and (not one or q <= M):
             t = widths[-1]
             w = _bucket_for(t, self.pad_buckets)
+            room = self.action_length - 1 if speculate else 0
             if w is not None and t < w <= min(_prime_chunk(self.model.cfg),
-                                              M):
+                                              M - room):
                 widths[-1], real_last = w, t
         return widths, frames, real_last
+
+    def spec_plan(self, widths: List[int], frames, real_last: Optional[int],
+                  images: bool = False
+                  ) -> Tuple[List[int], Optional[Tuple[int, ...]], bool]:
+        """The speculative path's ring calls for :meth:`prime_plan`'s
+        (widths, frames, real_last): (widths, frames, tail), ``tail`` when
+        the S guesses ride the last call (its width + S then). A last call
+        that cannot take them (width + S > mem_len) is cut in two when it
+        carries no frames; otherwise, as for the realigned prime, the prime
+        commits plain and the first verify round finds the candidates.
+        ``images``: the prime carries frames."""
+        S = self.action_length - 1
+        M = self.model.cfg.mem_len
+        widths = list(widths)
+        if widths[-1] > M:                  # the realigned one-slice prime
+            return widths, frames, False
+        if widths[-1] + S <= M:
+            return widths, frames, True
+        # a padded call's bucket cap is M - S, so it always fits
+        assert real_last is None, (widths, S, M)
+        if not images and M - S >= 1:
+            t = widths[-1]
+            widths[-1:] = [t - (M - S), M - S]
+            return widths, frames, True
+        return widths, frames, False
 
     def _image_chunk_plan(self, q: int, n_frames: int):
         """Transition-aligned slices of an image prime [T whole transitions
@@ -276,23 +336,35 @@ class ActionDecoder:
     def decode_async(self, prime_tokens: np.ndarray, mems,
                      prime_images=None, env_action_mask=None,
                      deferred_tok: Optional[np.ndarray] = None,
-                     defer_last: bool = False
+                     defer_last: bool = False,
+                     speculate: Optional[bool] = None,
+                     guess_tok: Optional[np.ndarray] = None
                      ) -> Tuple[torch.Tensor, object]:
         """Like :meth:`decode` but returns the action tokens as a device
-        tensor [B, action_length] without waiting for the device.
+        tensor [B, action_length] without waiting for the device (the
+        speculative path reads one flag a verify round).
 
         ``defer_last=True`` (only when :attr:`defers`) skips the trailing
-        cache-fold forward; the caller then feeds this call's last action
-        token back as the next call's ``deferred_tok`` ([B] or [] int).
+        cache-fold forward; the caller then feeds this call's last
+        :attr:`defer_width` action tokens back as the next call's
+        ``deferred_tok`` ([B, w], or [B] / [] for one token).
         ``prime_images`` ([T, H, W, C], or [B, T, H, W, C] with a batch of
-        primes) are the frames of the prime's -1 slots, in order."""
+        primes) are the frames of the prime's -1 slots, in order.
+        ``speculate`` picks the path of a speculative decoder for this call
+        (None: speculative whenever :attr:`speculates`; False: the classic
+        per-dim loop); ``guess_tok`` ([B, >= S]) gives the guesses
+        explicitly, as after a classic step whose deferred lead is one
+        token."""
         single = prime_tokens.ndim == 1
         if single:
             prime_tokens = prime_tokens[None]
             if prime_images is not None:
                 prime_images = prime_images[None]
+            if guess_tok is not None:
+                guess_tok = np.asarray(guess_tok).reshape(1, -1)
         defer_last = defer_last and self.defers
         lead = 0
+        deferred = None
         if deferred_tok is not None:
             assert self.defers, "deferred_tok needs same_length ring decode"
             dt = np.asarray(deferred_tok, np.int64)
@@ -301,17 +373,20 @@ class ActionDecoder:
             elif dt.ndim <= 1:          # one token per row
                 dt = np.broadcast_to(
                     dt.reshape(-1), (prime_tokens.shape[0],))[:, None]
+            deferred = dt
             prime_tokens = np.concatenate([dt, prime_tokens], axis=1)
             lead = dt.shape[1]
         b, q = prime_tokens.shape
+        spec = self.speculates if speculate is None \
+            else (bool(speculate) and self.speculates)
         # long primes run through the ring in <= 256-token slices: the f32
         # [B, H, q, M+q] score buffers of a ~1000-token expert prompt are
-        # what would not fit at large batch; a deferred lead token rides in
-        # the first slice
-        # the last (or only) slice may be padded to its bucket width with
-        # query-only rows: token 0, position id 0
+        # what would not fit at large batch; a deferred lead rides in the
+        # first slice. The last (or only) slice may be padded to its bucket
+        # width with query-only rows: token 0, position id 0
         sizes, frame_splits, real_last = self.prime_plan(
-            q, lead, None if prime_images is None else prime_images.shape[1])
+            q, lead, None if prime_images is None else prime_images.shape[1],
+            speculate=spec)
         pad_n = 0 if real_last is None else sizes[-1] - real_last
         if pad_n:
             prime_tokens = np.pad(prime_tokens, ((0, 0), (0, pad_n)))
@@ -340,10 +415,47 @@ class ActionDecoder:
         tokens = torch.as_tensor(prime_tokens, dtype=torch.int64, device=dev)
         images = (None if prime_images is None else torch.as_tensor(
             np.asarray(prime_images, np.float32), device=dev))
+        if spec:
+            return self._dispatch_spec(tokens, pos, mems, bias, images, sizes,
+                                       frame_splits, deferred, defer_last,
+                                       guess_tok, real_last)
         rk_chunks = [self._rk.get(s) for s in sizes]
         return _decode_step(self.model, self.action_length, tokens, pos,
                             mems, bias, rk_chunks, self._rk.get(1),
                             defer_last, images, frame_splits, real_last)
+
+    def _dispatch_spec(self, tokens, pos, mems, bias, images, sizes,
+                       frame_splits, deferred, defer_last, guess_tok=None,
+                       real_last=None) -> Tuple[torch.Tensor, object]:
+        """The speculative call: the guesses (``guess_tok``, else a deferred
+        lead of the whole previous action, else the mid-range cold guess),
+        the ring calls with the guess tail on the last one
+        (:meth:`spec_plan`) and their positional projections. Sets
+        :attr:`last_spec_rounds`."""
+        A = self.action_length
+        S = A - 1
+        b = tokens.shape[0]
+        if guess_tok is not None:
+            guesses = np.asarray(guess_tok, np.int64)[:, :S]
+        elif deferred is not None and deferred.shape[1] == A:
+            guesses = deferred[:, :S]
+        else:
+            guesses = np.full((b, S), self._default_guess, np.int64)
+        sizes, frame_splits, tail = self.spec_plan(
+            sizes, frame_splits, real_last, images is not None)
+        assert tail or real_last is None
+        rk_chunks = [self._rk.get(s + (S if tail and i == len(sizes) - 1
+                                       else 0))
+                     for i, s in enumerate(sizes)]
+        act, mems, rounds = _decode_step_spec(
+            self.model, A, tokens, pos, mems, bias, sizes, rk_chunks,
+            self._rk.get(S), None if defer_last else self._rk.get(A),
+            torch.as_tensor(np.ascontiguousarray(guesses), device=self.device),
+            tail, images, frame_splits, real_last)
+        # verify rounds of the last call: rounds + 1 forwards against the
+        # action_length of the classic loop
+        self.last_spec_rounds = rounds
+        return act, mems
 
 
 def _decode_step(model, action_length: int, tokens: torch.Tensor,
@@ -418,6 +530,101 @@ def _prime_aligned(model, tokens, pos, mems, rk, images):
     return logits, aligned
 
 
+def _leading_matches(ok: torch.Tensor) -> torch.Tensor:
+    """Per-row length of the leading all-True run of ok [B, S]."""
+    return torch.cumprod(ok.long(), dim=1).sum(dim=1)
+
+
+def _decode_step_spec(model, action_length: int, tokens: torch.Tensor,
+                      pos: torch.Tensor, mems, bias: torch.Tensor,
+                      sizes: List[int], rk_chunks, rk_verify: torch.Tensor,
+                      rk_fold: Optional[torch.Tensor], guesses: torch.Tensor,
+                      tail: bool, images=None, frame_splits=None,
+                      real_last: Optional[int] = None):
+    """Speculative (Jacobi) greedy decode of one env step.
+
+    tokens [B, q]: the commit block ([deferred previous action ||] obs ||
+    sep), cut into ring calls of ``sizes`` (slice ci taking
+    ``frame_splits[ci]`` frames, or all of ``images`` when there is one
+    call); guesses [B, S = action_length - 1]. The prime commits as in
+    :func:`_decode_step`; with ``tail`` its last call also carries the
+    guesses as query-only rows (right after the real rows when the call is
+    padded to a bucket: [real || guesses || pads]), so that one forward
+    gives a candidate for every action dim: candidate j is exact whenever
+    guesses 0..j-1 are. Verify forwards of the S candidate rows (q = S,
+    nothing committed) then run until every row's guesses equal its
+    candidates; candidate 0 is always exact, so each round confirms at
+    least one more dim: at most S rounds, 0 at full acceptance. Without
+    ``tail`` (a realigned prime, or a last call too wide for the
+    guesses) at least one round runs, and at most S + 1. The loop reads
+    one flag a round from the device, where the JAX package keeps the
+    loop on the device; the actions and the round count are the same. A
+    loop that passes S + 1 rounds raises: only a verify forward that is
+    not deterministic gets there.
+
+    With ``rk_fold`` (not deferring) a last forward commits the action
+    block; otherwise the caller carries it into the next prime. Returns
+    ([B, action_length], mems, rounds)."""
+    b, q = tokens.shape
+    S = action_length - 1
+    M = model.cfg.mem_len
+    gpos = torch.zeros((b, S), dtype=torch.int64, device=tokens.device)
+    bias3 = bias[:, None, :]
+    if len(sizes) == 1 and q > M:
+        logits, mems = _prime_aligned(model, tokens, pos, mems, rk_chunks[0],
+                                      images)
+    else:
+        start = f0 = 0
+        last = len(sizes) - 1
+        for ci, (size, rk_c) in enumerate(zip(sizes, rk_chunks)):
+            st = S if tail and ci == last else 0
+            tok_c = tokens[:, start:start + size]
+            pos_c = pos[:, start:start + size]
+            img_c = images
+            if images is not None and len(sizes) > 1:
+                nf = frame_splits[ci]
+                img_c = images[:, f0:f0 + nf] if nf else None
+                f0 += nf
+            if st:
+                r = size if real_last is None else real_last
+                tok_c = torch.cat([tok_c[:, :r], guesses, tok_c[:, r:]], 1)
+                pos_c = torch.cat([pos_c[:, :r], gpos, pos_c[:, r:]], 1)
+            logits, mems = model.decode_rl_kv_ring(
+                tok_c, pos_c, mems, rk_c, img_c, spec_tail=st,
+                real_q=real_last if st else None)
+            start += size
+    if tail:
+        # [B, S + 1] candidates; the leading guess matches are exact
+        cand = torch.argmax(logits + bias3, dim=-1)
+        done = _leading_matches(guesses == cand[:, :S]) >= S
+        g = cand[:, :S]
+    else:
+        # dims past 0 are unverified placeholders: at least one round
+        cand = torch.cat([torch.argmax(logits + bias, dim=-1)[:, None],
+                          guesses], dim=1)
+        done = torch.zeros(b, dtype=torch.bool, device=tokens.device)
+        g = guesses
+    rounds = 0
+    while not bool(done.all()):
+        if rounds > S:
+            raise RuntimeError(
+                f"speculative verify did not settle in {rounds} rounds "
+                f"(S = {S}); rows done: {done.tolist()}")
+        lg, _ = model.decode_rl_kv_ring(g, gpos, mems, rk_verify,
+                                        spec_tail=S)
+        # verify row j's logits give action dim j + 1; dim 0 is exact
+        # from the prime
+        cand = torch.cat([cand[:, :1], torch.argmax(lg + bias3, dim=-1)],
+                         dim=1)
+        done = done | (_leading_matches(g == cand[:, :S]) >= S)
+        g = cand[:, :S]
+        rounds += 1
+    if rk_fold is not None:
+        _, mems = model.decode_rl_kv_ring(
+            cand, torch.zeros_like(cand), mems, rk_fold)
+    return cand, mems, rounds
+
+
 class DecoderPool:
     """Shares decoders, and one positional-projection cache, across envs
     with the same decode geometry. With ``pad_buckets`` (``"default"`` or
@@ -439,6 +646,160 @@ class DecoderPool:
                 self.model, tokenized_env, rk_cache=self.rk_cache,
                 pad_buckets=self.pad_buckets)
         return self._cache[key]
+
+
+class SpecController:
+    """Host-side policy of adaptive speculation: speculate while the
+    exponential average of the verify rounds stays at or below
+    ``exit_rounds``, fall back to the classic per-dim loop above it (after
+    ``min_obs`` observations, so one cold-start miss does not exit), and
+    probe every ``probe_every`` classic steps, re-entering when a probe's
+    rounds are at most ``reenter_rounds``. The constants are the JAX
+    package's, so both take the same decisions on the same rounds; where
+    speculation breaks even on the H100 is what chip_smoke.py's
+    ``serve_spec`` phase measures."""
+
+    def __init__(self, *, exit_rounds: float = 3.0,
+                 reenter_rounds: float = 2.5, probe_every: int = 64,
+                 alpha: float = 0.25, min_obs: int = 4):
+        self.exit_rounds = float(exit_rounds)
+        self.reenter_rounds = float(reenter_rounds)
+        self.probe_every = int(probe_every)
+        self.alpha = float(alpha)
+        self.min_obs = int(min_obs)
+        self.spec_mode = True
+        self.ewma: Optional[float] = None
+        self.n_obs = 0
+        self.switches = 0          # diagnostics: mode flips so far
+        self.spec_steps = 0        # diagnostics: steps run speculatively
+        self.total_steps = 0
+        self.rounds_sum = 0.0      # diagnostics: over observed spec steps
+        self.rounds_n = 0
+        self._since_probe = 0
+        self._probing = False
+
+    def decide(self) -> bool:
+        """Call once per decode step, before dispatch: True to speculate."""
+        self.total_steps += 1
+        if self.spec_mode:
+            self._probing = False
+            self.spec_steps += 1
+            return True
+        self._since_probe += 1
+        if self._since_probe >= self.probe_every:
+            self._since_probe = 0
+            self._probing = True
+            self.spec_steps += 1
+            return True
+        self._probing = False
+        return False
+
+    def observe(self, rounds: float) -> None:
+        """Feed the verify rounds of a speculative step."""
+        r = float(rounds)
+        self.rounds_sum += r
+        self.rounds_n += 1
+        if self._probing:
+            # a probe's one sample decides re-entry; the average restarts
+            # from it, so a stale bad average cannot veto
+            if r <= self.reenter_rounds:
+                self.spec_mode = True
+                self.switches += 1
+                self.ewma, self.n_obs = r, 1
+            return
+        self.ewma = r if self.ewma is None \
+            else (1 - self.alpha) * self.ewma + self.alpha * r
+        self.n_obs += 1
+        if (self.spec_mode and self.n_obs >= self.min_obs
+                and self.ewma > self.exit_rounds):
+            self.spec_mode = False
+            self.switches += 1
+            self._since_probe = 0
+
+
+class AdaptiveSpecSession:
+    """Adaptive speculation for one decode chain (an episode or a lockstep
+    cohort). The :class:`ActionDecoder` is shared by geometry, so the mode,
+    the rounds average and the previous action block (the next guesses)
+    live here. The caller keeps the deferred carry: :attr:`defer_width` is
+    how many trailing action tokens the last call left uncommitted
+    (action_length after a speculative step, 1 after a classic one). Both
+    paths give the greedy actions, so a switch changes only the cost. The
+    default controller exits at 0.6 S verify rounds and re-enters at 0.5 S
+    (S = action_length - 1), as the JAX package's does."""
+
+    def __init__(self, decoder: ActionDecoder,
+                 controller: Optional[SpecController] = None):
+        assert decoder.speculates, \
+            "adaptive speculation needs a speculative-capable decoder"
+        self.decoder = decoder
+        if controller is None:
+            S = decoder.action_length - 1
+            controller = SpecController(exit_rounds=0.6 * S,
+                                        reenter_rounds=0.5 * S)
+        self.ctl = controller
+        self.last_was_spec = True
+        self.defer_width = decoder.action_length
+        self._guess = None           # previous action block [B, A] (host)
+        self._rounds = None          # rounds of the unharvested spec step
+
+    def decode_async(self, prime_tokens, mems, **kw):
+        spec = self.ctl.decide()
+        act, mems = self.decoder.decode_async(
+            prime_tokens, mems, speculate=spec, guess_tok=self._guess, **kw)
+        self.last_was_spec = spec
+        self.defer_width = self.decoder.action_length if spec else 1
+        self._rounds = self.decoder.last_spec_rounds if spec else None
+        return act, mems
+
+    def harvest(self, pending: torch.Tensor) -> np.ndarray:
+        """The action tokens [B, A] of a pending decode on the host; feeds
+        the step's verify rounds (already on the host) to the controller
+        and keeps the block as the next guesses."""
+        act = pending.cpu().numpy()
+        if self._rounds is not None:
+            self.ctl.observe(self._rounds)
+            self._rounds = None
+        self._guess = act
+        return act
+
+    def decode(self, prime_tokens, mems, **kw):
+        act, mems = self.decode_async(prime_tokens, mems, **kw)
+        act = self.harvest(act)
+        return (act[0] if prime_tokens.ndim == 1 else act), mems
+
+    def prewarm(self, prime_tokens, prime_images=None,
+                env_action_mask=None) -> None:
+        """Run every decode this session can dispatch at the given steady
+        prime geometry, both modes at every deferred lead width a switch
+        can leave (1 after a classic step, action_length after a
+        speculative one), once against a scratch cache, which is then
+        freed. Nothing compiles in the port; this builds the positional
+        projections (``RkCache`` widths) that a mode switch would otherwise
+        build in the middle of an episode. Runs once a decoder (the
+        decoder's ``spec_prewarmed``); the controller and the guesses are
+        untouched."""
+        if self.decoder.spec_prewarmed:
+            return
+        p = np.asarray(prime_tokens)
+        if p.ndim == 1:
+            p = p[None]
+            if prime_images is not None:
+                prime_images = np.asarray(prime_images)[None]
+        B = p.shape[0]
+        A = self.decoder.action_length
+        guess = np.full((B, A), self.decoder._default_guess, np.int64)
+        mems = self.decoder.init_mems(B)
+        for spec in (True, False):
+            for w in (1, A):
+                act, mems = self.decoder.decode_async(
+                    p, mems, prime_images=prime_images,
+                    env_action_mask=env_action_mask,
+                    deferred_tok=guess[:, :w], defer_last=True,
+                    speculate=spec, guess_tok=guess)
+                act.cpu()
+        del mems
+        self.decoder.spec_prewarmed = True
 
 
 def _maybe_quantize_weights(model) -> None:
@@ -463,3 +824,85 @@ def build_decoder_for_env(model, tokenized_env, rk_cache=None,
         rk_cache=rk_cache,
         pad_buckets=pad_buckets,
     )
+
+
+class WindowDecoder:
+    """Stateless (no-memory) decoder over a fixed padded token window of
+    ``n_position`` tokens: the host keeps the sequence; each action dim is
+    one full forward of the padded window through the trunk (causal
+    attention makes the pad positions inert), the logits are read at each
+    row's live position, and the argmax token is written back into the
+    window on the device."""
+
+    def __init__(self, model, layout: VocabLayout, obs_length: int,
+                 action_length: int, discrete_action: bool,
+                 num_actions: Optional[int] = None):
+        self.model = model
+        self.layout = layout
+        self.obs_length = int(obs_length)
+        self.action_length = int(action_length)
+        self.discrete_action = discrete_action
+        self.window = model.cfg.n_position
+        if discrete_action:
+            assert num_actions is not None
+            self._base_bias = layout.discrete_action_logit_bias(num_actions)
+        else:
+            self._base_bias = layout.continuous_action_logit_bias()
+        self._num_actions = num_actions
+
+    def decode(self, seq_tokens: np.ndarray, env_action_mask=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """seq_tokens [q] (q + action_length <= window). Returns (action
+        token ids [action_length], the sequence extended by them)."""
+        acts, extended = self.decode_batch([seq_tokens], env_action_mask)
+        return acts[0], extended[0]
+
+    @torch.no_grad()
+    def decode_batch(self, seqs, env_action_mask=None):
+        """Rows of one geometry with their own live lengths: seqs a list of
+        [q_i] token arrays (q_i + action_length <= window), env_action_mask
+        None, [n] or [B, n]. Returns (action ids [B, action_length], the
+        extended sequences)."""
+        b = len(seqs)
+        lengths = np.array([len(s) for s in seqs], np.int64)
+        assert (lengths + self.action_length <= self.window).all(), (
+            lengths, self.window)
+        _, pos = action_flags_and_position_ids(
+            self.window, self.obs_length, self.action_length, 0)
+        padded = np.zeros((b, self.window), np.int64)
+        for i, s in enumerate(seqs):
+            padded[i, :lengths[i]] = s
+        bias = fold_env_mask_bias(
+            self._base_bias, self.layout, self.discrete_action,
+            self._num_actions, env_action_mask)
+        if bias.ndim == 1:
+            bias = np.broadcast_to(bias, (b,) + bias.shape)
+        dev = self.model.device
+        acts = _window_decode(
+            self.model, self.action_length,
+            torch.as_tensor(padded, device=dev),
+            torch.as_tensor(np.broadcast_to(pos, (b, self.window)).copy(),
+                            device=dev),
+            torch.as_tensor(lengths, device=dev),
+            torch.as_tensor(np.array(bias, np.float32), device=dev))
+        acts = acts.cpu().numpy()
+        return acts, [np.concatenate([s, a]) for s, a in zip(seqs, acts)]
+
+
+def _window_decode(model, action_length: int, tokens: torch.Tensor,
+                   pos: torch.Tensor, lengths: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """One forward of the padded window [B, W] a dim: the logits at each
+    row's position lengths + i - 1, the masked argmax written at lengths +
+    i. A loop of action_length forwards with no host read inside it.
+    Returns [B, action_length]."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    tokens = tokens.clone()
+    acts = []
+    for i in range(action_length):
+        h, _ = model.trunk(model.embed_rl(tokens, pos), None)
+        live = model.logits(h[rows, lengths + i - 1])          # [B, V]
+        tok = torch.argmax(live + bias, dim=-1)
+        tokens[rows, lengths + i] = tok
+        acts.append(tok)
+    return torch.stack(acts, dim=1)

@@ -1,13 +1,12 @@
-"""Minimal gym-style env protocol, the continuous, discrete and image fake
-envs and the env registry (copy of the parts of bdm_db1_tpu/eval/envs.py
-that RL evaluation of tensor and image observations needs).
+"""Minimal gym-style env protocol, the continuous, discrete, image and
+text fake envs and the env registry (copy of bdm_db1_tpu/eval/envs.py,
+without the continuous env's random-walk observations, which only the
+JAX package's benchmark sets).
 
 Real gym/d4rl envs stay pluggable (anything with reset/step/spaces works;
 ``make_env`` falls back to ``gym.make`` when gym is installed); the
 deterministic fakes give the eval loop an offline target and write
-synthetic expert datasets in d4rl's ``get_dataset`` layout. The text fake
-of the JAX package is not ported (ROADMAP queue 1 item 8): its name is
-unknown here, so ``make_env`` raises ``ValueError`` on it.
+synthetic expert datasets in d4rl's ``get_dataset`` layout.
 """
 
 from __future__ import annotations
@@ -262,6 +261,79 @@ class FakeImageEnv:
         }
 
 
+class FakeTextEnv:
+    """BabyAI-like env: dict observation {"mission": instruction string,
+    "image": RGB frame}, discrete actions. Missions are drawn per episode
+    from templates of one byte length, so every episode tokenizes to the
+    same observation geometry."""
+
+    MISSIONS = (
+        "go to the red ball",
+        "go to the blue key",
+        "go to the grey box",
+        "pick up a red ball",
+        "pick up a blue key",
+        "open the neardoor1",
+    )
+
+    def __init__(self, hw: int = 32, n_actions: int = 7,
+                 episode_len: int = 8, seed: int = 0):
+        assert len({len(m) for m in self.MISSIONS}) == 1, (
+            "missions must share a tokenized length")
+        self.observation_space = BoxSpace((3, hw, hw))
+        self.action_space = DiscreteSpace(n_actions)
+        self.episode_len = episode_len
+        self.hw = hw
+        self._rng = np.random.RandomState(seed)
+        self._t = 0
+        self._mission = self.MISSIONS[0]
+
+    def _next_obs(self):
+        return {
+            "mission": np.str_(self._mission),
+            "image": self._rng.rand(3, self.hw, self.hw).astype(np.float32),
+        }
+
+    def reset(self):
+        self._t = 0
+        self._mission = self.MISSIONS[
+            self._rng.randint(len(self.MISSIONS))]
+        self._obs = self._next_obs()
+        return self._obs
+
+    def step(self, action):
+        self._t += 1
+        reward = float(int(action) == (self._t % self.action_space.n))
+        self._obs = self._next_obs()
+        return self._obs, reward, self._t >= self.episode_len, {}
+
+    def seed(self, seed: int) -> None:
+        self._rng = np.random.RandomState(seed)
+
+    def make_dataset(self, num_episodes: int = 4):
+        mis_l, img_l, act_l, rew_l, term_l = [], [], [], [], []
+        for _ in range(num_episodes):
+            o = self.reset()
+            done = False
+            while not done:
+                a = int(self._rng.randint(self.action_space.n))
+                mis_l.append(str(o["mission"]))
+                img_l.append(o["image"])
+                act_l.append(a)
+                o, r, done, _ = self.step(a)
+                rew_l.append(r)
+                term_l.append(done)
+        return {
+            "observations": {
+                "mission": np.asarray(mis_l),
+                "image": np.asarray(img_l, dtype=np.float32),
+            },
+            "actions": np.asarray(act_l, dtype=np.int64),
+            "rewards": np.asarray(rew_l, dtype=np.float32),
+            "terminals": np.asarray(term_l, dtype=bool),
+        }
+
+
 _ENV_REGISTRY = {}
 
 
@@ -284,3 +356,4 @@ def make_env(name: str):
 register_env("fake-continuous-v0", FakeContinuousEnv)
 register_env("fake-discrete-v0", FakeDiscreteEnv)
 register_env("fake-image-v0", FakeImageEnv)
+register_env("fake-text-v0", FakeTextEnv)

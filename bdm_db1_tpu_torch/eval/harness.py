@@ -1,6 +1,6 @@
 """RL evaluation harness (counterpart of bdm_db1_tpu/eval/harness.py): the
-one-episode loop, per-env evaluation, env sharding across processes and the
-lockstep batches.
+one-episode loop (with memory, or stateless over a token window), per-env
+evaluation, env sharding across processes and the lockstep batches.
 
 ``run_episode`` / ``evaluate_env`` run one env's episodes one at a time in
 memory ("moving prompt") mode. In the lockstep path, B same-geometry envs
@@ -9,7 +9,9 @@ the ring caches, and the host tokenizes observations and steps the envs.
 ``dispatch`` enqueues a cohort's decode without waiting for the device;
 ``harvest_and_step`` reads the actions back and steps the envs, so an
 interleaved loop overlaps one cohort's host work with another's device
-work. The models carry their weights, so no entry takes a params tree.
+work. With an adaptive speculative decoder each episode or cohort drives
+its own ``AdaptiveSpecSession``. The models carry their weights, so no
+entry takes a params tree.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch.distributed as dist
 
 from bdm_db1_tpu_torch.eval.decode import (
-    ActionDecoder, DecoderPool, build_decoder_for_env,
+    ActionDecoder, AdaptiveSpecSession, DecoderPool, WindowDecoder,
+    build_decoder_for_env,
 )
 from bdm_db1_tpu_torch.eval.envs import is_discrete_space
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
@@ -47,9 +50,10 @@ def run_episode(
 ) -> EpisodeResult:
     """One episode in memory ("moving prompt") mode: the first prime is
     [prompt || obs || sep], every later one the new [obs || sep] (with the
-    last action token in front when the decoder defers it), each with the
-    frames of its -1 image slots. A speculative config raises where the
-    decoder is built, so no speculative session runs."""
+    last action tokens in front when the decoder defers them), each with
+    the frames of its -1 image slots. An adaptive speculative decoder runs
+    the episode through its own ``AdaptiveSpecSession`` (the decoder's
+    projections built once by ``prewarm`` at the steady geometry)."""
     sep = np.array([env.separator_id], dtype=np.int64)
 
     obs_tokens, obs_img, action_mask = env.reset()
@@ -65,14 +69,21 @@ def run_episode(
     episode_return, episode_length = 0.0, 0
     done = False
     deferred = None
+    sess = _spec_session(decoder, np.concatenate([obs_tokens, sep])[None],
+                         None if obs_img is None else obs_img[None],
+                         None if action_mask is None
+                         else np.asarray(action_mask)[None])
+    dec = sess.decode if sess is not None else decoder.decode
     mems = decoder.init_mems(1)
 
     while not done:
-        act_tokens, mems = decoder.decode(
+        act_tokens, mems = dec(
             prime, mems, prime_images=prime_img, env_action_mask=action_mask,
             deferred_tok=deferred, defer_last=decoder.defers)
         if decoder.defers:
-            deferred = act_tokens[-1:]
+            w = (sess.defer_width if sess is not None
+                 else decoder.defer_width)
+            deferred = act_tokens[-w:]
         action = env.tok.decode_action(act_tokens, env.discrete_action)
         obs_tokens, obs_img, action_mask, reward, done, _ = env.step(action)
         episode_return += reward
@@ -84,6 +95,19 @@ def run_episode(
         prime_img = obs_img
 
     return EpisodeResult(env.ds.name, float(episode_return), episode_length)
+
+
+def _spec_session(decoder: ActionDecoder, steady, steady_img, steady_mask
+                  ) -> Optional[AdaptiveSpecSession]:
+    """A new chain's ``AdaptiveSpecSession`` when the decoder is adaptive
+    (None otherwise). The first session of a decoder runs ``prewarm`` at
+    the steady [obs || sep] geometry before the chain's cache exists."""
+    if not decoder.spec_adaptive:
+        return None
+    sess = AdaptiveSpecSession(decoder)
+    sess.prewarm(steady, prime_images=steady_img,
+                 env_action_mask=steady_mask)
+    return sess
 
 
 def evaluate_env(
@@ -120,6 +144,62 @@ def evaluate_env(
         "length_mean": float(np.mean(lens)),
         "num_trials": num_trials,
     }
+
+
+def run_episode_stateless(
+    env: TokenizedEnv,
+    decoder: WindowDecoder,
+    *,
+    use_prompt: bool = True,
+    prompt_strategy: str = "fixed_prompt",
+    strict_length: bool = True,
+    minimal_expert_data: bool = False,
+    max_step_size: Optional[int] = None,
+    rng: Optional[np.random.RandomState] = None,
+) -> EpisodeResult:
+    """One episode without memory: the host keeps the token sequence and
+    rolls it to fit the decoder's window, by whole transitions: with
+    ``fixed_prompt`` the expert prompt stays and the oldest transition
+    after it drops, otherwise the oldest transition drops."""
+    sep = np.array([env.separator_id], dtype=np.int64)
+    step_size = env.obs_length + env.action_length + 1
+    window = decoder.window
+
+    obs_tokens, _, action_mask = env.reset()
+    if use_prompt:
+        env.eval_prompt_strategy = prompt_strategy
+        prompt, _ = env.get_prompt(
+            strict_length=strict_length,
+            minimal_expert_data=minimal_expert_data, rng=rng)
+        prompt_len = len(prompt)
+        seq = np.concatenate([prompt, obs_tokens, sep])
+    else:
+        prompt_len = 0
+        seq = np.concatenate([obs_tokens, sep])
+
+    def roll(seq: np.ndarray) -> np.ndarray:
+        while len(seq) + env.action_length > window:
+            if use_prompt and prompt_strategy == "fixed_prompt":
+                seq = np.concatenate([seq[:prompt_len],
+                                      seq[prompt_len + step_size:]])
+            else:
+                seq = seq[step_size:]
+        return seq
+
+    episode_return, episode_length = 0.0, 0
+    done = False
+    while not done:
+        seq = roll(seq)
+        act_tokens, seq = decoder.decode(seq, env_action_mask=action_mask)
+        action = env.tok.decode_action(act_tokens, env.discrete_action)
+        obs_tokens, _, action_mask, reward, done, _ = env.step(action)
+        episode_return += reward
+        episode_length += 1
+        if max_step_size is not None and episode_length >= max_step_size:
+            break
+        seq = np.concatenate([seq, obs_tokens, sep])
+
+    return EpisodeResult(env.ds.name, float(episode_return), episode_length)
 
 
 def shard_envs(env_names: Sequence[str],
@@ -225,6 +305,10 @@ class _LockstepCohort:
                           if states[0].obs_img is not None else None)
         self.last_masks = (np.stack([s.mask for s in states])
                            if states[0].mask is not None else None)
+        # adaptive speculation: the mode, rounds average and guesses are
+        # the cohort's (the decoder is shared by geometry)
+        self._sess = _spec_session(decoder, self.last_tokens, self.last_imgs,
+                                   self.last_masks)
         self.mems = decoder.init_mems(b)
         self.returns = np.zeros(b)
         self.lengths = np.zeros(b, dtype=np.int64)
@@ -232,12 +316,15 @@ class _LockstepCohort:
         self.done[self.n_real:] = True  # padding slots never step
         self._pending = None
         # last-action deferral: every post-reset prime is [obs || sep] and
-        # the previous step's last action token rides in front of it
+        # the previous step's last action tokens (the whole block on the
+        # speculative path) ride in front of it
         self._defers = bool(decoder.defers)
         self._deferred = None
 
     def dispatch(self) -> None:
-        self._pending, self.mems = self.decoder.decode_async(
+        dec = (self._sess.decode_async if self._sess is not None
+               else self.decoder.decode_async)
+        self._pending, self.mems = dec(
             self.prime, self.mems, prime_images=self.prime_img,
             env_action_mask=self.action_mask,
             deferred_tok=self._deferred, defer_last=self._defers)
@@ -245,10 +332,14 @@ class _LockstepCohort:
     def harvest_and_step(self) -> bool:
         """Read back the pending actions, step live envs; True when all
         are done."""
-        act_tokens = self._pending.cpu().numpy()
+        act_tokens = (self._sess.harvest(self._pending)
+                      if self._sess is not None
+                      else self._pending.cpu().numpy())
         self._pending = None
         if self._defers:
-            self._deferred = act_tokens[:, -1]
+            w = (self._sess.defer_width if self._sess is not None
+                 else self.decoder.defer_width)
+            self._deferred = act_tokens if w > 1 else act_tokens[:, -1]
         live = np.flatnonzero(~self.done)
         if live.size == 0:
             return True
@@ -458,3 +549,21 @@ def evaluate_envs_lockstep(
             "num_trials": len(eps),
         })
     return out
+
+
+def parallel_evaluate_envs(
+    model, env_names: Sequence[str],
+    make_tokenized_env: Callable[[str], TokenizedEnv], **kwargs
+) -> List[Dict[str, float]]:
+    """:func:`evaluate_env` over this process's env shard, one record per
+    env. A ``torch.distributed`` world larger than one raises: the gather
+    across processes is not ported yet (ROADMAP queue 1 item 9)."""
+    if (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        raise NotImplementedError(
+            "evaluation across processes is not ported yet (ROADMAP queue "
+            "1 item 9, parallelism)")
+    pool = kwargs.pop("decoder_pool", None) or DecoderPool(model)
+    return [evaluate_env(model, lambda n=name: make_tokenized_env(n),
+                         decoder_pool=pool, **kwargs)
+            for name in shard_envs(env_names)]

@@ -54,8 +54,11 @@ text generation fold their prefix in over the aligned cache
 route, K3 on the card) and then take one ring step a token
 (``decode_text_kv``: K1 on the card).
 
+Speculative decode: ``decode_rl_kv_ring(spec_tail=S)`` runs S trailing
+guess rows that attend but are not committed.
+
 Not ported yet (raise ``NotImplementedError``): rematerialization
-(``remat``), pre-LN models and the speculative tail.
+(``remat``) and pre-LN models.
 """
 
 from __future__ import annotations
@@ -827,17 +830,15 @@ class TransformerXL(nn.Module):
         with the real rows' K/V written at the cursor and the cursor
         advanced past them). ``images`` [B, T, H, W, C] fill the prime's -1
         slots. ``real_q`` (a host int, geometry buckets) marks the first
-        ``real_q`` rows as the real tokens and the rest as query-only pads:
-        see :meth:`ring_forward`."""
-        if spec_tail:
-            raise NotImplementedError(
-                "speculative tails are not ported yet (ROADMAP queue 1 "
-                "item 6)")
+        ``real_q`` rows as the real tokens and the rest as query-only pads;
+        ``spec_tail`` marks the trailing rows (or, with ``real_q``, the
+        rows right after the real ones) as speculative guesses: see
+        :meth:`ring_forward`."""
         return self.ring_forward(self.embed_rl(tokens, position_id, images),
-                                 cache, rk_full, real_q)
+                                 cache, rk_full, real_q, spec_tail)
 
     def ring_forward(self, h: Tensor, cache: RingCache, rk_full: Tensor,
-                     real_q: Optional[int] = None
+                     real_q: Optional[int] = None, spec_tail: int = 0
                      ) -> Tuple[Tensor, RingCache]:
         """Every layer over the ring cache for embedded tokens h [B, q, D]
         (q <= mem_len; rk_full [n_layer, M+q, H, Dh]). The cache tensors
@@ -849,25 +850,37 @@ class TransformerXL(nn.Module):
         rows, which the next forward still attends) keep their values. The
         real rows come first and the attention is causal, so they never see
         the pads, and the masks are row-index arithmetic: the real rows'
-        outputs equal an unpadded forward's."""
+        outputs equal an unpadded forward's.
+
+        ``spec_tail`` S > 0 (speculative decode) makes the last S rows, or
+        with ``real_q`` the S rows after the real ones ([real || guesses ||
+        pads]), query-only guesses: they attend as any row does (to the
+        real rows and the earlier guesses of this call too) but are not
+        written, and the cursor advances past the real rows only. The
+        logits are then those of every row from the last committed one on:
+        [B, S + 1, V], or [B, q, V] when nothing commits (q == S: a verify
+        forward, which returns the cache untouched)."""
         cfg = self.cfg
         M = cfg.mem_len
         qlen = h.shape[1]
         if qlen > M:
             raise ValueError(f"a ring forward takes q <= mem_len ({M}), "
                              f"got {qlen}")
-        n = qlen if real_q is None else int(real_q)
-        if not 1 <= n <= qlen:
-            raise ValueError(f"real_q={real_q} outside 1..{qlen}")
+        n = qlen - spec_tail if real_q is None else int(real_q)
+        if not (0 if real_q is None else 1) <= n <= qlen - spec_tail:
+            raise ValueError(f"real_q={real_q}, spec_tail={spec_tail} do "
+                             f"not fit q={qlen}")
         cursor = int(cache["cursor"])
         dev = cache["k"].device
         mask, mask_s = self.ring_masks(qlen, cursor, dev)
         use_kernels = self.use_kernels(qlen, cache)
         quantized = "k_scale" in cache
-        idx = None if n == 1 else (torch.arange(n, device=dev) + cursor) % M
+        idx = None if n <= 1 else (torch.arange(n, device=dev) + cursor) % M
         for li, layer in enumerate(self.h):
             h, k_x, v_x = layer.forward_ring(
                 h, rk_full[li], cache, li, mask, mask_s, use_kernels)
+            if not n:
+                continue
             rows = {"k": k_x[:, :n], "v": v_x[:, :n]}
             if quantized:
                 for key in ("k", "v"):
@@ -880,7 +893,12 @@ class TransformerXL(nn.Module):
                     cache[key][li, :, cursor] = new[:, 0]
                 else:
                     cache[key][li].index_copy_(1, idx, new)
-        logits = self.logits(h[:, n - 1])
+        if not spec_tail:
+            return self.logits(h[:, n - 1]), {**cache,
+                                              "cursor": (cursor + n) % M}
+        if not n:                       # a verify forward commits nothing
+            return self.logits(h), cache
+        logits = self.logits(h[:, n - 1:n + spec_tail])
         return logits, {**cache, "cursor": (cursor + n) % M}
 
     def align_ring_cache(self, cache: RingCache) -> RingCache:

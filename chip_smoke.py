@@ -8,6 +8,8 @@
     python3 chip_smoke.py --phases build,pretrain
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_image
     python3 chip_smoke.py --phases build,generate
+    python3 chip_smoke.py --phases build,kernels,serve_spec,stateless
+    python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_text
 
 Phases, each printing one JSON line:
 
@@ -23,7 +25,8 @@ Phases, each printing one JSON line:
   decode and prime at M = 200 (Q 5) and at M = 201 (Q 17 for the prime)
   with more (head, row) pairs than SMs, and K1/K2 at the pretrain
   rollouts' B 1 with Q 19 and 26); timed too: K2/K7 at the bucket widths
-  Q 24 and 32 and K1 at the generators' B 8. K9 at the four trunk
+  Q 24 and 32 and at the speculative prime (Q 29) and verify (Q 5), and
+  K1 at the generators' B 8. K9 at the four trunk
   matrices and the row counts of the int8 serve (56, 1064, 1344, 1456,
   14336: timed, two calls bitwise equal at 56, 1064 and 1344 rows) and at 24
   untimed edge shapes (a K split with a shorter last split among them),
@@ -32,8 +35,9 @@ Phases, each printing one JSON line:
   forward's shape (B 4, qlen = klen = 1024, causal), the memory trunk's
   (B 4, qlen 256, klen 1280, same_length window) and a ragged one (B 1,
   qlen 100, klen 1124), the realigned image prime (untimed) and, timed,
-  the caption prime (B 8, qlen 206, klen 1230) and the 64-token text
-  prompt (B 8, klen 1088); K4 and K5 (the six gradients of the rel-attention
+  the caption prime (B 8, qlen 206, klen 1230), the 64-token text
+  prompt (B 8, klen 1088) and the stateless window (B 1 and B 8, qlen =
+  klen = 1024, no memory); K4 and K5 (the six gradients of the rel-attention
   backward) and the preparation's delta at the same three shapes from a
   seeded upstream gradient.
 * ``serve``      — db1_1p2b in bf16 with random weights from a seed serves
@@ -137,6 +141,32 @@ Phases, each printing one JSON line:
   for each further token, and that every token is a text id; reads the
   generated tokens/sec and the share of tokens equal to the plain
   routes' chain.
+* ``serve_spec`` — speculative (Jacobi) decode: the ``serve``
+  configuration with ``decode_speculative`` (40 envs, 8 steps): the
+  steady prime [6 deferred actions || 17 obs || sep] carries the 5
+  guesses (one K2 call at Q 29), each verify round is a K2 call at Q 5,
+  no q = 1 forward; checks K2 = 24 x (prime calls on K2 + verify rounds)
+  and K1 = 0, the records, the route check per layer at Q 29 and Q 5,
+  and that >= 0.9 of 8 envs' actions over 4 steps equal the classic
+  decoder's from one cache; reads the rounds, and the steady rate, idle
+  share and rounds of the speculative and the classic decoder in turns;
+  then an adaptive session (``decode_spec_adaptive``) after ``prewarm``:
+  its modes and switches. Then a short int8 leg (int8 cache and
+  weights, 56 envs, 4 steps: K7 at Q 29 and Q 5, K9) checked the same
+  way.
+* ``evaluate_rl_text`` — needs ``pretrain_vision``: ``evaluate_rl.main``
+  serves its checkpoint on ``fake-text-v0`` (a mission string of 18 byte
+  tokens and a 32 x 32 frame an observation, one discrete action), 40
+  episodes x 8 steps in one cohort; checks the weights, the route check
+  at B 40, the records and the launches (the 24-token steady prime on
+  K2, K1 0).
+* ``stateless`` — the mem-less evaluation: ``run_episode_stateless`` at
+  db1_1p2b in bf16, B 1, one episode of 8 steps with a fixed prompt over
+  a 1024-token window (``WindowDecoder``: one trunk forward, K3, an
+  action dim), then ``decode_batch`` over 8 of its sequences; checks K3 =
+  24 x 6 x 9, the window's first-action logits against the ring decode's
+  on the same sequence and the share of equal actions; reads actions/sec
+  and the step time.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -203,11 +233,13 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
-PHASES = ("build", "kernels", "serve", "serve_int8", "eval_loss", "train",
-          "evaluate_rl", "pretrain", "pretrain_vision", "evaluate_rl_image",
-          "generate")
-MAIN_PATHS = ("serve", "serve_int8", "eval_loss", "train", "evaluate_rl",
-              "pretrain", "pretrain_vision", "evaluate_rl_image", "generate")
+PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
+          "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
+          "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless")
+MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
+              "evaluate_rl", "pretrain", "pretrain_vision",
+              "evaluate_rl_image", "evaluate_rl_text", "generate",
+              "stateless")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -1163,7 +1195,11 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             # the bucket widths of the serve's 19-token steady prime and of
             # the image serve's 27-token one
             _kernel_case(fro, Q=24, seed=21, timed=True, **full),
-            _kernel_case(fro, Q=32, seed=22, timed=True, **full)],
+            _kernel_case(fro, Q=32, seed=22, timed=True, **full),
+            # speculative decode: the steady prime with its guess tail (24
+            # real rows + 5 guesses) and a verify forward (the 5 guesses)
+            _kernel_case(fro, Q=SPEC_PRIME_Q, seed=26, timed=True, **full),
+            _kernel_case(fro, Q=SPEC_S, seed=27, timed=True, **full)],
         "flash_ring_decode_int8": [
             _kernel_case(fro, Q=None, seed=11, timed=True, old=ring, **full8),
             _kernel_case(fro, Q=None, seed=12, timed=False, **ragged8),
@@ -1174,7 +1210,9 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
             _kernel_case(fro, Q=5, seed=15, timed=False, **ragged8),
             _kernel_case(fro, Q=17, seed=16, timed=False, int8=True, **odd),
             _kernel_case(fro, Q=24, seed=24, timed=True, **full8),
-            _kernel_case(fro, Q=32, seed=25, timed=True, **full8)],
+            _kernel_case(fro, Q=32, seed=25, timed=True, **full8),
+            _kernel_case(fro, Q=SPEC_PRIME_Q, seed=28, timed=True, **full8),
+            _kernel_case(fro, Q=SPEC_S, seed=29, timed=True, **full8)],
     }
     torch.cuda.empty_cache()
     old = OldQmm(old_qmm) if old_qmm else None
@@ -1216,7 +1254,13 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
                   mem_len=1024, same_length=True, seed=55, timed=True),
         # (f) the generate phase's 64-token text prompt over 1024 rows
         _rel_case(fra, B=GEN_B, qlen=GEN_PROMPT, klen=1024 + GEN_PROMPT,
-                  mem_len=1024, same_length=True, seed=56, timed=True)]
+                  mem_len=1024, same_length=True, seed=56, timed=True),
+        # (g) the stateless window decode: a 1024-token window, no memory,
+        # one row (the episode) and STATELESS_B rows (decode_batch)
+        _rel_case(fra, B=1, qlen=1024, klen=1024, mem_len=1024,
+                  same_length=True, seed=57, timed=True),
+        _rel_case(fra, B=STATELESS_B, qlen=1024, klen=1024, mem_len=1024,
+                  same_length=True, seed=58, timed=True)]
     torch.cuda.empty_cache()
     old_bwd = OldRelBwd(old_rel_bwd, not probe) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
@@ -1280,11 +1324,13 @@ LOGIT_REL_TOL = 5e-2
 
 class _Recorder:
     """Keeps every action-token block a decoder returns (device tensors,
-    read after the run) and passes everything else through."""
+    read after the run) and, on the speculative path, the verify rounds of
+    each call; passes everything else through."""
 
     def __init__(self, inner):
         self.inner = inner
         self.acts = []
+        self.rounds = []
 
     def __getattr__(self, name):
         return getattr(self.inner, name)
@@ -1292,6 +1338,8 @@ class _Recorder:
     def decode_async(self, *args, **kwargs):
         act, mems = self.inner.decode_async(*args, **kwargs)
         self.acts.append(act)
+        if self.inner.last_spec_rounds is not None:
+            self.rounds.append(self.inner.last_spec_rounds)
         return act, mems
 
 
@@ -1491,6 +1539,25 @@ def _prime_widths(dec, q0: int, n_frames=None) -> tuple:
                     "steady": steady[0], "steady_real": real}
 
 
+def _copy_cache(c: dict) -> dict:
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in c.items()}
+
+
+def _step_obs(tenvs, act, sep):
+    """Step every env by its decoded continuous action: the next [obs ||
+    sep] primes [B, obs + 1]."""
+    obs, _ = tenvs[0].encode_obs_batch(
+        [np.asarray(t.env.step(a)[0]) for t, a in zip(
+            tenvs, tenvs[0].tok.decode_action_batch(act, False))])
+    return np.concatenate([obs, sep], 1)
+
+
+def _start_primes(tenvs, sep, seed):
+    rng = np.random.RandomState(seed)
+    return np.stack([np.concatenate([t.get_prompt(rng=rng)[0],
+                                     t.reset()[0], sep[0]]) for t in tenvs])
+
+
 # Geometry buckets on the card: the first-action logits of one steady
 # prime padded to its bucket width against the same prime unpadded, from
 # one cache: max |diff| / max |logit|. The real rows see the same keys
@@ -1524,23 +1591,10 @@ def _bucket_check(model, make_tenv, names, layout) -> dict:
     plain = build_decoder_for_env(model, tenvs[0])
     padded = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
     B = len(tenvs)
-    rng = np.random.RandomState(7)
     sep = np.full((B, 1), layout.separator_id, np.int64)
-    start = np.stack([np.concatenate([t.get_prompt(rng=rng)[0],
-                                      t.reset()[0], sep[0]]) for t in tenvs])
-    act, mems = plain.decode(start, plain.init_mems(B), defer_last=True)
-
-    def copy(c):
-        return {k: v.clone() if torch.is_tensor(v) else v
-                for k, v in c.items()}
-
-    def obs_after(act):
-        obs, _ = tenvs[0].encode_obs_batch(
-            [np.asarray(t.env.step(a)[0]) for t, a in zip(
-                tenvs, tenvs[0].tok.decode_action_batch(act, False))])
-        return np.concatenate([obs, sep], 1)
-
-    prime = np.concatenate([act[:, -1:], obs_after(act)], 1)
+    act, mems = plain.decode(_start_primes(tenvs, sep, 7),
+                             plain.init_mems(B), defer_last=True)
+    prime = np.concatenate([act[:, -1:], _step_obs(tenvs, act, sep)], 1)
     q = prime.shape[1]
     widths, _, real = padded.prime_plan(q, 1)
     w = widths[0]
@@ -1551,9 +1605,9 @@ def _bucket_check(model, make_tenv, names, layout) -> dict:
     pos_t = torch.as_tensor(pos.copy(), device="cuda")
     pad = torch.zeros((B, w - q), dtype=torch.int64, device="cuda")
     lg_p, ring_p = model.decode_rl_kv_ring(
-        torch.cat([tok_t, pad], 1), torch.cat([pos_t, pad], 1), copy(mems),
-        model.precompute_rk(w), real_q=real)
-    lg_u, ring_u = model.decode_rl_kv_ring(tok_t, pos_t, copy(mems),
+        torch.cat([tok_t, pad], 1), torch.cat([pos_t, pad], 1),
+        _copy_cache(mems), model.precompute_rk(w), real_q=real)
+    lg_u, ring_u = model.decode_rl_kv_ring(tok_t, pos_t, _copy_cache(mems),
                                            model.precompute_rk(q))
     err = float((lg_p - lg_u).abs().max() / lg_u.abs().max())
     M = model.cfg.mem_len
@@ -1568,11 +1622,11 @@ def _bucket_check(model, make_tenv, names, layout) -> dict:
     cache_diff = max(float((ring_p[k].float() - ring_u[k].float()).abs()
                            .max()) for k in tensors)
 
-    caches = {"padded": copy(mems), "plain": mems}
+    caches = {"padded": _copy_cache(mems), "plain": mems}
     deferred = {"padded": act[:, -1], "plain": act[:, -1]}
     equal = total = 0
     for _ in range(BUCKET_STEPS):
-        obs = obs_after(act) if total else prime[:, 1:]
+        obs = _step_obs(tenvs, act, sep) if total else prime[:, 1:]
         acts = {}
         for name, dec in (("padded", padded), ("plain", plain)):
             acts[name], caches[name] = dec.decode(
@@ -1598,35 +1652,36 @@ def _bucket_check(model, make_tenv, names, layout) -> dict:
 def _steady_steps(model, pool, make_tenv, names, layout, A,
                   n: int = 10) -> dict:
     """Steady-state env steps driven directly (prime [deferred || obs ||
-    sep]), each ended by a device sync. The rate is all n steps' actions
-    over their summed wall time. The idle share is one profiled step's
-    summed kernel time against the median unprofiled step (the profiler
-    slows the host, so the profiled step's own wall time is not used)."""
+    sep], the deferred lead the decoder's ``defer_width`` tokens), each
+    ended by a device sync. The rate is all n steps' actions over their
+    summed wall time. The idle share is one profiled step's summed kernel
+    time against the median unprofiled step (the profiler slows the host,
+    so the profiled step's own wall time is not used). A speculative
+    decoder's verify rounds of the n steps are kept."""
     tenvs = [make_tenv(nm) for nm in names]
     dec = pool.get(tenvs[0]).inner
     B = len(tenvs)
-    rng = np.random.RandomState(5)
     sep = np.full((B, 1), layout.separator_id, np.int64)
-    start = np.stack([np.concatenate([t.get_prompt(rng=rng)[0],
-                                      t.reset()[0], sep[0]]) for t in tenvs])
-    act, mems = dec.decode(start, dec.init_mems(B), defer_last=True)
+    act, mems = dec.decode(_start_primes(tenvs, sep, 5), dec.init_mems(B),
+                           defer_last=True)
 
     def step(act, mems):
-        obs, _ = tenvs[0].encode_obs_batch(
-            [np.asarray(t.env.step(a)[0]) for t, a in zip(
-                tenvs, tenvs[0].tok.decode_action_batch(act, False))])
-        return dec.decode(np.concatenate([obs, sep], 1), mems,
-                          deferred_tok=act[:, -1], defer_last=True)
+        return dec.decode(_step_obs(tenvs, act, sep), mems,
+                          deferred_tok=act[:, -dec.defer_width:],
+                          defer_last=True)
 
-    times = []
+    times, rounds = [], []
     for _ in range(n):
         t0 = time.perf_counter()
         act, mems = step(act, mems)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if dec.speculates:
+            rounds.append(dec.last_spec_rounds)
     busy, top, prof_wall, host = _profile_busy(lambda: step(act, mems))
     step_s = float(np.median(times))
-    return {"steady_actions_per_sec": n * B / sum(times),
+    extra = {"verify_rounds": rounds} if rounds else {}
+    return {**extra, "steady_actions_per_sec": n * B / sum(times),
             "steady_step_ms_median": step_s * 1e3,
             "steady_step_ms": [t * 1e3 for t in times],
             "profiled_step_ms": prof_wall * 1e3,
@@ -1689,7 +1744,8 @@ def kernel_alone_ms(device_ms: dict, launches: dict) -> dict:
 
 
 @torch.no_grad()
-def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
+def _route_check(model, layout, B, make_tenv, names, f32_copy=True,
+                 spec: int = 0) -> dict:
     """One observation prime and one single-token forward from the same
     primed cache, driven layer by layer. Each layer's attention output with
     use_kernels True (the kernels) is held against use_kernels False (the
@@ -1700,7 +1756,9 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     ("local"), the running hidden state ("propagated") and the
     last-position logits. An image env's primes carry their frames: the
     prompt's and the reset observation's in the cache-filling prime, the
-    new observation's in the prime under the check."""
+    new observation's in the prime under the check. With ``spec`` S (the
+    speculative decode's shapes): the prime is [the whole action block ||
+    obs || sep || S guesses] and the second forward a verify of S rows."""
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
 
@@ -1722,12 +1780,19 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     obs = np.stack([r[0] for r in resets])
     img = (None if resets[0][1] is None else
            torch.as_tensor(np.stack([r[1] for r in resets]), device="cuda"))
-    prime = torch.as_tensor(np.concatenate([act[:, -1:], obs, sep], axis=1),
+    lead = act if spec else act[:, -1:]
+    guesses = act[:, :spec]
+    prime = torch.as_tensor(np.concatenate([lead, obs, sep, guesses], axis=1),
                             device="cuda")
-    pos = torch.as_tensor(np.broadcast_to(
-        np.r_[0, 1:obs.shape[1] + 2], prime.shape).copy(), device="cuda")
-    one = torch.full((B, 1), layout.continuous_offset + 3, device="cuda")
-    zero = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+    pos = torch.as_tensor(np.broadcast_to(np.concatenate([
+        np.zeros(lead.shape[1], np.int64), np.arange(1, obs.shape[1] + 2),
+        np.zeros(spec, np.int64)]), prime.shape).copy(), device="cuda")
+    if spec:
+        second = ("verify", torch.as_tensor(guesses, device="cuda"))
+    else:
+        second = ("q1", torch.full((B, 1), layout.continuous_offset + 3,
+                                   device="cuda"))
+    zero = torch.zeros_like(second[1])
 
     m32 = cache32 = None
     if f32_copy:
@@ -1744,7 +1809,7 @@ def _route_check(model, layout, B, make_tenv, names, f32_copy=True) -> dict:
     out = {"attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL,
            "prime_q": prime.shape[1], "images": img is not None}
     for name, tok, tpos, tim in (("prime", prime, pos, img),
-                                 ("q1", one, zero, None)):
+                                 (*second, zero, None)):
         q = tok.shape[1]
         mask, mask_s = model.ring_masks(q, cache["cursor"], "cuda")
         rk = model.precompute_rk(q)
@@ -3092,9 +3157,10 @@ def _generator_route_check(model, h, tok) -> dict:
     return rec
 
 
-def _plain_routes(model, fn):
+def _plain_routes(model, fn, keep=()):
     """fn() with the model on its plain routes (``decode_flash`` "off",
-    ``attention_impl`` "xla"), counted to launch nothing."""
+    ``attention_impl`` "xla"), counted to launch no kernel but those named
+    in ``keep``."""
     cfg = model.cfg
     saved = cfg.decode_flash, cfg.attention_impl
     cfg.decode_flash, cfg.attention_impl = "off", "xla"
@@ -3102,7 +3168,7 @@ def _plain_routes(model, fn):
         _reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        if any(_read_launches().values()):
+        if any(v for k, v in _read_launches().items() if k not in keep):
             raise AssertionError(f"the plain routes launched kernels: "
                                  f"{_read_launches()}")
     finally:
@@ -3402,6 +3468,695 @@ def phase_generate(smi: str, seed: int = 0) -> dict:
             "sample": tok.decode(out[0])}
 
 
+# ---- speculative serving, text observations, stateless decode ------------
+
+SPEC_S = 5                     # guesses: the HalfCheetah geometry's 6 - 1
+SPEC_PRIME_Q = 24 + SPEC_S     # [6 deferred || 17 obs || sep] + guesses
+SPEC_STEPS = 8
+SPEC_INT8_STEPS = 4
+SPEC_TURNS = ("speculative", "classic", "classic", "speculative")
+SPEC_TURN_STEPS = 8
+SPEC_ADAPTIVE_STEPS = 8
+# The speculative decoder's actions against the classic decoder's from one
+# primed cache, SPEC_CHECK_B envs over SPEC_CHECK_STEPS env steps, the envs
+# stepped by the classic actions (:func:`_spec_vs_classic`). Both decoders
+# are greedy over the same keys; their candidates come from forwards of
+# other shapes (29 and 5 rows against 1), so they differ by rounding.
+# - Free-running (the speculative decoder carries its own blocks), on an
+#   f32 copy of the weights through the plain routes: at least
+#   SPEC_ACTION_SHARE of the tokens equal (f32 flips an argmax only at a
+#   near-exact tie). This holds the decoder's logic over a chain.
+# - Teacher-forced (the speculative decoder is fed the classic block as
+#   its deferred carry and its guesses, so both caches hold the same
+#   tokens and no difference carries into the next step), on the served
+#   weights: through the kernel route (K2 or K7) and through the plain
+#   ring branch (``decode_flash`` "off"). In bf16 the random weights'
+#   logits are flat enough that the roundings of other shapes flip
+#   argmaxes at either route (on an H100 both read 0.2-0.35 of the tokens
+#   equal), so the kernel route's share is held to the plain route's: at
+#   least that less SPEC_ROUTE_MARGIN (about two standard deviations of
+#   the difference of two such shares over 8 x 4 steps), for dim 0 and for
+#   the later dims apart. A wrong guess row, mask or merge in the kernel
+#   route makes the later dims differ nearly always.
+SPEC_ACTION_SHARE = 0.9
+SPEC_ROUTE_MARGIN = 0.1
+SPEC_CHECK_B = 8
+SPEC_CHECK_STEPS = 4
+
+
+@contextlib.contextmanager
+def _model_flags(model, **flags):
+    """Decoders built inside see ``model.cfg`` with ``flags`` set (the
+    decode mode is read when a decoder is built)."""
+    saved = {k: getattr(model.cfg, k) for k in flags}
+    for k, v in flags.items():
+        setattr(model.cfg, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(model.cfg, k, v)
+
+
+def _spec_widths(dec, q: int, lead: int) -> list:
+    """The ring calls of a speculative decode's q-token prime (``lead``
+    deferred tokens first): their widths, the last one with the guesses
+    when they ride it."""
+    widths, frames, real = dec.prime_plan(q, lead, speculate=True)
+    widths, _, tail = dec.spec_plan(widths, frames, real)
+    if tail:
+        widths[-1] += dec.action_length - 1
+    return widths
+
+
+def _f32_copy(model):
+    """The model's weights in an f32 model on the card (the plain routes
+    only: the ring kernels take bf16 and int8 caches, K3 bf16 models)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+
+    m32 = TransformerXL(dataclasses.replace(model.cfg, dtype="float32",
+                                            param_dtype="float32"),
+                        model.vocab, vision=model.vision, device="cuda")
+    m32.load_state_dict(model.state_dict())
+    return m32
+
+
+@torch.no_grad()
+def _spec_vs_classic(model, make_tenv, names, layout, forced: bool) -> dict:
+    """SPEC_CHECK_B envs: one episode-start prime through the classic
+    decoder into one cache, copied; then SPEC_CHECK_STEPS env steps through
+    the speculative decoder (its first step takes the classic step's one
+    deferred token and the whole block as its guesses, as an adaptive
+    switch does) and the classic decoder, one copy each, the envs stepped
+    by the classic actions. Later steps carry the speculative decoder's
+    own block, or with ``forced`` the classic one. The share of equal
+    action tokens (all dims, and dim 0 alone, which both take from the
+    prime's last real row, and the later dims) over the steps and at
+    each, and the rounds."""
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+
+    tenvs = [make_tenv(nm) for nm in names[:SPEC_CHECK_B]]
+    spec = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
+    with _model_flags(model, decode_speculative=False):
+        plain = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
+    if not spec.speculates or plain.speculates:
+        raise AssertionError("decoder modes off")
+    B = len(tenvs)
+    sep = np.full((B, 1), layout.separator_id, np.int64)
+    act, mems = plain.decode(_start_primes(tenvs, sep, 7),
+                             plain.init_mems(B), defer_last=True)
+    caches = {"spec": _copy_cache(mems), "plain": mems}
+    carry = {"spec": act[:, -1:], "plain": act[:, -1:]}
+    guess = act
+    equal, equal0, later, rounds = [], [], [], []
+    for _ in range(SPEC_CHECK_STEPS):
+        obs = _step_obs(tenvs, act, sep)
+        a_s, caches["spec"] = spec.decode(
+            obs, caches["spec"], deferred_tok=carry["spec"],
+            defer_last=True, guess_tok=guess)
+        rounds.append(spec.last_spec_rounds)
+        a_p, caches["plain"] = plain.decode(
+            obs, caches["plain"], deferred_tok=carry["plain"],
+            defer_last=True)
+        guess = a_p if forced else a_s
+        carry = {"spec": guess, "plain": a_p[:, -1:]}
+        equal.append(float((a_s == a_p).mean()))
+        equal0.append(float((a_s[:, 0] == a_p[:, 0]).mean()))
+        later.append(float((a_s[:, 1:] == a_p[:, 1:]).mean()))
+        act = a_p
+    return {"batch": B, "env_steps": SPEC_CHECK_STEPS, "forced": forced,
+            "equal_action_share": float(np.mean(equal)),
+            "equal_first_dim_share": float(np.mean(equal0)),
+            "equal_later_dims_share": float(np.mean(later)),
+            "equal_action_share_by_step": equal,
+            "equal_first_dim_share_by_step": equal0,
+            "equal_later_dims_share_by_step": later,
+            "verify_rounds": rounds}
+
+
+def _spec_action_check(model, make_tenv, names, layout) -> dict:
+    """:func:`_spec_vs_classic` teacher-forced on the served model through
+    the kernel route and through the plain ring branch (K9 stays on int8
+    weights: it has no plain route on the card), held to each other
+    within SPEC_ROUTE_MARGIN; for bf16 weights also free-running on an f32
+    copy of them through the plain routes, at least SPEC_ACTION_SHARE of
+    the tokens equal."""
+    def forced():
+        return _spec_vs_classic(model, make_tenv, names, layout, True)
+
+    keep = ("quant_matmul",) if model.decode_weights_quantized() else ()
+    out = {"forced": {"kernel": forced(),
+                      "plain": _plain_routes(model, forced, keep=keep)},
+           "route_margin": SPEC_ROUTE_MARGIN, "share_min": SPEC_ACTION_SHARE}
+    if not model.decode_weights_quantized():
+        m32 = _f32_copy(model)
+        out["f32"] = _spec_vs_classic(m32, make_tenv, names, layout, False)
+        del m32
+        torch.cuda.empty_cache()
+    k, p = out["forced"]["kernel"], out["forced"]["plain"]
+    if not (all(k[key] >= p[key] - SPEC_ROUTE_MARGIN for key in (
+            "equal_first_dim_share", "equal_later_dims_share"))
+            and out.get("f32", {}).get("equal_action_share", 1.0)
+            >= SPEC_ACTION_SHARE):
+        raise AssertionError(f"speculative against classic actions: {out}")
+    return out
+
+
+def _adaptive_steps(model, make_tenv, names, layout, n: int) -> dict:
+    """An adaptive decoder (``decode_spec_adaptive``) and one
+    ``AdaptiveSpecSession`` with the default controller: ``prewarm`` at the
+    steady geometry (timed), the episode-start prime, then n steady env
+    steps, each ended by its host read: the mode of each step, the
+    controller's switches, rounds and average, the step times."""
+    from bdm_db1_tpu_torch.eval.decode import (
+        AdaptiveSpecSession, build_decoder_for_env,
+    )
+
+    tenvs = [make_tenv(nm) for nm in names]
+    with _model_flags(model, decode_spec_adaptive=True):
+        adec = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
+    sess = AdaptiveSpecSession(adec)
+    B = len(tenvs)
+    sep = np.full((B, 1), layout.separator_id, np.int64)
+    start = _start_primes(tenvs, sep, 11)
+    t0 = time.perf_counter()
+    sess.prewarm(start[:, -adec.obs_length - 1:])
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    act, mems = sess.decode(start, adec.init_mems(B), defer_last=True)
+    modes, times = [], []
+    for _ in range(n):
+        obs = _step_obs(tenvs, act, sep)
+        t0 = time.perf_counter()
+        act, mems = sess.decode(obs, mems,
+                                deferred_tok=act[:, -sess.defer_width:],
+                                defer_last=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+        modes.append("speculative" if sess.last_was_spec else "classic")
+    ctl = sess.ctl
+    return {"steps": n, "modes": modes, "switches": ctl.switches,
+            "spec_steps": ctl.spec_steps, "total_steps": ctl.total_steps,
+            "rounds_mean": ctl.rounds_sum / max(ctl.rounds_n, 1),
+            "rounds_ewma": ctl.ewma, "exit_rounds": ctl.exit_rounds,
+            "reenter_rounds": ctl.reenter_rounds, "step_ms": times,
+            "prewarm_s": prewarm_s, "rk_widths": adec._rk.widths()}
+
+
+def _spec_leg(batch: int, steps: int, full: bool, seed: int = 0,
+              **overrides) -> dict:
+    """db1_1p2b with ``decode_speculative`` serving ``batch`` lockstep
+    HalfCheetah-geometry envs for ``steps`` env steps at the default
+    buckets through ``evaluate_envs_lockstep`` (warmed once, then
+    counted). Checks the launches against the speculative plan (the
+    prime's ring calls with the guess tail on the last, then the recorded
+    verify rounds at q = S; no q = 1 forward), the records and the action
+    range; the layer-by-layer route check at the speculative shapes (a
+    29-row prime with its guesses, a 5-row verify) and the action share
+    against the classic decoder. With ``full``: the steady rate, idle
+    share and rounds of both decoders timed in turns (SPEC_TURNS) and the
+    adaptive session."""
+    from bdm_db1_tpu_torch.eval.decode import DecoderPool
+    from bdm_db1_tpu_torch.eval.harness import evaluate_envs_lockstep
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+
+    cfg, model, layout, names, make_tenv = _serve_setup(
+        batch, steps, seed, decode_speculative=True, **overrides)
+    int8_cache = cfg.model.decode_cache_dtype == "int8"
+    int8_weights = cfg.model.decode_weight_dtype == "int8"
+    L, A = cfg.model.n_layer, 6
+    run = dict(num_trials=1, seed=100, batch_size=batch, interleave=1,
+               strict_length=True)
+    pool = _RecordingPool(DecoderPool(model, pad_buckets="default"))
+    evaluate_envs_lockstep(model, names, make_tenv, decoder_pool=pool,
+                           max_step_size=2, **run)
+    torch.cuda.synchronize()
+    rec = pool.get(make_tenv(names[0]))
+    rec.acts.clear()
+    rec.rounds.clear()
+
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_envs_lockstep(model, names, make_tenv, decoder_pool=pool,
+                                 max_step_size=steps, **run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+
+    dec = rec.inner
+    rounds = list(rec.rounds)
+    if not dec.speculates or dec.action_length - 1 != SPEC_S \
+            or len(rounds) != steps:
+        raise AssertionError(f"not a speculative decoder at S {SPEC_S}: "
+                             f"rounds {rounds}")
+    prompt, _ = make_tenv(names[0]).get_prompt(
+        strict_length=True, rng=np.random.RandomState(0))
+    first = _spec_widths(dec, len(prompt) + dec.obs_length + 1, 0)
+    steady = _spec_widths(dec, dec.obs_length + 1 + A, A)
+    if steady != [SPEC_PRIME_Q]:
+        raise AssertionError(f"the steady speculative prime is {steady}, "
+                             f"not one call of {SPEC_PRIME_Q} rows")
+    calls = [first] + [steady] * (steps - 1)
+    ring = [w for c in calls for w in c]
+    suffix = "_int8" if int8_cache else ""
+    want = dict.fromkeys(launches, 0)
+    want["flash_ring_prime_ap" + suffix] = L * (
+        sum(2 <= w <= fro.MAX_PRIME_Q for w in ring) + sum(rounds))
+    want["flash_ring_decode" + suffix] = L * ring.count(1)
+    if int8_weights:
+        want["quant_matmul"] = 4 * L * (len(ring) + sum(rounds))
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if not all(r["length_mean"] == steps and r["num_trials"] == 1
+               and np.isfinite(r["return_mean"]) for r in res):
+        raise AssertionError(f"episode records off: {res[:3]}")
+    acts = torch.cat(rec.acts).cpu().numpy()
+    if acts.shape != (steps * batch, A) or not (
+            (acts >= layout.continuous_offset)
+            & (acts < layout.separator_id)).all():
+        raise AssertionError(f"action tokens off: shape {acts.shape}, "
+                             f"range {acts.min()}..{acts.max()}")
+    routes = _route_check(model, layout, batch, make_tenv, names,
+                          f32_copy=False, spec=SPEC_S)
+    share = _spec_action_check(model, make_tenv, names, layout)
+    out = {"config": "db1_1p2b", "dtype": "bfloat16",
+           "decode_cache_dtype": cfg.model.decode_cache_dtype,
+           "decode_weight_dtype": cfg.model.decode_weight_dtype,
+           "batch": batch, "env_steps": steps, "first_prime_calls": first,
+           "steady_prime_call": steady[0], "verify_rounds": rounds,
+           "rounds_mean": float(np.mean(rounds)),
+           "rounds_max": int(max(rounds)),
+           "forwards": len(ring) + sum(rounds),
+           "classic_forwards": len(first) + steps * (A - 1) + steps - 1,
+           "launches": launches, "launches_expected": want,
+           "wall_s": wall, "actions_per_sec": batch * steps / wall,
+           "kernel_vs_plain": routes, "vs_classic": share}
+    if full:
+        classic = _RecordingPool(DecoderPool(model, pad_buckets="default"))
+        with _model_flags(model, decode_speculative=False):
+            classic.get(make_tenv(names[0]))
+        _steady_steps(model, classic, make_tenv, names, layout, A, n=1)
+        pools = {"speculative": pool, "classic": classic}
+        turns = [(name, _steady_steps(model, pools[name], make_tenv, names,
+                                      layout, A, n=SPEC_TURN_STEPS))
+                 for name in SPEC_TURNS]
+        out.update({k: v for k, v in turns[0][1].items()})
+        out["spec_ab"] = {
+            name: {key: [t.get(key) for n, t in turns if n == name]
+                   for key in ("steady_actions_per_sec",
+                               "steady_step_ms_median", "device_busy_ms",
+                               "device_idle_share", "verify_rounds")}
+            for name in pools}
+        out["adaptive"] = _adaptive_steps(model, make_tenv, names, layout,
+                                          SPEC_ADAPTIVE_STEPS)
+    return out
+
+
+def phase_serve_spec(smi: str, seed: int = 0) -> dict:
+    """Speculative serving: the bf16 leg (the ``serve`` configuration, 40
+    envs, SPEC_STEPS steps, full readings) and the int8 leg (int8 cache and
+    weights, 56 envs, SPEC_INT8_STEPS steps). ``launches`` sums both
+    legs."""
+    bf16 = _spec_leg(40, SPEC_STEPS, True, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = _spec_leg(56, SPEC_INT8_STEPS, False, seed,
+                     decode_cache_dtype="int8", decode_weight_dtype="int8")
+    launches = {k: bf16["launches"][k] + int8["launches"][k]
+                for k in bf16["launches"]}
+    return {"phase": "serve_spec", "card": smi, "launches": launches,
+            "bf16": bf16, "int8": int8}
+
+
+TEXT_ENV = "fake-text-v0"
+TEXT_TRIALS = 40
+TEXT_STEPS = 8
+
+
+def phase_evaluate_rl_text(smi: str, vis_dir: str, saved_weights: dict,
+                           seed: int = 0) -> dict:
+    """Needs ``pretrain_vision``: ``evaluate_rl.main`` serves its
+    checkpoint in bf16 on ``fake-text-v0`` (a mission of 18 byte tokens
+    and a 32 x 32 frame, 4 patch slots, an observation; one discrete
+    action token), TEXT_TRIALS episodes of TEXT_STEPS steps in one
+    lockstep cohort with an expert prompt whose first prime
+    ``_image_chunk_plan`` cuts; the env's trajectory cache is written from
+    the live env first. Before the counted run: the weights read
+    (``load_params`` takes the port checkpoint, every weight the saved one
+    cast to bf16) and the route check at B 40 on the text prime. Checks
+    the records, ``results.output`` and the K1/K2 launches of the slice
+    plan (the steady [action || mission || patches || sep] prime, 24
+    tokens, one K2 call; no q = 1 forward, so K1 0)."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        TrajectoryStore, build_rl_dataset_from_cache,
+    )
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+    from bdm_db1_tpu_torch.eval.envs import make_env
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.train import pretrain
+
+    cache_dir = os.path.join(vis_dir, "rl_text")
+    out_dir = os.path.join(vis_dir, "out_text")
+    TrajectoryStore.from_env_name(TEXT_ENV, cache_dir)
+    cfg = db1_1p2b()
+    cfg.model.param_dtype = "bfloat16"
+    cfg.data.rl_dataset_cache_dir = cache_dir
+    cfg.train.load_dir = os.path.join(vis_dir, "run")
+    cfg.train.save_dir = out_dir
+    cfg.eval = dataclasses.replace(
+        cfg.eval, env_names=(TEXT_ENV,), num_trials=TEXT_TRIALS,
+        batched=True, batch_size=TEXT_TRIALS, max_step_size=TEXT_STEPS)
+
+    model = TransformerXL(cfg.model, cfg.vocab, vision=cfg.vision,
+                          device="cuda")
+    if evaluate_rl.load_params(cfg, model) != evaluate_rl.FROM_PORT:
+        raise AssertionError("load_params did not read the port checkpoint")
+    sd = model.state_dict()
+    bad = [n for n, t in saved_weights.items()
+           if not torch.equal(sd[n].cpu(), t.to(sd[n].dtype))]
+    if bad or sd.keys() != saved_weights.keys():
+        raise AssertionError(f"loaded weights differ from the saved ones: "
+                             f"{bad[:5]}")
+    del sd
+    tok = pretrain.build_tokenizer_suite(cfg)
+
+    def make_tenv(name):
+        return TokenizedEnv(make_env(name), build_rl_dataset_from_cache(
+            name, cache_dir, cfg.model.n_position, tok))
+
+    tenv = make_tenv(TEXT_ENV)
+    if tenv.ds.obs_type_spec.get("mission") != "text":
+        raise AssertionError(f"no text leaf: {tenv.ds.obs_type_spec}")
+    dec = build_decoder_for_env(model, tenv, pad_buckets="default")
+    prompt, prompt_img = tenv.get_prompt(strict_length=True,
+                                         rng=np.random.RandomState(0))
+    q0 = len(prompt) + dec.obs_length + 1
+    n0 = len(prompt_img) + 1
+    slices = dec.prime_plan(q0, 0, n0)[0]
+    steady = dec.prime_plan(dec.obs_length + 2, 1, 1)[0]
+    if len(slices) < 2 or len(steady) != 1 \
+            or steady[0] > fro.MAX_PRIME_Q:
+        raise AssertionError(f"prime plan off: first {slices}, steady "
+                             f"{steady}")
+    A = dec.action_length
+    routes = _route_check(model, cfg.vocab.layout(), TEXT_TRIALS,
+                          make_tenv, [TEXT_ENV] * TEXT_TRIALS,
+                          f32_copy=False)
+    del model, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = evaluate_rl.main(cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    sys.stdout.write(out.getvalue())
+
+    L, steps = cfg.model.n_layer, TEXT_STEPS
+    want = dict.fromkeys(launches, 0)
+    want["flash_ring_decode"] = L * (steps * (A - 1) + slices.count(1))
+    want["flash_ring_prime_ap"] = L * (
+        steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if "restored port checkpoint" not in out.getvalue():
+        raise AssertionError("main did not read the port checkpoint")
+    if not (len(res) == 1 and res[0]["env"] == TEXT_ENV
+            and res[0]["num_trials"] == TEXT_TRIALS
+            and res[0]["length_mean"] == steps
+            and np.isfinite(res[0]["return_mean"])):
+        raise AssertionError(f"records off: {res}")
+    with open(os.path.join(out_dir, "results.output")) as f:
+        if f.read().splitlines() != [json.dumps(r) for r in res]:
+            raise AssertionError("results.output off")
+    return {"phase": "evaluate_rl_text", "config": "db1_1p2b",
+            "dtype": "bfloat16", "param_dtype": "bfloat16", "card": smi,
+            "env": TEXT_ENV, "obs_tokens": tenv.obs_length,
+            "obs_types": tenv.ds.obs_type_spec, "action_tokens": A,
+            "trials": TEXT_TRIALS, "env_steps": steps,
+            "first_prime": {"q": q0, "frames": n0}, "prime_slices": slices,
+            "steady_prime": steady[0],
+            "launches": launches, "launches_expected": want,
+            "kernel_vs_plain": routes, "records": res, "wall_s": wall,
+            "actions_per_sec": TEXT_TRIALS * steps / wall}
+
+
+STATELESS_B = 8
+STATELESS_STEPS = 8
+
+
+class _WindowRecorder:
+    """Keeps each sequence a window decoder is given, its actions and the
+    call's wall time (the decoder returns host arrays, so each call ends
+    in a host read)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seqs, self.acts, self.ms = [], [], []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def decode(self, seq, env_action_mask=None):
+        t0 = time.perf_counter()
+        act, ext = self.inner.decode(seq, env_action_mask)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.seqs.append(np.array(seq))
+        self.acts.append(act)
+        return act, ext
+
+
+class _WindowModel:
+    """The model as a ``WindowDecoder`` sees it, keeping the logits of
+    each of its forwards ([B, V], one an action dim); with
+    ``zero_memory`` every trunk forward also attends the ring's mem_len
+    zero rows (a zero cache's hidden states), as a ring decode from an
+    empty cache does."""
+
+    def __init__(self, model, zero_memory: bool = False):
+        self.model = model
+        self.zero_memory = zero_memory
+        self.logged = []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def trunk(self, h, mems):
+        if self.zero_memory:
+            mems = self.model.init_mems(h.shape[0])
+        return self.model.trunk(h, mems)
+
+    def logits(self, h):
+        out = self.model.logits(h)
+        self.logged.append(out)
+        return out
+
+
+def _rel_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+@torch.no_grad()
+def phase_stateless(smi: str, seed: int = 0) -> dict:
+    """The stateless (mem-less) evaluation at db1_1p2b in bf16 (random
+    weights from ``seed``) on the HalfCheetah geometry: ``WindowDecoder``
+    over a 1024-token window, one trunk forward (K3, 24 launches) an
+    action dim. Counted: ``run_episode_stateless`` at B 1, one episode of
+    STATELESS_STEPS steps with a fixed expert prompt, then
+    ``decode_batch`` over STATELESS_B rows of different lengths (the
+    episode's sequences). Checks the K3 launches, ``decode_batch`` against
+    the single decodes and, layer by layer, K3 against ``rel_attention``
+    on the longest window; then ``decode_batch`` on the K3 route against
+    the same decoder on the rel_attention route (:func:`_window_routes`)
+    and, on an f32 copy of the weights, against the ring decode
+    (:func:`_window_vs_ring`). Reads actions/sec and the step time."""
+    from bdm_db1_tpu_torch.eval.decode import WindowDecoder
+    from bdm_db1_tpu_torch.eval.harness import run_episode_stateless
+
+    cfg, model, layout, names, make_tenv = _serve_setup(
+        STATELESS_B, STATELESS_STEPS, seed)
+    tenv = make_tenv(names[0])
+    A, obs_len = tenv.action_length, tenv.obs_length
+    wdec = _WindowRecorder(WindowDecoder(model, layout, obs_len, A, False))
+    W = wdec.window
+    sep = tenv.separator_id
+    wdec.inner.decode(np.concatenate([tenv.reset()[0], [sep]]))  # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    ep = run_episode_stateless(tenv, wdec, use_prompt=True,
+                               prompt_strategy="fixed_prompt",
+                               rng=np.random.RandomState(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = wdec.seqs[-STATELESS_B:]
+    t0 = time.perf_counter()
+    acts_b, _ = wdec.inner.decode_batch(rows)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+
+    L = cfg.model.n_layer
+    want = dict.fromkeys(launches, 0)
+    want["flash_rel_attention"] = L * A * (STATELESS_STEPS + 1)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if ep.episode_length != STATELESS_STEPS or not np.isfinite(
+            ep.episode_return) or len(rows) != STATELESS_B:
+        raise AssertionError(f"episode off: {ep}, {len(rows)} rows")
+    for i, row in enumerate(rows):
+        if not np.array_equal(acts_b[i], wdec.acts[-STATELESS_B + i]):
+            raise AssertionError(f"decode_batch row {i} differs from its "
+                                 f"single decode")
+
+    routes = _window_route_check(model, wdec.seqs[-1], obs_len, A)
+    m32 = _f32_copy(model)
+    windows = _window_routes(model, m32, rows, tenv)
+    vs_ring = _window_vs_ring(m32, rows, tenv)
+    del m32
+    torch.cuda.empty_cache()
+    rec = {"phase": "stateless", "config": "db1_1p2b", "dtype": "bfloat16",
+           "param_dtype": "bfloat16", "card": smi, "window": W,
+           "obs_tokens": obs_len, "action_tokens": A,
+           "episode": {"steps": ep.episode_length,
+                       "return": ep.episode_return,
+                       "seq_lengths": [len(s) for s in wdec.seqs]},
+           "batch": STATELESS_B, "launches": launches,
+           "launches_expected": want, "wall_s": wall,
+           "actions_per_sec": STATELESS_STEPS / wall,
+           "step_ms": wdec.ms, "step_ms_median": float(np.median(wdec.ms)),
+           "batch_wall_s": wall_b,
+           "batch_actions_per_sec": STATELESS_B / wall_b,
+           "kernel_vs_plain": routes, "k3_vs_rel_attention": windows,
+           "vs_ring": vs_ring}
+    if not (windows["first_action_logits_rel_diff"]
+            <= windows["bf16_vs_f32_logits_rel_diff"]
+            and vs_ring["first_action_logits_rel_diff"] <= LOGIT_REL_TOL
+            and vs_ring["equal_action_share"] >= SPEC_ACTION_SHARE):
+        raise AssertionError(f"window decode checks: {windows}, {vs_ring}")
+    return rec
+
+
+@torch.no_grad()
+def _window_routes(model, m32, seqs, tenv) -> dict:
+    """``WindowDecoder.decode_batch`` over ``seqs`` through the K3 route
+    against the same decoder on the rel_attention route (``attention_impl``
+    "xla"), same bf16 weights: the first forward's logits at each row's
+    live position, max |diff| / max |logit|, at most as far apart as the
+    rel_attention route's are from the same decoder's on ``m32``, the f32
+    copy of the weights. The routes differ by a few of the roundings that
+    bf16 itself makes (p cast per key tile against the full softmax), and
+    24 layers grow either (on an H100 the routes read 0.063, past the one
+    layer's LOGIT_REL_TOL); a wrong mask, scale or rotation moves the
+    logits by O(1) of their size. The share of equal action tokens is
+    read (a differing token changes the next dims' windows)."""
+    from bdm_db1_tpu_torch.eval.decode import WindowDecoder
+
+    A, obs_len = tenv.action_length, tenv.obs_length
+    runs = {}
+    for route, m in (("kernel", model), ("plain", model), ("f32", m32)):
+        wm = _WindowModel(m)
+        dec = WindowDecoder(wm, tenv.tok.layout, obs_len, A, False)
+        acts = (_plain_routes(model, lambda: dec.decode_batch(seqs)[0])
+                if route == "plain" else dec.decode_batch(seqs)[0])
+        runs[route] = (acts, wm.logged[0])
+    (a_k, l_k), (a_p, l_p), (_, l_32) = (runs[r] for r in runs)
+    return {"batch": len(seqs),
+            "first_action_logits_rel_diff": _rel_diff(l_k, l_p),
+            "bf16_vs_f32_logits_rel_diff": _rel_diff(l_p, l_32),
+            "equal_action_share": float((a_k == a_p).mean())}
+
+
+@torch.no_grad()
+def _window_vs_ring(model, seqs, tenv) -> dict:
+    """``WindowDecoder.decode_batch`` over ``seqs`` against the ring decode
+    of each (B 1, from an empty cache), on an f32 copy of the weights (the
+    plain routes): the first-action logits on the longest within
+    LOGIT_REL_TOL and at least SPEC_ACTION_SHARE of the action tokens
+    equal. The ring decode's queries attend its mem_len zero rows (the
+    reference's zero memory: zero hidden states give zero K/V, the QKV
+    projection has no bias) beside the sequence, and the window has no
+    memory, so the window decoder's trunk is given the same zero rows
+    (:class:`_WindowModel`): both then attend the same keys and differ
+    only by rounding. Without them they differ by the zero rows' weight
+    too (a window longer than n_layer x mem_len tokens would put them out
+    of reach, the CPU test's case; 1024 is not)."""
+    from bdm_db1_tpu_torch.eval.decode import (
+        WindowDecoder, build_decoder_for_env,
+    )
+
+    layout = tenv.tok.layout
+    A, obs_len = tenv.action_length, tenv.obs_length
+    wm = _WindowModel(model, zero_memory=True)
+    acts = WindowDecoder(wm, layout, obs_len, A, False).decode_batch(seqs)[0]
+    ring = build_decoder_for_env(model, tenv)
+    i = int(np.argmax([len(s) for s in seqs]))
+    calls, got = [], []
+    real_logits = model.logits
+    model.logits = lambda h: calls.append(real_logits(h)) or calls[-1]
+    try:
+        for j, seq in enumerate(seqs):
+            calls.clear()
+            got.append(ring.decode(seq, ring.init_mems(1))[0])
+            if j == i:          # one logits read a ring call: the prime's last
+                first = calls[len(ring.prime_plan(len(seq), 0)[0]) - 1]
+    finally:
+        del model.logits
+    return {"dtype": "float32", "seq_len": len(seqs[i]),
+            "first_action_logits_rel_diff": _rel_diff(wm.logged[0][i:i + 1],
+                                                      first),
+            "equal_action_share": float((np.stack(got) == acts).mean())}
+
+
+@torch.no_grad()
+def _window_route_check(model, seq, obs_len: int, A: int) -> dict:
+    """The window forward of ``seq`` at B 1 driven layer by layer: each
+    layer's attention output through K3 against ``rel_attention`` on the
+    same input, within ATTN_REL_TOL of its largest value."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+
+    cfg = model.cfg
+    W = cfg.n_position
+    if not use_rel_kernel(cfg, W, W, "cuda"):
+        raise AssertionError("the window forward does not take K3")
+    _, pos = action_flags_and_position_ids(W, obs_len, A, 0)
+    tok = torch.zeros((1, W), dtype=torch.int64, device="cuda")
+    tok[0, :len(seq)] = torch.as_tensor(seq, device="cuda")
+    mask = same_length_mask(W, W, cfg.mem_len, device="cuda")
+    r = relative_positional_embedding(W, cfg.n_embed,
+                                      cfg.effective_clamp_len, device="cuda")
+    h = model.embed_rl(tok, torch.as_tensor(pos, device="cuda")[None])
+    errs = []
+    for layer in model.h:
+        attn = layer.dec_attn.attend(h, r, None, mask, True)
+        attn_p = layer.dec_attn.attend(h, r, None, mask, False)
+        errs.append(float((attn.float() - attn_p.float()).abs().max()
+                          / attn_p.float().abs().max()))
+        h = layer(h, None, r, mask, True)
+    out = {"attn_tol": ATTN_REL_TOL, "attn_rel_err_max": max(errs),
+           "attn_rel_err": errs}
+    if not max(errs) <= ATTN_REL_TOL:
+        raise AssertionError(f"K3 route vs rel_attention: {out}")
+    return out
+
+
 # what each time of the K4/K5 rows of the kernels line is
 BWD_TIMES = {
     "ms": "the kernel alone: CUDA events around bare launches, on delta and "
@@ -3507,10 +4262,11 @@ def main(argv=None) -> int:
     if "evaluate_rl" in phases and "train" not in phases:
         raise SystemExit("the evaluate_rl phase serves the train phase's "
                          "checkpoint: name train too")
-    if "evaluate_rl_image" in phases and "pretrain_vision" not in phases:
-        raise SystemExit("the evaluate_rl_image phase serves the "
-                         "pretrain_vision phase's checkpoint: name "
-                         "pretrain_vision too")
+    for phase in ("evaluate_rl_image", "evaluate_rl_text"):
+        if phase in phases and "pretrain_vision" not in phases:
+            raise SystemExit(f"the {phase} phase serves the "
+                             "pretrain_vision phase's checkpoint: name "
+                             "pretrain_vision too")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
@@ -3539,6 +4295,11 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             results[phase] = phase_serve(smi, phase=phase, **kw)
             emit(results[phase])
+    if "serve_spec" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["serve_spec"] = phase_serve_spec(smi)
+        emit(results["serve_spec"])
     # the train phase's checkpoint and a host copy of its weights, served
     # and checked by evaluate_rl; the directory is deleted at the end
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3568,7 +4329,8 @@ def main(argv=None) -> int:
     saved_weights = {}
     try:
         for phase, fn in (("pretrain_vision", phase_pretrain_vision),
-                          ("evaluate_rl_image", phase_evaluate_rl_image)):
+                          ("evaluate_rl_image", phase_evaluate_rl_image),
+                          ("evaluate_rl_text", phase_evaluate_rl_text)):
             if phase in phases:
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -3582,6 +4344,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["generate"] = phase_generate(smi)
         emit(results["generate"])
+    if "stateless" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["stateless"] = phase_stateless(smi)
+        emit(results["stateless"])
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

@@ -289,10 +289,39 @@ def test_unported_paths_raise():
         tm({"rl": rl, "audio": rl})
     # text, captioning and VQA groups are ported (tests/test_torch_pretrain.py,
     # tests/test_torch_vision.py), and so are geometry buckets in the ring
-    # forward (tests/test_torch_geometry_buckets.py); speculative tails
-    # are not
+    # forward (tests/test_torch_geometry_buckets.py) and speculative tails:
+    # the tail's logits and the committed rows are JAX's, and a pure verify
+    # forward (the whole call a tail) leaves the cache as it was
     cache, rk = tm.init_kv_cache_ring(1), tm.precompute_rk(8)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tm.decode_rl_kv_ring(tok, tok, cache, rk, spec_tail=1)
     assert tm.decode_rl_kv_ring(tok, tok, cache, rk, real_q=4)[1][
         "cursor"] == 4
+    _, jm, params, tm = _models(32)
+    rng = np.random.RandomState(4)
+    tok = rng.randint(0, tm.layout.total_vocab_size, (2, 8))
+    pos = rng.randint(0, 6, (2, 8))
+    jcache = jm.apply({"params": params}, 2, method=JaxTXL.init_kv_cache_ring)
+    jcache["k"] = jnp.asarray(rng.randn(*jcache["k"].shape), jnp.float32)
+    jcache["v"] = jnp.asarray(rng.randn(*jcache["v"].shape), jnp.float32)
+    jcache["cursor"] = jnp.int32(27)
+    for tail in (1, 8):
+        cache = {"k": torch.from_numpy(np.array(jcache["k"])),
+                 "v": torch.from_numpy(np.array(jcache["v"])), "cursor": 27}
+        before = {k: cache[k].clone() for k in "kv"}
+        lj, cj = jm.apply({"params": params}, jnp.asarray(tok),
+                          jnp.asarray(pos), jcache,
+                          jm.apply({"params": params}, 8,
+                                   method=JaxTXL.precompute_rk),
+                          spec_tail=tail, method=JaxTXL.decode_rl_kv_ring)
+        lt, ct = tm.decode_rl_kv_ring(torch.from_numpy(tok),
+                                      torch.from_numpy(pos), cache,
+                                      tm.precompute_rk(8), spec_tail=tail)
+        lj = np.asarray(lj)
+        assert lt.shape == lj.shape == (2, 2 if tail == 1 else 8,
+                                        lj.shape[-1])
+        assert np.abs(lt.numpy() - lj).max() <= LOGIT_TOL * np.abs(lj).max()
+        assert ct["cursor"] == int(cj["cursor"]) == (27 + 8 - tail) % 32
+        for k in "kv":
+            np.testing.assert_allclose(ct[k].numpy(), np.asarray(cj[k]),
+                                       rtol=0, atol=HID_TOL)
+            if tail == 8:
+                assert torch.equal(ct[k], before[k]), k

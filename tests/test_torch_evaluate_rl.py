@@ -325,6 +325,14 @@ def test_make_env_rejects_unported_and_unknown_names(name):
         assert isinstance(env, te.FakeImageEnv)
         assert env.reset().shape == (3, 32, 32) and env.action_space.n == 4
         return
+    if name == "fake-text-v0":
+        # ported with text observations: made as the JAX registry makes it
+        env = te.make_env(name)
+        assert isinstance(env, te.FakeTextEnv)
+        obs = env.reset()
+        assert obs["image"].shape == (3, 32, 32) and env.action_space.n == 7
+        assert str(obs["mission"]) in te.FakeTextEnv.MISSIONS
+        return
     with pytest.raises(ValueError, match="unknown env"):
         te.make_env(name)
 
