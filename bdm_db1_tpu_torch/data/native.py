@@ -10,7 +10,11 @@ computes it).
   tokens_per_epoch)`` — the GPT packed-sample index, vectorised: a
   cumulative sum and a search over the document sizes;
 * ``build_blending_indices(weights, size)`` — error-minimizing weighted
-  round-robin, with the C++ helper's once-rounded errors;
+  round-robin, with the C++ helper's once-rounded errors: a C loop
+  (csrc/blending.c, built with the system C compiler into ``build/native/``
+  at first use and loaded with ctypes; a failed build raises with the
+  compiler's output), whose plain Python version is
+  ``build_blending_indices_plain``;
 * ``build_mapping`` / ``build_blocks_mapping`` — the BERT sentence-group
   and ICT block maps, with the ``std::mt19937`` / ``std::mt19937_64`` draw
   sequences of the C++ original bit for bit.
@@ -18,9 +22,21 @@ computes it).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
+
+_BLEND_SRC = Path(__file__).resolve().parent.parent / "csrc" / "blending.c"
+_NATIVE_BUILD = Path(__file__).resolve().parents[2] / "build" / "native"
+# -ffp-contract=off: the one fused multiply-add is the explicit fma()
+CC_FLAGS = ("-O2", "-std=c99", "-shared", "-fPIC", "-ffp-contract=off")
 
 
 def build_rl_sample_idx(path_lengths: Sequence[int],
@@ -69,13 +85,63 @@ def build_sample_idx(
     return out
 
 
+def _compiler() -> str:
+    for cand in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no C compiler found (CC, cc, gcc, clang): the "
+                       "blending index is built from csrc/blending.c")
+
+
+@functools.lru_cache(maxsize=None)
+def _blend_lib() -> ctypes.CDLL:
+    """csrc/blending.c built at first use into ``build/native/``, named by
+    the source's hash (written under a temporary name and renamed, so
+    processes that build at once never load a partial file)."""
+    src = _BLEND_SRC.read_bytes()
+    out = _NATIVE_BUILD / (
+        f"blending-{hashlib.sha1(src).hexdigest()[:12]}.so")
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_compiler(), *CC_FLAGS, "-o", str(tmp), str(_BLEND_SRC), "-lm"],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {_BLEND_SRC.name} failed "
+                               f"({proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    lib.bdm_build_blending_indices.argtypes = [P, LL, LL, P, P]
+    lib.bdm_build_blending_indices.restype = ctypes.c_int
+    return lib
+
+
 def build_blending_indices(
     weights: np.ndarray, size: int
 ) -> Tuple[np.ndarray, np.ndarray]:
     """(dataset_index int32 [size], dataset_sample_index int64 [size]):
     entry i takes the dataset with the largest error weight * (i + 1) -
-    count (the first on a tie) and that dataset's next sample.
+    count (the first on a tie) and that dataset's next sample. The C loop
+    of csrc/blending.c; equal to :func:`build_blending_indices_plain`."""
+    w = np.ascontiguousarray(weights, dtype=np.float64)
+    ds_index = np.empty(size, dtype=np.int32)
+    ds_sample = np.empty(size, dtype=np.int64)
+    rc = _blend_lib().bdm_build_blending_indices(
+        w.ctypes.data, len(w), size, ds_index.ctypes.data,
+        ds_sample.ctypes.data)
+    if rc:
+        raise MemoryError(f"build_blending_indices: no memory for "
+                          f"{len(w)} counts")
+    return ds_index, ds_sample
 
+
+def build_blending_indices_plain(
+    weights: np.ndarray, size: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`build_blending_indices`, a Python loop.
     The error is rounded once, from its exact value, as the JAX package's
     C++ helper computes it (built with ``-march=native``, the compiler
     fuses the multiply and the subtract). Its numpy fallback rounds the
@@ -288,14 +354,17 @@ def build_blocks_mapping(
 
 
 if __name__ == "__main__":
-    # The blending index's build time at a run's size:
+    # The blending index's build time at a run's size, the C loop and its
+    # plain version (the C library built first, outside the timing):
     #   python -m bdm_db1_tpu_torch.data.native [size] [weight ...]
     import sys
     import time
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 10_240_000
     w = np.asarray([float(x) for x in sys.argv[2:]] or [0.5, 0.5])
-    t0 = time.perf_counter()
-    build_blending_indices(w / w.sum(), n)
-    print(f"build_blending_indices: {n} entries over {len(w)} datasets "
-          f"in {time.perf_counter() - t0:.3f} s")
+    _blend_lib()
+    for fn in (build_blending_indices, build_blending_indices_plain):
+        t0 = time.perf_counter()
+        fn(w / w.sum(), n)
+        print(f"{fn.__name__}: {n} entries over {len(w)} datasets in "
+              f"{time.perf_counter() - t0:.3f} s")

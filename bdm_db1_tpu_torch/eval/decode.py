@@ -36,6 +36,14 @@ With ``decode_weight_dtype`` "int8"/"int8a8", :func:`build_decoder_for_env`
 (and so :class:`DecoderPool`) quantizes the model's trunk weights once, as
 the JAX package's does.
 
+Pre-LN models decode over hidden-state memory [n_layer, B, mem_len, D]
+(``use_kv_cache`` False, as in the JAX package): the prime is one
+``decode_rl`` forward (no slices, buckets, deferral or speculation) and
+each action dim another; every forward recomputes the K/V of the whole
+memory in each layer. ``mem_len`` 0 is refused: the hidden memory would
+grow with every forward there, and the JAX decoder fails on it; the
+mem-less decode is :class:`WindowDecoder`.
+
 :class:`WindowDecoder` is the stateless decode (no memory): a fixed padded
 window of ``n_position`` tokens, one full forward through the trunk per
 action dim.
@@ -137,7 +145,8 @@ class RkCache:
 
 
 class ActionDecoder:
-    """Per-env-geometry greedy decoder over the model's ring cache."""
+    """Per-env-geometry greedy decoder over the model's ring cache (a
+    pre-LN model: over its hidden-state memory)."""
 
     def __init__(
         self,
@@ -152,8 +161,13 @@ class ActionDecoder:
     ):
         cfg = model.cfg
         if cfg.mem_len <= 0:
-            raise NotImplementedError(
-                "decode without a ring cache (mem_len 0) is not ported yet")
+            raise ValueError(
+                "ActionDecoder needs mem_len > 0: at mem_len 0 the trunk "
+                "keeps the whole [memory || input] as the next memory, so "
+                "the hidden memory grows by q rows a forward (the JAX "
+                "decoder's action scan fails on that carry); decode without "
+                "memory through the stateless window path (WindowDecoder, "
+                "run_episode_stateless)")
         self.model = model
         self.layout = layout
         self.obs_length = int(obs_length)
@@ -166,9 +180,12 @@ class ActionDecoder:
             base = layout.continuous_action_logit_bias()
         self._base_bias = base
         self._num_actions = num_actions
+        # the ring K/V cache serves post-LN models; pre-LN ones decode over
+        # hidden-state memory (decode_rl)
+        self.use_kv_cache = not cfg.pre_lnorm and cfg.mem_len > 0
         # deferring the last action token into the next prime is exact
         # only under same_length ring attention
-        self.defers = bool(cfg.same_length)
+        self.defers = self.use_kv_cache and bool(cfg.same_length)
         # speculative (Jacobi) decode: every action token defers into the
         # next prime, and the previous step's block is this step's guess
         self.speculates = ((cfg.decode_speculative or cfg.decode_spec_adaptive)
@@ -191,8 +208,9 @@ class ActionDecoder:
         # attention), as in the JAX package
         if pad_buckets == "default":
             pad_buckets = DEFAULT_OBS_BUCKETS
-        self.pad_buckets = (tuple(sorted(pad_buckets))
-                            if pad_buckets and cfg.same_length else None)
+        self.pad_buckets = (tuple(sorted(pad_buckets)) if pad_buckets
+                            and self.use_kv_cache and cfg.same_length
+                            else None)
         self._rk = rk_cache if rk_cache is not None else RkCache(model)
         self._bias_dev_cache = _LRU(8)
         self._pos_cache = _LRU(16)
@@ -202,7 +220,10 @@ class ActionDecoder:
         return self.model.device
 
     def init_mems(self, batch_size: int = 1):
-        return self.model.init_kv_cache_ring(batch_size)
+        """The zero ring cache, or without it the zero hidden memory."""
+        if self.use_kv_cache:
+            return self.model.init_kv_cache_ring(batch_size)
+        return self.model.init_mems(batch_size)
 
     def decode(self, prime_tokens: np.ndarray, mems, prime_images=None,
                env_action_mask=None, deferred_tok=None,
@@ -224,11 +245,13 @@ class ActionDecoder:
         are deferred action tokens, and with ``n_frames`` (an image prime)
         the frames of each slice: (sizes, frames), or (None, None) for a
         one-slice prime (chunking is exact only under same_length, and an
-        image prime that :meth:`_image_chunk_plan` cannot cut goes whole).
-        A lead token rides in the first slice, or in its own slice of no
-        frames when that slice is full."""
+        image prime that :meth:`_image_chunk_plan` cannot cut goes whole,
+        and so does every prime over hidden-state memory). A lead token
+        rides in the first slice, or in its own slice of no frames when
+        that slice is full."""
         chunk = _prime_chunk(self.model.cfg)
-        if q <= chunk or not self.model.cfg.same_length:
+        if (q <= chunk or not self.model.cfg.same_length
+                or not self.use_kv_cache):
             return None, None
         qp = q - lead
         frames = None
@@ -419,6 +442,9 @@ class ActionDecoder:
             return self._dispatch_spec(tokens, pos, mems, bias, images, sizes,
                                        frame_splits, deferred, defer_last,
                                        guess_tok, real_last)
+        if not self.use_kv_cache:
+            return _decode_step(self.model, self.action_length, tokens, pos,
+                                mems, bias, None, None, images=images)
         rk_chunks = [self._rk.get(s) for s in sizes]
         return _decode_step(self.model, self.action_length, tokens, pos,
                             mems, bias, rk_chunks, self._rk.get(1),
@@ -472,11 +498,17 @@ def _decode_step(model, action_length: int, tokens: torch.Tensor,
     scatter into the ring in one call: the ring is rotated to age order,
     the prime runs over the aligned cache (``decode_rl_kv``; an int8 cache
     dequantized first and its result quantized again) and the ring
-    continues at cursor 0."""
+    continues at cursor 0.
+
+    ``rk_chunks`` None is the hidden-state path (pre-LN models): mems is
+    the hidden memory, the prime one ``decode_rl`` forward with all of
+    ``images`` and each action dim another."""
     b, q = tokens.shape
     M = model.cfg.mem_len
     logits = None
-    if len(rk_chunks) == 1 and q > M:
+    if rk_chunks is None:
+        logits, mems = model.decode_rl(tokens, pos, mems, images)
+    elif len(rk_chunks) == 1 and q > M:
         logits, mems = _prime_aligned(model, tokens, pos, mems, rk_chunks[0],
                                       images)
     else:
@@ -500,8 +532,11 @@ def _decode_step(model, action_length: int, tokens: torch.Tensor,
     # with defer_last the final token is never fed; otherwise its feed only
     # folds it into the cache and its argmax is thrown away
     for _ in range(action_length - 1 if defer_last else action_length):
-        lg, mems = model.decode_rl_kv_ring(tok[:, None], zero_pos, mems,
-                                           rk_step)
+        if rk_chunks is None:
+            lg, mems = model.decode_rl(tok[:, None], zero_pos, mems)
+        else:
+            lg, mems = model.decode_rl_kv_ring(tok[:, None], zero_pos, mems,
+                                               rk_step)
         tok = torch.argmax(lg + bias, dim=-1)
         if len(acts) < action_length:
             acts.append(tok)

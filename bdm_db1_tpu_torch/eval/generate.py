@@ -66,11 +66,16 @@ def clip_at_eos(rows: np.ndarray, eos: int) -> List[List[int]]:
 
 class TextGenerator:
     """Batched LM generation: prompts -> continuations, on the model's
-    device."""
+    device, over the K/V cache (post-LN models; a pre-LN one raises
+    ``ValueError``)."""
 
     def __init__(self, model, layout: VocabLayout, eos_token_id: int, *,
                  max_tokens: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0):
+        if model.cfg.pre_lnorm:
+            raise ValueError("K/V generation needs a post-LN model: the "
+                             "zero K/V cache is not a pre-LN model's zero "
+                             "memory")
         self.model = model
         self.eos = eos_token_id
         self.max_tokens = max_tokens

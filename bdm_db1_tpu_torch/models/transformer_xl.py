@@ -57,17 +57,35 @@ route, K3 on the card) and then take one ring step a token
 Speculative decode: ``decode_rl_kv_ring(spec_tail=S)`` runs S trailing
 guess rows that attend but are not committed.
 
-Not ported yet (raise ``NotImplementedError``): rematerialization
-(``remat``) and pre-LN models.
+Pre-LN models (``pre_lnorm``) normalise each sublayer's input (the
+attention's over ``[memory || x]``) and add the sublayer's output to its
+input with no LayerNorm after the sum. A zero K/V cache is a zero hidden
+memory only after post-LN (LN(0) is the LayerNorm bias), so the ring and
+aligned caches refuse pre-LN models, as the JAX package's asserts do; they
+decode over hidden-state memory (``init_mems``/``decode_rl``).
+
+Rematerialization (``remat``, in grad mode): each layer runs under
+``torch.utils.checkpoint`` and is recomputed in the backward pass, keeping
+what ``remat_policy`` names: nothing ("full"), the products without a batch
+dimension ("dots": qkv_net, r_net, o_net and the FF matrices) or only those
+at most ``n_embed`` wide ("dots_narrow"); both "dots" policies keep the K3
+forward's (out, m, l) too, as the JAX policies keep the Pallas kernel's
+named outputs. The recompute replays the training generator's state, so
+the dropout masks, the loss, the gradients and the generator after a step
+are those without remat.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from bdm_db1_tpu_torch.core.config import (
     ModelConfig, VisionConfig, VocabConfig,
@@ -80,7 +98,7 @@ from bdm_db1_tpu_torch.ops.attention import (
 )
 from bdm_db1_tpu_torch.ops.fast_dropout import dropout
 from bdm_db1_tpu_torch.ops.flash_rel_attention import (
-    KERNEL_HEAD_DIM as REL_KERNEL_HEAD_DIM, flash_rel_attention,
+    KERNEL_HEAD_DIM as REL_KERNEL_HEAD_DIM, K3_OP, flash_rel_attention,
     kernel_route_applicable,
 )
 from bdm_db1_tpu_torch.ops.flash_ring_decode import (
@@ -180,6 +198,63 @@ def _layer_norm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
                         ln.bias.to(x.dtype), ln.eps)
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy(name: str, n_embed: int):
+    """The selective-checkpoint policy of ``remat_policy`` ``name`` (None
+    for "full": keep nothing), the JAX package's ``remat_policy_for``:
+    "dots" keeps every product without a batch dimension (``mm``/``addmm``,
+    the JAX ``dots_with_no_batch_dims_saveable``), "dots_narrow" only those
+    whose output is at most ``n_embed`` wide (``narrow_dots_policy``: qkv_net
+    and the FF's first matrix are recomputed); both keep the K3 forward's
+    outputs."""
+    if name == "full":
+        return None
+    if name not in ("dots", "dots_narrow"):
+        raise ValueError(f"remat_policy={name!r}; the port takes 'full', "
+                         "'dots' and 'dots_narrow'")
+    max_width = n_embed if name == "dots_narrow" else None
+
+    def policy(ctx, op, *args, **kwargs):
+        keep = op is K3_OP or (op in _DOTS and (
+            max_width is None or args[-1].shape[-1] <= max_width))
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat_layer(layer: nn.Module, h: Tensor, mem: Optional[Tensor],
+                 r: Tensor, mask: Tensor, use_kernel: bool,
+                 drop: Optional[torch.Generator]) -> Tensor:
+    """``layer(h, mem, r, mask, use_kernel, drop)`` under
+    ``torch.utils.checkpoint``, keeping what the model's ``remat_policy``
+    names. The checkpoint restores the global RNG states only, so the
+    recompute sets the training generator ``drop`` back to its state at
+    this forward (the same dropout masks) and afterwards to where the
+    forward pass left it."""
+    cfg = layer.dec_attn.cfg
+    start = None if drop is None else drop.get_state()
+    ran = []
+
+    def run(h, mem, r):
+        if start is None or not ran:
+            ran.append(True)
+            return layer(h, mem, r, mask, use_kernel, drop)
+        after = drop.get_state()
+        drop.set_state(start)
+        try:
+            return layer(h, mem, r, mask, use_kernel, drop)
+        finally:
+            drop.set_state(after)
+
+    context = remat_policy(cfg.remat_policy, cfg.n_embed)
+    kw = {} if context is None else {"context_fn": context}
+    return checkpoint(run, h, mem, r, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
+
+
 class PositionalEmbedding(nn.Module):
     """Holds the reference's sinusoidal ``inv_freq`` buffer; decode builds
     the embedding itself (ops/positional.py)."""
@@ -211,16 +286,22 @@ class RelMultiHeadAttn(nn.Module):
     def _residual(self, x: Tensor, attn: Tensor,
                   drop: Optional[torch.Generator] = None) -> Tensor:
         """o_net (then dropout at ``cfg.drop`` when ``drop``, the training
-        generator, is given), then the post-LN residual with the DeepNorm
-        alpha."""
+        generator, is given), then the residual: ``x + out`` for pre-LN,
+        else the post-LN one with the DeepNorm alpha."""
         cfg = self.cfg
         b, qlen = x.shape[:2]
         out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
                      self.o_net, x.dtype, _a8(cfg))
         if drop is not None:
             out = dropout(out, cfg.drop, drop, cfg.dropout_impl)
+        if cfg.pre_lnorm:
+            return x + out
         alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
         return _layer_norm(x * alpha + out, self.layer_norm)
+
+    def _pre(self, x: Tensor) -> Tensor:
+        """The QKV projection's input: LayerNorm'd for pre-LN."""
+        return _layer_norm(x, self.layer_norm) if self.cfg.pre_lnorm else x
 
     def forward(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
                 mask: Tensor, use_kernel: bool,
@@ -228,7 +309,7 @@ class RelMultiHeadAttn(nn.Module):
         """One layer over ``[mem || x]`` (hidden states; mem [B, M, D] or
         None): x [B, q, D], r [M+q, D] positional embeddings, mask [q, M+q]
         (True = banned). ``drop`` is the training generator (None:
-        deterministic). Returns the post-LN output [B, q, D]."""
+        deterministic). Returns the layer's output [B, q, D]."""
         return self._residual(
             x, self.attend(x, r, mem, mask, use_kernel, drop), drop)
 
@@ -236,19 +317,19 @@ class RelMultiHeadAttn(nn.Module):
                mask: Tensor, use_kernel: bool,
                drop: Optional[torch.Generator] = None) -> Tensor:
         """The attention part of :meth:`forward`: [B, q, H, Dh] before o_net.
-        QKV runs over ``[mem || x]``; q is its last q rows; r_net projects
-        r in the compute dtype; ``use_kernel`` picks K3-K5 (with f32 biases,
-        as the JAX kernel route takes them) or ``rel_attention``, which
-        applies the attention dropout (``cfg.dropattn``) when ``drop`` is
-        given."""
+        QKV runs over ``[mem || x]`` (LayerNorm'd first for pre-LN); q is
+        its last q rows; r_net projects r in the compute dtype;
+        ``use_kernel`` picks K3-K5 (with f32 biases, as the JAX kernel route
+        takes them) or ``rel_attention``, which applies the attention
+        dropout (``cfg.dropattn``) when ``drop`` is given."""
         cfg = self.cfg
         h, dh = cfg.n_head, cfg.d_head
         dtype = x.dtype
         qlen = x.shape[1]
         cat = x if mem is None else torch.cat([mem.to(dtype), x], dim=1)
         klen = cat.shape[1]
-        q, k, v = _dense(cat, self.qkv_net, dtype, _a8(cfg)).split(
-            cfg.n_embed, dim=-1)
+        q, k, v = _dense(self._pre(cat), self.qkv_net, dtype,
+                         _a8(cfg)).split(cfg.n_embed, dim=-1)
         q = q[:, -qlen:].unflatten(-1, (h, dh))
         k, v = k.unflatten(-1, (h, dh)), v.unflatten(-1, (h, dh))
         r_k = _dense(r.to(dtype), self.r_net, dtype).view(klen, h, dh)
@@ -285,7 +366,8 @@ class RelMultiHeadAttn(nn.Module):
         cfg = self.cfg
         dtype = x.dtype
         b, qlen = x.shape[:2]
-        q, k_x, v_x = _dense(x, self.qkv_net, dtype, _a8(cfg)).view(
+        q, k_x, v_x = _dense(self._pre(x), self.qkv_net, dtype,
+                             _a8(cfg)).view(
             b, qlen, 3, cfg.n_head, cfg.d_head).unbind(2)
         k = torch.cat([k_cache.to(dtype), k_x], dim=1)
         v = torch.cat([v_cache.to(dtype), v_x], dim=1)
@@ -321,8 +403,8 @@ class RelMultiHeadAttn(nn.Module):
         cursor = int(cache["cursor"])
         M = k_cache.shape[2]
         r_w, r_r = self.r_w_bias, self.r_r_bias
-        q, k_x, v_x = _dense(x, self.qkv_net, dtype, _a8(cfg)).view(
-            b, qlen, 3, h, dh).unbind(2)
+        q, k_x, v_x = _dense(self._pre(x), self.qkv_net, dtype,
+                             _a8(cfg)).view(b, qlen, 3, h, dh).unbind(2)
         qf = q.float()
         qw = qf + r_w.float()                                  # [B, q, H, Dh]
         qr = qf + r_r.float()
@@ -405,7 +487,8 @@ class Activation(nn.Module):
 
 class PositionwiseFF(nn.Module):
     """FFN ``CoreNet = [Linear, act, Linear]`` (GEGLU halves the width
-    between them) with the post-LN residual and DeepNorm alpha."""
+    between them): post-LN with the DeepNorm alpha, or pre-LN (the input
+    LayerNorm'd, ``h + x``)."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -422,12 +505,15 @@ class PositionwiseFF(nn.Module):
     def forward(self, x: Tensor,
                 drop: Optional[torch.Generator] = None) -> Tensor:
         wi, act, wo = self.CoreNet
-        a8 = _a8(self.cfg)
-        h = _dense(act(_dense(x, wi, x.dtype, a8)), wo, x.dtype, a8)
+        cfg = self.cfg
+        a8 = _a8(cfg)
+        inp = _layer_norm(x, self.layer_norm) if cfg.pre_lnorm else x
+        h = _dense(act(_dense(inp, wi, x.dtype, a8)), wo, x.dtype, a8)
         if drop is not None:
-            h = dropout(h, self.cfg.drop, drop, self.cfg.dropout_impl)
-        alpha = (2 * self.cfg.n_layer) ** 0.25 if self.cfg.use_deepnorm \
-            else 1.0
+            h = dropout(h, cfg.drop, drop, cfg.dropout_impl)
+        if cfg.pre_lnorm:
+            return h + x
+        alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
         return _layer_norm(x * alpha + h, self.layer_norm)
 
 
@@ -469,8 +555,6 @@ class TransformerXL(nn.Module):
                  vision: Optional[VisionConfig] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.pre_lnorm:
-            raise NotImplementedError("pre-LN models are not ported yet")
         for name, val, ok in (
                 ("decode_cache_dtype", cfg.decode_cache_dtype, ("", "int8")),
                 ("decode_weight_dtype", cfg.decode_weight_dtype,
@@ -661,11 +745,10 @@ class TransformerXL(nn.Module):
         mem_len of ``[mems || layer inputs]`` per layer, None without
         mems. With ``deterministic=False`` the dropout sites draw from
         ``generator`` (embedded input and positional embedding, then per
-        layer the attention, o_net and FF outputs)."""
+        layer the attention, o_net and FF outputs). With ``cfg.remat`` in
+        grad mode each layer is checkpointed (:func:`_remat_layer`)."""
         cfg = self.cfg
-        if cfg.remat and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "rematerialization (remat=True) is not ported yet")
+        remat = cfg.remat and torch.is_grad_enabled()
         drop = None
         if not deterministic:
             if generator is None:
@@ -692,7 +775,10 @@ class TransformerXL(nn.Module):
             if mems is not None:
                 mem = mems[i].to(self.dtype)
                 hids.append(h)
-            h = layer(h, mem, r, mask, use_kernel, drop)
+            if remat:
+                h = _remat_layer(layer, h, mem, r, mask, use_kernel, drop)
+            else:
+                h = layer(h, mem, r, mask, use_kernel, drop)
         if mems is None:
             return h, None
         cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
@@ -742,7 +828,8 @@ class TransformerXL(nn.Module):
         models: QKV has no bias) and cursor 0. With decode_cache_dtype
         "int8" the values are int8 with zero f32 scales [n_layer, B,
         mem_len, H] (zero values times zero scales are the same zero
-        cache)."""
+        cache). A pre-LN model raises ``ValueError``."""
+        self._refuse_pre_ln()
         cfg = self.cfg
         shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
         dev = self.device
@@ -757,6 +844,13 @@ class TransformerXL(nn.Module):
         return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=self.dtype, device=dev),
                 "cursor": 0}
+
+    def _refuse_pre_ln(self) -> None:
+        if self.cfg.pre_lnorm:
+            raise ValueError(
+                "a zero K/V cache equals a zero hidden memory only for "
+                "post-LN models (LN(0) is the LayerNorm bias); pre-LN models "
+                "decode over hidden-state memory (init_mems, decode_rl)")
 
     def decode_weights_quantized(self) -> bool:
         return hasattr(self.h[0].dec_attn.qkv_net, "weight_q")
@@ -913,7 +1007,9 @@ class TransformerXL(nn.Module):
         """Zero aligned K/V cache [n_layer, B, mem_len, H, Dh] in the
         compute dtype, cursor 0 (whatever ``decode_cache_dtype`` says, as
         the JAX package's ``init_kv_cache``): the cache of the caption, VQA
-        and text generators. Read as a ring it is at cursor 0."""
+        and text generators. Read as a ring it is at cursor 0. A pre-LN
+        model raises ``ValueError``."""
+        self._refuse_pre_ln()
         cfg = self.cfg
         shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),

@@ -1,6 +1,8 @@
 """TransformerXL relative attention over a full sequence: the CUDA kernels K3
 (forward), K4 and K5 (backward), their plain PyTorch versions, the
-``torch.autograd.Function`` around them and the gate that picks the route.
+dispatcher op around them (``bdm::flash_rel_attention``, a
+``torch.library.custom_op`` whose autograd runs K4 and K5, so that a remat
+policy can keep K3's outputs) and the gate that picks the route.
 
 Counterpart of bdm_db1_tpu/ops/pallas_attention.py (``pallas_rel_attention``
 with its custom VJP, and ``pallas_rel_attention_anylen``). For q
@@ -366,30 +368,40 @@ def flash_rel_attention_bwd(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
             t["drw"].to(r_w_bias.dtype), t["drr"].to(r_r_bias.dtype))
 
 
-class _FlashRelAttention(torch.autograd.Function):
-    """K3 forward, K4 + K5 backward (the custom VJP of
-    ``pallas_rel_attention``: ``_fwd`` saves q, k, v, rk, the biases, out,
-    m and l; ``_bwd`` returns the six gradients). (m, l) are outputs
+@torch.library.custom_op("bdm::flash_rel_attention", mutates_args=())
+def _k3(q: Tensor, k: Tensor, v: Tensor, rk: Tensor, r_w_bias: Tensor,
+        r_r_bias: Tensor, mem_len: int, same_length: bool, scale: float
+        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3 (its plain version on CPU tensors) as a dispatcher op, so that a
+    selective-checkpoint policy can name and keep its outputs (the JAX
+    package names them ``pallas_attn_out/m/l``)."""
+    ins = (q, k, v, rk, r_w_bias, r_r_bias)
+    if q.device.type == "cpu":
+        return flash_rel_attention_plain(
+            *ins, mem_len=mem_len, same_length=same_length, scale=scale)
+    return _launch(*ins, mem_len, same_length, scale)
+
+
+def _k3_setup(ctx, inputs, output):
+    """The custom VJP's residuals, as ``_fwd`` of ``pallas_rel_attention``
+    keeps them: q, k, v, rk, the biases, out, m and l. (m, l) are outputs
     without a gradient."""
+    *ins, mem_len, same_length, scale = inputs
+    out, m, l = output
+    ctx.save_for_backward(*ins, out, m, l)
+    ctx.kw = dict(mem_len=mem_len, same_length=same_length, scale=scale)
+    ctx.mark_non_differentiable(m, l)
 
-    @staticmethod
-    def forward(ctx, q, k, v, rk, r_w_bias, r_r_bias, mem_len, same_length,
-                scale):
-        ins = (q, k, v, rk, r_w_bias, r_r_bias)
-        if q.device.type == "cpu":
-            out, m, l = flash_rel_attention_plain(
-                *ins, mem_len=mem_len, same_length=same_length, scale=scale)
-        else:
-            out, m, l = _launch(*ins, mem_len, same_length, scale)
-        ctx.save_for_backward(*ins, out, m, l)
-        ctx.kw = dict(mem_len=mem_len, same_length=same_length, scale=scale)
-        ctx.mark_non_differentiable(m, l)
-        return out, m, l
 
-    @staticmethod
-    def backward(ctx, dout, _dm, _dl):
-        grads = flash_rel_attention_bwd(*ctx.saved_tensors, dout, **ctx.kw)
-        return grads + (None, None, None)
+def _k3_backward(ctx, dout, _dm, _dl):
+    """K4 + K5: the six gradients (``_bwd``)."""
+    grads = flash_rel_attention_bwd(*ctx.saved_tensors, dout, **ctx.kw)
+    return grads + (None, None, None)
+
+
+_k3.register_autograd(_k3_backward, setup_context=_k3_setup)
+# the op a remat policy matches (models/transformer_xl.py remat_policy)
+K3_OP = torch.ops.bdm.flash_rel_attention.default
 
 
 def flash_rel_attention(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
@@ -403,8 +415,8 @@ def flash_rel_attention(q: Tensor, k: Tensor, v: Tensor, rk: Tensor,
     ``with_stats``. Any qlen and klen >= qlen: the ragged edges are masked
     in place of the JAX wrapper's padding. Gradients flow to all six inputs
     through K4 and K5 (their plain versions on the CPU)."""
-    out, m, l = _FlashRelAttention.apply(q, k, v, rk, r_w_bias, r_r_bias,
-                                         mem_len, same_length, scale)
+    out, m, l = _k3(q, k, v, rk, r_w_bias, r_r_bias, mem_len, same_length,
+                    float(scale))
     return (out, (m, l)) if with_stats else out
 
 

@@ -49,16 +49,11 @@ def behavior_clone(cfg, model, ds, *, steps: int = 150, micro: int = 4,
     drawn once with ``seed``, cycled for ``steps`` AdamW steps (cosine
     decay to lr / 10, warm-up steps / 10, no weight decay), dropout on.
 
-    The JAX package turns remat on at ``n_layer >= 24`` unless ``remat``
-    says otherwise; remat is not ported (ROADMAP queue 1 item 5), so there
-    this raises ``NotImplementedError`` unless ``remat=False``."""
+    Remat (the model's ``remat_policy``) is on during the steps when
+    ``remat`` says so, and by default at ``n_layer >= 24``, as in the JAX
+    package; ``model.cfg.remat`` is put back afterwards."""
     if remat is None:
         remat = cfg.model.n_layer >= REMAT_LAYERS
-    if remat:
-        raise NotImplementedError(
-            "behaviour cloning with rematerialization (the JAX default at "
-            f"n_layer >= {REMAT_LAYERS}) is not ported yet (ROADMAP queue 1 "
-            "item 5); pass remat=False")
     dev = model.device
     rng = np.random.RandomState(seed)
     n_rows = distinct_batches * micro
@@ -72,9 +67,14 @@ def behavior_clone(cfg, model, ds, *, steps: int = 150, micro: int = 4,
     state = init_train_state(model, opt, steps)
     step_fn = make_train_step(model)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    for i in range(steps):
-        state, metrics = step_fn(state, batches[i % len(batches)], gen)
-        if log_every and (i % log_every == 0 or i == steps - 1):
-            print(f"  bc step {i}: loss {float(metrics['loss']):.4f}",
-                  flush=True)
+    was = model.cfg.remat
+    model.cfg.remat = bool(remat)
+    try:
+        for i in range(steps):
+            state, metrics = step_fn(state, batches[i % len(batches)], gen)
+            if log_every and (i % log_every == 0 or i == steps - 1):
+                print(f"  bc step {i}: loss {float(metrics['loss']):.4f}",
+                      flush=True)
+    finally:
+        model.cfg.remat = was
     return state.model

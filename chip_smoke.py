@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,generate
     python3 chip_smoke.py --phases build,kernels,serve_spec,stateless
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_text
+    python3 chip_smoke.py --phases build,remat,serve_preln
 
 Phases, each printing one JSON line:
 
@@ -167,6 +168,28 @@ Phases, each printing one JSON line:
   24 x 6 x 9, the window's first-action logits against the ring decode's
   on the same sequence and the share of equal actions; reads actions/sec
   and the step time.
+* ``remat``     — rematerialization at the ``train`` phase's shape
+  (db1_1p2b, 2 micro-batches x 4 x 1024 tokens, dropout on):
+  ``make_train_step`` with an optimizer that keeps the gradients, from the
+  same weights and generator seed, with remat off and under each
+  ``remat_policy`` ("full", "dots", "dots_narrow"); checks the loss
+  bitwise and the generator state equal to the no-remat step, the
+  gradients' cosine and norm within the train phase's limits, K3 48 a
+  micro-batch under "full" and 24 under the others (the "dots" policies
+  keep its outputs), K4 = K5 = 24; reads each policy's peak memory and
+  median step. Then the same model as pre-LN under "dots_narrow": a
+  finite loss and K3, K4 and K5 launched.
+* ``serve_preln`` — the hidden-state decode: a post-LN db1_1p2b decoded
+  over zero hidden memory (``decode_rl``, the prompt prime on K3) and over
+  the zero ring from the same prime with the same action feeds, 8 envs:
+  in bf16 layer by layer from one state (each layer's output within the
+  route gate, the last layer's logits too) and end to end (read), on an
+  f32 copy end to end (the logits within the route gate and >= 0.9 of
+  the actions equal); then ``evaluate_rl.main``
+  on a pre-LN db1_1p2b (random init), 40 lockstep HalfCheetah-geometry
+  envs x 8 steps with the expert prompt: K3 24 (the prompt prime), no
+  other launch, the records; one steady step timed and profiled; K3 at
+  the prompt's shape (B 40) against its plain version, timed.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -235,11 +258,12 @@ BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
           "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
-          "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless")
+          "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless",
+          "remat", "serve_preln")
 MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
               "evaluate_rl", "pretrain", "pretrain_vision",
               "evaluate_rl_image", "evaluate_rl_text", "generate",
-              "stateless")
+              "stateless", "remat", "serve_preln")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -2687,8 +2711,8 @@ def phase_pretrain(smi: str, seed: int = 0) -> dict:
                                     rng=np.random.RandomState(cfg.eval.seed))
         q0 = len(prompt) + tenv.obs_length + 1
         slices = ActionDecoder.chunk_plan(
-            SimpleNamespace(model=SimpleNamespace(cfg=cfg.model)), q0, 0)[0] \
-            or [q0]
+            SimpleNamespace(model=SimpleNamespace(cfg=cfg.model),
+                            use_kv_cache=True), q0, 0)[0] or [q0]
         A, steps, n = tenv.action_length, PRETRAIN_STEPS, PRETRAIN_TRIALS
         want = dict.fromkeys(launches, 0)
         fwd = L * TRAIN_ACCUM * PRETRAIN_ITERS
@@ -4157,6 +4181,453 @@ def _window_route_check(model, seq, obs_len: int, A: int) -> dict:
     return out
 
 
+# ---- remat and the pre-LN hidden-state serve ---------------------------
+
+REMAT_POLICIES = (None, "full", "dots", "dots_narrow")
+REMAT_REPEATS = 3
+# K3 forwards a layer and a micro-batch by policy (None: no remat): "full"
+# runs each layer's forward again in the backward pass, the "dots"
+# policies keep K3's outputs
+REMAT_K3 = {None: 1, "full": 2, "dots": 1, "dots_narrow": 1}
+
+
+class _KeepGrads:
+    """The train step's optimizer in the remat phase: its step keeps the
+    averaged gradients (the parameters' ``grad``, f32 on the card) and
+    leaves the weights as they are, so every policy steps from the same
+    weights."""
+
+    def __init__(self, params):
+        self.params = params
+        self.grads = None
+
+    def step(self):
+        self.grads = [None if p.grad is None else p.grad
+                      for p in self.params]
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+
+def _grad_agreement(got, ref) -> dict:
+    """Cosine and relative norm difference of two gradient lists (``ref``
+    on the host, ``got`` on the card), over the entries both have."""
+    dot = ng = nr = 0.0
+    for x, y in zip(got, ref):
+        if x is None or y is None:
+            continue
+        x, y = x.double(), y.to(x.device).double()
+        dot += float((x * y).sum())
+        ng += float(x.square().sum())
+        nr += float(y.square().sum())
+    ng, nr = ng ** 0.5, nr ** 0.5
+    return {"grad_cosine": dot / (ng * nr),
+            "grad_norm_rel_diff": abs(ng - nr) / nr}
+
+
+def _remat_want(policy, launches: dict, L: int, accum: int) -> dict:
+    want = dict.fromkeys(launches, 0)
+    want["flash_rel_attention"] = REMAT_K3[policy] * L * accum
+    want["flash_rel_attention_bwd_dq"] = L * accum
+    want["flash_rel_attention_bwd_dkv"] = L * accum
+    return want
+
+
+def phase_remat(smi: str, seed: int = 0) -> dict:
+    """Rematerialization at the train phase's shape: db1_1p2b (bf16
+    activations, f32 parameters, the ModelConfig dropout rates), one loader
+    batch of 2 micro-batches x 4 x 1024 tokens through ``make_train_step``
+    with an optimizer that keeps the gradients and leaves the weights (so
+    every run starts from the same weights), the same generator seed each
+    run. Remat off, then ``remat_policy`` "full", "dots" and "dots_narrow"
+    (REMAT_REPEATS steps each, the first counted): the loss bitwise the
+    no-remat loss (the forward is deterministic), the generator state after
+    the step equal, the gradients' cosine and norm within the train
+    phase's route limits (K5's f32 atomics make the backward vary from run
+    to run); K3 launches 48 a micro-batch under "full", 24 under the
+    others, K4 and K5 24. Reads each policy's peak memory, median step and,
+    from one more step profiled, its device busy time and idle share.
+    Then one step of the same model as pre-LN (``pre_lnorm``, remat
+    "dots_narrow"): a finite loss and K3, K4 and K5 launched."""
+    from bdm_db1_tpu_torch.train.step import TrainState, make_train_step
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    cfg, model, full, loader = _train_setup(seed)
+    try:
+        batch = to_gato_batch(next(loader), "cuda")
+    finally:
+        loader.stop()
+    L = cfg.model.n_layer
+    accum = TRAIN_ACCUM
+    keep = _KeepGrads([p for p in model.parameters() if p.requires_grad])
+    step = make_train_step(model)
+
+    def run(policy, pre_ln=False):
+        model.cfg.remat = policy is not None
+        model.cfg.remat_policy = policy or "full"
+        model.cfg.pre_lnorm = pre_ln
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = step(TrainState(step=0, model=model, optimizer=keep), batch,
+                      gen)
+        loss = float(met["loss"])
+        return loss, (time.perf_counter() - t0) * 1e3, gen.get_state()
+
+    flags = (cfg.model.remat, cfg.model.remat_policy, cfg.model.pre_lnorm)
+    rows, launches, ref = {}, dict.fromkeys(_read_launches(), 0), None
+    try:
+        run(None)                                      # warm-up
+        for policy in REMAT_POLICIES:
+            keep.grads = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the main path, counted (the first step of each) ------
+            _reset_launches()
+            loss, ms, gen_state = run(policy)
+            counted = _read_launches()
+            # -----------------------------------------------------------
+            peak = torch.cuda.max_memory_allocated()
+            times = [ms] + [run(policy)[1] for _ in range(REMAT_REPEATS - 1)]
+            busy, top, _, host = _profile_busy(lambda: run(policy),
+                                               keep=("k3_",))
+            for k, v in counted.items():
+                launches[k] += v
+            want = _remat_want(policy, counted, L, accum)
+            med = float(np.median(times))
+            row = {"loss": loss, "launches": counted,
+                   "launches_expected": want,
+                   "max_memory_allocated_gb": peak / 1e9,
+                   "step_ms": times, "step_ms_median": med,
+                   "device_busy_ms": busy * 1e3,
+                   "device_idle_share": 1.0 - busy * 1e3 / med,
+                   "top_device_ms": top, "host_top_ms": host}
+            if policy is None:
+                ref = (loss, gen_state, [None if g is None else g.cpu()
+                                         for g in keep.grads])
+            else:
+                row.update(_grad_agreement(keep.grads, ref[2]),
+                           loss_bitwise=loss == ref[0],
+                           generator_equal=bool(torch.equal(gen_state,
+                                                            ref[1])))
+                if not (row["loss_bitwise"] and row["generator_equal"]
+                        and row["grad_cosine"] >= GRAD_COS_MIN
+                        and row["grad_norm_rel_diff"] <= GRAD_NORM_RTOL):
+                    raise AssertionError(f"remat {policy} against no remat: "
+                                         f"{row}")
+            if counted != want:
+                raise AssertionError(f"remat {policy}: kernel launches "
+                                     f"{counted}, expected {want}")
+            rows[policy or "off"] = row
+        ref = keep.grads = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # ---- pre-LN under "dots_narrow", counted -----------------------
+        _reset_launches()
+        loss, ms, _ = run("dots_narrow", pre_ln=True)
+        counted = _read_launches()
+        # ----------------------------------------------------------------
+        for k, v in counted.items():
+            launches[k] += v
+        pre = {"loss": loss, "step_ms": ms, "launches": counted,
+               "launches_expected": _remat_want("dots_narrow", counted, L,
+                                                accum)}
+        if not (np.isfinite(loss) and counted == pre["launches_expected"]):
+            raise AssertionError(f"pre-LN step: {pre}")
+    finally:
+        (model.cfg.remat, model.cfg.remat_policy,
+         model.cfg.pre_lnorm) = flags
+        keep.grads = None
+    return {"phase": "remat", "config": "db1_1p2b", "dtype": "bfloat16",
+            "param_dtype": "float32", "micro_batch": TRAIN_MICRO,
+            "accum": accum, "seq_length": cfg.data.seq_length, "card": smi,
+            "step": "make_train_step with an optimizer that keeps the "
+                    "gradients (no weight update)",
+            "grad_cosine_min": GRAD_COS_MIN,
+            "grad_norm_rtol": GRAD_NORM_RTOL, "policies": rows,
+            "pre_ln_dots_narrow": pre, "launches": launches}
+
+
+PRELN_ENV = "halfcheetah-geometry-preln-v0"
+PRELN_TRIALS = 40
+PRELN_STEPS = 8
+PRELN_CHECK_B = 8
+
+
+@torch.no_grad()
+def _hidden_vs_ring(model, prime, obs_len: int, A: int, layout) -> dict:
+    """One prime [B, q] and its A - 1 action feeds over a post-LN model:
+    through the ring decode (an ActionDecoder over the zero ring cache,
+    its own greedy actions) and, fed the same actions, through
+    ``decode_rl`` over zero hidden memory (the hidden-state decode). The
+    two attend the same keys (zero hidden states give zero K/V) and differ
+    only by rounding: each forward's logits (the prime's last ring slice,
+    then each feed) max |diff| / max |ring logit|, and the share of the
+    hidden path's greedy actions equal to the ring's."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.eval.decode import ActionDecoder
+
+    B, q = prime.shape
+    dec = ActionDecoder(model, layout, obs_len, A, False)
+    if not dec.use_kv_cache:
+        raise AssertionError("the post-LN decoder does not take the ring")
+    calls = []
+    real_logits = model.logits
+    model.logits = lambda h: calls.append(real_logits(h)) or calls[-1]
+    try:
+        act, _ = dec.decode(prime, dec.init_mems(B))
+    finally:
+        del model.logits
+    n = len(dec.prime_plan(q, 0)[0])
+    ring = [calls[n - 1]] + calls[n:n + A - 1]
+    dev = model.device
+    _, pos = action_flags_and_position_ids(q, obs_len, A, 0)
+    pos = torch.as_tensor(np.broadcast_to(pos, (B, q)).copy(), device=dev)
+    lg, mems = model.decode_rl(torch.as_tensor(prime, device=dev), pos,
+                               model.init_mems(B))
+    hidden = [lg]
+    fed = torch.as_tensor(act, device=dev)
+    zero = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    for j in range(A - 1):
+        lg, mems = model.decode_rl(fed[:, j:j + 1], zero, mems)
+        hidden.append(lg)
+    bias = torch.as_tensor(layout.continuous_action_logit_bias(), device=dev)
+    h_act = torch.stack([torch.argmax(x + bias, -1) for x in hidden], 1)
+    return {"dtype": str(model.dtype).replace("torch.", ""),
+            "prime_q": q, "ring_prime_slices": n,
+            "logits_rel_diff": [_rel_diff(h, r) for h, r in
+                                zip(hidden, ring)],
+            "equal_action_share": float((h_act.cpu().numpy() == act).mean()),
+            "ring_first": ring[0]}
+
+
+@torch.no_grad()
+def _hidden_ring_layers(model, prime, obs_len: int, A: int, layout) -> dict:
+    """The hidden-state route against the ring route layer by layer, from
+    one state: ``decode_rl`` primes zero hidden memory with ``prime``; the
+    ring cache (cursor 0) is each layer's K/V projection of that memory
+    (a post-LN model's K/V are per-position projections of its hidden
+    states). Then one single-token forward both ways, each layer from the
+    same input: the trunk's layer over [memory || x] (``rel_attention`` at
+    q == 1) against ``forward_ring`` (K1 in bf16), the outputs within
+    ATTN_REL_TOL of their largest value, and the last layer's logits
+    within LOGIT_REL_TOL."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+
+    cfg = model.cfg
+    dev, dt = model.device, model.dtype
+    B, q = prime.shape
+    M, D, H, Dh = cfg.mem_len, cfg.n_embed, cfg.n_head, cfg.d_head
+    _, pos = action_flags_and_position_ids(q, obs_len, A, 0)
+    pos = torch.as_tensor(np.broadcast_to(pos, (B, q)).copy(), device=dev)
+    _, mems = model.decode_rl(torch.as_tensor(prime, device=dev), pos,
+                              model.init_mems(B))
+    k, v = [], []
+    for li, layer in enumerate(model.h):
+        _, kl, vl = F.linear(mems[li].to(dt), layer.dec_attn.qkv_net.weight
+                             .to(dt)).split(D, dim=-1)
+        k.append(kl.unflatten(-1, (H, Dh)))
+        v.append(vl.unflatten(-1, (H, Dh)))
+    cache = {"k": torch.stack(k), "v": torch.stack(v), "cursor": 0}
+    del k, v
+    tok = torch.full((B, 1), layout.continuous_offset + 3, device=dev)
+    h = model.embed_rl(tok, torch.zeros_like(tok))
+    mask = same_length_mask(1, M + 1, M, device=dev)
+    r = relative_positional_embedding(M + 1, D, cfg.effective_clamp_len,
+                                      device=dev)
+    use_kernel = use_rel_kernel(cfg, 1, M + 1, dev)
+    ring_mask, mask_s = model.ring_masks(1, 0, dev)
+    rk = model.precompute_rk(1)
+    kernels = model.use_kernels(1, cache)
+    errs = []
+    for li, layer in enumerate(model.h):
+        h_in = h
+        h = layer(h_in, mems[li], r, mask, use_kernel)
+        h_ring = layer.forward_ring(h_in, rk[li], cache, li, ring_mask,
+                                    mask_s, kernels)[0]
+        errs.append(_rel_diff(h, h_ring))
+    out = {"attn_tol": ATTN_REL_TOL, "logit_tol": LOGIT_REL_TOL,
+           "ring_kernels": kernels, "layer_out_rel_err_max": max(errs),
+           "layer_out_rel_err": errs,
+           "last_layer_logits_rel_err": _rel_diff(
+               model.logits(h[:, -1]), model.logits(h_ring[:, -1]))}
+    if not (max(errs) <= ATTN_REL_TOL
+            and out["last_layer_logits_rel_err"] <= LOGIT_REL_TOL):
+        raise AssertionError(f"hidden-state route against the ring route, "
+                             f"layer by layer: {out}")
+    return out
+
+
+def _hidden_ring_check(seed: int) -> dict:
+    """The hidden-state decode against the ring decode on a post-LN
+    db1_1p2b, PRELN_CHECK_B envs with their episode-start primes: in bf16
+    layer by layer from one state (:func:`_hidden_ring_layers`, gated)
+    and end to end (:func:`_hidden_vs_ring`: the logits of both, read as
+    they drift apart over 24 layers in bf16, as the ring's bf16 logits
+    drift from its f32 ones, and the share of equal greedy actions); on an
+    f32 copy end to end, gated: the logits within LOGIT_REL_TOL and at
+    least SPEC_ACTION_SHARE of the actions equal."""
+    cfg, model, layout, names, make_tenv = _serve_setup(
+        PRELN_CHECK_B, PRELN_STEPS, seed)
+    tenvs = [make_tenv(n) for n in names]
+    sep = np.full((len(tenvs), 1), layout.separator_id, np.int64)
+    prime = _start_primes(tenvs, sep, seed)
+    obs_len, A = tenvs[0].obs_length, tenvs[0].action_length
+    layers = _hidden_ring_layers(model, prime, obs_len, A, layout)
+    bf = _hidden_vs_ring(model, prime, obs_len, A, layout)
+    m32 = _f32_copy(model)
+    f32 = _hidden_vs_ring(m32, prime, obs_len, A, layout)
+    del m32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring_bf16_vs_f32 = _rel_diff(bf.pop("ring_first"), f32.pop("ring_first"))
+    out = {"batch": PRELN_CHECK_B, "bf16_layers": layers, "bf16": bf,
+           "f32": f32, "ring_first_logits_bf16_vs_f32": ring_bf16_vs_f32,
+           "logit_tol": LOGIT_REL_TOL, "action_share_min": SPEC_ACTION_SHARE}
+    if not (max(f32["logits_rel_diff"]) <= LOGIT_REL_TOL
+            and f32["equal_action_share"] >= SPEC_ACTION_SHARE):
+        raise AssertionError(f"hidden-state decode against the ring: {out}")
+    return out
+
+
+@torch.no_grad()
+def phase_serve_preln(smi: str, seed: int = 0) -> dict:
+    """The hidden-state decode. First :func:`_hidden_ring_check` (a post-LN
+    model both ways). Then a pre-LN db1_1p2b (``pre_lnorm``, bf16 weights
+    and activations, random init from ``eval.seed``) served by
+    ``evaluate_rl.main``: one registered HalfCheetah-geometry env with its
+    cache, PRELN_TRIALS trials in one lockstep cohort, PRELN_STEPS steps,
+    the expert prompt. Counted: K3 once a layer for the episode-start
+    prime (q >= 64 over 1024 memory rows: the kernel gate admits it), no
+    other kernel (the steady 18-token primes and the single-token feeds
+    take rel_attention, and the ring kernels never run). Then one steady
+    step of the cohort profiled (device busy, idle share) and timed, and
+    K3 at the prompt's shape (B PRELN_TRIALS) against its plain version,
+    timed with its bound and SDPA's time."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.data.rl_dataset import (
+        TrajectoryStore, build_rl_dataset_from_cache,
+    )
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv, register_env
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import (
+        TransformerXL, use_rel_kernel,
+    )
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+    from bdm_db1_tpu_torch.train import pretrain
+
+    check = _hidden_ring_check(seed)
+    work = tempfile.mkdtemp(prefix="chip_smoke_preln_")
+    try:
+        cache_dir, out_dir = (os.path.join(work, d) for d in ("rl", "out"))
+
+        def env_fn(s=seed + 30):
+            return FakeContinuousEnv(obs_dim=17, act_dim=6, seed=s)
+
+        register_env(PRELN_ENV, env_fn)
+        TrajectoryStore.from_flat_dataset(
+            env_fn().make_dataset(10)).save_cache(cache_dir, PRELN_ENV)
+        cfg = db1_1p2b(pre_lnorm=True)
+        cfg.model.param_dtype = "bfloat16"
+        cfg.data.rl_dataset_cache_dir = cache_dir
+        cfg.train.load_dir, cfg.train.save_dir = "", out_dir
+        cfg.eval = dataclasses.replace(
+            cfg.eval, env_names=(PRELN_ENV,), num_trials=PRELN_TRIALS,
+            batched=True, batch_size=PRELN_TRIALS, max_step_size=PRELN_STEPS)
+        ds = build_rl_dataset_from_cache(
+            PRELN_ENV, cache_dir, cfg.model.n_position,
+            pretrain.build_tokenizer_suite(cfg))
+        tenv = TokenizedEnv(env_fn(), ds)
+        prompt, _ = tenv.get_prompt(strict_length=True,
+                                    rng=np.random.RandomState(0))
+        q0 = len(prompt) + tenv.obs_length + 1
+        M, L = cfg.model.mem_len, cfg.model.n_layer
+        if not (q0 >= 64 and use_rel_kernel(cfg.model, q0, M + q0, "cuda")):
+            raise AssertionError(f"the {q0}-token prompt prime does not "
+                                 f"pass K3's gate")
+
+        # ---- the main path, counted --------------------------------------
+        _reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = evaluate_rl.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        # ------------------------------------------------------------------
+        sys.stdout.write(out.getvalue())
+        want = dict.fromkeys(launches, 0)
+        want["flash_rel_attention"] = L
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+        if "evaluating random init" not in out.getvalue():
+            raise AssertionError("main did not take the seeded random init")
+        if not (len(res) == 1 and res[0]["num_trials"] == PRELN_TRIALS
+                and res[0]["length_mean"] == PRELN_STEPS
+                and np.isfinite(res[0]["return_mean"])):
+            raise AssertionError(f"records off: {res}")
+        with open(os.path.join(out_dir, "results.output")) as f:
+            if f.read().splitlines() != [json.dumps(r) for r in res]:
+                raise AssertionError("results.output off")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one steady step of the cohort, timed and profiled
+        model = TransformerXL(cfg.model, cfg.vocab, device="cuda",
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(seed))
+        tenvs = [TokenizedEnv(FakeContinuousEnv(obs_dim=17, act_dim=6,
+                                                seed=i), ds)
+                 for i in range(PRELN_TRIALS)]
+        dec = build_decoder_for_env(model, tenvs[0], pad_buckets="default")
+        if dec.use_kv_cache or dec.pad_buckets is not None:
+            raise AssertionError("the pre-LN decoder takes the ring")
+        sep = np.full((PRELN_TRIALS, 1), tenvs[0].separator_id, np.int64)
+        act, mems = dec.decode(_start_primes(tenvs, sep, seed),
+                               dec.init_mems(PRELN_TRIALS))
+        steady_ms = []
+        for _ in range(4):
+            prime = _step_obs(tenvs, act, sep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act, mems = dec.decode(prime, mems)
+            steady_ms.append((time.perf_counter() - t0) * 1e3)
+        prime = _step_obs(tenvs, act, sep)
+        busy, top, step_s, host = _profile_busy(
+            lambda: dec.decode(prime, mems))
+        del model, dec, mems
+        gc.collect()
+        torch.cuda.empty_cache()
+        k3 = _rel_case(fra, B=PRELN_TRIALS, qlen=q0, klen=M + q0, mem_len=M,
+                       same_length=True, seed=59, timed=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    step_med = float(np.median(steady_ms))
+    return {"phase": "serve_preln", "config": "db1_1p2b pre_lnorm",
+            "dtype": "bfloat16", "param_dtype": "bfloat16", "card": smi,
+            "hidden_vs_ring": check, "batch": PRELN_TRIALS,
+            "env_steps": PRELN_STEPS, "prompt_prime_q": q0,
+            "launches": launches, "launches_expected": want,
+            "records": res, "wall_s": wall,
+            "actions_per_sec": PRELN_TRIALS * PRELN_STEPS / wall,
+            "steady_step_ms": steady_ms, "steady_step_ms_median": step_med,
+            "steady_actions_per_sec": PRELN_TRIALS / step_med * 1e3,
+            "profiled_step_ms": step_s * 1e3,
+            "device_busy_ms": busy * 1e3,
+            "device_idle_share": 1.0 - busy / step_s,
+            "top_device_ms": top, "host_top_ms": host,
+            "k3_prompt_case": k3}
+
+
 # what each time of the K4/K5 rows of the kernels line is
 BWD_TIMES = {
     "ms": "the kernel alone: CUDA events around bare launches, on delta and "
@@ -4344,11 +4815,14 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["generate"] = phase_generate(smi)
         emit(results["generate"])
-    if "stateless" in phases:
-        gc.collect()
-        torch.cuda.empty_cache()
-        results["stateless"] = phase_stateless(smi)
-        emit(results["stateless"])
+    for phase, fn in (("stateless", phase_stateless),
+                      ("remat", phase_remat),
+                      ("serve_preln", phase_serve_preln)):
+        if phase in phases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[phase] = fn(smi)
+            emit(results[phase])
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the

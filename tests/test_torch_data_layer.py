@@ -152,13 +152,16 @@ def test_build_sample_idx_equals_jax(seed, n_docs, epochs, seq):
     ([0.5, 0.5], 101), ([0.7, 0.2, 0.1], 500), ([1 / 3] * 3, 64),
     ([0.999, 0.001], 50)])
 def test_build_blending_indices_equals_jax(weights, size):
-    """Equal to the JAX helper library's and to an exact-rational
-    reference of its once-rounded errors."""
+    """The C index (csrc/blending.c) equal to its plain Python version, to
+    the JAX helper library's and to an exact-rational reference of its
+    once-rounded errors (0.7 / 0.2 / 0.1 holds the tie at i = 4)."""
     got = tnat.build_blending_indices(np.asarray(weights), size)
     want = jnat.build_blending_indices(np.asarray(weights), size)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
+    plain = tnat.build_blending_indices_plain(np.asarray(weights), size)
+    for g, w, p in zip(got, want, plain):
+        assert g.dtype == w.dtype == p.dtype
         np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p)
     exact = [Fraction(w) for w in np.asarray(weights, np.float64)]
     counts = [0] * len(exact)
     for i in range(size):
@@ -166,6 +169,22 @@ def test_build_blending_indices_equals_jax(weights, size):
         j = int(np.argmax(errs))
         assert (got[0][i], got[1][i]) == (j, counts[j])
         counts[j] += 1
+
+
+def test_blending_index_build_failure_raises(tmp_path, monkeypatch):
+    """A source the compiler refuses raises with the compiler's output;
+    nothing falls back to the Python loop."""
+    bad = tmp_path / "blending.c"
+    bad.write_text("int bdm_build_blending_indices(void) { return }\n")
+    monkeypatch.setattr(tnat, "_BLEND_SRC", bad)
+    monkeypatch.setattr(tnat, "_NATIVE_BUILD", tmp_path / "build")
+    tnat._blend_lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="blending.c failed"):
+            tnat.build_blending_indices(np.asarray([0.5, 0.5]), 4)
+    finally:
+        tnat._blend_lib.cache_clear()
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 def _mapping_corpus(seed=0, n_docs=40):

@@ -278,13 +278,21 @@ def test_unported_paths_raise():
     _, _, _, tm = _models(32)
     tok = torch.zeros(1, 8, dtype=torch.long)
     rl = TBatch(tokens=tok, position_id=tok, loss_mask=tok.float(), label=tok)
-    # dropout is ported (tests/test_torch_train_step.py); remat is not
-    tm.cfg.remat = True
-    try:
-        with pytest.raises(NotImplementedError, match="remat"):
-            tm.trunk(torch.zeros(1, 8, 64), None, deterministic=False)
-    finally:
-        tm.cfg.remat = False
+    # dropout is ported (tests/test_torch_train_step.py), and so is remat
+    # (tests/test_torch_remat.py): a checkpointed trunk under grad and
+    # dropout gives the plain trunk's output and generator state
+    x = torch.randn(1, 8, 64, generator=torch.Generator().manual_seed(1))
+    outs = []
+    for remat in (True, False):
+        tm.cfg.remat = remat
+        gen = torch.Generator().manual_seed(2)
+        try:
+            outs.append((tm.trunk(x, None, deterministic=False,
+                                  generator=gen)[0], gen.get_state()))
+        finally:
+            tm.cfg.remat = False
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
     with pytest.raises(ValueError, match="unknown modality"):
         tm({"rl": rl, "audio": rl})
     # text, captioning and VQA groups are ported (tests/test_torch_pretrain.py,

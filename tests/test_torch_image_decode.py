@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_tiny, one_thread, port_model
+from torch_port_helpers import (
+    image_env_datasets, image_primes, jax_tiny, one_thread, port_model,
+)
 
 N_ENVS = 2
 
@@ -21,58 +23,6 @@ def _threads():
     n = one_thread()
     yield
     torch.set_num_threads(n)
-
-
-def _image_envs(kind: str, hw: int):
-    """Tokenized image envs in both packages over the same seeded
-    trajectories: (jax_tenvs, port_tenvs)."""
-    from bdm_db1_tpu.core.config import db1_tiny
-    from bdm_db1_tpu.data import rl_dataset as jd
-    from bdm_db1_tpu.eval import envs as je
-    from bdm_db1_tpu.eval.wrapper import TokenizedEnv as JTenv
-    from bdm_db1_tpu.tokenizers.scalar import ScalarTokenizer as JScalar
-    from bdm_db1_tpu_torch.data import rl_dataset as td
-    from bdm_db1_tpu_torch.eval import envs as te
-    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv as TTenv
-    from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer as TScalar
-
-    cfg = db1_tiny()
-    layout = cfg.vocab.layout()
-    cls = {"discrete": "FakeImageEnv",
-           "continuous": "FakeContinuousImageEnv"}[kind]
-    out = []
-    for envs, rd, scalar, tenv in ((je, jd, JScalar, JTenv),
-                                   (te, td, TScalar, TTenv)):
-        env_cls = getattr(envs, cls)
-        ds = rd.RLFullDataset(
-            "img", rd.TrajectoryStore.from_flat_dataset(
-                env_cls(hw=hw, episode_len=10, seed=77).make_dataset(3)),
-            rd.RLTokenizerSuite(layout, scalar(cfg.vocab.num_continuous_bin)),
-            seq_length=cfg.model.n_position, seed=0)
-        out.append([tenv(env_cls(hw=hw, seed=i), ds)
-                    for i in range(N_ENVS)])
-    return out
-
-
-def _primes(tenvs, n_steps: int, seed: int = 0):
-    """Episode-start [prompt || obs || sep] primes with their frames, then
-    random-frame [obs || sep] primes: [(tokens [B, q], frames [B, T, H, W,
-    C])]."""
-    rng = np.random.RandomState(seed)
-    sep = np.full((len(tenvs), 1), tenvs[0].separator_id, np.int64)
-    toks, frames = [], []
-    for te in tenvs:
-        prompt, pimg = te.get_prompt(strict_length=True, rng=rng)
-        obs, img, _ = te.reset()
-        toks.append(np.concatenate([prompt, obs, sep[0]]))
-        frames.append(np.concatenate([pimg, img]))
-    out = [(np.stack(toks), np.stack(frames))]
-    shape = tenvs[0].observation_space.shape
-    for _ in range(n_steps - 1):
-        raws = [rng.rand(*shape).astype(np.float32) for _ in tenvs]
-        obs, img = tenvs[0].encode_obs_batch(raws)
-        out.append((np.concatenate([obs, sep], 1), img[:, None]))
-    return out
 
 
 def _chain(decoder, primes):
@@ -118,9 +68,9 @@ def _check_image_chains(kind, hw, flash, buckets=None, **over):
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env as tbuild
 
     _, model, params, pnp = jax_tiny("off", vision=True, **over)
-    jt, tt = _image_envs(kind, hw)
-    primes = _primes(jt, 4)
-    tprimes = _primes(tt, 4)
+    jt, tt = image_env_datasets(kind, hw)
+    primes = image_primes(jt, 4)
+    tprimes = image_primes(tt, 4)
     for (a, fa), (b, fb) in zip(primes, tprimes):
         np.testing.assert_array_equal(b, a)
         np.testing.assert_array_equal(fb, fa)
@@ -149,7 +99,7 @@ def test_image_chunk_plan_matches_jax():
     _, model, params, pnp = jax_tiny("off", vision=True)
     pm = port_model(pnp)
     for kind in ("discrete", "continuous"):
-        jt, tt = _image_envs(kind, 32)
+        jt, tt = image_env_datasets(kind, 32)
         jdec, tdec = jbuild(model, params, jt[0]), tbuild(pm, tt[0])
         cut = 0
         for q in range(1, 200):

@@ -397,5 +397,9 @@ def test_behavior_clone_lowers_the_loss():
     assert out is model
     after = evaluate_loss(model, batches, device="cpu")
     assert after < 0.8 * before, (before, after)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        behavior_clone(tcfg.db1_1p2b(), model, ds)
+    # at db1_1p2b's depth behaviour cloning defaults to remat (the JAX
+    # default), runs, and leaves the model's own remat flag as it was
+    out = behavior_clone(tcfg.db1_1p2b(), model, ds, steps=2, micro=8,
+                         distinct_batches=1)
+    assert out is model and not model.cfg.remat
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())

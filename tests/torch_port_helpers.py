@@ -71,9 +71,11 @@ def port_model(params_np, decode_flash: str = "off", **model_overrides):
 
 
 def fake_env_datasets(n_envs: int, obs_dim: int, act_dim: int,
-                      episode_len: int, n_position: int = 64):
-    """Tokenized FakeContinuousEnv instances in both packages, built from
-    the same seeds: (jax_tenvs, port_tenvs)."""
+                      episode_len: int, n_position: int = 64,
+                      discrete: bool = False):
+    """Tokenized FakeContinuousEnv (with ``discrete``: FakeDiscreteEnv of
+    ``act_dim`` actions) instances in both packages, built from the same
+    seeds: (jax_tenvs, port_tenvs)."""
     from bdm_db1_tpu.data import rl_dataset as jd
     from bdm_db1_tpu.eval import envs as je
     from bdm_db1_tpu.eval.wrapper import TokenizedEnv as JTenv
@@ -85,7 +87,9 @@ def fake_env_datasets(n_envs: int, obs_dim: int, act_dim: int,
     from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer as TScalar
 
     jcfg, tcfg = db1_tiny(), port_config.db1_tiny()
-    kw = dict(obs_dim=obs_dim, act_dim=act_dim, episode_len=episode_len)
+    env = "FakeDiscreteEnv" if discrete else "FakeContinuousEnv"
+    kw = dict(obs_dim=obs_dim, episode_len=episode_len,
+              **{"n_actions" if discrete else "act_dim": act_dim})
     jsuite = jd.RLTokenizerSuite(
         jcfg.vocab.layout(), JScalar(jcfg.vocab.num_continuous_bin),
         ByteTextTokenizer(), vision_patch_size=jcfg.vision.patch_size)
@@ -93,22 +97,76 @@ def fake_env_datasets(n_envs: int, obs_dim: int, act_dim: int,
         tcfg.vocab.layout(), TScalar(tcfg.vocab.num_continuous_bin))
     jds = jd.RLFullDataset(
         "fake", jd.TrajectoryStore.from_flat_dataset(
-            je.FakeContinuousEnv(seed=999, **kw).make_dataset(5)),
+            getattr(je, env)(seed=999, **kw).make_dataset(5)),
         jsuite, seq_length=n_position, use_prompt=True, seed=0)
     tds = td.RLFullDataset(
         "fake", td.TrajectoryStore.from_flat_dataset(
-            te.FakeContinuousEnv(seed=999, **kw).make_dataset(5)),
+            getattr(te, env)(seed=999, **kw).make_dataset(5)),
         tsuite, seq_length=n_position, seed=0)
-    jt = [JTenv(je.FakeContinuousEnv(seed=i, **kw), jds)
+    jt = [JTenv(getattr(je, env)(seed=i, **kw), jds)
           for i in range(n_envs)]
-    tt = [TTenv(te.FakeContinuousEnv(seed=i, **kw), tds)
+    tt = [TTenv(getattr(te, env)(seed=i, **kw), tds)
           for i in range(n_envs)]
     return jt, tt
 
 
-def episode_primes(tenvs, seed: int, n_steps: int, obs_dim: int):
+def image_env_datasets(kind: str, hw: int, n_envs: int = 2):
+    """Tokenized image envs (``kind`` "discrete": FakeImageEnv,
+    "continuous": FakeContinuousImageEnv) in both packages over the same
+    seeded trajectories: (jax_tenvs, port_tenvs)."""
+    from bdm_db1_tpu.data import rl_dataset as jd
+    from bdm_db1_tpu.eval import envs as je
+    from bdm_db1_tpu.eval.wrapper import TokenizedEnv as JTenv
+    from bdm_db1_tpu.tokenizers.scalar import ScalarTokenizer as JScalar
+    from bdm_db1_tpu_torch.data import rl_dataset as td
+    from bdm_db1_tpu_torch.eval import envs as te
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv as TTenv
+    from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer as TScalar
+
+    cfg = db1_tiny()
+    layout = cfg.vocab.layout()
+    cls = {"discrete": "FakeImageEnv",
+           "continuous": "FakeContinuousImageEnv"}[kind]
+    out = []
+    for envs, rd, scalar, tenv in ((je, jd, JScalar, JTenv),
+                                   (te, td, TScalar, TTenv)):
+        env_cls = getattr(envs, cls)
+        ds = rd.RLFullDataset(
+            "img", rd.TrajectoryStore.from_flat_dataset(
+                env_cls(hw=hw, episode_len=10, seed=77).make_dataset(3)),
+            rd.RLTokenizerSuite(layout, scalar(cfg.vocab.num_continuous_bin)),
+            seq_length=cfg.model.n_position, seed=0)
+        out.append([tenv(env_cls(hw=hw, seed=i), ds)
+                    for i in range(n_envs)])
+    return out
+
+
+def image_primes(tenvs, n_steps: int, seed: int = 0):
+    """Episode-start [prompt || obs || sep] primes with their frames, then
+    random-frame [obs || sep] primes: [(tokens [B, q], frames [B, T, H, W,
+    C])]."""
+    rng = np.random.RandomState(seed)
+    sep = np.full((len(tenvs), 1), tenvs[0].separator_id, np.int64)
+    toks, frames = [], []
+    for te in tenvs:
+        prompt, pimg = te.get_prompt(strict_length=True, rng=rng)
+        obs, img, _ = te.reset()
+        toks.append(np.concatenate([prompt, obs, sep[0]]))
+        frames.append(np.concatenate([pimg, img]))
+    out = [(np.stack(toks), np.stack(frames))]
+    shape = tenvs[0].observation_space.shape
+    for _ in range(n_steps - 1):
+        raws = [rng.rand(*shape).astype(np.float32) for _ in tenvs]
+        obs, img = tenvs[0].encode_obs_batch(raws)
+        out.append((np.concatenate([obs, sep], 1), img[:, None]))
+    return out
+
+
+def episode_primes(tenvs, seed: int, n_steps: int, obs_dim: int,
+                   discrete: bool = False):
     """A fixed prime stream: the episode-start [prompt || obs || sep] of
-    each env, then random-observation [obs || sep] primes."""
+    each env, then random-observation [obs || sep] primes (integers below
+    8 with ``discrete``)."""
     rng = np.random.RandomState(seed)
     sep = np.array([tenvs[0].separator_id], dtype=np.int64)
     starts = []
@@ -119,7 +177,8 @@ def episode_primes(tenvs, seed: int, n_steps: int, obs_dim: int):
     rs = np.random.RandomState(seed + 1)
 
     def rand_prime():
-        raws = [rs.randn(obs_dim).astype(np.float32)
+        raws = [rs.randint(0, 8, obs_dim) if discrete
+                else rs.randn(obs_dim).astype(np.float32)
                 for _ in range(len(tenvs))]
         obs_tok, _ = tenvs[0].encode_obs_batch(raws)
         return np.concatenate(
