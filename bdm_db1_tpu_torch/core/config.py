@@ -137,8 +137,10 @@ class ModelConfig:
 @dataclass
 class MeshConfig:
     """The device mesh of the JAX package: DP = ``data`` axis, TP =
-    ``model`` axis, PP (> 1) a ``pipe`` axis. The port runs on one card;
-    the fields are kept for the config round trip."""
+    ``model`` axis, PP (> 1) a ``pipe`` axis. The port runs data
+    parallelism over its process world, a card a process
+    (parallel/mesh.py); tensor and pipeline parallelism are not ported
+    yet."""
 
     data_parallel: int = -1  # -1: infer from device count / model_parallel
     model_parallel: int = 1

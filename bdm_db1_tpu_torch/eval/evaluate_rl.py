@@ -11,9 +11,14 @@ Builds the model on the device, loads its weights (:func:`load_params`),
 shards the env list across processes, evaluates each env (the batched
 lockstep decoder, or one episode at a time with ``eval.batched`` false;
 primes padded to geometry-bucket widths with ``eval.decode_obs_buckets``,
-the default)
-and writes one JSON record per env to ``<train.save_dir>/results.output``,
-then, with ``eval.baselines_path``, the suite summary.
+the default) and writes one JSON record per env to
+``<train.save_dir>/results.output``, then, with ``eval.baselines_path``,
+the suite summary. Rank 0 writes: its own records as each env finishes,
+then those of the other ranks once gathered, in rank order.
+
+Several processes, a card each, split the envs round-robin:
+
+    torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.eval.evaluate_rl ...
 
 A checkpoint of the JAX package (orbax) is not read here: write it as a
 DeepSpeed ``model_states.pt`` with the JAX package's
@@ -21,7 +26,7 @@ DeepSpeed ``model_states.pt`` with the JAX package's
 ``train.load_dir``/``train.ckpt_tag`` at that.
 
 Not ported (``NotImplementedError``, ROADMAP queue 1): ``eval.sharded_decode``
-and ``mesh.multihost`` True (item 9, parallelism).
+(item 9b, tensor parallelism).
 """
 
 from __future__ import annotations
@@ -31,7 +36,6 @@ import os
 from typing import List, Optional
 
 import torch
-import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import print_rank_0, process_index
@@ -39,10 +43,13 @@ from bdm_db1_tpu_torch.data.rl_dataset import build_rl_dataset_from_cache
 from bdm_db1_tpu_torch.eval.decode import DecoderPool
 from bdm_db1_tpu_torch.eval.envs import make_env
 from bdm_db1_tpu_torch.eval.harness import (
-    evaluate_env, evaluate_envs_lockstep, shard_envs,
+    evaluate_env, evaluate_envs_lockstep, gather_records, shard_envs,
 )
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+from bdm_db1_tpu_torch.parallel.distributed import (
+    default_backend, device_for_rank, maybe_initialize_distributed,
+)
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager, load_model
 from bdm_db1_tpu_torch.train.convert import (
     find_deepspeed_model_states, load_deepspeed_checkpoint,
@@ -93,24 +100,30 @@ def load_params(cfg: DB1Config, model: TransformerXL) -> str:
 
 
 def _check_supported(cfg: DB1Config) -> None:
-    if cfg.eval.sharded_decode or cfg.mesh.multihost:
+    if cfg.eval.sharded_decode:
         raise NotImplementedError(
-            "sharded decode and multi-host runs are not ported yet "
-            "(ROADMAP queue 1 item 9, parallelism)")
+            "sharded decode is not ported yet (ROADMAP queue 1 item 9b, "
+            "tensor parallelism)")
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
     """Evaluate ``cfg.eval.env_names`` (and the envs of
-    ``cfg.eval.task_suite_names``) on ``device``; returns the records, one
-    per env (plus the suite summary with a baselines file). ``cfg``
-    defaults to the command line (``DB1Config.from_cli``)."""
+    ``cfg.eval.task_suite_names``) on ``device`` (``"cuda"``: this rank's
+    card); returns the records of every process's shard in rank-major
+    order, one per env (plus the suite summary with a baselines file, on
+    rank 0). ``cfg`` defaults to the command line
+    (``DB1Config.from_cli``)."""
     cfg = cfg or DB1Config.from_cli()
     _check_supported(cfg)
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "a CUDA device was asked for but torch.cuda.is_available() is "
-            "false; pass device='cpu' to run on the CPU")
+    maybe_initialize_distributed(force=cfg.mesh.multihost,
+                                 backend=default_backend(device))
+    dev = device_for_rank(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "a CUDA device was asked for but torch.cuda.is_available() "
+                "is false; pass device='cpu' to run on the CPU")
+        torch.cuda.set_device(dev)
 
     model = TransformerXL(
         cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
@@ -145,48 +158,48 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
 
     pool = DecoderPool(model, pad_buckets=(
         "default" if cfg.eval.decode_obs_buckets else None))
-    results = []
+    rank = process_index()
     out_path = None
-    if cfg.train.save_dir:
+    if cfg.train.save_dir and rank == 0:
         os.makedirs(cfg.train.save_dir, exist_ok=True)
         out_path = os.path.join(cfg.train.save_dir, "results.output")
 
     def emit(res: dict) -> None:
-        print_rank_0(json.dumps(res))
-        results.append(res)
-        if out_path:
-            with open(out_path, "a") as f:
-                f.write(json.dumps(res) + "\n")
+        """Rank 0 prints a record and appends it to results.output."""
+        if rank == 0:
+            print(json.dumps(res), flush=True)
+            if out_path:
+                with open(out_path, "a") as f:
+                    f.write(json.dumps(res) + "\n")
 
     local_names = shard_envs(env_names)
     if cfg.eval.batched:
-        for res in evaluate_envs_lockstep(
-                model, local_names, make_tenv,
-                num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
-                batch_size=cfg.eval.batch_size, decoder_pool=pool,
-                use_prompt=cfg.eval.use_prompt,
-                strict_length=cfg.eval.strict_length,
-                minimal_expert_data=cfg.eval.minimal_expert_data,
-                max_step_size=cfg.eval.max_step_size,
-                interleave=cfg.eval.interleave):
-            emit(res)
+        records = evaluate_envs_lockstep(
+            model, local_names, make_tenv,
+            num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
+            batch_size=cfg.eval.batch_size, decoder_pool=pool,
+            use_prompt=cfg.eval.use_prompt,
+            strict_length=cfg.eval.strict_length,
+            minimal_expert_data=cfg.eval.minimal_expert_data,
+            max_step_size=cfg.eval.max_step_size,
+            interleave=cfg.eval.interleave)
     else:
-        for name in local_names:
-            emit(evaluate_env(
-                model, lambda n=name: make_tenv(n), decoder_pool=pool,
-                num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
-                use_prompt=cfg.eval.use_prompt,
-                strict_length=cfg.eval.strict_length,
-                minimal_expert_data=cfg.eval.minimal_expert_data,
-                max_step_size=cfg.eval.max_step_size))
+        records = (evaluate_env(
+            model, lambda n=name: make_tenv(n), decoder_pool=pool,
+            num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
+            use_prompt=cfg.eval.use_prompt,
+            strict_length=cfg.eval.strict_length,
+            minimal_expert_data=cfg.eval.minimal_expert_data,
+            max_step_size=cfg.eval.max_step_size) for name in local_names)
+    local = []
+    for res in records:     # rank 0's own records as each env finishes
+        emit(res)
+        local.append(res)
+    results = gather_records(local)
+    for res in results[len(local):] if rank == 0 else ():
+        emit(res)           # then the other ranks' shards, in rank order
 
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        gathered = [None] * dist.get_world_size()
-        dist.all_gather_object(gathered, results)
-        results = [r for rank in gathered for r in rank]
-
-    if cfg.eval.baselines_path and process_index() == 0:
+    if cfg.eval.baselines_path and rank == 0:
         # suite headline: the fraction of tasks at or above the threshold
         # of the expert score
         from bdm_db1_tpu_torch.eval.aggregate import aggregate_results
@@ -195,7 +208,8 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
         reg = BaselineRegistry.from_json(cfg.eval.baselines_path)
         summary = aggregate_results(results, reg.table,
                                     threshold=cfg.eval.score_threshold)
-        emit({"suite_summary": summary})
+        results.append({"suite_summary": summary})
+        emit(results[-1])
     return results
 
 

@@ -555,15 +555,23 @@ def parallel_evaluate_envs(
     model, env_names: Sequence[str],
     make_tokenized_env: Callable[[str], TokenizedEnv], **kwargs
 ) -> List[Dict[str, float]]:
-    """:func:`evaluate_env` over this process's env shard, one record per
-    env. A ``torch.distributed`` world larger than one raises: the gather
-    across processes is not ported yet (ROADMAP queue 1 item 9)."""
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "evaluation across processes is not ported yet (ROADMAP queue "
-            "1 item 9, parallelism)")
+    """:func:`evaluate_env` over this process's env shard
+    (:func:`shard_envs`), one record per env, gathered across the
+    processes of a ``torch.distributed`` world (:func:`gather_records`)."""
     pool = kwargs.pop("decoder_pool", None) or DecoderPool(model)
-    return [evaluate_env(model, lambda n=name: make_tokenized_env(n),
-                         decoder_pool=pool, **kwargs)
-            for name in shard_envs(env_names)]
+    return gather_records([
+        evaluate_env(model, lambda n=name: make_tokenized_env(n),
+                     decoder_pool=pool, **kwargs)
+        for name in shard_envs(env_names)])
+
+
+def gather_records(local: List[Dict]) -> List[Dict]:
+    """Every process's records in rank-major order (rank 0's shard, then
+    rank 1's, ...), on every process; ``local`` itself without a process
+    group. The JAX package's ``process_allgather`` of the record dicts
+    would gather each leaf instead, and cannot carry the env names."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return local
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, local)
+    return [r for rank in gathered for r in rank]

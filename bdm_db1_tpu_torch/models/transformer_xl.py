@@ -78,7 +78,7 @@ are those without remat.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -180,9 +180,11 @@ def use_rel_kernel(cfg: ModelConfig, qlen: int, klen: int, device,
 
 
 def masked_cross_entropy(logits: Tensor, labels: Tensor, loss_mask: Tensor,
-                         valid_vocab: int) -> Tensor:
+                         valid_vocab: int,
+                         count: Optional[Tensor] = None) -> Tensor:
     """Masked mean CE in f32; the vocab tail from ``valid_vocab`` on is out
-    of the softmax."""
+    of the softmax. The masked sum is divided by max(``count``, 1e-8),
+    ``count`` defaulting to the mask's sum."""
     v = logits.shape[-1]
     if valid_vocab < v:
         pad_bias = torch.where(
@@ -190,7 +192,9 @@ def masked_cross_entropy(logits: Tensor, labels: Tensor, loss_mask: Tensor,
         logits = logits + pad_bias
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return (nll * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1e-8)
+    if count is None:
+        count = loss_mask.sum()
+    return (nll * loss_mask).sum() / torch.clamp(count, min=1e-8)
 
 
 def _layer_norm(x: Tensor, ln: nn.LayerNorm) -> Tensor:
@@ -719,14 +723,18 @@ class TransformerXL(nn.Module):
         return h, torch.cat(masks, dim=0).float(), torch.cat(labels, dim=0)
 
     def loss_from_hidden(self, h: Tensor, loss_mask: Tensor,
-                         label: Tensor) -> Tensor:
-        """Masked CE from the trunk output; the tied head goes through the
-        blockwise fused CE, so the f32 [B, L, V] logits never exist."""
+                         label: Tensor, count: Optional[Tensor] = None
+                         ) -> Tensor:
+        """Masked CE from the trunk output, the masked sum over
+        max(``count``, 1e-8) (default: the mask's sum); the tied head goes
+        through the blockwise fused CE, so the f32 [B, L, V] logits never
+        exist."""
         valid = self.layout.total_vocab_size
         if self.cfg.share_input_output_embedding:
             return masked_cross_entropy_fused(
-                h, self.word_embedding.weight, label, loss_mask, valid)
-        return masked_cross_entropy(self.logits(h), label, loss_mask, valid)
+                h, self.word_embedding.weight, label, loss_mask, valid, count)
+        return masked_cross_entropy(self.logits(h), label, loss_mask, valid,
+                                    count)
 
     # ---- full-sequence trunk ----------------------------------------------
     def init_mems(self, batch_size: int) -> Tensor:
@@ -787,26 +795,33 @@ class TransformerXL(nn.Module):
     def forward(self, batch: GatoBatch, mems: Optional[Tensor] = None,
                 compute_loss: bool = True, deterministic: bool = True,
                 loss_only: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                count_reduce: Optional[Callable[[Tensor], Tensor]] = None):
         """Mixed-modality forward with the JAX package's ``__call__``
         signature and returns: (logits f32 [B, L, V], loss), plus the new
         mems when ``mems`` is given; ``(None, loss)`` with ``loss_only`` and
         a tied head (the fused CE). Follows the caller's grad mode; with
         ``deterministic=False`` dropout draws from ``generator`` (the JAX
-        package's "dropout" rng)."""
+        package's "dropout" rng). ``count_reduce`` maps the batch's
+        loss-mask count to the count the masked sum is divided by (data
+        parallelism: its sum over the ranks, so the loss is this rank's
+        share of the global micro-batch's mean)."""
         if compute_loss and mems is not None:
             raise ValueError("training does not use segment memory")
         h, loss_mask, label = self.embed_concat(
             batch, deterministic, with_targets=compute_loss,
             generator=generator)
+        count = None
+        if compute_loss and count_reduce is not None:
+            count = count_reduce(loss_mask.sum())
         h, new_mems = self.trunk(h, mems, deterministic, generator)
         if compute_loss and loss_only and self.cfg.share_input_output_embedding:
-            return None, self.loss_from_hidden(h, loss_mask, label)
+            return None, self.loss_from_hidden(h, loss_mask, label, count)
         logits = self.logits(h)
         loss = None
         if compute_loss:
             loss = masked_cross_entropy(logits, label, loss_mask,
-                                        self.layout.total_vocab_size)
+                                        self.layout.total_vocab_size, count)
         if mems is not None:
             return logits, loss, new_mems
         return logits, loss

@@ -15,7 +15,7 @@ JAX package, not a Pallas kernel, so the products go to ``torch.mm``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,10 +96,12 @@ class _MaskedCETied(torch.autograd.Function):
     chunk's logits. Gradients reach h and the embedding."""
 
     @staticmethod
-    def forward(ctx, h, emb, labels, loss_mask, valid_vocab, block):
+    def forward(ctx, h, emb, labels, loss_mask, valid_vocab, block,
+                count=None):
         lse, ll = _scan_lse(h, emb, labels, valid_vocab, block)
         mask = loss_mask.reshape(-1).float()
-        denom = torch.clamp(mask.sum(), min=1e-8)
+        denom = torch.clamp(mask.sum() if count is None else count,
+                            min=1e-8)
         ctx.save_for_backward(h, emb, labels, loss_mask, lse, denom)
         ctx.valid_vocab, ctx.block = valid_vocab, block
         return ((lse - ll) * mask).sum() / denom
@@ -125,20 +127,26 @@ class _MaskedCETied(torch.autograd.Function):
             dh += _mm_f32(dl16, w_c)
             dws.append(_mm_f32(dl16.t(), h2))
         dw = torch.cat(dws).to(emb.dtype)
-        return dh.to(h.dtype).reshape(h.shape), dw, None, None, None, None
+        return (dh.to(h.dtype).reshape(h.shape), dw, None, None, None, None,
+                None)
 
 
 def masked_ce_tied(h: Tensor, emb: Tensor, labels: Tensor, loss_mask: Tensor,
-                   valid_vocab: int, block: int) -> Tensor:
+                   valid_vocab: int, block: int,
+                   count: Optional[Tensor] = None) -> Tensor:
     """Masked mean NLL of ``labels`` [B, L] under softmax(h @ emb^T) with h
     [B, L, D], emb [V, D] (``block`` divides V); the vocab tail from
-    ``valid_vocab`` on is out of the softmax. Returns an f32 scalar;
+    ``valid_vocab`` on is out of the softmax. The masked sum is divided by
+    max(``count``, 1e-8), ``count`` defaulting to the mask's sum (data
+    parallelism passes the global micro-batch's). Returns an f32 scalar;
     differentiable in h and emb."""
-    return _MaskedCETied.apply(h, emb, labels, loss_mask, valid_vocab, block)
+    return _MaskedCETied.apply(h, emb, labels, loss_mask, valid_vocab, block,
+                               count)
 
 
 def masked_cross_entropy_fused(h: Tensor, emb: Tensor, labels: Tensor,
-                               loss_mask: Tensor, valid_vocab: int) -> Tensor:
+                               loss_mask: Tensor, valid_vocab: int,
+                               count: Optional[Tensor] = None) -> Tensor:
     """Entry point: picks the vocab block and runs :func:`masked_ce_tied`."""
     return masked_ce_tied(h, emb, labels, loss_mask, valid_vocab,
-                          _pick_block(emb.shape[0]))
+                          _pick_block(emb.shape[0]), count)

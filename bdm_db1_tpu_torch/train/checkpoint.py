@@ -4,20 +4,29 @@ on ``torch.distributed.checkpoint``.
 One directory per step under ``directory``::
 
     <directory>/<step>/.metadata        the tensors' index (dcp)
-    <directory>/<step>/__0_0.distcp     the tensors
+    <directory>/<step>/__<r>_0.distcp   the tensors that rank r wrote
     <directory>/<step>/client.json      the client state, when given
 
 The tensors of a train state, by key: ``model.<parameter or buffer name>``
 (the model's state dict, so a model loads from ``model.*`` alone),
 ``optimizer.count``, ``optimizer.mu.<name>``, ``optimizer.nu.<name>`` (the
-optimizer's ``state_dict``, train/step.py), ``step`` (int64) and
-``generator`` (the dropout ``torch.Generator``'s state bytes, when the
-state has one). A step is written under a temporary name and renamed when
-complete, so ``latest_step`` sees only finished steps; saving a step that
-exists replaces it. After each save only the newest ``max_to_keep`` steps
-stay. ``restore`` loads in place into the given state's own tensors, on
-their devices. Saves are synchronous, so ``wait`` has nothing to wait for,
-and made by one process (the port trains on one card).
+optimizer's ``state_dict``, train/step.py), ``step`` (int64) and the
+dropout ``torch.Generator``'s state bytes, when the state has one:
+``generator`` for rank 0, ``generator_rank<r>`` for rank r of a
+data-parallel run, whose ranks draw from generators of their own. A step
+is written under a temporary name and renamed when complete, so
+``latest_step`` sees only finished steps; saving a step that exists
+replaces it. After each save only the newest ``max_to_keep`` steps stay.
+``restore`` loads in place into the given state's own tensors, on their
+devices. Saves are synchronous, so ``wait`` has nothing to wait for.
+
+Under a process group, ``save`` and ``restore`` are collective: every rank
+calls them, on a directory they all see. dcp writes each rank's share of
+the replicated tensors once (a key that every rank holds is written by
+one of them), only rank 0 renames the finished step and prunes old ones,
+between barriers, and a restore starts at a barrier, so it never reads
+a step that is still being written. :func:`load_model` reads alone, in
+any process.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed.checkpoint as dcp
 
+from bdm_db1_tpu_torch.parallel.distributed import barrier, rank_and_world
+
 CLIENT_FILE = "client.json"
 _TMP_PREFIX = ".tmp-"
 # dcp says so on every call without a process group; one process is the
@@ -39,15 +50,20 @@ _SINGLE_PROCESS = ("torch.distributed is disabled, unavailable or "
                    "uninitialized")
 
 
+def generator_key(rank: int) -> str:
+    """The key of a rank's generator state."""
+    return "generator" if rank == 0 else f"generator_rank{rank}"
+
+
 def state_tensors(state) -> Dict[str, object]:
     """The nested dict of tensors that a checkpoint holds for ``state`` (a
-    ``TrainState``): views of the state's own tensors, except ``step`` and
-    ``generator``, which are copies."""
+    ``TrainState``) on this rank: views of the state's own tensors, except
+    ``step`` and the generator's state, which are copies."""
     out = {"model": state.model.state_dict(),
            "optimizer": state.optimizer.state_dict(),
            "step": torch.tensor(int(state.step), dtype=torch.int64)}
     if state.generator is not None:
-        out["generator"] = state.generator.get_state()
+        out[generator_key(rank_and_world()[0])] = state.generator.get_state()
     return out
 
 
@@ -80,7 +96,8 @@ def load_model(model: torch.nn.Module, path: str) -> None:
             "write JAX params as a DeepSpeed model_states.pt with "
             "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead")
     _check_model_keys(model, path)
-    _quiet(dcp.load, {"model": model.state_dict()}, checkpoint_id=path)
+    _quiet(dcp.load, {"model": model.state_dict()}, checkpoint_id=path,
+           no_dist=True)
 
 
 class CheckpointManager:
@@ -105,9 +122,18 @@ class CheckpointManager:
     def save(self, step: int, state, client_state: Optional[Dict] = None):
         """Write ``state`` (a ``TrainState``) and the client JSON as step
         ``step``, then prune to ``max_to_keep`` steps."""
+        rank = rank_and_world()[0]
         tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{int(step)}")
-        shutil.rmtree(tmp, ignore_errors=True)
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        barrier()
         _quiet(dcp.save, state_tensors(state), checkpoint_id=tmp)
+        if rank == 0:
+            self._finish(step, tmp, client_state)
+        barrier()
+
+    def _finish(self, step: int, tmp: str, client_state: Optional[Dict]):
+        """Rank 0: the client JSON, the rename, the pruning."""
         if client_state is not None:
             with open(os.path.join(tmp, CLIENT_FILE), "w") as f:
                 json.dump(client_state, f)
@@ -129,20 +155,22 @@ class CheckpointManager:
         first), ``state.step`` and the generator's state (kept as it is
         when the checkpoint has none). Returns (state, client JSON or
         None), or (None, None) when there is no checkpoint."""
+        barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         path = self.step_dir(step)
         _check_model_keys(state.model, path)
         sd = state_tensors(state)
+        gen = generator_key(rank_and_world()[0])
         saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-        if "generator" not in saved:    # saved from a state without one
-            sd.pop("generator", None)
+        if gen not in saved:    # saved from a state (or rank) without one
+            sd.pop(gen, None)
         _quiet(dcp.load, sd, checkpoint_id=path)
         state.optimizer.load_state_dict(sd["optimizer"])
         state.step = int(sd["step"])
-        if "generator" in sd:
-            state.generator.set_state(sd["generator"])
+        if gen in sd:
+            state.generator.set_state(sd[gen])
         client = None
         client_path = os.path.join(path, CLIENT_FILE)
         if os.path.exists(client_path):

@@ -20,8 +20,19 @@ the eval hook: validation loss, RL rollouts and, with
 ``eval.ic_vqa_num_samples`` > 0, the caption and VQA metrics on the
 unblended valid splits; checkpoints with resume).
 
-Not ported (``NotImplementedError``): more than one card (model, pipeline
-or data parallel, multi-host; ROADMAP queue 1 item 9).
+Data parallelism: one process a card, started by a launcher, e.g. on the
+cards of one host
+
+    torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.train.pretrain ...
+
+(``mesh.multihost`` None finds the launcher's variables, True insists on
+them). Each rank's loader takes its shard of the global batch, the model
+starts from rank 0's parameters, the train step sums the gradients over
+the ranks (train/step.py) and checkpoints are saved collectively.
+
+Not ported (``NotImplementedError``): tensor parallelism
+(``mesh.model_parallel`` > 1, ROADMAP queue 1 item 9b) and the pipeline
+(``mesh.pipeline_parallel`` > 1, item 9c).
 """
 
 from __future__ import annotations
@@ -29,7 +40,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import (
@@ -55,6 +65,10 @@ from bdm_db1_tpu_torch.eval.evaluate_vqa import evaluate_vqa
 from bdm_db1_tpu_torch.eval.harness import evaluate_env
 from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+from bdm_db1_tpu_torch.parallel.distributed import (
+    broadcast_flat, default_backend, device_for_rank,
+    maybe_initialize_distributed, rank_and_world, world_group,
+)
 from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 from bdm_db1_tpu_torch.tokenizers.text import build_text_tokenizer
 from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
@@ -77,12 +91,6 @@ def build_tokenizer_suite(cfg: DB1Config) -> RLTokenizerSuite:
     )
 
 
-def _process_count_and_index():
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
-
-
 def build_loader(cfg: DB1Config, datasets_by_modality: Dict[str, object],
                  weights: Dict[str, float]) -> StratifiedGatoLoader:
     """This process's loader (one card a process): {modality: {field:
@@ -91,7 +99,7 @@ def build_loader(cfg: DB1Config, datasets_by_modality: Dict[str, object],
     processes), one ``RandomSampler`` a group from the start of the stream
     (seed ``train.seed``, sharded by the ``torch.distributed`` rank when a
     process group is up) and ``data.num_workers`` threads."""
-    n_proc, proc = _process_count_and_index()
+    proc, n_proc = rank_and_world()
     micro = cfg.train.micro_batch_size
     counts = mixture_counts(weights, micro)
     accum = max(1, cfg.train.global_batch_size // (micro * n_proc))
@@ -137,25 +145,46 @@ def group_by_modality(train_ds):
 
 
 def _check_supported(cfg: DB1Config) -> None:
+    """Tensor parallelism and the pipeline raise ``NotImplementedError``."""
     m = cfg.mesh
-    n_proc, _ = _process_count_and_index()
-    if (m.model_parallel > 1 or m.pipeline_parallel > 1 or m.multihost
-            or m.data_parallel > 1 or n_proc > 1):
+    if m.model_parallel > 1:
         raise NotImplementedError(
-            "the port's pretraining runs on one card: model, pipeline and "
-            "data parallelism and multi-host runs are not ported yet "
-            "(ROADMAP queue 1 item 9, parallelism)")
+            "tensor parallelism (mesh.model_parallel > 1) is not ported yet "
+            "(ROADMAP queue 1 item 9b)")
+    if m.pipeline_parallel > 1:
+        raise NotImplementedError(
+            "the pipeline (mesh.pipeline_parallel > 1) is not ported yet "
+            "(ROADMAP queue 1 item 9c)")
+
+
+def _check_world(cfg: DB1Config) -> None:
+    """``mesh.data_parallel``, when positive, must be the world size (one
+    card a process, data parallelism only)."""
+    dp = cfg.mesh.data_parallel
+    world = rank_and_world()[1]
+    if dp > 0 and dp != world:
+        raise ValueError(f"mesh.data_parallel is {dp} but the process world "
+                         f"has {world} processes")
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
     """Train ``cfg`` (default: the command line, ``DB1Config.from_cli``)
-    on ``device``."""
+    on ``device`` (``"cuda"``: this rank's card), in the process world
+    of the launcher when there is one (``mesh.multihost``)."""
     cfg = cfg or DB1Config.from_cli()
     _check_supported(cfg)
-    dev = _check_device(device)
+    maybe_initialize_distributed(force=cfg.mesh.multihost,
+                                 backend=default_backend(device))
+    _check_world(cfg)
+    dev = _check_device(device_for_rank(device))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    in_world = world_group() is not None
     print_rank_0(f"device: {dev}"
                  + (f" ({torch.cuda.get_device_name(dev)})"
-                    if dev.type == "cuda" else ""))
+                    if dev.type == "cuda" else "")
+                 + (f", {rank_and_world()[1]} processes" if in_world
+                    else ""))
 
     tok = build_tokenizer_suite(cfg)
     if cfg.data.rl_dataset_cache_dir:
@@ -198,6 +227,8 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         model = TransformerXL(
             cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
             generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
+        if in_world:    # every rank starts from rank 0's weights
+            broadcast_flat(list(model.state_dict().values()), src=0)
         state = init_train_state(model, cfg.train.optimizer,
                                  cfg.train.train_iters)
         n_params = sum(p.numel() for p in model.parameters())

@@ -27,6 +27,12 @@ deterministic=False, loss_only=True)`` and its gradient; with accum > 1 the
 f32 gradients are summed over the micro-batches and divided by accum, the
 loss is their mean; then one optimizer step. Dropout draws from the
 ``torch.Generator`` passed in.
+
+Data parallelism (a process group up): each rank's batch is its shard of
+the global batch. A micro-batch's loss is the rank's masked NLL sum over
+the loss-mask count of the global micro-batch, so that the ranks' losses
+sum to the JAX package's mean over the whole micro-batch (pjit's batch
+sharding); the gradients are then summed over the ranks, once a step.
 """
 
 from __future__ import annotations
@@ -36,8 +42,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import OptimizerConfig
+from bdm_db1_tpu_torch.parallel.distributed import (
+    all_reduce_flat, summed, world_group,
+)
 from bdm_db1_tpu_torch.train.schedule import lr_schedule, wd_schedule
 
 Tensor = torch.Tensor
@@ -278,9 +288,13 @@ def init_train_state(model: torch.nn.Module, cfg: OptimizerConfig,
                       optimizer=make_optimizer(model, cfg, train_iters))
 
 
-def make_train_rng(seed: int, device) -> torch.Generator:
+def make_train_rng(seed: int, device, rank: int = 0) -> torch.Generator:
     """The training generator (the dropout masks) on the model's device,
-    seeded."""
+    seeded by ``seed`` on rank 0 and by (``seed``, ``rank``) on the other
+    ranks of a data-parallel run, so that each rank draws its own masks
+    (the JAX package draws one mask over the global batch)."""
+    if rank:
+        seed = int(np.random.SeedSequence((seed, rank)).generate_state(1)[0])
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
@@ -304,13 +318,37 @@ def accum_steps(batch: Dict[str, object]) -> int:
 UNREACHED_OK = ("vision_encoder.", "rl_local_timestep_embedding.")
 
 
-def make_loss_fn(model: torch.nn.Module) -> Callable:
+def make_loss_fn(model: torch.nn.Module,
+                 count_reduce: Optional[Callable] = None) -> Callable:
+    """``loss_fn(micro, generator)``: the training loss of one micro-batch;
+    ``count_reduce`` as in the model's forward."""
     def loss_fn(micro, generator):
         _, loss = model(micro, compute_loss=True, deterministic=False,
-                        loss_only=True, generator=generator)
+                        loss_only=True, generator=generator,
+                        count_reduce=count_reduce)
         return loss
 
     return loss_fn
+
+
+def _reduce_over_ranks(loss: Tensor, grads: list, names: List[str], group):
+    """The loss summed over the ranks, and the gradients summed in place in
+    flat buckets. The leaves without a gradient must be the same on every
+    rank (the buckets' lists would differ, and the reduce hang): one small
+    all_reduce of the loss and those flags first, and a ``RuntimeError``
+    on every rank when they differ."""
+    flags = torch.tensor([g is None for g in grads], dtype=torch.float32,
+                         device=loss.device)
+    small = summed(torch.cat([loss.reshape(1).float(), flags]), group)
+    world = dist.get_world_size(group)
+    split = [n for n, f in zip(names, small[1:].tolist())
+             if f not in (0.0, world)]
+    if split:
+        raise RuntimeError(
+            f"{len(split)} parameters have a gradient on some ranks and none "
+            f"on others (their batches reach different groups): {split[:4]}")
+    all_reduce_flat([g for g in grads if g is not None], group)
+    return small[0]
 
 
 def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
@@ -323,11 +361,22 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
     does not reach, keep ``grad`` None and the optimizer skips them (JAX's
     AdamW sees zero gradients there: it decays and moves them; the port
     leaves them as they are). Any other parameter the loss does not reach
-    raises."""
-    if loss_fn is None:
-        loss_fn = make_loss_fn(model)
+    raises.
+
+    Data parallelism over the world, whenever a process group is up (at
+    world size 1 too): ``batch`` is this rank's shard; each
+    micro-batch's loss-mask count is summed over the ranks before the
+    backward pass, the gradients are summed over them after the
+    accumulation, and the reported loss, ``grad_norm`` and the optimizer's
+    clip see the global values. A custom ``loss_fn`` must then return this
+    rank's share of the global loss itself."""
 
     def train_step(state: TrainState, batch, generator):
+        grp = world_group()
+        lf = loss_fn
+        if lf is None:
+            lf = make_loss_fn(model, None if grp is None
+                              else lambda count: summed(count, grp))
         accum = accum_steps(batch)
         named = [(n, p) for n, p in state.model.named_parameters()
                  if p.requires_grad]
@@ -343,13 +392,13 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
             return gs
 
         if accum == 1:
-            loss = loss_fn(micro_batch(batch, 0), generator)
+            loss = lf(micro_batch(batch, 0), generator)
             grads = grads_of(loss)
             loss = loss.detach()
         else:
             gsum, lsum = None, None
             for a in range(accum):
-                l = loss_fn(micro_batch(batch, a), generator)
+                l = lf(micro_batch(batch, a), generator)
                 gs = grads_of(l)
                 if gsum is None:
                     gsum = [None if g is None else g.float() for g in gs]
@@ -366,6 +415,8 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
                 del gs, l
             grads = [None if s is None else s.div_(accum) for s in gsum]
             loss = lsum / accum
+        if grp is not None:
+            loss = _reduce_over_ranks(loss, grads, [n for n, _ in named], grp)
         for p, g in zip(params, grads):
             p.grad = None if g is None else g.to(p.dtype)
         metrics = {"loss": loss, "step": state.step}

@@ -3,7 +3,9 @@ bdm_db1_tpu/train/trainer.py): loader batches to typed device batches, the
 ``Trainer`` loop (train step, logging of loss and tokens/sec per window,
 the ``eval_fn`` hook, checkpointing with auto-resume and an emergency
 checkpoint on a crash) and the mean masked CE over held-out batches that
-the trainer logs every eval tick."""
+the trainer logs every eval tick. Under a process group (data
+parallelism) each rank's loader hands it its shard of the global batch;
+the rates count the global batch and the losses are the global ones."""
 
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import MetricLogger, print_rank_0
 from bdm_db1_tpu_torch.data.input_specs import (
     ICTaskBatch, NLPTaskBatch, RLTaskBatch, VQATaskBatch,
+)
+from bdm_db1_tpu_torch.parallel.distributed import (
+    barrier, rank_and_world, summed, world_group,
 )
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
@@ -61,7 +66,9 @@ class Trainer:
     seeded ``torch.Generator`` on the model's device for the dropout masks
     (``state.generator``), every ``log_interval`` iterations a host read of
     the loss and the tokens/sec of the window, every ``eval_interval`` the
-    ``eval_fn(state, iteration)`` hook.
+    ``eval_fn(state, iteration)`` hook. Under a process group the
+    generator is seeded by (``train.seed``, rank) and tokens/sec counts
+    the global batch (this rank's times the world size).
 
     With ``cfg.train.save_dir``: metrics go to ``<save_dir>/metrics.jsonl``
     (unless a ``logger`` is given); the run resumes from the latest
@@ -69,7 +76,13 @@ class Trainer:
     starts again from the loader's beginning, as in the JAX package),
     saves every ``save_interval`` iterations and at the end, and on any
     exception saves an emergency checkpoint at the current step before
-    raising. ``load_dir`` is not read here (evaluate_rl reads it)."""
+    raising. ``load_dir`` is not read here (evaluate_rl reads it).
+
+    In a world of several processes the ranks meet at a barrier after the
+    eval hook (which may run on rank 0 alone), and an exception raises at
+    once, without the emergency checkpoint: the save is collective, and
+    an exception on one rank finds the others inside a step, whose next
+    collective then raises on them too."""
 
     def __init__(self, cfg: DB1Config, model, step_fn: Callable, state,
                  loader: Iterable, *, eval_fn: Optional[Callable] = None,
@@ -99,13 +112,16 @@ class Trainer:
 
     def train(self) -> None:
         """Run the loop; on any exception, save an emergency checkpoint
-        first (when checkpointing), then raise."""
+        first (when checkpointing, in one process), then raise."""
         try:
             self._train_loop()
         except BaseException:
             step = int(self.state.step)
-            if self.ckpt is None:
-                print_rank_0(f"training interrupted at step {step}")
+            world = rank_and_world()[1]
+            if self.ckpt is None or world > 1:
+                print_rank_0(f"training interrupted at step {step}"
+                             + (f"; no emergency checkpoint in a world of "
+                                f"{world} processes" if self.ckpt else ""))
             else:
                 print_rank_0(f"training interrupted — saving emergency "
                              f"checkpoint at iteration {step}")
@@ -121,8 +137,9 @@ class Trainer:
     def _train_loop(self) -> None:
         tcfg = self.cfg.train
         dev = self.model.device
+        rank, world = rank_and_world()
         if self.state.generator is None:
-            self.state.generator = make_train_rng(tcfg.seed, dev)
+            self.state.generator = make_train_rng(tcfg.seed, dev, rank)
         iteration = self.maybe_resume()
         data_iter = iter(self.loader)
         tokens_per_batch = None
@@ -134,8 +151,8 @@ class Trainer:
             if tokens_per_batch is None:
                 # every group's rows are L positions long (captioning and
                 # VQA rows too, which the JAX Trainer leaves out)
-                tokens_per_batch = sum(int(v.label.numel())
-                                       for v in batch.values())
+                tokens_per_batch = world * sum(int(v.label.numel())
+                                               for v in batch.values())
             self.state, metrics = self.step_fn(self.state, batch,
                                                self.state.generator)
             iteration += 1
@@ -158,6 +175,7 @@ class Trainer:
                 eval_metrics = self.eval_fn(self.state, iteration)
                 if eval_metrics:
                     self.logger.log(iteration, eval_metrics, prefix="valid/")
+                barrier()
 
             if self.ckpt and iteration % tcfg.save_interval == 0:
                 self.ckpt.save(iteration, self.state,
@@ -176,11 +194,16 @@ def evaluate_loss(model, batches: Iterable, device="cuda") -> float:
     (``compute_loss=True, deterministic=True, loss_only=True``) per
     ``[micro, ...]`` slice, under ``torch.inference_mode()``, with one host
     read at the end. ``model`` must live on ``device``; NaN without
-    batches."""
+    batches. Under a process group each rank passes its shard of every
+    micro-batch: a slice's loss
+    is the masked mean over the global micro-batch, as in the train step
+    (the count summed over the ranks, then the rank shares)."""
     dev = _check_device(device)
     if model.device != dev and not (
             dev.index is None and model.device.type == dev.type):
         raise ValueError(f"the model is on {model.device}, not {dev}")
+    grp = world_group()
+    count_reduce = None if grp is None else lambda c: summed(c, grp)
     losses = []
     with torch.inference_mode():
         for raw in batches:
@@ -189,8 +212,12 @@ def evaluate_loss(model, batches: Iterable, device="cuda") -> float:
                 sub = {m: {k: v[a] for k, v in fields.items()}
                        for m, fields in raw.items()}
                 _, loss = model(to_gato_batch(sub, dev), compute_loss=True,
-                                deterministic=True, loss_only=True)
+                                deterministic=True, loss_only=True,
+                                count_reduce=count_reduce)
                 losses.append(loss)
         if not losses:
             return float("nan")
-        return float(torch.stack(losses).mean())
+        losses = torch.stack(losses)
+        if grp is not None:
+            losses = summed(losses, grp)
+        return float(losses.mean())

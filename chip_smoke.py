@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,kernels,serve_spec,stateless
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_text
     python3 chip_smoke.py --phases build,remat,serve_preln
+    python3 chip_smoke.py --phases build,data_parallel
 
 Phases, each printing one JSON line:
 
@@ -190,6 +191,25 @@ Phases, each printing one JSON line:
   envs x 8 steps with the expert prompt: K3 24 (the prompt prime), no
   other launch, the records; one steady step timed and profiled; K3 at
   the prompt's shape (B 40) against its plain version, timed.
+* ``data_parallel`` — data parallelism in a world of two processes on the
+  one card (gloo: NCCL refuses two ranks on one device). db1_1p2b (bf16
+  activations, f32 parameters saved by this process, no dropout, SGD at
+  lr 1 after the clip) on the ``train`` phase's batch (2 x 4 x 1024, rank
+  1's first row of each micro-batch cut to 512 masked positions, so the
+  ranks' loss-mask counts differ): each rank takes one ``make_train_step``
+  step on its 2 rows a micro-batch; checks K3 = K4 = K5 = 48 a rank, the
+  ranks' parameters bitwise equal, the DP loss within the validation
+  loss gate and the update's cosine and norm within the model-gradient
+  gates of the one-process step on the whole batch (this process, from
+  the same weights); reads each rank's step (gloo through host memory:
+  not a data-parallel rate), the gradient reduce alone, its peak memory
+  and the collective save. Then that step in a one-rank NCCL group: its
+  reduce runs and its loss is bitwise the one-process loss. Then
+  ``evaluate_rl.main`` in a new two-rank world serving the DP checkpoint
+  on the ``evaluate_rl`` phase's envs, one a rank: rank 0's records are
+  the shards' in rank-major order, each rank's equal a one-process run
+  over its shard alone, with the same K1/K2 launches (both > 0), and
+  ``results.output`` holds them once.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -238,6 +258,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -259,11 +280,11 @@ SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
           "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
           "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless",
-          "remat", "serve_preln")
+          "remat", "serve_preln", "data_parallel")
 MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
               "evaluate_rl", "pretrain", "pretrain_vision",
               "evaluate_rl_image", "evaluate_rl_text", "generate",
-              "stateless", "remat", "serve_preln")
+              "stateless", "remat", "serve_preln", "data_parallel")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -2080,11 +2101,12 @@ TRAIN_ACCUM = 2
 TRAIN_STEPS = 8
 
 
-def _train_setup(seed: int):
+def _train_setup(seed: int, **model_overrides):
     """db1_1p2b with bf16 activations and f32 parameters (random weights
-    from ``seed``), the ModelConfig dropout rates (flax dropout) and the
-    OptimizerConfig defaults; its train split of the eval phase's dataset
-    wired as ``pretrain.build_loader`` wires it: RandomSampler(seed =
+    from ``seed``), the ModelConfig dropout rates (flax dropout) unless
+    ``model_overrides`` changes them, and the OptimizerConfig defaults; its
+    train split of the eval phase's dataset wired as
+    ``pretrain.build_loader`` wires it: RandomSampler(seed =
     TrainConfig.seed), mixture counts {"rl": 4} and StratifiedGatoLoader
     with accum 2."""
     from bdm_db1_tpu_torch.core.config import db1_1p2b
@@ -2098,7 +2120,7 @@ def _train_setup(seed: int):
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
     from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 
-    cfg = db1_1p2b()
+    cfg = db1_1p2b(**model_overrides)
     assert (cfg.model.dtype, cfg.model.param_dtype) == ("bfloat16",
                                                         "float32")
     cfg.train = dataclasses.replace(
@@ -2396,6 +2418,39 @@ EVAL_TRIALS = 20
 EVAL_STEPS = 8
 
 
+def _register_eval_envs(seed: int, cache_dir=None) -> None:
+    """Register EVAL_ENVS (FakeContinuousEnv(17, 6), the serve phases'
+    geometry, seeded ``seed`` + 10 i) in this process; with ``cache_dir``,
+    write their trajectory caches there too (``save_cache``)."""
+    from bdm_db1_tpu_torch.data.rl_dataset import TrajectoryStore
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv, register_env
+
+    for i, name in enumerate(EVAL_ENVS):
+        env_fn = functools.partial(FakeContinuousEnv, obs_dim=17, act_dim=6,
+                                   seed=seed + 10 * i)
+        register_env(name, env_fn)
+        if cache_dir is not None:
+            TrajectoryStore.from_flat_dataset(
+                env_fn().make_dataset(10)).save_cache(cache_dir, name)
+
+
+def _eval_cfg(cache_dir: str, load_dir: str, save_dir: str):
+    """db1_1p2b served in bf16 (weights too) from the checkpoint at
+    ``load_dir``: EVAL_ENVS x EVAL_TRIALS in one lockstep cohort,
+    EVAL_STEPS env steps, the records to ``save_dir``."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+
+    cfg = db1_1p2b()
+    cfg.model.param_dtype = "bfloat16"
+    cfg.data.rl_dataset_cache_dir = cache_dir
+    cfg.train.load_dir, cfg.train.save_dir = load_dir, save_dir
+    cfg.eval = dataclasses.replace(
+        cfg.eval, env_names=EVAL_ENVS, num_trials=EVAL_TRIALS,
+        batched=True, batch_size=len(EVAL_ENVS) * EVAL_TRIALS,
+        max_step_size=EVAL_STEPS)
+    return cfg
+
+
 def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
                       seed: int = 0) -> dict:
     """The RL evaluation driver on the train phase's checkpoint: write the
@@ -2408,13 +2463,10 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
     of 8 steps with finite returns, ``results.output`` with their two
     lines, the checkpoint line in its output, and the K1/K2 launches of
     one 40-row lockstep cohort, derived as the serve phase derives them."""
-    from bdm_db1_tpu_torch.core.config import db1_1p2b
-    from bdm_db1_tpu_torch.data.rl_dataset import (
-        TrajectoryStore, build_rl_dataset_from_cache,
-    )
+    from bdm_db1_tpu_torch.data.rl_dataset import build_rl_dataset_from_cache
     from bdm_db1_tpu_torch.eval import evaluate_rl
     from bdm_db1_tpu_torch.eval.decode import build_decoder_for_env
-    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv, register_env
+    from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
     from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
     from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
@@ -2423,22 +2475,8 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
     work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
         cache_dir, out_dir = (os.path.join(work, d) for d in ("rl", "out"))
-        for i, name in enumerate(EVAL_ENVS):
-            def env_fn(s=seed + 10 * i):
-                return FakeContinuousEnv(obs_dim=17, act_dim=6, seed=s)
-
-            register_env(name, env_fn)
-            TrajectoryStore.from_flat_dataset(
-                env_fn().make_dataset(10)).save_cache(cache_dir, name)
-        # db1_1p2b served in bf16 (weights too) from the checkpoint
-        cfg = db1_1p2b()
-        cfg.model.param_dtype = "bfloat16"
-        cfg.data.rl_dataset_cache_dir = cache_dir
-        cfg.train.load_dir, cfg.train.save_dir = ckpt_dir, out_dir
-        cfg.eval = dataclasses.replace(
-            cfg.eval, env_names=EVAL_ENVS, num_trials=EVAL_TRIALS,
-            batched=True, batch_size=len(EVAL_ENVS) * EVAL_TRIALS,
-            max_step_size=EVAL_STEPS)
+        _register_eval_envs(seed, cache_dir)
+        cfg = _eval_cfg(cache_dir, ckpt_dir, out_dir)
         if not cfg.eval.decode_obs_buckets:
             raise AssertionError("db1_1p2b's eval config leaves the "
                                  "geometry buckets off")
@@ -4628,6 +4666,439 @@ def phase_serve_preln(smi: str, seed: int = 0) -> dict:
             "k3_prompt_case": k3}
 
 
+DP_WORLD = 2
+DP_TIMEOUT_S = 600
+# the DP step's optimizer: the chain's SGD at a constant lr of 1 without
+# the clip, so that the update is the reduced gradient itself, its scale
+# included (the model-gradient gates apply to it: a gradient averaged
+# over the ranks or reduced twice moves its norm by 2x; Adam's first step
+# is the sign of the gradient, which near-zero elements flip), and large
+# enough to read in f32 parameters
+DP_OPT = dict(optimizer="sgd", lr=1.0, min_lr=1.0, lr_decay_style="constant",
+              lr_warmup_iters=0, clip_grad=0.0)
+# the DP loss against the one-process loss on the same batch: the same
+# bf16 forward on half the rows, the masked sums in f32 over another
+# split. Readings on an H100 80GB HBM3 (700 W), two runs: 9.5e-7 and 0.0.
+# A mean of the ranks' own masked means (DDP's loss) must miss it by more
+# on the phase's batch, so that the gate bites.
+DP_LOSS_TOL = 1e-4
+DP_NOTE = ("the step of one rank while the other shares the card; gloo sums "
+           "the gradients through host memory: not a data-parallel rate")
+
+
+def _dp_model(weights: str, device="cuda"):
+    """(cfg, model): db1_1p2b (bf16 activations, f32 parameters) without
+    dropout and with DP_OPT, holding the weights saved at ``weights``."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+
+    cfg = db1_1p2b(drop=0.0, embd_pdrop=0.0, dropattn=0.0)
+    cfg.train = dataclasses.replace(cfg.train, optimizer=dataclasses.replace(
+        cfg.train.optimizer, **DP_OPT))
+    model = TransformerXL(cfg.model, cfg.vocab, device=device)
+    model.load_state_dict(torch.load(weights, map_location=device,
+                                     mmap=True))
+    return cfg, model
+
+
+def _halve_rank1_counts(mask: np.ndarray) -> None:
+    """In place on a loss mask [accum, micro, L]: rank 1's rows of each
+    micro-batch keep only their first c // 2 masked positions, c being
+    rank 0's count there, so that the ranks' counts differ whatever the
+    loader drew (the RL rows' counts are few values, and often equal)."""
+    n = mask.shape[1] // DP_WORLD
+    for a in range(mask.shape[0]):
+        keep = int(mask[a, :n].sum()) // 2
+        flat = mask[a, n:2 * n].reshape(-1).copy()
+        flat[np.flatnonzero(flat)[keep:]] = 0
+        mask[a, n:2 * n] = flat.reshape(n, -1)
+
+
+def _dp_rows(raw: dict, rank: int) -> dict:
+    """This rank's block of rows of each micro-batch of a loader batch."""
+    out = {}
+    for m, fields in raw.items():
+        n = next(iter(fields.values())).shape[1] // DP_WORLD
+        out[m] = {k: v[:, rank * n:(rank + 1) * n] for k, v in fields.items()}
+    return out
+
+
+def _param_bits(model) -> dict:
+    """Per parameter, the int64 sum of its raw f32 bits."""
+    return {n: int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+            for n, p in model.named_parameters()}
+
+
+def _dp_train_rank(rank: int, world: int, weights: str, batch_file: str,
+                   ckpt_dir: str) -> dict:
+    """One rank of the DP step: its rows of each micro-batch through
+    ``make_train_step`` under the gloo group (a warm-up forward and
+    backward first, no reduce), counted and timed; the ranks' parameter
+    bits exchanged; the gradient reduce timed alone; then the collective
+    checkpoint of step 1."""
+    import torch.distributed as dist
+
+    from bdm_db1_tpu_torch.parallel.distributed import (
+        COLLECTIVES, all_reduce_flat,
+    )
+    from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
+    from bdm_db1_tpu_torch.train.step import (
+        init_train_state, make_loss_fn, make_train_step, micro_batch,
+    )
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    cfg, model = _dp_model(weights)
+    with np.load(batch_file) as f:
+        raw = {"rl": {k: f[k] for k in f.files}}
+    batch = to_gato_batch(_dp_rows(raw, rank), "cuda")
+    counts = [float(c) for c in batch["rl"].loss_mask.sum(dim=(1, 2))]
+    state = init_train_state(model, cfg.train.optimizer,
+                             cfg.train.train_iters)
+    step = make_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = make_loss_fn(model)(micro_batch(batch, 0), gen)
+    torch.autograd.grad(loss, params, allow_unused=True)
+    del loss
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+    t0 = time.perf_counter()
+    state, met = step(state, batch, gen)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    collectives = dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    bits = [None] * world
+    dist.all_gather_object(bits, _param_bits(model))
+    # the gradient reduce alone: the same buckets, of zeros
+    zeros = [torch.zeros_like(p) for n, p in model.named_parameters()
+             if not n.startswith("vision_encoder.")]
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    all_reduce_flat(zeros)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    del zeros
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir).save(1, state, client_state={"iteration": 1})
+    save_s = time.perf_counter() - t0
+    return {"rank": rank, "loss": loss, "loss_mask_counts": counts,
+            "launches": launches, "collectives": collectives,
+            "step_ms": step_ms, "step_ms_is": DP_NOTE,
+            "gradient_reduce_alone_ms": reduce_ms,
+            "max_memory_allocated_gb": peak / 1e9,
+            "params_bitwise_equal_across_ranks": all(
+                b == bits[0] for b in bits),
+            "checkpoint_save_s": save_s}
+
+
+def _dp_eval_rank(rank: int, world: int, cfg, seed: int) -> dict:
+    """One rank of the RL evaluation world: ``evaluate_rl.main`` (counted)
+    over this rank's shard of the envs, registered here."""
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.harness import shard_envs
+
+    _register_eval_envs(seed)
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    t0 = time.perf_counter()
+    records = evaluate_rl.main(cfg, device="cuda:0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    return {"rank": rank, "records": records, "launches": launches,
+            "shard": shard_envs(list(cfg.eval.env_names)), "wall_s": wall}
+
+
+def _dp_child(fn_name: str, rank: int, world: int, work: str,
+              args: tuple) -> None:
+    """A process of a DP_WORLD gloo world on cuda:0 (a ``file://`` store in
+    ``work``): this module's ``fn_name(rank, world, *args)``, its result
+    to ``<work>/<rank>.json``, its output to ``<work>/<rank>.log``, a
+    failure's traceback to ``<work>/<rank>.err``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with open(os.path.join(work, f"{rank}.log"), "w") as log, \
+                contextlib.redirect_stdout(log):
+            torch.cuda.set_device(0)
+            dist.init_process_group(
+                "gloo", init_method="file://" + os.path.join(work, "store"),
+                rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+            out = globals()[fn_name](rank, world, *args)
+        with open(os.path.join(work, f"{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_world(fn_name: str, work: str, *args) -> list:
+    """``fn_name`` in DP_WORLD processes started by the spawn method (each
+    process is stopped before this returns); their results in rank order,
+    or a ``RuntimeError`` with the first failing rank's traceback."""
+    import multiprocessing
+
+    sub = tempfile.mkdtemp(prefix=fn_name + "_", dir=work)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_child,
+                         args=(fn_name, r, DP_WORLD, sub, args))
+             for r in range(DP_WORLD)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in range(DP_WORLD):
+        err = os.path.join(sub, f"{r}.err")
+        if os.path.exists(err):
+            raise RuntimeError(f"{fn_name} rank {r}:\n{open(err).read()}")
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise RuntimeError(f"{fn_name}: exit codes {codes}")
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(sub, f"{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _update_agreement(model, one_after: dict, before: dict) -> dict:
+    """Cosine and relative norm difference of the update that ``model``
+    holds (its weights minus ``before``) and ``one_after`` minus
+    ``before``, over the parameters the step moved."""
+    dot = nd = no = 0.0
+    for n, p in model.named_parameters():
+        b = before[n].to(p.device)
+        du, ou = (p.detach() - b).double(), (one_after[n] - b).double()
+        dot += float((du * ou).sum())
+        nd += float(du.square().sum())
+        no += float(ou.square().sum())
+    nd, no = nd ** 0.5, no ** 0.5
+    return {"update_cosine": dot / (nd * no),
+            "update_norm_rel_diff": abs(nd - no) / no, "update_norm": no}
+
+
+def phase_data_parallel(smi: str, seed: int = 0) -> dict:
+    """Data parallelism in a world of two processes on the one card (gloo;
+    NCCL refuses two ranks on one device). The train phase's batch (2
+    micro-batches x 4 x 1024 of its dataset, rank 1's loss-mask counts cut
+    to half of rank 0's), db1_1p2b without dropout from weights this
+    process saves: each rank takes one ``make_train_step`` step on its 2
+    rows a micro-batch (K3/K4/K5 48 each), the ranks' parameters must end
+    bitwise equal, and both write the step-1 checkpoint collectively. Then
+    this process takes the one-process step on the whole batch from the
+    same weights: the DP loss within DP_LOSS_TOL of it, and the mean of
+    the ranks' own masked means (DDP's loss) further than DP_LOSS_TOL and
+    than the DP loss from it, the DP update (read from the
+    checkpoint; SGD without the clip, so the reduced gradient) at a cosine
+    of at least GRAD_COS_MIN and a norm within GRAD_NORM_RTOL of it.
+    Then the same step in a one-rank NCCL group: its reduce runs and its
+    loss is bitwise the one-process loss. Last, ``evaluate_rl.main`` in a new two-rank world serving the
+    DP checkpoint (the evaluate_rl phase's envs and config, one env a
+    rank): rank 0's records are the union of the shards in rank-major
+    order, each rank's equal a one-process run over its shard alone, with
+    the same K1/K2 launches, and results.output holds them once."""
+    import torch.distributed as dist
+
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.ops import cuda_build
+    from bdm_db1_tpu_torch.parallel.distributed import COLLECTIVES
+    from bdm_db1_tpu_torch.train.checkpoint import load_model
+    from bdm_db1_tpu_torch.train.step import (
+        init_train_state, make_loss_fn, make_train_step, micro_batch,
+    )
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    cuda_build.build_libraries(SOURCES)      # once, before the ranks load
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        weights = os.path.join(work, "weights.pt")
+        batch_file = os.path.join(work, "batch.npz")
+        ckpt_dir = os.path.join(work, "ckpt")
+        _, model, _, loader = _train_setup(seed, drop=0.0, embd_pdrop=0.0,
+                                           dropattn=0.0)
+        try:
+            raw = next(loader)["rl"]
+        finally:
+            loader.stop()
+        _halve_rank1_counts(raw["loss_mask"])
+        np.savez(batch_file, **raw)
+        before = {n: t.to("cpu", copy=True)
+                  for n, t in model.state_dict().items()}
+        torch.save(before, weights)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- two ranks on cuda:0 (counted in each rank) ------------------
+        t0 = time.perf_counter()
+        ranks = _run_world("_dp_train_rank", work, weights, batch_file,
+                           ckpt_dir)
+        world_s = time.perf_counter() - t0
+        counts = [r["loss_mask_counts"] for r in ranks]
+        want = dict.fromkeys(ranks[0]["launches"], 0)
+        cfg, model = _dp_model(weights)
+        L = cfg.model.n_layer
+        for name in ("flash_rel_attention", "flash_rel_attention_bwd_dq",
+                     "flash_rel_attention_bwd_dkv"):
+            want[name] = L * TRAIN_ACCUM
+        if not (all(r["launches"] == want for r in ranks)
+                and all(r["params_bitwise_equal_across_ranks"]
+                        for r in ranks)
+                and ranks[0]["loss"] == ranks[1]["loss"]
+                and all(r["collectives"]["all_reduce"] > TRAIN_ACCUM
+                        for r in ranks)
+                and all(a != b for a, b in zip(*counts))):
+            raise AssertionError(f"data-parallel ranks: {ranks}")
+
+        # ---- DDP's loss: the mean of the ranks' own masked means ---------
+        # (no process group here: each micro-batch's mean is the rank's)
+        loss_fn = make_loss_fn(model)
+        means = []
+        with torch.no_grad():
+            for r in range(DP_WORLD):
+                rows_r = to_gato_batch(_dp_rows({"rl": raw}, r), "cuda")
+                for a in range(TRAIN_ACCUM):
+                    g = torch.Generator(device="cuda").manual_seed(0)
+                    means.append(float(loss_fn(micro_batch(rows_r, a), g)))
+                del rows_r
+        loss_mom = float(np.mean(means))
+
+        # ---- the one-process step on the whole batch ---------------------
+        batch = to_gato_batch({"rl": raw}, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = make_train_step(model)
+        state = init_train_state(model, cfg.train.optimizer,
+                                 cfg.train.train_iters)
+        _, met = step(state, batch, gen)
+        loss_one = float(met["loss"])
+        one_after = {n: p.detach().clone()
+                     for n, p in model.named_parameters()}
+        load_model(model, os.path.join(ckpt_dir, "1"))
+        agree = _update_agreement(model, one_after, before)
+        del one_after
+        loss_diff = abs(ranks[0]["loss"] - loss_one)
+        mom_diff = abs(loss_mom - loss_one)
+        if not (loss_diff <= DP_LOSS_TOL and mom_diff > DP_LOSS_TOL
+                and mom_diff > loss_diff
+                and agree["update_cosine"] >= GRAD_COS_MIN
+                and agree["update_norm_rel_diff"] <= GRAD_NORM_RTOL):
+            raise AssertionError(f"DP step against the one-process step: "
+                                 f"loss {ranks[0]['loss']} / {loss_one}, "
+                                 f"mean of the ranks' means {loss_mom}, "
+                                 f"{agree}")
+
+        # ---- NCCL at world size 1 (counted) ------------------------------
+        model.load_state_dict(before)
+        state = init_train_state(model, cfg.train.optimizer,
+                                 cfg.train.train_iters)
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(work, "nccl"),
+            rank=0, world_size=1)
+        try:
+            for k in COLLECTIVES:
+                COLLECTIVES[k] = 0
+            _reset_launches()
+            _, met = step(state, batch, gen)
+            loss_nccl = float(met["loss"])
+            torch.cuda.synchronize()
+            nccl_launches = _read_launches()
+            nccl = {"backend": dist.get_backend(), "loss": loss_nccl,
+                    "loss_bitwise_one_process": loss_nccl == loss_one,
+                    "collectives": dict(COLLECTIVES),
+                    "launches": nccl_launches}
+        finally:
+            dist.destroy_process_group()
+        if not (nccl["loss_bitwise_one_process"]
+                and nccl["collectives"]["all_reduce"] > TRAIN_ACCUM
+                and nccl_launches == want):
+            raise AssertionError(f"NCCL at world size 1: {nccl}")
+        del model, state, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- RL evaluation in a two-rank world (counted in each rank) ----
+        cache_dir = os.path.join(work, "rl")
+        _register_eval_envs(seed, cache_dir)
+        ecfg = _eval_cfg(cache_dir, ckpt_dir, os.path.join(work, "out_dp"))
+        t0 = time.perf_counter()
+        evals = _run_world("_dp_eval_rank", work, ecfg, seed)
+        eval_world_s = time.perf_counter() - t0
+        alone = []
+        for r in evals:
+            cfg_r = dataclasses.replace(ecfg, eval=dataclasses.replace(
+                ecfg.eval, env_names=tuple(r["shard"])),
+                train=dataclasses.replace(ecfg.train, save_dir=os.path.join(
+                    work, f"out_{r['rank']}")))
+            _reset_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                records = evaluate_rl.main(cfg_r, device="cuda")
+            alone.append({"records": records, "launches": _read_launches()})
+        union = [rec for a in alone for rec in a["records"]]
+        with open(os.path.join(work, "out_dp", "results.output")) as f:
+            lines = f.read().splitlines()
+        if not ([r["shard"] for r in evals] == [[n] for n in EVAL_ENVS]
+                and all(r["records"] == union for r in evals)
+                and lines == [json.dumps(rec) for rec in union]
+                and all(r["launches"] == a["launches"]
+                        and r["launches"]["flash_ring_decode"] > 0
+                        and r["launches"]["flash_ring_prime_ap"] > 0
+                        for r, a in zip(evals, alone))):
+            raise AssertionError(f"evaluation world: {evals}, one process "
+                                 f"a shard: {alone}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k: sum(r["launches"][k] for r in ranks + evals)
+                + nccl_launches[k] for k in want}
+    return {"phase": "data_parallel", "config": "db1_1p2b", "card": smi,
+            "world": DP_WORLD, "backend": "gloo, the ranks on cuda:0",
+            "dtype": "bfloat16", "param_dtype": "float32",
+            "dropout": 0.0, "optimizer": DP_OPT,
+            "micro_batch_per_rank": TRAIN_MICRO // DP_WORLD,
+            "accum": TRAIN_ACCUM, "seq_length": raw["label"].shape[-1],
+            "loss_mask_counts": counts, "ranks": ranks,
+            "world_s": world_s, "loss_one_process": loss_one,
+            "loss_abs_diff": loss_diff, "loss_tol": DP_LOSS_TOL,
+            "loss_mean_of_rank_means": loss_mom,
+            "mean_of_means_abs_diff": mom_diff,
+            "update": agree, "update_cosine_min": GRAD_COS_MIN,
+            "nccl_world_1": nccl,
+            "evaluate_rl": {"envs": list(EVAL_ENVS), "trials": EVAL_TRIALS,
+                            "env_steps": EVAL_STEPS, "ranks": [
+                                {k: r[k] for k in ("rank", "shard",
+                                                   "launches", "wall_s")}
+                                for r in evals],
+                            "records": union, "world_s": eval_world_s},
+            "launches": launches}
+
+
 # what each time of the K4/K5 rows of the kernels line is
 BWD_TIMES = {
     "ms": "the kernel alone: CUDA events around bare launches, on delta and "
@@ -4817,7 +5288,8 @@ def main(argv=None) -> int:
         emit(results["generate"])
     for phase, fn in (("stateless", phase_stateless),
                       ("remat", phase_remat),
-                      ("serve_preln", phase_serve_preln)):
+                      ("serve_preln", phase_serve_preln),
+                      ("data_parallel", phase_data_parallel)):
         if phase in phases:
             gc.collect()
             torch.cuda.empty_cache()

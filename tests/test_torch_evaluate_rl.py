@@ -304,15 +304,19 @@ def test_fake_discrete_env_matches_jax(kw):
         assert (jr, jdone) == (tr, tdone)
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("sharded_decode", True, "item 9"),
-    ("multihost", True, "item 9")])
-def test_unported_options_raise(field, value, match):
+@pytest.mark.parametrize("field,value,error,match", [
+    ("sharded_decode", True, NotImplementedError, "item 9b"),
+    # a multi-process run without the launcher's rendezvous address raises
+    # instead of evaluating in one process
+    ("multihost", True, ValueError, "MASTER_ADDR")])
+def test_unported_options_raise(field, value, error, match, monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     cfg = tcfg.db1_tiny(dtype="float32")
     cfg.eval.decode_obs_buckets = False
     section = cfg.mesh if field == "multihost" else cfg.eval
     setattr(section, field, value)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ter.main(cfg, device="cpu")
 
 

@@ -324,19 +324,25 @@ def test_pretrain_main_on_cpu(workspace):
     assert np.isfinite(valid[0][f"valid/return/{ENV}"])
 
 
-@pytest.mark.parametrize("change,match", [
-    (("mesh", "model_parallel", 2), "item 9"),
-    (("mesh", "pipeline_parallel", 2), "item 9"),
-    (("mesh", "multihost", True), "item 9"),
+@pytest.mark.parametrize("change,error,match", [
+    (("mesh", "model_parallel", 2), NotImplementedError, "item 9b"),
+    (("mesh", "pipeline_parallel", 2), NotImplementedError, "item 9c"),
+    # a multi-process run without the launcher's rendezvous address, and
+    # a data-parallel size that is not the world's, raise instead of
+    # training in one process
+    (("mesh", "multihost", True), ValueError, "MASTER_ADDR"),
+    (("mesh", "data_parallel", 2), ValueError, "data_parallel is 2"),
     # a captioning or VQA mixture at the default eval.ic_vqa_num_samples
     # runs: tests/test_torch_ic_vqa.py::test_in_training_caption_metrics_
     # match_jax holds its metrics to the JAX package's
 ])
-def test_pretrain_main_refuses(workspace, change, match):
+def test_pretrain_main_refuses(workspace, change, error, match, monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
     cfg = _main_cfg(workspace, "refused")
     group, field, value = change
     setattr(getattr(cfg, group), field, value)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         tpt.main(cfg, device="cpu")
     assert not (workspace / "refused").exists()
 

@@ -231,8 +231,9 @@ def test_window_through_the_kernel_route():
 
 def test_parallel_evaluate_envs_matches_jax(monkeypatch):
     """One process: each env's record through ``evaluate_env`` with a
-    shared pool equals JAX's; in a world of two processes the gather is
-    refused (ROADMAP queue 1 item 9)."""
+    shared pool equals JAX's. As rank 1 of a world of two (a stand-in
+    ``torch.distributed``): only its shard is evaluated, and the gather
+    returns rank 0's records, then its own."""
     from bdm_db1_tpu.eval.harness import parallel_evaluate_envs as jpar
     from bdm_db1_tpu_torch.eval import harness as th
 
@@ -250,7 +251,16 @@ def test_parallel_evaluate_envs_matches_jax(monkeypatch):
     got = th.parallel_evaluate_envs(port_model(pnp), names, make("port"),
                                     **kw)
     assert got == want and len(got) == 2
+    shards = []
+
+    def all_gather_object(out, local):
+        shards.append(local)
+        out[:] = [want[:1], local]
+
     monkeypatch.setattr(th.dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(th.dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        th.parallel_evaluate_envs(port_model(pnp), names, make("port"), **kw)
+    monkeypatch.setattr(th.dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(th.dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(th.dist, "all_gather_object", all_gather_object)
+    got = th.parallel_evaluate_envs(port_model(pnp), names, make("port"),
+                                    **kw)
+    assert shards == [want[1:]] and got == want

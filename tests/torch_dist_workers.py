@@ -1,0 +1,323 @@
+"""Worlds of processes for the port's data-parallel tests.
+
+:class:`World` starts ``world`` processes by the spawn method, joins them
+in a gloo process group over a ``file://`` store under the test's own
+directory (so xdist workers never race for a port) and runs one of the
+functions below in each, as ``fn(rank, world, *args)``; the arguments go
+to the processes, and each result comes back, through ``torch.save``
+files. A test starts its worlds first and computes the JAX package's side
+while they run. This module imports torch and the port only: a process of a world
+starts without JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import shutil
+import time
+import traceback
+import uuid
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD_TIMEOUT_S = 120
+
+
+class World:
+    """``world`` processes started by the spawn method, each running
+    ``fn(rank, world, *args)`` in one gloo world; :meth:`join` waits for
+    them (at most ``WORLD_TIMEOUT_S``) and returns their results in rank
+    order, or raises with the first failing rank's traceback."""
+
+    def __init__(self, fn, world: int, tmp_path, *args):
+        self.work = os.path.join(str(tmp_path),
+                                 f"world-{uuid.uuid4().hex[:8]}")
+        os.makedirs(self.work)
+        torch.save(args, os.path.join(self.work, "args.pt"))
+        ctx = mp.get_context("spawn")
+        self.procs = [ctx.Process(target=_child,
+                                  args=(fn, rank, world, self.work))
+                      for rank in range(world)]
+        for p in self.procs:
+            p.start()
+        self.results = None
+
+    def join(self):
+        if self.results is not None:
+            return self.results
+        for p in self.procs:
+            p.join(WORLD_TIMEOUT_S)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        n = len(self.procs)
+        errs = [os.path.join(self.work, f"{r}.err") for r in range(n)]
+        errors = [open(e).read() for e in errs if os.path.exists(e)]
+        if errors:
+            raise RuntimeError(errors[0])
+        codes = [p.exitcode for p in self.procs]
+        if any(codes):
+            raise RuntimeError(f"a rank of the world failed: exit codes "
+                               f"{codes}")
+        self.results = [torch.load(os.path.join(self.work, f"{r}.pt"),
+                                   weights_only=False) for r in range(n)]
+        return self.results
+
+
+def _child(fn, rank: int, world: int, work: str) -> None:
+    torch.set_num_threads(1)
+    try:
+        args = torch.load(os.path.join(work, "args.pt"), weights_only=False)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(work, 'store')}",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+        out = fn(rank, world, *args)
+        torch.save(out, os.path.join(work, f"{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(work, f"{rank}.err"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---- shared set-up ----------------------------------------------------------
+
+def tiny_model(state_dict, **overrides):
+    """The port's db1_tiny in f32 on the CPU holding ``state_dict``."""
+    from bdm_db1_tpu_torch.core.config import db1_tiny
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+
+    cfg = db1_tiny(dtype="float32", **overrides)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cpu")
+    model.load_state_dict(state_dict)
+    return model
+
+
+def shard(raw, rank: int, world: int):
+    """This rank's rows of a loader batch {group: {field: [accum, micro,
+    ...]}}: a contiguous block of the micro axis."""
+    out = {}
+    for m, fields in raw.items():
+        n = next(iter(fields.values())).shape[1] // world
+        out[m] = {k: v[:, rank * n:(rank + 1) * n] for k, v in fields.items()}
+    return out
+
+
+class FixedLoader:
+    """The same batch every time."""
+
+    def __init__(self, raw):
+        self.raw = raw
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.raw
+
+
+class FailingLoader(FixedLoader):
+    """The same batch, and a ``RuntimeError`` in place of the
+    ``fail_at``-th (never with None)."""
+
+    def __init__(self, raw, fail_at=None):
+        super().__init__(raw)
+        self.fail_at, self.n = fail_at, 0
+
+    def __next__(self):
+        self.n += 1
+        if self.n == self.fail_at:
+            raise RuntimeError(f"the loader failed at batch {self.n}")
+        return self.raw
+
+
+def train_leaves(state) -> dict:
+    """Copies of the parameters, the moments and the generator state."""
+    opt = state.optimizer.state_dict()
+    out = {f"model.{n}": p.detach().clone()
+           for n, p in state.model.named_parameters()}
+    for key in ("mu", "nu"):
+        out.update({f"{key}.{n}": t.clone() for n, t in opt[key].items()})
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+# ---- the functions a world runs ---------------------------------------------
+
+def dp_step(rank, world, state_dict, raw, opt_kw, overrides):
+    """One ``make_train_step`` step (with its grad norm) on this rank's
+    shard of ``raw``; then, with dropout 0.1, the first dropout mask of
+    the rank's training generator (``make_train_rng(seed 0, rank)``)."""
+    from bdm_db1_tpu_torch.ops.fast_dropout import dropout
+    from bdm_db1_tpu_torch.train import step as tstep
+
+    model = tiny_model(state_dict, **overrides)
+    out = one_step(model, shard(raw, rank, world), opt_kw)
+    out["dropout_mask"] = dropout(torch.ones(64, 64), 0.1,
+                                  tstep.make_train_rng(0, "cpu", rank)) != 0
+    return out
+
+
+def one_step(model, raw, opt_kw) -> dict:
+    """One ``make_train_step`` step of ``model`` on ``raw`` with the
+    optimizer of ``opt_kw`` (20 iterations): the loss, the grad norm, the
+    gradients the optimizer was handed and the parameters after."""
+    from bdm_db1_tpu_torch.core.config import OptimizerConfig
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    state = tstep.init_train_state(model, OptimizerConfig(**opt_kw), 20)
+    grads = {}
+    opt_step = state.optimizer.step
+
+    def keeping():
+        grads.update({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        opt_step()
+
+    state.optimizer.step = keeping
+    step = tstep.make_train_step(model, with_grad_norm=True)
+    state, met = step(state, to_gato_batch(raw, "cpu"), torch.Generator())
+    return {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "grads": grads, "params": {n: p.detach().clone()
+                                       for n, p in model.named_parameters()}}
+
+
+def trainer_run(rank, world, state_dict, raw, cfg, resume_from=None):
+    """``Trainer.train()`` over this rank's shard of ``raw`` (the same
+    batch each iteration), resuming from ``cfg.train.save_dir`` when it
+    holds a checkpoint; the final leaves, the step and each step's loss.
+    ``resume_from``: a step directory of another run, copied into
+    ``cfg.train.save_dir`` first, once it exists (that run may still be
+    going: a finished step appears by a rename)."""
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import Trainer
+
+    if resume_from is not None:
+        if rank == 0:
+            deadline = time.monotonic() + WORLD_TIMEOUT_S
+            while not os.path.isdir(resume_from):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{resume_from} never appeared")
+                time.sleep(0.05)
+            shutil.copytree(resume_from, os.path.join(
+                cfg.train.save_dir, os.path.basename(resume_from)))
+        dist.barrier()
+    model = tiny_model(state_dict)
+    state = tstep.init_train_state(model, cfg.train.optimizer,
+                                   cfg.train.train_iters)
+    step = tstep.make_train_step(model)
+    losses = []
+
+    def recording(st, batch, gen):
+        st, met = step(st, batch, gen)
+        losses.append(float(met["loss"]))
+        return st, met
+
+    trainer = Trainer(cfg, model, recording, state,
+                      FixedLoader(shard(raw, rank, world)))
+    trainer.train()
+    return {"leaves": train_leaves(trainer.state),
+            "step": trainer.state.step, "losses": losses}
+
+
+def trainer_fails(rank, world, state_dict, raw, cfg):
+    """``Trainer.train()`` over this rank's shard of ``raw`` whose loader
+    fails on rank 1 at its second batch, while rank 0 goes on into step
+    2: each rank's exception, the seconds until ``train`` raised, and the
+    step it stopped at."""
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import Trainer
+
+    model = tiny_model(state_dict)
+    state = tstep.init_train_state(model, cfg.train.optimizer,
+                                   cfg.train.train_iters)
+    loader = FailingLoader(shard(raw, rank, world), 2 if rank == 1 else None)
+    trainer = Trainer(cfg, model, tstep.make_train_step(model), state,
+                      loader)
+    t0 = time.monotonic()
+    try:
+        trainer.train()
+        error = None
+    except Exception as e:
+        error = f"{type(e).__name__}: {e}"
+    return {"error": error, "seconds": time.monotonic() - t0,
+            "step": trainer.state.step}
+
+
+def mesh_groups(rank, world, mesh_kw):
+    """``make_mesh`` of ``MeshConfig(**mesh_kw)`` on the CPU: its shape,
+    dim names, and the size of each dim's group, with the "data" group's
+    sum of the ranks."""
+    from bdm_db1_tpu_torch.core.config import MeshConfig
+    from bdm_db1_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(**mesh_kw), "cpu")
+    ranks = torch.tensor([float(rank)])
+    dist.all_reduce(ranks, group=mesh.get_group("data"))
+    return {"shape": tuple(mesh.shape), "names": mesh.mesh_dim_names,
+            "sizes": {n: dist.get_world_size(mesh.get_group(n))
+                      for n in mesh.mesh_dim_names},
+            "data_rank_sum": float(ranks)}
+
+
+def evaluate_rl_main(rank, world, cfg, registered):
+    """``evaluate_rl.main`` on the CPU after registering the envs
+    ``registered`` ({name: FakeContinuousEnv kwargs}); its records and
+    those of this rank's shard."""
+    from bdm_db1_tpu_torch.eval import envs as te
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.harness import shard_envs
+
+    for name, kw in registered.items():
+        te.register_env(name, _FakeContinuous(kw))
+    return {"records": evaluate_rl.main(cfg, device="cpu"),
+            "shard": shard_envs(list(cfg.eval.env_names))}
+
+
+def pretrain_main(rank, world, cfg):
+    """``pretrain.main`` on the CPU; what it printed."""
+    import contextlib
+    import io
+
+    from bdm_db1_tpu_torch.train import pretrain
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pretrain.main(cfg, device="cpu")
+    return out.getvalue()
+
+
+@dataclasses.dataclass
+class _FakeContinuous:
+    """A picklable env factory."""
+    kw: dict
+
+    def __call__(self):
+        from bdm_db1_tpu_torch.eval.envs import FakeContinuousEnv
+
+        return FakeContinuousEnv(**self.kw)
+
+
+def numpy_batch(accum: int, micro: int, seq: int, seed: int,
+                densities) -> dict:
+    """An RL loader batch [accum, micro, seq] of db1_tiny's vocab whose row
+    r keeps each position in its loss mask with probability
+    ``densities[r]`` (so that shards can be given unequal counts)."""
+    rng = np.random.RandomState(seed)
+    shape = (accum, micro, seq)
+    dens = np.asarray(densities, np.float64)[None, :, None]
+    return {"rl": {
+        "tokens": rng.randint(0, 321, shape).astype(np.int32),
+        "position_id": rng.randint(0, 60, shape).astype(np.int32),
+        "loss_mask": (rng.rand(*shape) < dens).astype(np.float32),
+        "label": rng.randint(0, 321, shape).astype(np.int32)}}
