@@ -144,9 +144,41 @@ class RkCache:
         return [1] * (self._step is not None) + list(self._lru._d)
 
 
+def shard_decode_params(model, mesh):
+    """This rank's tensor-parallel copy of ``model`` on ``mesh`` (a
+    ``DeviceMesh`` named ("data", "model")): a ``TransformerXL`` holding
+    its shard of the weights (the JAX ``shard_decode_params`` places the
+    params by their logical axes). A model that is already sharded over
+    that many ranks is returned as it is."""
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.parallel.mesh import tensor_parallel
+    from bdm_db1_tpu_torch.train.convert import load_into
+
+    tp = tensor_parallel(mesh)
+    if model.tp is not None:
+        if model.tp.size != tp.size:
+            raise ValueError(f"the model is sharded over {model.tp.size} "
+                             f"ranks, the mesh's model axis has {tp.size}")
+        return model
+    if model.decode_weights_quantized():
+        raise ValueError("shard the model before quantize_decode_weights "
+                         "(build_decoder_for_env does so)")
+    out = TransformerXL(model.cfg, model.vocab, vision=model.vision,
+                        device=model.device, tp=tp)
+    load_into(out, model.state_dict())
+    return out
+
+
 class ActionDecoder:
     """Per-env-geometry greedy decoder over the model's ring cache (a
-    pre-LN model: over its hidden-state memory)."""
+    pre-LN model: over its hidden-state memory). With ``mesh`` the decoder
+    runs on this rank's tensor-parallel shard of the model
+    (:func:`shard_decode_params`): its ring cache holds the rank's heads
+    ([L, B, M, H / tp, Dh], allocated so), the kernels run on them, and the
+    vocab-sharded logits are gathered before the action bias, so every
+    rank of a model group takes the same greedy chain. The port's "data"
+    axis is the env shard of the harness (``shard_envs`` over the data
+    ranks), not a split of a decode call's rows."""
 
     def __init__(
         self,
@@ -158,7 +190,11 @@ class ActionDecoder:
         num_actions: Optional[int] = None,
         rk_cache: Optional[RkCache] = None,
         pad_buckets=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            model = shard_decode_params(model, mesh)
+        self.mesh = mesh
         cfg = model.cfg
         if cfg.mem_len <= 0:
             raise ValueError(
@@ -664,10 +700,15 @@ class DecoderPool:
     """Shares decoders, and one positional-projection cache, across envs
     with the same decode geometry. With ``pad_buckets`` (``"default"`` or
     a ladder of widths) every decoder pads its primes to bucket widths, so
-    envs of different observation lengths share one projection a bucket."""
+    envs of different observation lengths share one projection a bucket.
+    With ``mesh`` the model is sharded once (:func:`shard_decode_params`)
+    and every decoder gets the shard."""
 
-    def __init__(self, model, pad_buckets=None):
+    def __init__(self, model, pad_buckets=None, mesh=None):
+        if mesh is not None:
+            model = shard_decode_params(model, mesh)
         self.model = model
+        self.mesh = mesh
         self.rk_cache = RkCache(model)
         self.pad_buckets = pad_buckets
         self._cache = {}
@@ -679,7 +720,7 @@ class DecoderPool:
         if key not in self._cache:
             self._cache[key] = build_decoder_for_env(
                 self.model, tokenized_env, rk_cache=self.rk_cache,
-                pad_buckets=self.pad_buckets)
+                pad_buckets=self.pad_buckets, mesh=self.mesh)
         return self._cache[key]
 
 
@@ -846,7 +887,11 @@ def _maybe_quantize_weights(model) -> None:
 
 
 def build_decoder_for_env(model, tokenized_env, rk_cache=None,
-                          pad_buckets=None) -> ActionDecoder:
+                          pad_buckets=None, mesh=None) -> ActionDecoder:
+    """The env's decoder, on this rank's shard of ``model`` with ``mesh``
+    (sharded before the int8 weights are made)."""
+    if mesh is not None:
+        model = shard_decode_params(model, mesh)
     _maybe_quantize_weights(model)
     discrete = is_discrete_space(tokenized_env.action_space)
     return ActionDecoder(
@@ -858,6 +903,7 @@ def build_decoder_for_env(model, tokenized_env, rk_cache=None,
         num_actions=tokenized_env.action_space.n if discrete else None,
         rk_cache=rk_cache,
         pad_buckets=pad_buckets,
+        mesh=mesh,
     )
 
 

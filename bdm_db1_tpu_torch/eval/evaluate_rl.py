@@ -20,13 +20,18 @@ Several processes, a card each, split the envs round-robin:
 
     torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.eval.evaluate_rl ...
 
+Sharded decode (``--eval.sharded-decode true --mesh.model-parallel 2``):
+the world is JAX's (dp, tp) mesh, rank r at (r // tp, r % tp). Each rank
+holds its tensor-parallel shard of the model (its heads' ring cache, the
+kernels on them), the envs shard over the data ranks, the ranks of a
+model group step the same envs with the same seeds, and the records are
+gathered one copy a data group.
+
 A checkpoint of the JAX package (orbax) is not read here: write it as a
 DeepSpeed ``model_states.pt`` with the JAX package's
 ``bdm_db1_tpu.train.convert.save_deepspeed_checkpoint`` and point
 ``train.load_dir``/``train.ckpt_tag`` at that.
 
-Not ported (``NotImplementedError``, ROADMAP queue 1): ``eval.sharded_decode``
-(item 9b, tensor parallelism).
 """
 
 from __future__ import annotations
@@ -49,12 +54,18 @@ from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
 from bdm_db1_tpu_torch.parallel.distributed import (
     default_backend, device_for_rank, maybe_initialize_distributed,
+    world_group,
+)
+from bdm_db1_tpu_torch.parallel.mesh import (
+    batch_sharding, make_mesh, tensor_parallel,
 )
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager, load_model
 from bdm_db1_tpu_torch.train.convert import (
     find_deepspeed_model_states, load_deepspeed_checkpoint,
 )
-from bdm_db1_tpu_torch.train.pretrain import build_tokenizer_suite
+from bdm_db1_tpu_torch.train.pretrain import (
+    check_mesh, build_tokenizer_suite, check_world,
+)
 
 # what load_params read
 FROM_DEEPSPEED, FROM_PORT, FROM_RANDOM = "deepspeed", "port", "random"
@@ -99,13 +110,6 @@ def load_params(cfg: DB1Config, model: TransformerXL) -> str:
     return FROM_RANDOM
 
 
-def _check_supported(cfg: DB1Config) -> None:
-    if cfg.eval.sharded_decode:
-        raise NotImplementedError(
-            "sharded decode is not ported yet (ROADMAP queue 1 item 9b, "
-            "tensor parallelism)")
-
-
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
     """Evaluate ``cfg.eval.env_names`` (and the envs of
     ``cfg.eval.task_suite_names``) on ``device`` (``"cuda"``: this rank's
@@ -114,9 +118,12 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
     rank 0). ``cfg`` defaults to the command line
     (``DB1Config.from_cli``)."""
     cfg = cfg or DB1Config.from_cli()
-    _check_supported(cfg)
+    if cfg.eval.sharded_decode:
+        check_mesh(cfg)
     maybe_initialize_distributed(force=cfg.mesh.multihost,
                                  backend=default_backend(device))
+    if cfg.eval.sharded_decode:
+        check_world(cfg)
     dev = device_for_rank(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -124,10 +131,16 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
                 "a CUDA device was asked for but torch.cuda.is_available() "
                 "is false; pass device='cpu' to run on the CPU")
         torch.cuda.set_device(dev)
+    tp = None
+    if cfg.eval.sharded_decode and world_group() is not None:
+        tp = tensor_parallel(make_mesh(cfg.mesh, dev.type))
+        print_rank_0(f"sharded decode over a ({tp.data_size}, {tp.size}) "
+                     "(data, model) mesh")
 
     model = TransformerXL(
         cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(cfg.eval.seed))
+        generator=torch.Generator(device=dev).manual_seed(cfg.eval.seed),
+        tp=tp)
     load_params(cfg, model)
     n_params = sum(p.numel() for p in model.parameters())
     print_rank_0(f"model parameters: {n_params:,}")
@@ -172,7 +185,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
                 with open(out_path, "a") as f:
                     f.write(json.dumps(res) + "\n")
 
-    local_names = shard_envs(env_names)
+    local_names = shard_envs(env_names, *batch_sharding(tp))
     if cfg.eval.batched:
         records = evaluate_envs_lockstep(
             model, local_names, make_tenv,
@@ -195,7 +208,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> List[dict]:
     for res in records:     # rank 0's own records as each env finishes
         emit(res)
         local.append(res)
-    results = gather_records(local)
+    results = gather_records(local, tp)
     for res in results[len(local):] if rank == 0 else ():
         emit(res)           # then the other ranks' shards, in rank order
 

@@ -565,13 +565,18 @@ def parallel_evaluate_envs(
         for name in shard_envs(env_names)])
 
 
-def gather_records(local: List[Dict]) -> List[Dict]:
+def gather_records(local: List[Dict], tp=None) -> List[Dict]:
     """Every process's records in rank-major order (rank 0's shard, then
     rank 1's, ...), on every process; ``local`` itself without a process
     group. The JAX package's ``process_allgather`` of the record dicts
-    would gather each leaf instead, and cannot carry the env names."""
+    would gather each leaf instead, and cannot carry the env names. Under
+    tensor parallelism (``tp``, parallel/mesh.py ``TensorParallel``) the
+    ranks of a model group hold the same records: one copy a data group,
+    from its model rank 0 (world rank d * tp), in data-rank order."""
     if not (dist.is_available() and dist.is_initialized()):
         return local
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, local)
+    if tp is not None:
+        gathered = gathered[::tp.size]
     return [r for rank in gathered for r in rank]

@@ -64,6 +64,31 @@ memory only after post-LN (LN(0) is the LayerNorm bias), so the ring and
 aligned caches refuse pre-LN models, as the JAX package's asserts do; they
 decode over hidden-state memory (``init_mems``/``decode_rl``).
 
+Tensor parallelism (``tp``, parallel/mesh.py ``TensorParallel``): Megatron's
+split over the model group. A rank's modules hold its shard of each weight
+(parallel/mesh.py ``PARAM_AXES``): the q, k and v columns and the
+positional projection of its heads ``[t H/tp, (t+1) H/tp)`` and their
+biases, the o_net input rows of those heads, its share of the FF width (of
+each GEGLU half), and its rows of the padded vocab in the word embedding
+and an untied head. A column-parallel product takes the whole input and
+sums its input gradient over the model group, a row-parallel one sums
+its partial products: both sums in f32 and rounded once, as the
+unsharded product rounds, before the bias, dropout, residual and
+LayerNorm (:class:`_ColumnParallelLinear`, :class:`_RowParallelLinear`);
+the embedding is a
+vocab-parallel lookup (masked, then reduced); the tied head gives
+vocab-sharded logits, which :meth:`TransformerXL.logits` gathers and the
+loss reduces in the vocab-parallel fused CE. The ring and aligned caches
+hold the rank's heads, so the kernels run on them. With
+``tp.sequence_sharded`` the trunk without memory keeps the activations
+between the blocks sharded along the sequence (Megatron-SP): all-gathered
+before the QKV and FF-input products, reduce-scattered after o_net and the
+FF output product. Every dropout mask of a tensor-parallel rank is the
+one-process mask (the replicated activations draw it whole from the
+generator that the ranks of a model group share; a slice of heads or of
+the sequence draws the whole mask and keeps its part), so nothing is drawn
+per model rank and the replicas never part.
+
 Rematerialization (``remat``, in grad mode): each layer runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward pass, keeping
 what ``remat_policy`` names: nothing ("full"), the products without a batch
@@ -105,10 +130,18 @@ from bdm_db1_tpu_torch.ops.flash_ring_decode import (
     MAX_PRIME_Q, NEG_INF, combine_new_columns, combine_self_column,
     flash_ring_decode, flash_ring_prime_ap, kernels_take,
 )
-from bdm_db1_tpu_torch.ops.fused_ce import masked_cross_entropy_fused
+from bdm_db1_tpu_torch.ops.fused_ce import masked_cross_entropy_fused, mm_f32
 from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
 from bdm_db1_tpu_torch.ops.quant_matmul import (
     quant_matmul, quantize_weight, w8a8_matmul,
+)
+from bdm_db1_tpu_torch.parallel.distributed import (
+    all_reduce_f32, all_reduce_max, copy_to_tp, gather_from_tp,
+    reduce_from_tp, reduce_scatter_tp, scatter_to_tp,
+)
+from bdm_db1_tpu_torch.parallel.mesh import (
+    TensorParallel, check_tensor_parallel, ring_cache_shardings, shard_rule,
+    shard_tensor,
 )
 
 Tensor = torch.Tensor
@@ -138,6 +171,109 @@ def _dense(x: Tensor, lin: nn.Linear, dtype, a8: bool = False) -> Tensor:
          quant_matmul(x2.to(dtype).contiguous(), w_q, lin.weight_scale))
     y = y.reshape(*shp[:-1], w_q.shape[0]).to(dtype)
     return y if b is None else y + b
+
+
+class _ColumnParallelLinear(torch.autograd.Function):
+    """``x @ W^T (+ b)`` of a column-parallel shard W, its input taken from
+    the model group: forward the compute-dtype product of the whole input
+    (under the sequence-sharded option the sequence gathered first);
+    backward dx = g @ W with f32 results, summed over the group in f32 (or
+    reduce-scattered along the sequence) and rounded once, as the
+    unsharded product's input gradient is; dW = g^T x and db in the
+    compute dtype, as autograd forms them."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, group, sp):
+        if sp:
+            x = gather_from_tp(x, group, 1)
+        ctx.save_for_backward(x, w)
+        ctx.group, ctx.sp, ctx.bias = group, sp, b is not None
+        return F.linear(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        dx = all_reduce_f32(mm_f32(g2, w).reshape(x.shape), ctx.group)
+        if ctx.sp:
+            r = torch.distributed.get_rank(ctx.group)
+            n = torch.distributed.get_world_size(ctx.group)
+            dx = dx.chunk(n, 1)[r]
+        db = g2.sum(0) if ctx.bias else None
+        return dx.to(x.dtype), g2.t() @ x2, db, None, None
+
+
+class _RowParallelLinear(torch.autograd.Function):
+    """``x @ W^T`` of a row-parallel shard W (x this rank's slice of the
+    input features): forward the partial sums with f32 results, so that
+    their sum over the model group rounds once, as the unsharded product
+    does; backward the gradients of the compute-dtype product, dx = g @ W
+    and dW = g^T x."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(
+            *x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        return ((g2 @ w).reshape(x.shape),
+                g2.t() @ x.reshape(-1, x.shape[-1]))
+
+
+def _col_linear(x: Tensor, lin: nn.Linear, dtype, a8: bool,
+                tp: Optional[TensorParallel], sp: bool) -> Tensor:
+    """A column-parallel product ``x @ W^T (+ b)`` in the compute dtype
+    (:class:`_ColumnParallelLinear`); the int8 decode weights (no
+    gradient) take the input as it is (the sequence gathered under the
+    sequence-sharded option)."""
+    if tp is None:
+        return _dense(x, lin, dtype, a8)
+    if getattr(lin, "weight_q", None) is not None:
+        if sp:
+            x = gather_from_tp(x, tp.group, 1)
+        return _dense(x, lin, dtype, a8)
+    b = None if lin.bias is None else lin.bias.to(dtype)
+    return _ColumnParallelLinear.apply(x.to(dtype), lin.weight.to(dtype), b,
+                                       tp.group, sp)
+
+
+def _row_out(x: Tensor, lin: nn.Linear, dtype, a8: bool,
+             tp: Optional[TensorParallel], sp: bool) -> Tensor:
+    """A row-parallel product ``x @ W^T (+ b)``: this rank's partial sums in
+    f32 (:class:`_RowParallelLinear`; K9 and W8A8 give f32), summed over
+    the model group (reduce-scattered along the sequence under the
+    sequence-sharded option), cast to the compute dtype, then the bias
+    once. W8A8 quantizes each activation row by its max over the whole row
+    (over the group), as the unsharded product does."""
+    if tp is None:
+        return _dense(x, lin, dtype, a8)
+    w_q = getattr(lin, "weight_q", None)
+    if w_q is None:
+        y = _RowParallelLinear.apply(x.to(dtype), lin.weight.to(dtype))
+    else:
+        shp = x.shape
+        x2 = x.reshape(-1, shp[-1])
+        y = (w8a8_matmul(x2, w_q, lin.weight_scale,
+                         lambda a: all_reduce_max(a, tp.group)) if a8 else
+             quant_matmul(x2.to(dtype).contiguous(), w_q, lin.weight_scale))
+        y = y.reshape(*shp[:-1], w_q.shape[0])
+    y = (reduce_scatter_tp(y, tp.group, 1) if sp
+         else reduce_from_tp(y, tp.group)).to(dtype)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def _sp_shard(tp: Optional[TensorParallel], sp: bool, x: Tensor):
+    """The dropout ``Shard`` of a sequence-sharded activation x [B, n, D]
+    (this rank's n rows of n * tp), None otherwise."""
+    if not sp:
+        return None
+    n = x.shape[1]
+    return (1, tp.rank * n, n * tp.size)
 
 
 def quantize_kv_rows(x: Tensor) -> Tuple[Tensor, Tensor]:
@@ -270,15 +406,19 @@ class PositionalEmbedding(nn.Module):
 
 
 class RelMultiHeadAttn(nn.Module):
-    """Relative multi-head attention with fused QKV, post-LN residual."""
+    """Relative multi-head attention with fused QKV, post-LN residual. Under
+    tensor parallelism ``tp`` it holds ``heads`` = n_head / tp of them."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
-        d, h, dh = cfg.n_embed, cfg.n_head, cfg.d_head
-        self.qkv_net = _linear(d, 3 * d, False, device, dtype)
-        self.r_net = _linear(d, d, False, device, dtype)
-        self.o_net = _linear(d, d, False, device, dtype)
+        self.tp = tp
+        self.heads = cfg.n_head // (1 if tp is None else tp.size)
+        d, h, dh = cfg.n_embed, self.heads, cfg.d_head
+        self.qkv_net = _linear(d, 3 * h * dh, False, device, dtype)
+        self.r_net = _linear(d, h * dh, False, device, dtype)
+        self.o_net = _linear(h * dh, d, False, device, dtype)
         self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_epsilon,
                                        device=device, dtype=dtype)
         if cfg.untie_r:
@@ -288,16 +428,20 @@ class RelMultiHeadAttn(nn.Module):
                                                      dtype=dtype))
 
     def _residual(self, x: Tensor, attn: Tensor,
-                  drop: Optional[torch.Generator] = None) -> Tensor:
+                  drop: Optional[torch.Generator] = None,
+                  sp: bool = False) -> Tensor:
         """o_net (then dropout at ``cfg.drop`` when ``drop``, the training
         generator, is given), then the residual: ``x + out`` for pre-LN,
-        else the post-LN one with the DeepNorm alpha."""
+        else the post-LN one with the DeepNorm alpha. Under tensor
+        parallelism o_net's partial sums are reduced first (``sp``: x is
+        this rank's slice of the sequence, and attn the whole sequence's)."""
         cfg = self.cfg
-        b, qlen = x.shape[:2]
-        out = _dense(attn.to(x.dtype).reshape(b, qlen, cfg.n_embed),
-                     self.o_net, x.dtype, _a8(cfg))
+        b, qlen = attn.shape[:2]
+        out = _row_out(attn.to(x.dtype).reshape(b, qlen, -1), self.o_net,
+                       x.dtype, _a8(cfg), self.tp, sp)
         if drop is not None:
-            out = dropout(out, cfg.drop, drop, cfg.dropout_impl)
+            out = dropout(out, cfg.drop, drop, cfg.dropout_impl,
+                          _sp_shard(self.tp, sp, out))
         if cfg.pre_lnorm:
             return x + out
         alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
@@ -309,17 +453,21 @@ class RelMultiHeadAttn(nn.Module):
 
     def forward(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
                 mask: Tensor, use_kernel: bool,
-                drop: Optional[torch.Generator] = None) -> Tensor:
+                drop: Optional[torch.Generator] = None,
+                sp: bool = False) -> Tensor:
         """One layer over ``[mem || x]`` (hidden states; mem [B, M, D] or
         None): x [B, q, D], r [M+q, D] positional embeddings, mask [q, M+q]
         (True = banned). ``drop`` is the training generator (None:
-        deterministic). Returns the layer's output [B, q, D]."""
+        deterministic). ``sp``: x is this rank's slice of the sequence
+        (the sequence-sharded option, no memory). Returns the layer's
+        output [B, q, D]."""
         return self._residual(
-            x, self.attend(x, r, mem, mask, use_kernel, drop), drop)
+            x, self.attend(x, r, mem, mask, use_kernel, drop, sp), drop, sp)
 
     def attend(self, x: Tensor, r: Tensor, mem: Optional[Tensor],
                mask: Tensor, use_kernel: bool,
-               drop: Optional[torch.Generator] = None) -> Tensor:
+               drop: Optional[torch.Generator] = None,
+               sp: bool = False) -> Tensor:
         """The attention part of :meth:`forward`: [B, q, H, Dh] before o_net.
         QKV runs over ``[mem || x]`` (LayerNorm'd first for pre-LN); q is
         its last q rows; r_net projects r in the compute dtype;
@@ -327,13 +475,13 @@ class RelMultiHeadAttn(nn.Module):
         takes them) or ``rel_attention``, which applies the attention
         dropout (``cfg.dropattn``) when ``drop`` is given."""
         cfg = self.cfg
-        h, dh = cfg.n_head, cfg.d_head
+        h, dh = self.heads, cfg.d_head
         dtype = x.dtype
-        qlen = x.shape[1]
         cat = x if mem is None else torch.cat([mem.to(dtype), x], dim=1)
-        klen = cat.shape[1]
-        q, k, v = _dense(self._pre(cat), self.qkv_net, dtype,
-                         _a8(cfg)).split(cfg.n_embed, dim=-1)
+        qlen = x.shape[1] * (self.tp.size if sp else 1)
+        q, k, v = _col_linear(self._pre(cat), self.qkv_net, dtype, _a8(cfg),
+                              self.tp, sp).split(h * dh, dim=-1)
+        klen = q.shape[1]
         q = q[:, -qlen:].unflatten(-1, (h, dh))
         k, v = k.unflatten(-1, (h, dh)), v.unflatten(-1, (h, dh))
         r_k = _dense(r.to(dtype), self.r_net, dtype).view(klen, h, dh)
@@ -353,9 +501,12 @@ class RelMultiHeadAttn(nn.Module):
                 mem_len=cfg.mem_len, same_length=cfg.same_length,
                 scale=1.0 / cfg.d_head ** 0.5).to(dtype)
         rate = cfg.dropattn if drop is not None else 0.0
+        shard = None
+        if self.tp is not None:     # this rank's heads of the whole draw
+            shard = (1, self.tp.rank * self.heads, self.cfg.n_head)
         return rel_attention(q, k, v, r_k, self.r_w_bias, self.r_r_bias,
                              mask, compute_dtype=dtype, dropout_rate=rate,
-                             generator=drop)
+                             generator=drop, dropout_shard=shard)
 
     def attend_kv(self, x: Tensor, rk: Tensor, k_cache: Tensor,
                   v_cache: Tensor, mask: Tensor, use_kernel: bool
@@ -370,9 +521,9 @@ class RelMultiHeadAttn(nn.Module):
         cfg = self.cfg
         dtype = x.dtype
         b, qlen = x.shape[:2]
-        q, k_x, v_x = _dense(self._pre(x), self.qkv_net, dtype,
-                             _a8(cfg)).view(
-            b, qlen, 3, cfg.n_head, cfg.d_head).unbind(2)
+        q, k_x, v_x = _col_linear(self._pre(x), self.qkv_net, dtype,
+                                  _a8(cfg), self.tp, False).view(
+            b, qlen, 3, self.heads, cfg.d_head).unbind(2)
         k = torch.cat([k_cache.to(dtype), k_x], dim=1)
         v = torch.cat([v_cache.to(dtype), v_x], dim=1)
         return (self._attention(q, k, v, rk.to(dtype), mask, use_kernel),
@@ -399,7 +550,7 @@ class RelMultiHeadAttn(nn.Module):
         self column and the new tokens' q x q block use this forward's
         unquantized k_x/v_x."""
         cfg = self.cfg
-        h, dh = cfg.n_head, cfg.d_head
+        h, dh = self.heads, cfg.d_head
         dtype = x.dtype
         b, qlen = x.shape[:2]
         k_cache, v_cache = cache["k"], cache["v"]
@@ -407,8 +558,9 @@ class RelMultiHeadAttn(nn.Module):
         cursor = int(cache["cursor"])
         M = k_cache.shape[2]
         r_w, r_r = self.r_w_bias, self.r_r_bias
-        q, k_x, v_x = _dense(self._pre(x), self.qkv_net, dtype,
-                             _a8(cfg)).view(b, qlen, 3, h, dh).unbind(2)
+        q, k_x, v_x = _col_linear(self._pre(x), self.qkv_net, dtype,
+                                  _a8(cfg), self.tp, False).view(
+            b, qlen, 3, h, dh).unbind(2)
         qf = q.float()
         qw = qf + r_w.float()                                  # [B, q, H, Dh]
         qr = qf + r_r.float()
@@ -492,29 +644,36 @@ class Activation(nn.Module):
 class PositionwiseFF(nn.Module):
     """FFN ``CoreNet = [Linear, act, Linear]`` (GEGLU halves the width
     between them): post-LN with the DeepNorm alpha, or pre-LN (the input
-    LayerNorm'd, ``h + x``)."""
+    LayerNorm'd, ``h + x``). Under tensor parallelism ``tp`` a rank holds
+    1 / tp of the width: of CoreNet.0 its columns of each GEGLU half, of
+    CoreNet.2 the matching input rows."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        n = 1 if tp is None else tp.size
         d_mid = cfg.d_inner // (2 if cfg.activation_fn == "geglu" else 1)
         self.CoreNet = nn.Sequential(
-            _linear(cfg.n_embed, cfg.d_inner, True, device, dtype),
+            _linear(cfg.n_embed, cfg.d_inner // n, True, device, dtype),
             Activation(cfg.activation_fn),
-            _linear(d_mid, cfg.n_embed, True, device, dtype))
+            _linear(d_mid // n, cfg.n_embed, True, device, dtype))
         self.layer_norm = nn.LayerNorm(cfg.n_embed,
                                        eps=cfg.layer_norm_epsilon,
                                        device=device, dtype=dtype)
 
-    def forward(self, x: Tensor,
-                drop: Optional[torch.Generator] = None) -> Tensor:
+    def forward(self, x: Tensor, drop: Optional[torch.Generator] = None,
+                sp: bool = False) -> Tensor:
         wi, act, wo = self.CoreNet
         cfg = self.cfg
         a8 = _a8(cfg)
         inp = _layer_norm(x, self.layer_norm) if cfg.pre_lnorm else x
-        h = _dense(act(_dense(inp, wi, x.dtype, a8)), wo, x.dtype, a8)
+        h = _row_out(act(_col_linear(inp, wi, x.dtype, a8, self.tp, sp)), wo,
+                     x.dtype, a8, self.tp, sp)
         if drop is not None:
-            h = dropout(h, cfg.drop, drop, cfg.dropout_impl)
+            h = dropout(h, cfg.drop, drop, cfg.dropout_impl,
+                        _sp_shard(self.tp, sp, h))
         if cfg.pre_lnorm:
             return h + x
         alpha = (2 * cfg.n_layer) ** 0.25 if cfg.use_deepnorm else 1.0
@@ -522,18 +681,23 @@ class PositionwiseFF(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.dec_attn = RelMultiHeadAttn(cfg, device, dtype)
-        self.pos_ff = PositionwiseFF(cfg, device, dtype)
+        self.tp = tp
+        self.dec_attn = RelMultiHeadAttn(cfg, device, dtype, tp)
+        self.pos_ff = PositionwiseFF(cfg, device, dtype, tp)
 
     def forward(self, h: Tensor, mem: Optional[Tensor], r: Tensor,
                 mask: Tensor, use_kernel: bool,
                 drop: Optional[torch.Generator] = None) -> Tensor:
         """Attention over ``[mem || h]``, then the FF; ``drop`` is the
-        training generator (None: deterministic)."""
-        return self.pos_ff(self.dec_attn(h, r, mem, mask, use_kernel, drop),
-                           drop)
+        training generator (None: deterministic). Under the
+        sequence-sharded option and without memory, h is this rank's slice
+        of the sequence."""
+        sp = self.tp is not None and self.tp.sequence_sharded and mem is None
+        return self.pos_ff(
+            self.dec_attn(h, r, mem, mask, use_kernel, drop, sp), drop, sp)
 
     def forward_ring(self, x, rk, cache, layer, mask, mask_s, use_kernels):
         h, k_x, v_x = self.dec_attn.forward_ring(
@@ -553,11 +717,16 @@ class TransformerXL(nn.Module):
     are drawn from ``generator`` (normal(0.02) matrices and embeddings,
     zero biases, unit LayerNorm scales; the vision tower's convolutions
     lecun-normal) directly in ``cfg.param_dtype`` on that device.
-    ``vision`` defaults to ``VisionConfig()``."""
+    ``vision`` defaults to ``VisionConfig()``. With ``tp`` (tensor
+    parallelism) the model holds this rank's shards, and a ``tp.size``
+    that does not divide the heads, the FF width or the padded vocab
+    raises ``ValueError``; its random init is the slice of the one-process
+    init from the same generator."""
 
     def __init__(self, cfg: ModelConfig, vocab: VocabConfig, *,
                  vision: Optional[VisionConfig] = None,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         for name, val, ok in (
                 ("decode_cache_dtype", cfg.decode_cache_dtype, ("", "int8")),
@@ -577,7 +746,12 @@ class TransformerXL(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         pdt = getattr(torch, cfg.param_dtype)
         d = cfg.n_embed
-        V = self.layout.padded_vocab_size
+        n = 1 if tp is None else tp.size
+        check_tensor_parallel(cfg, self.layout.padded_vocab_size, n)
+        self.tp = tp
+        # this rank's heads and vocab rows (all of them without tp)
+        self.heads = cfg.n_head // n
+        V = self.layout.padded_vocab_size // n
         self.word_embedding = torch.nn.utils.skip_init(
             nn.Embedding, V, d, device=dev, dtype=pdt)
         self.rl_local_timestep_embedding = torch.nn.utils.skip_init(
@@ -586,11 +760,11 @@ class TransformerXL(nn.Module):
         self.pos_emb = PositionalEmbedding(d, dev)
         if not cfg.untie_r:
             self.r_w_bias = nn.Parameter(
-                torch.empty(cfg.n_head, cfg.d_head, device=dev, dtype=pdt))
+                torch.empty(self.heads, cfg.d_head, device=dev, dtype=pdt))
             self.r_r_bias = nn.Parameter(
-                torch.empty(cfg.n_head, cfg.d_head, device=dev, dtype=pdt))
+                torch.empty(self.heads, cfg.d_head, device=dev, dtype=pdt))
         self.h = nn.ModuleList(
-            DecoderLayer(cfg, dev, pdt) for _ in range(cfg.n_layer))
+            DecoderLayer(cfg, dev, pdt, tp) for _ in range(cfg.n_layer))
         if not cfg.untie_r:
             for layer in self.h:  # one shared pair, listed under every layer
                 layer.dec_attn.r_w_bias = self.r_w_bias
@@ -609,35 +783,58 @@ class TransformerXL(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         cfg = self.cfg
+        tp = self.tp
 
-        def normal(p):
-            p.normal_(0.0, INIT_STD, generator=gen)
+        def normal(p, name):
+            """p drawn whole; a shard draws the whole tensor and keeps its
+            slice (:func:`shard_rule` of ``name``)."""
+            rule = None if tp is None else shard_rule(name, cfg)
+            if rule is None:
+                p.normal_(0.0, INIT_STD, generator=gen)
+                return
+            shape = list(p.shape)
+            shape[rule[0]] *= tp.size
+            whole = torch.empty(shape, device=p.device, dtype=p.dtype)
+            p.copy_(shard_tensor(whole.normal_(0.0, INIT_STD, generator=gen),
+                                 *rule, tp.rank, tp.size))
 
-        normal(self.word_embedding.weight)
-        normal(self.rl_local_timestep_embedding.weight)
+        normal(self.word_embedding.weight, "word_embedding.weight")
+        normal(self.rl_local_timestep_embedding.weight,
+               "rl_local_timestep_embedding.weight")
         if not cfg.untie_r:
-            normal(self.r_w_bias)
-            normal(self.r_r_bias)
+            normal(self.r_w_bias, "r_w_bias")
+            normal(self.r_r_bias, "r_r_bias")
         for layer in self.h:
             a, f = layer.dec_attn, layer.pos_ff
             if cfg.untie_r:
-                normal(a.r_w_bias)
-                normal(a.r_r_bias)
-            for lin in (a.qkv_net, a.r_net, a.o_net, f.CoreNet[0],
-                        f.CoreNet[2]):
-                normal(lin.weight)
+                normal(a.r_w_bias, "r_w_bias")
+                normal(a.r_r_bias, "r_r_bias")
+            for lin, name in ((a.qkv_net, "qkv_net"), (a.r_net, "r_net"),
+                              (a.o_net, "o_net"), (f.CoreNet[0], "CoreNet.0"),
+                              (f.CoreNet[2], "CoreNet.2")):
+                normal(lin.weight, name + ".weight")
             for lin in (f.CoreNet[0], f.CoreNet[2]):
                 lin.bias.zero_()
             for ln in (a.layer_norm, f.layer_norm):
                 ln.weight.fill_(1.0)
                 ln.bias.zero_()
         if not cfg.share_input_output_embedding:
-            normal(self.lm_head.weight)
+            normal(self.lm_head.weight, "lm_head.weight")
         self.vision_encoder.reset_parameters(gen)
 
     # ---- embedding and head -------------------------------------------------
     def _word(self, tokens: Tensor) -> Tensor:
-        return F.embedding(tokens, self.word_embedding.weight).to(self.dtype)
+        """The word embedding in the compute dtype; under tensor
+        parallelism a vocab-parallel lookup: the ids outside this rank's
+        rows embed to 0, and the ranks' rows are summed (one is nonzero)."""
+        w = self.word_embedding.weight
+        if self.tp is None:
+            return F.embedding(tokens, w).to(self.dtype)
+        local = tokens - self.tp.rank * w.shape[0]
+        outside = (local < 0) | (local >= w.shape[0])
+        emb = F.embedding(local.clamp(0, w.shape[0] - 1), w).masked_fill(
+            outside[..., None], 0.0)
+        return reduce_from_tp(emb, self.tp.group).to(self.dtype)
 
     def embed_rl(self, tokens: Tensor, position_id: Tensor,
                  images: Optional[Tensor] = None, deterministic: bool = True,
@@ -678,9 +875,15 @@ class TransformerXL(nn.Module):
     embed_vqa = embed_ic
 
     def logits(self, h: Tensor) -> Tensor:
+        """f32 logits over the padded vocab; under tensor parallelism each
+        rank's vocab rows, gathered (every rank holds all of them)."""
         w = (self.word_embedding.weight if self.cfg.share_input_output_embedding
              else self.lm_head.weight)
-        return F.linear(h.to(self.dtype), w.to(self.dtype)).float()
+        if self.tp is None:
+            return F.linear(h.to(self.dtype), w.to(self.dtype)).float()
+        h = copy_to_tp(h.to(self.dtype), self.tp.group)
+        return gather_from_tp(F.linear(h, w.to(self.dtype)).float(),
+                              self.tp.group, -1)
 
     def embed_concat(self, batch: GatoBatch, deterministic: bool = True,
                      with_targets: bool = True,
@@ -732,7 +935,8 @@ class TransformerXL(nn.Module):
         valid = self.layout.total_vocab_size
         if self.cfg.share_input_output_embedding:
             return masked_cross_entropy_fused(
-                h, self.word_embedding.weight, label, loss_mask, valid, count)
+                h, self.word_embedding.weight, label, loss_mask, valid, count,
+                self.tp)
         return masked_cross_entropy(self.logits(h), label, loss_mask, valid,
                                     count)
 
@@ -754,7 +958,9 @@ class TransformerXL(nn.Module):
         mems. With ``deterministic=False`` the dropout sites draw from
         ``generator`` (embedded input and positional embedding, then per
         layer the attention, o_net and FF outputs). With ``cfg.remat`` in
-        grad mode each layer is checkpointed (:func:`_remat_layer`)."""
+        grad mode each layer is checkpointed (:func:`_remat_layer`). Under
+        the sequence-sharded option without mems each rank runs the layers
+        on its slice of the sequence, gathered at the end."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         drop = None
@@ -777,6 +983,14 @@ class TransformerXL(nn.Module):
         use_kernel = use_rel_kernel(
             cfg, qlen, klen, dev,
             use_dropatt=drop is not None and cfg.dropattn > 0.0)
+        tp = self.tp
+        sp = tp is not None and tp.sequence_sharded and mems is None
+        if sp:
+            if qlen % tp.size:
+                raise ValueError(
+                    f"the sequence-sharded trunk splits the sequence over "
+                    f"{tp.size} ranks; its length {qlen} does not divide")
+            h = scatter_to_tp(h, tp.group, 1)
         hids = []
         for i, layer in enumerate(self.h):
             mem = None
@@ -787,6 +1001,8 @@ class TransformerXL(nn.Module):
                 h = _remat_layer(layer, h, mem, r, mask, use_kernel, drop)
             else:
                 h = layer(h, mem, r, mask, use_kernel, drop)
+        if sp:
+            h = gather_from_tp(h, tp.group, 1)
         if mems is None:
             return h, None
         cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
@@ -845,19 +1061,14 @@ class TransformerXL(nn.Module):
         mem_len, H] (zero values times zero scales are the same zero
         cache). A pre-LN model raises ``ValueError``."""
         self._refuse_pre_ln()
-        cfg = self.cfg
-        shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
+        shapes = ring_cache_shardings(self.cfg, batch_size, self.tp)
         dev = self.device
-        if cfg.decode_cache_dtype == "int8":
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
-                                           device=dev),
-                    "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
-                                           device=dev),
-                    "cursor": 0}
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+        if self.cfg.decode_cache_dtype == "int8":
+            return {**{k: torch.zeros(s, dtype=torch.int8 if k in ("k", "v")
+                                      else torch.float32, device=dev)
+                       for k, s in shapes.items()}, "cursor": 0}
+        return {"k": torch.zeros(shapes["k"], dtype=self.dtype, device=dev),
+                "v": torch.zeros(shapes["v"], dtype=self.dtype, device=dev),
                 "cursor": 0}
 
     def _refuse_pre_ln(self) -> None:
@@ -877,13 +1088,21 @@ class TransformerXL(nn.Module):
         trade their ``weight`` for ``weight_q`` (int8 [N, K]) and
         ``weight_scale`` (f32 [N], per output channel) buffers. r_net (read
         raw by :meth:`precompute_rk`), the embeddings, the head, the
-        LayerNorms and the biases keep their dtype."""
+        LayerNorms and the biases keep their dtype. Under tensor
+        parallelism the row-parallel matrices (o_net, CoreNet.2) scale each
+        output channel by its max over the whole row (over the model
+        group), so every rank holds the shard of the one-process int8
+        weights."""
         if self.decode_weights_quantized():
             return
         for layer in self.h:
             a, f = layer.dec_attn, layer.pos_ff
             for lin in (a.qkv_net, a.o_net, f.CoreNet[0], f.CoreNet[2]):
-                w_q, scale = quantize_weight(lin.weight)
+                absmax = None
+                if self.tp is not None and lin in (a.o_net, f.CoreNet[2]):
+                    absmax = all_reduce_max(
+                        lin.weight.float().abs().amax(dim=1), self.tp.group)
+                w_q, scale = quantize_weight(lin.weight, absmax)
                 del lin.weight
                 lin.register_buffer("weight_q", w_q)
                 lin.register_buffer("weight_scale", scale)
@@ -899,14 +1118,15 @@ class TransformerXL(nn.Module):
             device=self.device)
         rk = torch.stack([_dense(r, layer.dec_attn.r_net, self.dtype)
                           for layer in self.h])
-        return rk.view(cfg.n_layer, klen, cfg.n_head, cfg.d_head)
+        return rk.view(cfg.n_layer, klen, self.heads, cfg.d_head)
 
     def use_kernels(self, qlen: int, cache: RingCache) -> bool:
         """The ``decode_flash`` gate: the kernel route (CUDA kernels on CUDA
         tensors, their plain versions on the CPU) for 1 <= q <= 32 under
         "on", and under "auto" whenever the kernels take the cache (bf16,
-        or int8 with its scales) and the bf16 queries; otherwise the plain
-        ring branch."""
+        or int8 with its scales; under tensor parallelism the cache of
+        this rank's heads, as the JAX gate judges the heads a shard) and
+        the bf16 queries; otherwise the plain ring branch."""
         flash = self.cfg.decode_flash
         if not 1 <= qlen <= MAX_PRIME_Q or flash == "off":
             return False
@@ -1025,8 +1245,7 @@ class TransformerXL(nn.Module):
         and text generators. Read as a ring it is at cursor 0. A pre-LN
         model raises ``ValueError``."""
         self._refuse_pre_ln()
-        cfg = self.cfg
-        shape = (cfg.n_layer, batch_size, cfg.mem_len, cfg.n_head, cfg.d_head)
+        shape = ring_cache_shardings(self.cfg, batch_size, self.tp)["k"]
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "cursor": 0}

@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from bdm_db1_tpu_torch.ops.fast_dropout import sharded_draw
+
 MASK_VALUE = -1e30
 
 
@@ -69,8 +71,8 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   r_r_bias: torch.Tensor, mask: Optional[torch.Tensor], *,
                   scale: Optional[float] = None,
                   compute_dtype=torch.bfloat16, dropout_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  dropout_shard=None) -> torch.Tensor:
     """q [B, qlen, H, Dh], k/v [B, klen, H, Dh], r [klen, H, Dh] projected
     positional embeddings (row 0 the most distant), biases [H, Dh], mask
     [q, k] or [B, q, k] bool (True = banned) -> [B, qlen, H, Dh] in
@@ -78,7 +80,9 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``dropout_rate`` the f32 probabilities keep each entry with probability
     1 - rate (a Bernoulli draw from ``generator``) and are divided by
     1 - rate; then they are cast to the compute dtype for the PV
-    product."""
+    product. ``dropout_shard`` (ops/fast_dropout.py ``Shard``): the heads
+    are a slice of a model's (a rank of a tensor-parallel group), and the
+    draw is the whole model's, narrowed to them."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     qf = q.float()
@@ -95,8 +99,9 @@ def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if generator is None:
             raise ValueError("attention dropout draws from an explicit "
                              "torch.Generator; none was given")
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        keep = sharded_draw(probs, dropout_shard, lambda shape: torch.rand(
+            shape, generator=generator, device=probs.device)
+        ) < 1.0 - dropout_rate
         probs = probs * keep / (1.0 - dropout_rate)
     probs = probs.to(compute_dtype)
     return torch.einsum("bhij,bjhd->bihd", probs, v.to(compute_dtype))

@@ -18,7 +18,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,12 +43,16 @@ QMM_SMALL_R = 64          # rows up to which the weight stream bounds K9
 H100_SMS = 132
 
 
-def quantize_weight(w: Tensor) -> Tuple[Tensor, Tensor]:
+def quantize_weight(w: Tensor, absmax: Optional[Tensor] = None
+                    ) -> Tuple[Tensor, Tensor]:
     """Symmetric per-output-channel int8 quantization of a [N, K] weight:
     (w_int8 [N, K], scale [N] f32) with w ~= w_int8 * scale[:, None]. A zero
-    row gets scale 1.0."""
+    row gets scale 1.0. ``absmax`` [N]: each row's largest magnitude when
+    ``w`` is a slice of the rows (a row-parallel shard: the max over the
+    whole row, reduced over the model group), else taken from ``w``."""
     wf = w.float()
-    absmax = wf.abs().amax(dim=1)                            # [N]
+    if absmax is None:
+        absmax = wf.abs().amax(dim=1)                        # [N]
     scale = torch.where(absmax > 0, absmax / 127.0,
                         torch.ones_like(absmax))
     q = torch.clamp(torch.round(wf / scale[:, None]), -127, 127)
@@ -187,11 +191,16 @@ def quant_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
 
 # ---- W8A8 (XLA in the JAX package) ----------------------------------------
 
-def quantize_rows(x: Tensor) -> Tuple[Tensor, Tensor]:
+def quantize_rows(x: Tensor, amax_reduce: Optional[Callable] = None
+                  ) -> Tuple[Tensor, Tensor]:
     """Per-row symmetric int8 quantization of activations [R, K]:
-    (x_int8, scale [R, 1] f32); an all-zero row gets scale 1.0."""
+    (x_int8, scale [R, 1] f32); an all-zero row gets scale 1.0.
+    ``amax_reduce`` maps the rows' local maxima to the whole rows' (x a
+    row-parallel product's slice of K: the max over the model group)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     xs = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
 
@@ -220,9 +229,10 @@ def int_mm_padded(xq: Tensor, w_q: Tensor) -> Tensor:
     return torch._int_mm(xq.contiguous(), w_q.t())[:R]
 
 
-def w8a8_matmul(x: Tensor, w_q: Tensor, scale: Tensor) -> Tensor:
+def w8a8_matmul(x: Tensor, w_q: Tensor, scale: Tensor,
+                amax_reduce: Optional[Callable] = None) -> Tensor:
     """``x @ (w_q * scale)^T`` with the activations quantized per row too:
     int8 x int8 -> int32, then the row x column scale epilogue. [R, N]
-    f32."""
-    xq, xs = quantize_rows(x)
+    f32. ``amax_reduce`` as in :func:`quantize_rows`."""
+    xq, xs = quantize_rows(x, amax_reduce)
     return int8_matmul(xq, w_q).float() * xs * scale[None, :].float()

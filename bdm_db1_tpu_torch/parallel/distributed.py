@@ -13,7 +13,10 @@ Data parallelism's collectives: :func:`barrier`, :func:`summed` (the
 loss-mask count of a micro-batch, the loss), :func:`all_reduce_flat`,
 which sums a list of tensors over a group in a few flat buckets (the
 gradients, once a step), and :func:`broadcast_flat`, which sends them
-from one rank (the initial parameters).
+from one rank (the initial parameters). Tensor parallelism's autograd
+collectives over the model group close the module (:func:`copy_to_tp`,
+:func:`reduce_from_tp`, :func:`gather_from_tp`, :func:`scatter_to_tp`,
+:func:`reduce_scatter_tp`).
 ``COLLECTIVES`` counts the calls that reach ``torch.distributed``.
 """
 
@@ -61,7 +64,7 @@ ADDRESS_VARS = ("MASTER_ADDR", "MASTER_PORT")
 TIMEOUT = datetime.timedelta(hours=1)
 # the flat buckets of all_reduce_flat / broadcast_flat
 BUCKET_BYTES = 128 << 20
-COLLECTIVES = {"all_reduce": 0, "broadcast": 0}
+COLLECTIVES = {"all_reduce": 0, "broadcast": 0, "all_gather": 0}
 
 _initialized = False
 
@@ -245,3 +248,138 @@ def broadcast_flat(tensors: Sequence[torch.Tensor], src: int = 0,
         dist.broadcast(t, src=src, group=group)
 
     _flat_collective(tensors, fn)
+
+
+# ---- tensor parallelism's collectives over the model group -------------
+#
+# Megatron's four: a row-parallel product gives its output through
+# reduce_from_tp (the partial sums reduced forward, identity backward),
+# or reduce_scatter_tp along the sequence under the sequence-sharded
+# option; the vocab-parallel head takes its input through copy_to_tp
+# (identity forward, the input gradient's partial sums reduced backward)
+# and gives its logits through gather_from_tp. The trunk's column-parallel
+# products do copy_to_tp's work in _ColumnParallelLinear (models/
+# transformer_xl.py), which gathers the sequence under the option and
+# sums, or reduce-scatters, its input gradient itself. The sums run in f32 on every backend:
+# gloo may refuse a bf16 all_reduce, and a sum of bf16 partials rounded
+# once after the sum is the same on NCCL and gloo. Reduce-scatter is an
+# all_reduce and a slice (gloo has no reduce_scatter of one tensor).
+
+
+def all_reduce_f32(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """``t`` summed (or ``op``) over ``group`` in f32, cast back to its
+    dtype."""
+    out = t.float().contiguous()
+    if out is t:
+        out = t.clone()
+    COLLECTIVES["all_reduce"] += 1
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    return out.to(t.dtype)
+
+
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    COLLECTIVES["all_gather"] += 1
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim)
+
+
+def _local_chunk(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's equal part of ``t`` along ``dim``."""
+    r, n = dist.get_rank(group), dist.get_world_size(group)
+    return t.chunk(n, dim)[r].contiguous()
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_f32(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _local_chunk(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _local_chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _local_chunk(all_reduce_f32(x, group), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; backward, the gradient summed over ``group`` (the
+    input of the vocab-parallel head; the trunk's column-parallel products
+    take theirs through ``_ColumnParallelLinear``, which sums its input
+    gradient itself)."""
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (in f32, cast back) forward; identity
+    backward (the output of a row-parallel product)."""
+    return _ReduceFromTP.apply(x, group)
+
+
+def gather_from_tp(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` forward; backward this
+    rank's part of the gradient (every rank holds the whole gradient:
+    vocab-sharded logits, the trunk's output)."""
+    return _GatherFromTP.apply(x, group, dim % x.dim())
+
+
+def scatter_to_tp(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's equal part of ``x`` along ``dim`` forward; backward the
+    parts' gradients gathered."""
+    return _ScatterToTP.apply(x, group, dim % x.dim())
+
+
+def reduce_scatter_tp(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` summed over ``group`` and this rank's part along ``dim`` taken
+    (forward); backward the parts' gradients gathered (the output of a
+    row-parallel product under the sequence-sharded option)."""
+    return _ReduceScatterTP.apply(x, group, dim % x.dim())
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s elementwise max over ``group`` (no gradient)."""
+    return all_reduce_f32(t, group, dist.ReduceOp.MAX)

@@ -6,18 +6,25 @@ maps the weights' logical axis names onto it. The port keeps the same
 shape and names (:func:`mesh_shape`) and builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the process world
 (:func:`make_mesh`). Data parallelism alone runs over the whole world and
-needs no mesh; tensor parallelism (ROADMAP queue 1 item 9b) will take
-the mesh's "data" and "model" groups. The logical rules are kept as data
-for it too; the placement helpers that read them (the JAX package's
-``logical_to_sharding``, ``params_shardings``, ``batch_sharding``,
-``replicated`` and ``ring_cache_shardings``) come with it.
+needs no mesh; tensor parallelism takes the mesh's "data" and "model"
+groups (:class:`TensorParallel`).
+
+The port has one device a process, so a sharded weight is explicit: each
+rank's modules hold only its shard, made by the placement helpers below
+from the same logical rules (:data:`PARAM_AXES` through
+:func:`logical_to_sharding`; :func:`shard_state_dict` and its inverse
+:func:`gather_state_dict`; :func:`batch_sharding`; :func:`replicated`;
+:func:`ring_cache_shardings`, the local cache shapes).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
-from bdm_db1_tpu_torch.core.config import MeshConfig
+import torch
+
+from bdm_db1_tpu_torch.core.config import MeshConfig, ModelConfig
 
 # logical axis name -> mesh axis
 LOGICAL_AXIS_RULES: Tuple[Tuple[str, Optional[str]], ...] = (
@@ -65,10 +72,207 @@ def mesh_shape(cfg: MeshConfig, world: int
 def make_mesh(cfg: MeshConfig, device_type: str = "cuda"):
     """A ``DeviceMesh`` of :func:`mesh_shape` over the process world (one
     device a process), under the default process group, which must be up;
-    ``mesh.get_group("data")`` is the data-parallel group."""
+    ``mesh.get_group("data")`` is the data-parallel group and
+    ``mesh.get_group("model")`` the tensor-parallel one. Rank r sits at
+    (r // tp, r % tp), JAX's row-major (dp, tp) layout."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, names = mesh_shape(cfg, dist.get_world_size())
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
+
+# ---- tensor parallelism: the placement of each parameter ----------------
+
+# the logical axes of each parameter in the port's torch layout (an
+# nn.Linear weight is [out, in]), by the end of its name: the JAX package's
+# annotations (models/transformer_xl.py) transposed. The int8 decode
+# weights (``weight_q`` [N, K], ``weight_scale`` [N]) follow their matrix.
+# Every other parameter and buffer is replicated: LayerNorms, the timestep
+# embedding, the FF output bias (added once, after the reduce), the
+# positional table and the vision tower.
+PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("word_embedding.weight", ("vocab", "embed")),
+    ("lm_head.weight", ("vocab", "embed")),
+    ("qkv_net.weight", ("qkv", "embed")),
+    ("qkv_net.weight_q", ("qkv", "embed")),
+    ("qkv_net.weight_scale", ("qkv",)),
+    ("r_net.weight", ("qkv", "embed")),
+    ("o_net.weight", ("embed", "heads")),
+    ("o_net.weight_q", ("embed", "heads")),
+    ("r_w_bias", ("heads", "head_dim")),
+    ("r_r_bias", ("heads", "head_dim")),
+    ("CoreNet.0.weight", ("mlp", "embed")),
+    ("CoreNet.0.weight_q", ("mlp", "embed")),
+    ("CoreNet.0.weight_scale", ("mlp",)),
+    ("CoreNet.0.bias", ("mlp",)),
+    ("CoreNet.2.weight", ("embed", "mlp")),
+    ("CoreNet.2.weight_q", ("embed", "mlp")),
+)
+
+
+def param_axes(name: str) -> Optional[Tuple[str, ...]]:
+    """The logical axes of the parameter (or buffer) ``name``, or None when
+    it is replicated."""
+    for suffix, axes in PARAM_AXES:
+        if name == suffix or name.endswith("." + suffix):
+            return axes
+    return None
+
+
+def logical_to_sharding(axes: Optional[Sequence[str]]) -> Optional[int]:
+    """The dim of a tensor with logical ``axes`` that LOGICAL_AXIS_RULES
+    map onto "model", or None (replicated over the model group)."""
+    if axes is None:
+        return None
+    rules = dict(LOGICAL_AXIS_RULES)
+    dims = [i for i, a in enumerate(axes) if rules.get(a) == "model"]
+    return dims[0] if dims else None
+
+
+def shard_rule(name: str, cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """(dim, groups) of the parameter ``name`` under tensor parallelism, or
+    None when it is replicated. ``groups`` > 1: the dim holds that many
+    blocks side by side, and a rank takes its slice of each block: qkv_net
+    is [q || k || v] (3; a contiguous slice would give rank 0 all of q),
+    the GEGLU input matrix [value || gate] (2, activations.geglu)."""
+    dim = logical_to_sharding(param_axes(name))
+    if dim is None:
+        return None
+    groups = 1
+    if "qkv_net." in name:
+        groups = 3
+    elif "CoreNet.0." in name and cfg.activation_fn == "geglu":
+        groups = 2
+    return dim, groups
+
+
+def shard_tensor(t: torch.Tensor, dim: int, groups: int, rank: int,
+                 size: int) -> torch.Tensor:
+    """Rank ``rank`` of ``size``'s slice of ``t`` along ``dim``: of each of
+    its ``groups`` blocks, the rank-th of ``size`` equal parts (a
+    contiguous copy)."""
+    blocks = t.unflatten(dim, (groups, t.shape[dim] // groups))
+    n = blocks.shape[dim + 1] // size
+    return blocks.narrow(dim + 1, rank * n, n).flatten(
+        dim, dim + 1).contiguous()
+
+
+def unshard_tensor(parts: Sequence[torch.Tensor], dim: int,
+                   groups: int) -> torch.Tensor:
+    """The inverse of :func:`shard_tensor` over every rank's part, in rank
+    order."""
+    blocks = [p.unflatten(dim, (groups, p.shape[dim] // groups))
+              for p in parts]
+    return torch.cat(blocks, dim + 1).flatten(dim, dim + 1)
+
+
+def replicated(name: str) -> bool:
+    """Whether the parameter ``name`` is whole on every rank of a model
+    group."""
+    return param_axes(name) is None
+
+
+def check_tensor_parallel(cfg: ModelConfig, padded_vocab: int,
+                          size: int) -> None:
+    """``ValueError`` naming the field when ``size`` ranks cannot split the
+    model: a rank holds whole heads, an equal share of the FF width (of
+    each GEGLU half) and of the padded vocab."""
+    d_mid = cfg.d_inner // (2 if cfg.activation_fn == "geglu" else 1)
+    for field, n in (("n_head", cfg.n_head), ("d_inner / 2" if
+                     cfg.activation_fn == "geglu" else "d_inner", d_mid),
+                     ("padded vocab", padded_vocab)):
+        if n % size:
+            raise ValueError(
+                f"mesh.model_parallel = {size} does not divide {field} "
+                f"({n}): a rank cannot hold a fraction of it")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """This process's place in a (data, model) mesh: its rank in the model
+    group (``group``, ``size`` ranks that hold one model's shards) and in
+    the data group (``data_group``, the ranks of the other replicas that
+    hold the same shard). ``sequence_sharded``: Megatron-SP, the trunk's
+    activations between the blocks shard along the sequence over the
+    model group."""
+
+    rank: int
+    size: int
+    group: object = None
+    data_rank: int = 0
+    data_size: int = 1
+    data_group: object = None
+    sequence_sharded: bool = False
+
+
+def tensor_parallel(mesh, sequence_sharded: bool = False) -> TensorParallel:
+    """The :class:`TensorParallel` of this process in ``mesh`` (a
+    ``DeviceMesh`` named ("data", "model"))."""
+    return TensorParallel(
+        rank=mesh.get_local_rank("model"), size=mesh.size(
+            mesh.mesh_dim_names.index("model")),
+        group=mesh.get_group("model"),
+        data_rank=mesh.get_local_rank("data"),
+        data_size=mesh.size(mesh.mesh_dim_names.index("data")),
+        data_group=mesh.get_group("data"),
+        sequence_sharded=sequence_sharded)
+
+
+def shard_state_dict(full: Mapping[str, torch.Tensor], tp: TensorParallel,
+                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """This rank's state dict from a whole one: each sharded tensor's slice
+    (:func:`shard_tensor`), the others as they are."""
+    out = {}
+    for name, t in full.items():
+        rule = shard_rule(name, cfg)
+        out[name] = (t if rule is None else
+                     shard_tensor(t, *rule, tp.rank, tp.size))
+    return out
+
+
+def gather_tensor(t: torch.Tensor, rule: Optional[Tuple[int, int]],
+                  tp: TensorParallel) -> torch.Tensor:
+    """The whole tensor of this rank's shard ``t`` (collective over the
+    model group; ``t`` itself when ``rule`` is None)."""
+    import torch.distributed as dist
+
+    if rule is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(tp.size)]
+    dist.all_gather(parts, t.contiguous(), group=tp.group)
+    return unshard_tensor(parts, *rule)
+
+
+def gather_state_dict(local: Mapping[str, torch.Tensor], tp: TensorParallel,
+                      cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every rank's shards, on every rank of the
+    model group (collective; every rank passes the same names in the same
+    order)."""
+    return {n: gather_tensor(t, shard_rule(n, cfg), tp)
+            for n, t in local.items()}
+
+
+def batch_sharding(tp: Optional[TensorParallel]) -> Tuple[int, int]:
+    """(index, count) of this process's share of a global batch or of the
+    env list: its data rank, so the ranks of one model group read the same
+    rows (the world rank without tensor parallelism)."""
+    if tp is not None:
+        return tp.data_rank, tp.data_size
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def ring_cache_shardings(cfg: ModelConfig, batch_size: int,
+                         tp: Optional[TensorParallel]) -> Dict[str, tuple]:
+    """The local shapes of a rank's ring cache: [L, B, M, H / tp, Dh], the
+    int8 scales [L, B, M, H / tp] (the JAX ``ring_cache_shardings`` puts
+    the heads on "model"). The cache is allocated at these shapes: the
+    kernels take packed heads, not a strided view of the whole cache."""
+    h = cfg.n_head // (tp.size if tp is not None else 1)
+    shape = (cfg.n_layer, batch_size, cfg.mem_len, h, cfg.d_head)
+    return {"k": shape, "v": shape, "k_scale": shape[:-1],
+            "v_scale": shape[:-1]}

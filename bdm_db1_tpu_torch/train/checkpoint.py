@@ -27,6 +27,15 @@ one of them), only rank 0 renames the finished step and prunes old ones,
 between barriers, and a restore starts at a barrier, so it never reads
 a step that is still being written. :func:`load_model` reads alone, in
 any process.
+
+A tensor-parallel state (``state.model.tp``) is written as whole logical
+tensors: each rank gathers the shards of its model group, tensor by
+tensor, into host memory, and dcp writes each whole tensor once; a
+restore reads the whole tensors into host memory and copies this rank's
+slices into the state. The files are those of a one-process run, so a
+tensor-parallel world's checkpoint restores in one process and the
+reverse, and onto another ``model_parallel``, as an orbax checkpoint
+restores onto another mesh.
 """
 
 from __future__ import annotations
@@ -41,6 +50,9 @@ import torch
 import torch.distributed.checkpoint as dcp
 
 from bdm_db1_tpu_torch.parallel.distributed import barrier, rank_and_world
+from bdm_db1_tpu_torch.parallel.mesh import (
+    gather_tensor, shard_rule, shard_tensor,
+)
 
 CLIENT_FILE = "client.json"
 _TMP_PREFIX = ".tmp-"
@@ -67,6 +79,64 @@ def state_tensors(state) -> Dict[str, object]:
     return out
 
 
+def _sharded_leaves(sd: Dict, cfg):
+    """(container, key, (dim, groups)) of every tensor-parallel shard in a
+    ``state_tensors`` dict: the model's tensors and the optimizer's
+    moments, by the parameter's name."""
+    out = []
+    for key, t in sd["model"].items():
+        out.append((sd["model"], key, shard_rule(key, cfg)))
+    for mom in ("mu", "nu"):
+        for key in sd.get("optimizer", {}).get(mom, {}):
+            out.append((sd["optimizer"][mom], key, shard_rule(key, cfg)))
+    return [(c, k, r) for c, k, r in out if r is not None]
+
+
+def _whole_like(t: torch.Tensor, rule, tp) -> torch.Tensor:
+    """An empty host tensor of the whole shape of the shard ``t``."""
+    shape = list(t.shape)
+    shape[rule[0]] *= tp.size
+    return torch.empty(shape, dtype=t.dtype)
+
+
+def _gathered(sd: Dict, model) -> Dict:
+    """``sd`` with every shard replaced by the whole tensor on the host
+    (collective over the model group)."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        return sd
+    out = {**sd, "model": dict(sd["model"])}
+    if "optimizer" in sd:
+        out["optimizer"] = {k: dict(v) if isinstance(v, dict) else v
+                            for k, v in sd["optimizer"].items()}
+    for cont, key, rule in _sharded_leaves(out, model.cfg):
+        cont[key] = gather_tensor(cont[key], rule, tp).cpu()
+    return out
+
+
+def _load_sharded(sd: Dict, model, load) -> None:
+    """``load(target)`` into ``sd`` in place; a tensor-parallel model's
+    shards read whole host tensors first, and each takes its slice from
+    them (the other tensors are ``sd``'s own)."""
+    tp = getattr(model, "tp", None)
+    if tp is None:
+        load(sd)
+        return
+    target = {**sd, "model": dict(sd["model"])}
+    if "optimizer" in sd:
+        target["optimizer"] = {k: dict(v) if isinstance(v, dict) else v
+                               for k, v in sd["optimizer"].items()}
+    leaves = _sharded_leaves(target, model.cfg)
+    for cont, key, rule in leaves:
+        cont[key] = _whole_like(cont[key], rule, tp)
+    load(target)
+    own = _sharded_leaves(sd, model.cfg)
+    with torch.no_grad():
+        for (cont, key, rule), (whole, _, _) in zip(own, leaves):
+            cont[key].copy_(shard_tensor(whole[key], *rule, tp.rank,
+                                         tp.size))
+
+
 def _quiet(fn, *args, **kwargs):
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=_SINGLE_PROCESS)
@@ -89,15 +159,17 @@ def _check_model_keys(model: torch.nn.Module, path: str) -> None:
 
 def load_model(model: torch.nn.Module, path: str) -> None:
     """Read only the ``model.*`` tensors of the step directory ``path``
-    into ``model``, in place, cast to its tensors' dtypes."""
+    into ``model``, in place, cast to its tensors' dtypes (a
+    tensor-parallel model: its slices of them)."""
     if not os.path.exists(os.path.join(path, ".metadata")):
         raise ValueError(
             f"{path} is not a checkpoint of this package (a JAX/orbax one?); "
             "write JAX params as a DeepSpeed model_states.pt with "
             "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead")
     _check_model_keys(model, path)
-    _quiet(dcp.load, {"model": model.state_dict()}, checkpoint_id=path,
-           no_dist=True)
+    _load_sharded({"model": model.state_dict()}, model,
+                  lambda sd: _quiet(dcp.load, sd, checkpoint_id=path,
+                                    no_dist=True))
 
 
 class CheckpointManager:
@@ -127,7 +199,8 @@ class CheckpointManager:
         if rank == 0:
             shutil.rmtree(tmp, ignore_errors=True)
         barrier()
-        _quiet(dcp.save, state_tensors(state), checkpoint_id=tmp)
+        _quiet(dcp.save, _gathered(state_tensors(state), state.model),
+               checkpoint_id=tmp)
         if rank == 0:
             self._finish(step, tmp, client_state)
         barrier()
@@ -166,7 +239,8 @@ class CheckpointManager:
         saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
         if gen not in saved:    # saved from a state (or rank) without one
             sd.pop(gen, None)
-        _quiet(dcp.load, sd, checkpoint_id=path)
+        _load_sharded(sd, state.model,
+                      lambda t: _quiet(dcp.load, t, checkpoint_id=path))
         state.optimizer.load_state_dict(sd["optimizer"])
         state.step = int(sd["step"])
         if gen in sd:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from bdm_db1_tpu_torch.core.config import DB1Config
+from bdm_db1_tpu_torch.parallel.mesh import shard_state_dict
 
 VISION_KEY = "vision"
 VISION_PREFIX = "vision_encoder."
@@ -135,7 +136,12 @@ def load_into(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]
               ) -> List[str]:
     """``model.load_state_dict(sd)`` (cast to the model's dtypes and
     device), strict except that the vision tower may be absent as a whole:
-    then it stays at its init and its names are returned (else [])."""
+    then it stays at its init and its names are returned (else []). ``sd``
+    is a whole model's; a tensor-parallel model (``model.tp``) loads this
+    rank's shard of it (parallel/mesh.py ``shard_state_dict``)."""
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        sd = shard_state_dict(sd, tp, model.cfg)
     own = model.state_dict().keys()
     missing = sorted(set(own) - set(sd))
     vision = sorted(k for k in own if k.startswith(VISION_PREFIX))

@@ -30,9 +30,20 @@ them). Each rank's loader takes its shard of the global batch, the model
 starts from rank 0's parameters, the train step sums the gradients over
 the ranks (train/step.py) and checkpoints are saved collectively.
 
-Not ported (``NotImplementedError``): tensor parallelism
-(``mesh.model_parallel`` > 1, ROADMAP queue 1 item 9b) and the pipeline
-(``mesh.pipeline_parallel`` > 1, item 9c).
+Tensor parallelism: ``--mesh.model-parallel 2`` (and optionally
+``--model.sequence-sharded-activations true``) lays the world out as JAX's
+(dp, tp) mesh, rank r at (r // tp, r % tp); the world must hold dp x tp
+processes. Each rank holds its shard of the model (the seeded init's
+slice), the loader shards by data rank, the RL rollouts and the caption
+and VQA metrics of the eval hook run on data rank 0's model group (every
+rank of it, with the same envs and seeds), and checkpoints hold whole
+tensors:
+
+    torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.train.pretrain \
+        --mesh.model-parallel 2 ...
+
+Not ported (``NotImplementedError``): the pipeline
+(``mesh.pipeline_parallel`` > 1, ROADMAP queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -40,10 +51,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import DB1Config
 from bdm_db1_tpu_torch.core.logging import (
-    MetricLogger, print_rank_0, process_index,
+    MetricLogger, print_rank_0,
 )
 from bdm_db1_tpu_torch.data.blendable import BlendableDataset
 from bdm_db1_tpu_torch.data.dataset_utils import (
@@ -69,6 +81,10 @@ from bdm_db1_tpu_torch.parallel.distributed import (
     broadcast_flat, default_backend, device_for_rank,
     maybe_initialize_distributed, rank_and_world, world_group,
 )
+from bdm_db1_tpu_torch.parallel.mesh import (
+    TensorParallel, batch_sharding, check_tensor_parallel, make_mesh,
+    tensor_parallel,
+)
 from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 from bdm_db1_tpu_torch.tokenizers.text import build_text_tokenizer
 from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
@@ -92,14 +108,17 @@ def build_tokenizer_suite(cfg: DB1Config) -> RLTokenizerSuite:
 
 
 def build_loader(cfg: DB1Config, datasets_by_modality: Dict[str, object],
-                 weights: Dict[str, float]) -> StratifiedGatoLoader:
+                 weights: Dict[str, float],
+                 tp: Optional[TensorParallel] = None) -> StratifiedGatoLoader:
     """This process's loader (one card a process): {modality: {field:
     [accum, micro, ...]}} with the fixed ``mixture_counts`` of the weights
     over ``train.micro_batch_size``, accum = global batch / (micro x
-    processes), one ``RandomSampler`` a group from the start of the stream
-    (seed ``train.seed``, sharded by the ``torch.distributed`` rank when a
-    process group is up) and ``data.num_workers`` threads."""
-    proc, n_proc = rank_and_world()
+    data-parallel processes), one ``RandomSampler`` a group from the start
+    of the stream (seed ``train.seed``, sharded by the data rank: the
+    ``torch.distributed`` rank when a process group is up, ``tp.data_rank``
+    under tensor parallelism, whose model group reads the same rows) and
+    ``data.num_workers`` threads."""
+    proc, n_proc = batch_sharding(tp)
     micro = cfg.train.micro_batch_size
     counts = mixture_counts(weights, micro)
     accum = max(1, cfg.train.global_batch_size // (micro * n_proc))
@@ -144,27 +163,43 @@ def group_by_modality(train_ds):
     return {m: train_ds}, {m: 1.0}
 
 
-def _check_supported(cfg: DB1Config) -> None:
-    """Tensor parallelism and the pipeline raise ``NotImplementedError``."""
+def check_mesh(cfg: DB1Config) -> None:
+    """A ``mesh.model_parallel`` that cannot split the model raises
+    ``ValueError`` naming the field (parallel/mesh.py
+    ``check_tensor_parallel``); the pipeline raises
+    ``NotImplementedError``."""
     m = cfg.mesh
     if m.model_parallel > 1:
-        raise NotImplementedError(
-            "tensor parallelism (mesh.model_parallel > 1) is not ported yet "
-            "(ROADMAP queue 1 item 9b)")
+        check_tensor_parallel(cfg.model, cfg.vocab.layout().padded_vocab_size,
+                              m.model_parallel)
     if m.pipeline_parallel > 1:
         raise NotImplementedError(
             "the pipeline (mesh.pipeline_parallel > 1) is not ported yet "
             "(ROADMAP queue 1 item 9c)")
 
 
-def _check_world(cfg: DB1Config) -> None:
-    """``mesh.data_parallel``, when positive, must be the world size (one
-    card a process, data parallelism only)."""
-    dp = cfg.mesh.data_parallel
+def check_world(cfg: DB1Config) -> None:
+    """The world must hold dp x tp processes (one card a process):
+    ``mesh.data_parallel``, when positive, times ``mesh.model_parallel``;
+    otherwise a multiple of ``mesh.model_parallel``."""
+    dp, tp = cfg.mesh.data_parallel, max(1, cfg.mesh.model_parallel)
     world = rank_and_world()[1]
-    if dp > 0 and dp != world:
-        raise ValueError(f"mesh.data_parallel is {dp} but the process world "
-                         f"has {world} processes")
+    if dp > 0 and dp * tp != world:
+        raise ValueError(f"mesh.data_parallel is {dp} and "
+                         f"mesh.model_parallel {tp}, but the process world "
+                         f"has {world} processes, not dp x tp")
+    if world % tp:
+        raise ValueError(f"mesh.model_parallel is {tp} but the process "
+                         f"world has {world} processes")
+
+
+def mesh_tensor_parallel(cfg: DB1Config, device) -> Optional[TensorParallel]:
+    """The :class:`TensorParallel` of this process when
+    ``mesh.model_parallel`` > 1 (the world's (dp, tp) mesh), else None."""
+    if cfg.mesh.model_parallel <= 1:
+        return None
+    return tensor_parallel(make_mesh(cfg.mesh, torch.device(device).type),
+                           cfg.model.sequence_sharded_activations)
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
@@ -172,14 +207,16 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
     on ``device`` (``"cuda"``: this rank's card), in the process world
     of the launcher when there is one (``mesh.multihost``)."""
     cfg = cfg or DB1Config.from_cli()
-    _check_supported(cfg)
+    check_mesh(cfg)
     maybe_initialize_distributed(force=cfg.mesh.multihost,
                                  backend=default_backend(device))
-    _check_world(cfg)
+    check_world(cfg)
     dev = _check_device(device_for_rank(device))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     in_world = world_group() is not None
+    tp = mesh_tensor_parallel(cfg, dev)
+    data_rank = batch_sharding(tp)[0]
     print_rank_0(f"device: {dev}"
                  + (f" ({torch.cuda.get_device_name(dev)})"
                     if dev.type == "cuda" else "")
@@ -216,7 +253,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         cache_dir=cfg.data.rl_dataset_cache_dir)
 
     datasets, weights = group_by_modality(train_ds)
-    loader = build_loader(cfg, datasets, weights)
+    loader = build_loader(cfg, datasets, weights, tp)
     try:
         # the JAX driver draws one batch to initialise its parameters; the
         # port draws it too, so both train on the same stream
@@ -226,8 +263,13 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
 
         model = TransformerXL(
             cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed))
-        if in_world:    # every rank starts from rank 0's weights
+            generator=torch.Generator(device=dev).manual_seed(cfg.train.seed),
+            tp=tp)
+        if tp is not None:  # every replica starts from data rank 0's shard
+            broadcast_flat(list(model.state_dict().values()),
+                           src=dist.get_global_rank(tp.data_group, 0),
+                           group=tp.data_group)
+        elif in_world:      # every rank starts from rank 0's weights
             broadcast_flat(list(model.state_dict().values()), src=0)
         state = init_train_state(model, cfg.train.optimizer,
                                  cfg.train.train_iters)
@@ -248,14 +290,14 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
             out = {}
             if valid_ds is not None:
                 vd, vw = group_by_modality(valid_ds)
-                vloader = build_loader(cfg, vd, vw)
+                vloader = build_loader(cfg, vd, vw, tp)
                 try:
                     batches = [next(vloader)
                                for _ in range(cfg.train.eval_iters)]
                 finally:
                     vloader.stop()
                 out["loss"] = evaluate_loss(state.model, batches, device=dev)
-            if cfg.eval.env_names and process_index() == 0:
+            if cfg.eval.env_names and data_rank == 0:
                 for name in cfg.eval.env_names:
                     def make_tenv(n=name):
                         ds = build_rl_dataset_from_cache(
@@ -273,7 +315,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
             # the in-training caption and VQA metrics on the unblended
             # valid splits (reference: train.py:24-25, 173-207)
             n_icvqa = cfg.eval.ic_vqa_num_samples
-            if n_icvqa and valid_no_blend and process_index() == 0:
+            if n_icvqa and valid_no_blend and data_rank == 0:
                 layout = cfg.vocab.layout()
                 eos = tok.text_tokenizer.eos_token_id
                 for i, ds in enumerate(valid_no_blend.get("ic", [])):

@@ -33,6 +33,17 @@ the global batch. A micro-batch's loss is the rank's masked NLL sum over
 the loss-mask count of the global micro-batch, so that the ranks' losses
 sum to the JAX package's mean over the whole micro-batch (pjit's batch
 sharding); the gradients are then summed over the ranks, once a step.
+
+Tensor parallelism (``model.tp``): the data parallelism above runs over
+the data group (the ranks that hold the same shard), and the ranks of a
+model group see the same rows, so they count them once. A sharded
+parameter's gradient is this rank's and is never summed over the model
+group; a replicated one's is whole on every rank, except under the
+sequence-sharded option, where those of the layers (their LayerNorms and
+the FF output bias, which see a slice of the sequence) are partial and are
+summed over the model group first. The global norm (the clip,
+``grad_norm``) sums the squares of the sharded leaves over the model
+group and counts each replicated leaf once.
 """
 
 from __future__ import annotations
@@ -46,8 +57,9 @@ import torch.distributed as dist
 
 from bdm_db1_tpu_torch.core.config import OptimizerConfig
 from bdm_db1_tpu_torch.parallel.distributed import (
-    all_reduce_flat, summed, world_group,
+    all_reduce_f32, all_reduce_flat, summed, world_group,
 )
+from bdm_db1_tpu_torch.parallel.mesh import replicated
 from bdm_db1_tpu_torch.train.schedule import lr_schedule, wd_schedule
 
 Tensor = torch.Tensor
@@ -66,11 +78,35 @@ def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
             for name, p in model.named_parameters()}
 
 
-def global_norm(tensors: List[Tensor]) -> Tensor:
+def global_norm(tensors: List[Tensor], sharded: Optional[List[bool]] = None,
+                tp=None) -> Tensor:
     """sqrt of the sum of squares of every element, in f32 (optax
-    ``global_norm``)."""
+    ``global_norm``). Under tensor parallelism (``tp``, with ``sharded``
+    flagging each tensor that is this rank's shard) the sharded squares
+    are summed over the model group and the replicated ones counted
+    once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if tp is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    flag = torch.tensor(sharded, dtype=torch.bool, device=sq.device)
+    shards = all_reduce_f32(torch.where(flag, sq, 0.0).sum(), tp.group)
+    return torch.sqrt(shards + torch.where(flag, 0.0, sq).sum())
+
+
+def sharded_flags(model: torch.nn.Module) -> List[bool]:
+    """Per ``named_parameters()`` entry: whether it is a tensor-parallel
+    shard (all False without ``model.tp``)."""
+    tp = getattr(model, "tp", None)
+    return [tp is not None and not replicated(n)
+            for n, _ in model.named_parameters()]
+
+
+def sequence_partial(name: str) -> bool:
+    """Under the sequence-sharded option: whether the replicated
+    parameter ``name`` sees a slice of the sequence (a layer's), so that
+    its gradient is a partial sum over the model group."""
+    return name.startswith("h.") and replicated(name)
 
 
 def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
@@ -118,12 +154,21 @@ class _Base(torch.optim.Optimizer):
         self.cfg = cfg
         self.names = list(mask)
         self.decay = list(mask.values())
+        self.tp = getattr(model, "tp", None)
+        self.sharded = sharded_flags(model)
         self.lr = lr_schedule(cfg, train_iters)
         self.wd = wd_schedule(cfg, train_iters)
         self.count = 0
 
     def _params(self) -> List[Tensor]:
         return self.param_groups[0]["params"]
+
+    def _grad_norm(self, grads: List[Tensor]) -> Tensor:
+        """The global norm of ``grads``, those of the parameters that have
+        a gradient, in order, over the model group."""
+        sharded = [s for p, s in zip(self._params(), self.sharded)
+                   if p.grad is not None]
+        return global_norm(grads, sharded, self.tp)
 
     def moment_dtypes(self):
         """(mu, nu) storage dtypes (None: the parameter's), or None when
@@ -193,7 +238,7 @@ class ChainOptimizer(_Base):
                  if p.grad is not None]
         grads = [p.grad.float() for p in params]
         if cfg.clip_grad and cfg.clip_grad > 0:
-            g_norm = global_norm(grads)
+            g_norm = self._grad_norm(grads)
             trigger = g_norm < cfg.clip_grad
             grads = [torch.where(trigger, g, g / g_norm * cfg.clip_grad)
                      for g in grads]
@@ -239,7 +284,7 @@ class FusedAdamW(_Base):
                                      self.count + 1)
         clip_s = None
         if cfg.clip_grad and cfg.clip_grad > 0:
-            g_norm = global_norm([p.grad for p, _ in pairs])
+            g_norm = self._grad_norm([p.grad for p, _ in pairs])
             clip_s = torch.where(g_norm < cfg.clip_grad,
                                  torch.ones_like(g_norm),
                                  cfg.clip_grad / g_norm)
@@ -290,9 +335,11 @@ def init_train_state(model: torch.nn.Module, cfg: OptimizerConfig,
 
 def make_train_rng(seed: int, device, rank: int = 0) -> torch.Generator:
     """The training generator (the dropout masks) on the model's device,
-    seeded by ``seed`` on rank 0 and by (``seed``, ``rank``) on the other
-    ranks of a data-parallel run, so that each rank draws its own masks
-    (the JAX package draws one mask over the global batch)."""
+    seeded by ``seed`` on data rank 0 and by (``seed``, ``rank``) on the
+    other data ranks of a data-parallel run, so that each draws its own
+    masks (the JAX package draws one mask over the global batch). ``rank``
+    is the data rank: the ranks of one tensor-parallel model group share
+    it, and so draw the same masks on their replicated activations."""
     if rank:
         seed = int(np.random.SeedSequence((seed, rank)).generate_state(1)[0])
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
@@ -364,15 +411,20 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
     raises.
 
     Data parallelism over the world, whenever a process group is up (at
-    world size 1 too): ``batch`` is this rank's shard; each
+    world size 1 too), or over the data group of a tensor-parallel model
+    (``model.tp``): ``batch`` is this rank's shard; each
     micro-batch's loss-mask count is summed over the ranks before the
     backward pass, the gradients are summed over them after the
     accumulation, and the reported loss, ``grad_norm`` and the optimizer's
     clip see the global values. A custom ``loss_fn`` must then return this
-    rank's share of the global loss itself."""
+    rank's share of the global loss itself. Under the sequence-sharded
+    option the layers' replicated gradients are summed over the model
+    group first (:func:`sequence_partial`)."""
+    tp = getattr(model, "tp", None)
+    sharded = sharded_flags(model)
 
     def train_step(state: TrainState, batch, generator):
-        grp = world_group()
+        grp = world_group() if tp is None else tp.data_group
         lf = loss_fn
         if lf is None:
             lf = make_loss_fn(model, None if grp is None
@@ -415,14 +467,21 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
                 del gs, l
             grads = [None if s is None else s.div_(accum) for s in gsum]
             loss = lsum / accum
+        if tp is not None and tp.sequence_sharded:
+            all_reduce_flat([g for (n, _), g in zip(named, grads)
+                             if g is not None and sequence_partial(n)],
+                            tp.group)
         if grp is not None:
             loss = _reduce_over_ranks(loss, grads, [n for n, _ in named], grp)
         for p, g in zip(params, grads):
             p.grad = None if g is None else g.to(p.dtype)
         metrics = {"loss": loss, "step": state.step}
         if with_grad_norm:
+            flags = [s for (n, p), s in zip(state.model.named_parameters(),
+                                            sharded) if p.requires_grad]
+            pairs = [(g, s) for g, s in zip(grads, flags) if g is not None]
             metrics["grad_norm"] = global_norm(
-                [g for g in grads if g is not None])
+                [g for g, _ in pairs], [s for _, s in pairs], tp)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return dataclasses.replace(state, step=state.step + 1), metrics

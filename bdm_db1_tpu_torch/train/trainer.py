@@ -5,7 +5,9 @@ the ``eval_fn`` hook, checkpointing with auto-resume and an emergency
 checkpoint on a crash) and the mean masked CE over held-out batches that
 the trainer logs every eval tick. Under a process group (data
 parallelism) each rank's loader hands it its shard of the global batch;
-the rates count the global batch and the losses are the global ones."""
+the rates count the global batch and the losses are the global ones. A
+tensor-parallel model (``model.tp``) counts over its data group: the
+ranks of a model group read, count and draw the same rows."""
 
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from bdm_db1_tpu_torch.data.input_specs import (
 from bdm_db1_tpu_torch.parallel.distributed import (
     barrier, rank_and_world, summed, world_group,
 )
+from bdm_db1_tpu_torch.parallel.mesh import batch_sharding
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
 
@@ -67,8 +70,9 @@ class Trainer:
     (``state.generator``), every ``log_interval`` iterations a host read of
     the loss and the tokens/sec of the window, every ``eval_interval`` the
     ``eval_fn(state, iteration)`` hook. Under a process group the
-    generator is seeded by (``train.seed``, rank) and tokens/sec counts
-    the global batch (this rank's times the world size).
+    generator is seeded by (``train.seed``, data rank) and tokens/sec
+    counts the global batch (this rank's times the data-parallel size);
+    the data rank is the world rank without tensor parallelism.
 
     With ``cfg.train.save_dir``: metrics go to ``<save_dir>/metrics.jsonl``
     (unless a ``logger`` is given); the run resumes from the latest
@@ -137,7 +141,7 @@ class Trainer:
     def _train_loop(self) -> None:
         tcfg = self.cfg.train
         dev = self.model.device
-        rank, world = rank_and_world()
+        rank, world = batch_sharding(getattr(self.model, "tp", None))
         if self.state.generator is None:
             self.state.generator = make_train_rng(tcfg.seed, dev, rank)
         iteration = self.maybe_resume()
@@ -197,12 +201,14 @@ def evaluate_loss(model, batches: Iterable, device="cuda") -> float:
     batches. Under a process group each rank passes its shard of every
     micro-batch: a slice's loss
     is the masked mean over the global micro-batch, as in the train step
-    (the count summed over the ranks, then the rank shares)."""
+    (the count summed over the ranks, then the rank shares); a
+    tensor-parallel model's ranks sum over its data group."""
     dev = _check_device(device)
     if model.device != dev and not (
             dev.index is None and model.device.type == dev.type):
         raise ValueError(f"the model is on {model.device}, not {dev}")
-    grp = world_group()
+    tp = getattr(model, "tp", None)
+    grp = world_group() if tp is None else tp.data_group
     count_reduce = None if grp is None else lambda c: summed(c, grp)
     losses = []
     with torch.inference_mode():

@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_text
     python3 chip_smoke.py --phases build,remat,serve_preln
     python3 chip_smoke.py --phases build,data_parallel
+    python3 chip_smoke.py --phases build,tensor_parallel
+    python3 chip_smoke.py --phases build,tensor_parallel_nccl   # 4 cards
 
 Phases, each printing one JSON line:
 
@@ -210,6 +212,45 @@ Phases, each printing one JSON line:
   the shards' in rank-major order, each rank's equal a one-process run
   over its shard alone, with the same K1/K2 launches (both > 0), and
   ``results.output`` holds them once.
+* ``tensor_parallel`` — tensor parallelism (tp 2, dp 1) in a world of two
+  gloo processes on the one card. First every kernel of its paths at a
+  rank's shapes (8 of db1_1p2b's 16 heads; the K9 trunk matrices halved)
+  against its plain version, timed beside its bound and its library call:
+  K1, K2 (Q 24), K6 and K7 (and K8) at B 40, K9 at 40 rows and the
+  bucketed prime's 960, K3 and the backward (K4, K5) at 2 x 1024. Then
+  db1_1p2b (bf16 activations, f32 parameters saved by this process, each
+  rank loading its shard; no dropout, SGD lr 1 without the clip) takes
+  one ``make_train_step`` step on the ``train`` phase's first
+  micro-batch cut to 2 rows: K3 = K4 = K5 = 24 a rank, the tp
+  checkpoint restored in one process (its slices the ranks' parameters
+  bit for bit); three layers from one input and one upstream gradient,
+  forward and backward through K3-K5 on the rank's heads, against the
+  one-process layers: the output within the route gate, the input
+  gradient within the attention-gradient gate and the parameter
+  gradients within the model-gradient gates; a second step with the
+  default dropout leaves the replicated parameters bitwise equal on both
+  ranks; the same first step in f32 activations: the loss within the DP
+  loss gate of the one-process f32 step, the update within cosine
+  1 - 1e-6 and 1e-4 in norm; in bf16 the update within cosine 0.9 and 5e-2 in
+  norm of the one-process bf16 update (24 random-init layers grow a
+  rank's ulp-level rounding differences as far as bf16 is from f32; the
+  loss is read); reads a rank's step, its collectives replayed alone
+  (the gloo share) and its peak memory. Then, in the same world,
+  ``evaluate_rl.main`` with ``eval.sharded_decode`` serves that
+  checkpoint (40 HalfCheetah-geometry envs without the expert prompt, 4
+  steps), in bf16 (K1 120, K2 24 a step a rank) and on an int8 cache
+  with int8 weights (K6, K7, K9 as the plan of its ring forwards): the
+  records written once; on the served weights the ring layers from one
+  input (a 256-token prompt slice, the bucketed prime and the decode)
+  within the route gate of one process, and on f32 copies the first
+  action's logits within 1e-3 of their maximum and >= 0.9 of a 2-step
+  greedy chain's actions equal to one process's (the bf16 readings
+  printed beside them).
+* ``tensor_parallel_nccl`` — not in the default run (four cards of one
+  host): ``evaluate_rl.main`` with ``eval.sharded_decode`` over NCCL at
+  tp 4, a process a card, on the same 40 envs with the expert prompt, 4
+  steps, random weights: each rank's launches the plan of its ring
+  forwards, the records equal across the ranks; reads actions/sec.
 
 With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
@@ -280,11 +321,14 @@ SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
           "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
           "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless",
-          "remat", "serve_preln", "data_parallel")
+          "remat", "serve_preln", "data_parallel", "tensor_parallel")
+# phases of more than one card, run only when named
+OPTIONAL_PHASES = ("tensor_parallel_nccl",)
 MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
               "evaluate_rl", "pretrain", "pretrain_vision",
               "evaluate_rl_image", "evaluate_rl_text", "generate",
-              "stateless", "remat", "serve_preln", "data_parallel")
+              "stateless", "remat", "serve_preln", "data_parallel",
+              "tensor_parallel")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -303,7 +347,17 @@ OUT_REL_TOL = 2e-3
 QMM_REL_TOL = 1e-4
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(rec: dict) -> None:
+    """Print ``rec`` as one JSON line; a phase's record gets ``phase_s``,
+    the wall seconds since the previous record (the phase with its
+    set-up)."""
+    now = time.perf_counter()
+    if "phase" in rec:
+        rec = dict(rec, phase_s=now - _LAST_EMIT[0])
+    _LAST_EMIT[0] = now
     print(json.dumps(rec), flush=True)
 
 
@@ -937,7 +991,7 @@ BWD_REL_TOL = {"dq": 2e-2, "dk": 2e-2, "dv": 2e-2, "drk": 2e-2,
 
 
 def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
-              old=None):
+              old=None, H=16):
     """K3 on q, k, v sliced from one fused [B, klen, 3 * H * Dh] projection
     (as the trunk feeds it, through its strides) against its plain version:
     (out, m, l); when timed, its time, bound, plain time and the time of
@@ -948,7 +1002,7 @@ def _rel_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
         causal_mask, rel_shift_sliced, same_length_mask,
     )
 
-    H, Dh = 16, 128
+    Dh = 128
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(B, klen, 3 * H * Dh, device="cuda",
                       generator=gen).to(torch.bfloat16)
@@ -1055,7 +1109,7 @@ DELTA_REL_TOL = 1e-5
 
 
 def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
-                  old=None):
+                  old=None, H=16):
     """The backward (the preparation, K4 and K5) on K3's inputs (q, k, v
     sliced from one fused projection), K3's (out, m, l) and a seeded
     upstream gradient, against its plain version: the six gradients, each
@@ -1070,7 +1124,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     this tree's call in turns."""
     from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
 
-    H, Dh = 16, 128
+    Dh = 128
     gen = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn(B, klen, 3 * H * Dh, device="cuda",
                       generator=gen).to(torch.bfloat16)
@@ -2327,7 +2381,11 @@ def _train_route_check(model, batch) -> dict:
     by ``embed_concat`` at eval patch positions). Layer by layer (under
     no_grad between layers): the six attention gradients through K3-K5
     against autograd through ``rel_attention`` in f32 on the same inputs
-    and one seeded upstream gradient (GRAD_REL_TOL). Then the whole
+    and one seeded upstream gradient (GRAD_REL_TOL); beside them, read and
+    not gated, the same gap of the plain bf16 route (autograd through
+    ``rel_attention`` in bf16, as the trunk runs it without the kernels),
+    so that a reading over the gate shows whether bf16 alone goes as far
+    on that micro-batch. Then the whole
     model's gradient through both routes (attention_impl "auto" and "xla")
     from one generator seed, so that the dropout masks and the patch
     positions are equal: global norms within GRAD_NORM_RTOL, cosine
@@ -2352,6 +2410,7 @@ def _train_route_check(model, batch) -> dict:
     kw = dict(mem_len=cfg.mem_len, same_length=cfg.same_length,
               scale=1.0 / Dh ** 0.5)
     worst = dict.fromkeys(GRAD_NAMES, 0.0)
+    plain_worst = dict.fromkeys(GRAD_NAMES, 0.0)
     for layer in model.h:
         a = layer.dec_attn
         with torch.no_grad():
@@ -2368,10 +2427,16 @@ def _train_route_check(model, batch) -> dict:
         ref = torch.autograd.grad(
             rel_attention(*ref_ins, mask, scale=kw["scale"],
                           compute_dtype=torch.float32), ref_ins, g.float())
-        for name, x, y in zip(GRAD_NAMES, got, ref):
+        plain_ins = [t.detach().requires_grad_(True) for t in ins]
+        plain = torch.autograd.grad(
+            rel_attention(*plain_ins, mask, scale=kw["scale"],
+                          compute_dtype=q.dtype), plain_ins, g)
+        for name, x, p, y in zip(GRAD_NAMES, got, plain, ref):
             worst[name] = max(worst[name], float(
                 (x.float() - y).abs().max() / y.abs().max()))
-        del got, ref, ref_ins, ins
+            plain_worst[name] = max(plain_worst[name], float(
+                (p.float() - y).abs().max() / y.abs().max()))
+        del got, ref, ref_ins, ins, plain, plain_ins
         with torch.no_grad():
             h = layer(h, None, r, mask, True)
 
@@ -2401,6 +2466,7 @@ def _train_route_check(model, batch) -> dict:
     npl = sum(float(y.double().square().sum()) for y in flat["plain"]) ** 0.5
     del flat
     out = {"grad_tol": GRAD_REL_TOL, "attn_grad_rel_err": worst,
+           "plain_bf16_attn_grad_rel_err": plain_worst,
            "params_reached": len(reached), "params": len(params),
            "grad_norm_kernel": nk, "grad_norm_plain": npl,
            "grad_norm_rel_diff": abs(nk - npl) / npl,
@@ -4821,11 +4887,12 @@ def _dp_eval_rank(rank: int, world: int, cfg, seed: int) -> dict:
 
 
 def _dp_child(fn_name: str, rank: int, world: int, work: str,
-              args: tuple) -> None:
-    """A process of a DP_WORLD gloo world on cuda:0 (a ``file://`` store in
-    ``work``): this module's ``fn_name(rank, world, *args)``, its result
-    to ``<work>/<rank>.json``, its output to ``<work>/<rank>.log``, a
-    failure's traceback to ``<work>/<rank>.err``."""
+              args: tuple, backend: str = "gloo") -> None:
+    """A process of a gloo world on cuda:0, or of an NCCL world on
+    cuda:<rank> (a ``file://`` store in ``work``): this module's
+    ``fn_name(rank, world, *args)``, its result to ``<work>/<rank>.json``,
+    its output to ``<work>/<rank>.log``, a failure's traceback to
+    ``<work>/<rank>.err``."""
     import datetime
     import traceback
 
@@ -4836,9 +4903,9 @@ def _dp_child(fn_name: str, rank: int, world: int, work: str,
     try:
         with open(os.path.join(work, f"{rank}.log"), "w") as log, \
                 contextlib.redirect_stdout(log):
-            torch.cuda.set_device(0)
+            torch.cuda.set_device(rank if backend == "nccl" else 0)
             dist.init_process_group(
-                "gloo", init_method="file://" + os.path.join(work, "store"),
+                backend, init_method="file://" + os.path.join(work, "store"),
                 rank=rank, world_size=world,
                 timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
             out = globals()[fn_name](rank, world, *args)
@@ -4853,17 +4920,19 @@ def _dp_child(fn_name: str, rank: int, world: int, work: str,
             dist.destroy_process_group()
 
 
-def _run_world(fn_name: str, work: str, *args) -> list:
-    """``fn_name`` in DP_WORLD processes started by the spawn method (each
-    process is stopped before this returns); their results in rank order,
-    or a ``RuntimeError`` with the first failing rank's traceback."""
+def _run_world(fn_name: str, work: str, *args, world: int = DP_WORLD,
+               backend: str = "gloo") -> list:
+    """``fn_name`` in ``world`` processes started by the spawn method (each
+    process is stopped before this returns; ``_dp_child``); their results
+    in rank order, or a ``RuntimeError`` with the exit codes and every
+    failing rank's traceback."""
     import multiprocessing
 
     sub = tempfile.mkdtemp(prefix=fn_name + "_", dir=work)
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_dp_child,
-                         args=(fn_name, r, DP_WORLD, sub, args))
-             for r in range(DP_WORLD)]
+                         args=(fn_name, r, world, sub, args, backend))
+             for r in range(world)]
     try:
         for p in procs:
             p.start()
@@ -4875,15 +4944,14 @@ def _run_world(fn_name: str, work: str, *args) -> list:
             if p.is_alive():
                 p.kill()
                 p.join()
-    for r in range(DP_WORLD):
-        err = os.path.join(sub, f"{r}.err")
-        if os.path.exists(err):
-            raise RuntimeError(f"{fn_name} rank {r}:\n{open(err).read()}")
     codes = [p.exitcode for p in procs]
-    if any(codes):
-        raise RuntimeError(f"{fn_name}: exit codes {codes}")
+    errs = [(r, os.path.join(sub, f"{r}.err")) for r in range(world)]
+    failed = "".join(f"\nrank {r}:\n{open(e).read()}" for r, e in errs
+                     if os.path.exists(e))
+    if failed or any(codes):
+        raise RuntimeError(f"{fn_name}: exit codes {codes}{failed}")
     out = []
-    for r in range(DP_WORLD):
+    for r in range(world):
         with open(os.path.join(sub, f"{r}.json")) as f:
             out.append(json.load(f))
     return out
@@ -4893,10 +4961,17 @@ def _update_agreement(model, one_after: dict, before: dict) -> dict:
     """Cosine and relative norm difference of the update that ``model``
     holds (its weights minus ``before``) and ``one_after`` minus
     ``before``, over the parameters the step moved."""
+    return _delta_agreement(dict(model.named_parameters()), one_after,
+                            before)
+
+
+def _delta_agreement(after: dict, one_after: dict, before: dict) -> dict:
+    """``_update_agreement`` of the parameters ``after`` (by name)."""
     dot = nd = no = 0.0
-    for n, p in model.named_parameters():
+    for n, p in after.items():
         b = before[n].to(p.device)
-        du, ou = (p.detach() - b).double(), (one_after[n] - b).double()
+        du = (p.detach() - b).double()
+        ou = (one_after[n].to(p.device) - b).double()
         dot += float((du * ou).sum())
         nd += float(du.square().sum())
         no += float(ou.square().sum())
@@ -5099,6 +5174,943 @@ def phase_data_parallel(smi: str, seed: int = 0) -> dict:
             "launches": launches}
 
 
+# ---- tensor parallelism ----------------------------------------------------
+
+TP_WORLD = 2
+TP_H = 16 // TP_WORLD          # db1_1p2b's heads on a rank at tp 2
+TP_MICRO = 2                   # train's micro-batch: 2 rows x 1024
+# the trunk matrices (K, N) of a rank at tp 2: qkv_net and CoreNet.0
+# column-parallel (N / 2), o_net and CoreNet.2 row-parallel (K / 2)
+TP_TRUNK = {"qkv_net": (2048, 3072), "o_net": (1024, 2048),
+            "CoreNet.0": (2048, 4096), "CoreNet.2": (2048, 2048)}
+TP_SERVE_B = len(EVAL_ENVS) * EVAL_TRIALS   # 40 envs, one cohort
+TP_SERVE_STEPS = 4
+TP_CHECK_B = 8                 # the rows of the logits and chain checks
+TP_CHAIN_STEPS = 2
+# the layers held one by one from one input, tp against one process
+TP_LAYERS = (0, 11, 23)
+TP_GRAD_SEED = 7               # their upstream gradients
+# the ring layers' widths: a 256-token slice of the expert prompt (the
+# plain ring branch), the bucketed prime (K2/K7) and the decode (K1/K6)
+TP_RING_WIDTHS = (256, 24, 1)
+# The bf16 tp step's update against the one-process bf16 step's. Sound
+# readings (H100, six runs): cosine 0.973-0.981, norms 0.0008-0.015
+# apart; the one-process bf16 step is as far from its f32 step (cosine
+# 0.969-0.973). The limits leave three to four times that gap.
+TP_BF16_UPDATE_COS_MIN = 0.9
+TP_BF16_UPDATE_NORM_RTOL = 5e-2
+# The f32 tp step's update against the one-process f32 step's: only the
+# order of the partial sums differs (readings, H100: cosine 1 - 1.8e-9,
+# norms 1e-6 to 7e-6 apart); a collective left out moves it far more.
+TP_F32_UPDATE_COS_MIN = 1 - 1e-6
+TP_F32_UPDATE_NORM_RTOL = 1e-4
+# The tensor-parallel serve against one process. In bf16 a rank's partial
+# sums round once after their f32 sum, where one product rounds once: a
+# layer's outputs move by a bf16 ulp here and there (the layer checks read
+# 0.006 of the maximum), and 24 random-init layers grow that as far as
+# bf16 is from f32 (the phase prints both end to end; PERF.md §6). So, as
+# the repo's other bf16 gates do:
+# in bf16 each layer from one input within ATTN_REL_TOL, the route gate;
+# end to end on f32 copies, the first action's logits within
+# BUCKET_LOGIT_TOL of their maximum (only rounding differs) and at least
+# TP_ACTION_SHARE of a TP_CHAIN_STEPS-step greedy chain's actions equal.
+# The bf16 end-to-end readings are printed beside them.
+TP_ACTION_SHARE = 0.9
+TP_NOTE = ("the step of one rank while the other shares the card; gloo sums "
+           "each layer's partial activations through host memory: not a "
+           "tensor-parallel rate")
+
+
+def _tp_kernels() -> dict:
+    """Every kernel of the tensor-parallel paths at the shapes of a rank at
+    tp 2 (H 8 heads), held to its plain version and timed: K1 and K2 (Q
+    24, the steady prime's bucket) on the bf16 cache of the 40-env serve,
+    K6 and K7 (and K8 beside K7) on its int8 cache, K9 at the four local
+    trunk matrices at 40 rows (q = 1) and qkv_net at 960 (the bucketed
+    prime; K 1024 and 2048 for the planner's split), K3 and the backward
+    (K4, K5) at the train micro-batch, 2 x 1024."""
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.ops import quant_matmul as qm
+
+    full = dict(L=24, B=TP_SERVE_B, M=1024, H=TP_H, Dh=128, layer=17)
+    full8 = dict(full, int8=True)
+    qmm = [_qmm_case(qm, R=TP_SERVE_B, K=K, N=N, seed=110 + i, timed=True)
+           for i, (K, N) in enumerate(TP_TRUNK.values())]
+    qmm.append(_qmm_case(qm, R=24 * TP_SERVE_B, K=2048, N=3072, seed=115,
+                         timed=True))
+    out = {
+        "flash_ring_decode": _kernel_case(fro, Q=None, seed=101, timed=True,
+                                          **full),
+        "flash_ring_prime_ap": _kernel_case(fro, Q=24, seed=102, timed=True,
+                                            **full),
+        "flash_ring_decode_int8": _kernel_case(fro, Q=None, seed=103,
+                                               timed=True, **full8),
+        "flash_ring_prime_ap_int8": _kernel_case(fro, Q=24, seed=104,
+                                                 timed=True, **full8),
+        "quant_matmul": qmm,
+        "flash_rel_attention": _rel_case(
+            fra, B=TP_MICRO, qlen=1024, klen=1024, mem_len=1024,
+            same_length=True, seed=105, timed=True, H=TP_H),
+        "flash_rel_attention_bwd": _rel_bwd_case(
+            fra, B=TP_MICRO, qlen=1024, klen=1024, mem_len=1024,
+            same_length=True, seed=106, timed=True, H=TP_H)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_model(cfg, tp, weights: str):
+    """db1_1p2b of ``cfg`` holding this rank's shard of the whole weights
+    saved at ``weights`` (the whole weights without ``tp``)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.train.convert import load_into
+
+    model = TransformerXL(cfg.model, cfg.vocab, device="cuda", tp=tp)
+    load_into(model, torch.load(weights, map_location="cpu", mmap=True))
+    return model
+
+
+class _CollectiveLog:
+    """Records the all_reduce and all_gather calls of the process (the
+    tensors' shapes and dtypes) while on, and replays them alone on
+    zeros."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.calls = []
+        self._orig = {}
+        self.device = "cuda"
+
+    def __enter__(self):
+        for name in ("all_reduce", "all_gather"):
+            fn = getattr(self.dist, name)
+            self._orig[name] = fn
+
+            def rec(*a, _fn=fn, _name=name, **kw):
+                t = a[1] if _name == "all_gather" else a[0]
+                self.calls.append((_name, tuple(t.shape), t.dtype,
+                                   kw.get("group")))
+                return _fn(*a, **kw)
+
+            setattr(self.dist, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.dist, name, fn)
+
+    def replay_ms(self) -> float:
+        """The recorded collectives again, alone, on zeros on the card."""
+        bufs = []
+        for name, shape, dtype, group in self.calls:
+            t = torch.zeros(shape, dtype=dtype, device=self.device)
+            n = self.dist.get_world_size(group)
+            bufs.append((name, t, group,
+                         [torch.empty_like(t) for _ in range(n)]))
+        torch.cuda.synchronize()
+        self.dist.barrier()
+        t0 = time.perf_counter()
+        for name, t, group, parts in bufs:
+            if name == "all_reduce":
+                self.dist.all_reduce(t, group=group)
+            else:
+                self.dist.all_gather(parts, t, group=group)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+
+def _tp_cfg(dtype: str):
+    """db1_1p2b with ``dtype`` activations and f32 parameters, no dropout,
+    the DP step's optimizer (SGD lr 1 without the clip)."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+
+    cfg = db1_1p2b(drop=0.0, embd_pdrop=0.0, dropattn=0.0, dtype=dtype)
+    cfg.train = dataclasses.replace(cfg.train, optimizer=dataclasses.replace(
+        cfg.train.optimizer, **DP_OPT))
+    return cfg
+
+
+def _set_dtype(model, dtype: str) -> None:
+    """Switch a model's activations to ``dtype`` in place (its parameters
+    are f32 here, so one model takes the bf16 and the f32 steps)."""
+    model.cfg.dtype = dtype
+    model.dtype = getattr(torch, dtype)
+
+
+def _layer_grads(layer, h, r, mask, g):
+    """One decoder layer forward from ``h`` on the kernel route and its
+    backward from the upstream gradient ``g``: (output, input gradient,
+    {parameter name: gradient}), outputs and input gradient in f32."""
+    x = h.detach().requires_grad_(True)
+    params = dict(layer.named_parameters())
+    y = layer(x, None, r, mask, True)
+    grads = torch.autograd.grad(y, [x, *params.values()], g,
+                                allow_unused=True)
+    return (y.detach().float(), grads[0].float(),
+            {n: d for n, d in zip(params, grads[1:]) if d is not None})
+
+
+def _tp_layers(model, one, tp, batch) -> list:
+    """TP_LAYERS of the bf16 tp model from one input (the first
+    micro-batch embedded), on the kernel route, forward and backward from
+    one seeded upstream gradient: K3 forward and K4/K5 backward on the
+    rank's heads, the column-parallel products' input gradient summed
+    over the model group. Rank 0 (``one``, the one-process model) runs the
+    same layer on the same input and gradient: max |diff| / max |ref| of
+    the output (``rel_diff``) and of the input gradient
+    (``dx_rel_diff``), and ``_grad_agreement`` of the parameter gradients
+    (the rank's shards gathered whole) each (rank 0's list)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+    from bdm_db1_tpu_torch.parallel.mesh import gather_state_dict
+    from bdm_db1_tpu_torch.train.step import micro_batch
+
+    cfg = model.cfg
+    with torch.no_grad():
+        h = model.embed_concat(micro_batch(batch, 0), with_targets=False)[0]
+    qlen = h.shape[1]
+    mask = same_length_mask(qlen, qlen, cfg.mem_len, device="cuda")
+    r = relative_positional_embedding(qlen, cfg.n_embed,
+                                      cfg.effective_clamp_len, device="cuda")
+    if not use_rel_kernel(cfg, qlen, qlen, "cuda"):
+        raise AssertionError("the tp layer check does not take K3")
+    gen = torch.Generator(device="cuda").manual_seed(TP_GRAD_SEED)
+    out = []
+    for li in TP_LAYERS:
+        g = torch.randn(h.shape, device="cuda", generator=gen).to(h.dtype)
+        got, dx, grads = _layer_grads(model.h[li], h, r, mask, g)
+        grads = gather_state_dict(grads, tp, cfg)
+        if one is not None:
+            want, dx1, grads1 = _layer_grads(one.h[li], h, r, mask, g)
+            out.append(dict(
+                layer=li,
+                rel_diff=float((got - want).abs().max() / want.abs().max()),
+                dx_rel_diff=float((dx - dx1).abs().max() / dx1.abs().max()),
+                params=len(grads1),
+                **_grad_agreement([grads.get(n) for n in grads1],
+                                  list(grads1.values()))))
+            del want, dx1, grads1
+        del got, dx, grads
+    return out
+
+
+def _tp_layers_ok(layers: list) -> bool:
+    """Each TP_LAYERS entry of ``_tp_layers`` within its gates."""
+    return (len(layers) == len(TP_LAYERS)
+            and all(x["rel_diff"] <= ATTN_REL_TOL
+                    and x["dx_rel_diff"] <= GRAD_REL_TOL
+                    and x["grad_cosine"] >= GRAD_COS_MIN
+                    and x["grad_norm_rel_diff"] <= GRAD_NORM_RTOL
+                    and x["params"] > 10 for x in layers))
+
+
+def _sgd_step(model, batch, alone: bool = False) -> float:
+    """One ``make_train_step`` step of ``model`` (its config's SGD) from
+    the seed-0 generator; the loss. ``alone``: blind to the process world,
+    as in a process of its own (a one-process reference inside a world)."""
+    from unittest import mock
+
+    from bdm_db1_tpu_torch.train import step as tstep
+
+    state = tstep.init_train_state(model, _tp_cfg("float32").train.optimizer,
+                                   1)
+    with mock.patch.object(tstep, "world_group",
+                           (lambda: None) if alone else tstep.world_group):
+        _, met = tstep.make_train_step(model)(
+            state, batch, torch.Generator(device="cuda").manual_seed(0))
+    return float(met["loss"])
+
+
+def _tp_reference_steps(model, one, tp, batch, weights: str) -> dict:
+    """The first step, not counted, from the weights: in f32 activations
+    on the tp model (its parameters put back afterwards) and, on rank 0,
+    on the one-process model, then the one-process step in bf16. Rank 0's
+    result: the f32 losses and the agreement of the f32 updates (the tp
+    parameters gathered whole), the one-process bf16 step's loss and its
+    update against the f32 one (how far bf16 alone moves it), and that
+    update on the host for the counted step to be held to."""
+    from bdm_db1_tpu_torch.parallel.mesh import gather_state_dict
+
+    snap = [p.detach().clone() for p in model.parameters()]
+    _set_dtype(model, "float32")
+    loss_tp = _sgd_step(model, batch)
+    # copies: the replicated parameters are put back below
+    after = gather_state_dict({n: p.detach().clone() for n, p in
+                               model.named_parameters()}, tp, model.cfg)
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), snap):
+            p.copy_(s)
+    del snap
+    _set_dtype(model, "bfloat16")
+    if one is None:
+        return {}
+    before = torch.load(weights, map_location="cpu", mmap=True)
+    out = {"f32": {"loss_tp": loss_tp}}
+    _set_dtype(one, "float32")
+    out["f32"]["loss_one_process"] = _sgd_step(one, batch, alone=True)
+    out["f32"]["update"] = _update_agreement(one, after, before)
+    del after
+    one32 = {n: p.detach().to("cpu", copy=True)
+             for n, p in one.named_parameters()}
+    with torch.no_grad():
+        for n, p in one.named_parameters():
+            p.copy_(before[n])
+    _set_dtype(one, "bfloat16")
+    loss16 = _sgd_step(one, batch, alone=True)
+    out["bf16"] = {"loss_one_process": loss16,
+                   "one_process_bf16_vs_f32_loss_abs_diff": abs(
+                       loss16 - out["f32"]["loss_one_process"]),
+                   "one_process_bf16_vs_f32_update": _update_agreement(
+                       one, one32, before)}
+    out["one_bf16_after"] = {n: p.detach().to("cpu", copy=True)
+                             for n, p in one.named_parameters()}
+    return out
+
+
+def _tp_train_rank(rank: int, world: int, weights: str, batch_file: str,
+                   ckpt_dir: str) -> dict:
+    """One rank of the tp 2 train world: its shard of the weights (rank 0
+    the whole model too, for the references). Three layers against the
+    one-process layers from one input (``_tp_layers``) and the reference
+    steps (``_tp_reference_steps``: the gated f32 step). Then one
+    ``make_train_step`` step on the whole batch (2 rows a micro-batch, no
+    dropout, SGD lr 1 without the clip) in bf16, counted and timed (its
+    first bf16 backward: not a rate), with its collectives recorded and
+    replayed alone, its update against the one-process bf16 update (gated
+    in the phase);
+    the collective save of step 1; a second step with the default dropout
+    rates, from the generator of data rank 0, and the replicated
+    parameters' bits exchanged."""
+    import torch.distributed as dist
+
+    from bdm_db1_tpu_torch.core.config import MeshConfig, db1_1p2b
+    from bdm_db1_tpu_torch.parallel.distributed import COLLECTIVES
+    from bdm_db1_tpu_torch.parallel.mesh import (
+        gather_state_dict, make_mesh, replicated, tensor_parallel,
+    )
+    from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
+    from bdm_db1_tpu_torch.train.step import (
+        init_train_state, make_train_rng, make_train_step,
+    )
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    stages, t0 = {}, time.perf_counter()
+    cfg = _tp_cfg("bfloat16")
+    tp = tensor_parallel(make_mesh(MeshConfig(model_parallel=world), "cuda"))
+    model = _tp_model(cfg, tp, weights)
+    one = _tp_model(_tp_cfg("bfloat16"), None, weights) if rank == 0 else None
+    with np.load(batch_file) as f:
+        batch = to_gato_batch({"rl": {k: f[k] for k in f.files}}, "cuda")
+    stages["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layers = _tp_layers(model, one, tp, batch)
+    stages["layers_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = _tp_reference_steps(model, one, tp, batch, weights)
+    stages["reference_steps_s"] = time.perf_counter() - t0
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = init_train_state(model, cfg.train.optimizer,
+                             cfg.train.train_iters)
+    step = make_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    log = _CollectiveLog()
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+    with log:
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    collectives = dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    alone_ms = log.replay_ms()
+    log.calls.clear()
+    after = gather_state_dict({n: p.detach() for n, p in
+                               model.named_parameters()}, tp, model.cfg)
+    if rank == 0:
+        one_after = ref.pop("one_bf16_after")
+        ref["bf16"]["loss_tp"] = loss
+        ref["bf16"]["loss_abs_diff"] = abs(
+            loss - ref["bf16"]["loss_one_process"])
+        ref["bf16"]["update"] = _delta_agreement(
+            after, one_after, torch.load(weights, map_location="cpu",
+                                         mmap=True))
+        del one_after
+    del after
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir).save(1, state, client_state={"iteration": 1})
+    save_s = time.perf_counter() - t0
+    bits = _param_bits(model)
+    # ---- the second step, with dropout (counted too) ---------------------
+    base = db1_1p2b().model
+    for name in ("drop", "embd_pdrop", "dropattn"):
+        setattr(model.cfg, name, getattr(base, name))
+    _reset_launches()
+    state, met = step(state, batch, make_train_rng(0, "cuda", tp.data_rank))
+    loss2 = float(met["loss"])
+    torch.cuda.synchronize()
+    launches2 = _read_launches()
+    # ----------------------------------------------------------------------
+    mine = {n: b for n, b in _param_bits(model).items() if replicated(n)}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    return {"rank": rank, "coords": [tp.data_rank, tp.rank], "loss": loss,
+            "loss_dropout_step": loss2, "ref": ref,
+            "launches": launches, "launches_dropout_step": launches2,
+            "collectives": collectives,
+            "step_ms": step_ms, "step_ms_is": TP_NOTE,
+            "collectives_alone_ms": alone_ms,
+            "gloo_share": alone_ms / step_ms,
+            "max_memory_allocated_gb": peak / 1e9,
+            "checkpoint_save_s": save_s, "param_bits": bits,
+            "replicated_bitwise_equal_across_ranks": all(
+                e == mine for e in every),
+            "replicated_params": len(mine), "layers": layers,
+            "stages_s": stages}
+
+
+def _tp_prime_stream(seed: int, layout) -> list:
+    """TP_CHAIN_STEPS primes of TP_CHECK_B rows of the serve geometry: 17
+    seeded continuous observation tokens of ``layout`` and the
+    separator."""
+    rng = np.random.RandomState(seed)
+    return [np.concatenate([
+        layout.continuous_offset + rng.randint(
+            0, layout.num_continuous_bin, (TP_CHECK_B, 17)),
+        np.full((TP_CHECK_B, 1), layout.separator_id)], 1).astype(np.int64)
+        for _ in range(TP_CHAIN_STEPS)]
+
+
+@torch.no_grad()
+def _tp_decode_checks(model, primes) -> dict:
+    """The first action's logits [B, V] of the first prime over the zero
+    ring cache, and the greedy chain of an ``ActionDecoder`` over the
+    prime stream."""
+    from bdm_db1_tpu_torch.data.packing import action_flags_and_position_ids
+    from bdm_db1_tpu_torch.eval.decode import ActionDecoder
+
+    b, q = primes[0].shape
+    _, pos = action_flags_and_position_ids(q, q - 1, 6, 0)
+    cache = model.init_kv_cache_ring(b)
+    logits, _ = model.decode_rl_kv_ring(
+        torch.as_tensor(primes[0], device=model.device),
+        torch.as_tensor(np.broadcast_to(pos, (b, q)).copy(),
+                        device=model.device),
+        cache, model.precompute_rk(q))
+    dec = ActionDecoder(model, model.layout, q - 1, 6, False)
+    mems, acts = dec.init_mems(b), []
+    for p in primes:
+        a, mems = dec.decode(p, mems)
+        acts.append(a)
+    return {"logits": logits.float().cpu(), "actions": np.stack(acts)}
+
+
+@torch.no_grad()
+def _tp_ring_layers(model, one, tp, seed: int) -> list:
+    """TP_LAYERS of the ring decode from one input on the serve's route: a
+    seeded [TP_CHECK_B, q, D] input over a seeded one-layer ring cache
+    (cursor 5; int8 with its scales for an int8 model) at each of
+    TP_RING_WIDTHS, q = 256 (a slice of the expert prompt: the plain ring
+    branch), q = 24 (K2/K7) and q = 1 (K1/K6); the tp model reads its
+    heads' slice of the cache. Rank 0 (``one``, the one-process model)
+    runs the same layer: max |diff| / max |out| of the layer's output each
+    (rank 0's list)."""
+    from bdm_db1_tpu_torch.models.transformer_xl import quantize_kv_rows
+
+    cfg = model.cfg
+    B, M, H, Dh = TP_CHECK_B, cfg.mem_len, cfg.n_head, cfg.d_head
+    sl = slice(tp.rank * model.heads, (tp.rank + 1) * model.heads)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for q in TP_RING_WIDTHS:
+        x = torch.randn(B, q, cfg.n_embed, device=dev,
+                        generator=gen).to(model.dtype)
+        kv = torch.randn(2, 1, B, M, H, Dh, device=dev,
+                         generator=gen).to(model.dtype)
+        whole = {"k": kv[0], "v": kv[1], "cursor": 5}
+        if cfg.decode_cache_dtype == "int8":
+            for key in ("k", "v"):
+                whole[key], whole[key + "_scale"] = quantize_kv_rows(
+                    whole[key])
+        mine = {k: v if k == "cursor" else v[:, :, :, sl].contiguous()
+                for k, v in whole.items()}
+        mask, mask_s = model.ring_masks(q, 5, dev)
+        rk = model.precompute_rk(q)
+        rk_one = None if one is None else one.precompute_rk(q)
+        route = q <= 32      # the kernels take q <= 32, as the serve's gate
+        for li in TP_LAYERS:
+            got = model.h[li].forward_ring(x, rk[li], mine, 0, mask, mask_s,
+                                           route)[0].float()
+            if one is not None:
+                want = one.h[li].forward_ring(x, rk_one[li], whole, 0, mask,
+                                              mask_s, route)[0].float()
+                out.append({"q": q, "layer": li, "rel_diff": float(
+                    (got - want).abs().max() / want.abs().max())})
+    return out
+
+
+def _tp_serve_checks(cfgs: dict, mesh, rank: int, primes, seed: int
+                     ) -> dict:
+    """The served checkpoint on each rank as its shard (rank 0: the
+    one-process model too, the shard made from it): in bf16 the first
+    action's logits and the greedy chain (read) and ``_tp_ring_layers``;
+    on f32 copies the logits and the chain end to end; on the int8 leg's
+    copies (int8 cache and weights, the weights made after sharding) the
+    same bf16 readings and the ring layers."""
+    from bdm_db1_tpu_torch.eval.decode import shard_decode_params
+    from bdm_db1_tpu_torch.eval.evaluate_rl import load_params
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.parallel.mesh import tensor_parallel
+
+    tp = tensor_parallel(mesh)
+    cfg = cfgs["bf16"]
+    one = None
+    with contextlib.redirect_stdout(io.StringIO()):
+        if rank == 0:
+            one = TransformerXL(cfg.model, cfg.vocab, device="cuda")
+            load_params(cfg, one)
+            model = shard_decode_params(one, mesh)
+        else:
+            model = TransformerXL(cfg.model, cfg.vocab, device="cuda", tp=tp)
+            load_params(cfg, model)
+
+    def variant(m, c):
+        """A copy of ``m`` (a shard or the one-process model) under the
+        model config of ``c``."""
+        if m is None:
+            return None
+        out = TransformerXL(c.model, c.vocab, device="cuda", tp=m.tp)
+        out.load_state_dict(m.state_dict())
+        if c.model.decode_weight_dtype:
+            out.quantize_decode_weights()
+        return out
+
+    c32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32", param_dtype="float32"))
+    checks = {}
+    for name, c in (("bfloat16", None), ("float32", c32),
+                    ("int8", cfgs["int8"])):
+        m = model if c is None else variant(model, c)
+        o = one if c is None else variant(one, c)
+        res = {"tp": _tp_decode_checks(m, primes)}
+        if o is not None:
+            res["one"] = _tp_decode_checks(o, primes)
+        if name != "float32":
+            res["layers"] = _tp_ring_layers(m, o, tp, seed)
+        checks[name] = res
+        del m, o
+        gc.collect()
+        torch.cuda.empty_cache()
+    return checks
+
+
+def _tp_rank(rank: int, world: int, weights: str, batch_file: str,
+             ckpt_dir: str, cfgs: dict, primes: list, seed: int) -> dict:
+    """One rank of the tp 2 world: ``_tp_train_rank``, then the serve of
+    its checkpoint (``_tp_serve_rank``)."""
+    train = _tp_train_rank(rank, world, weights, batch_file, ckpt_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": train,
+            "serve": _tp_serve_rank(rank, world, cfgs, primes, seed)}
+
+
+def _tp_serve_rank(rank: int, world: int, cfgs: dict, primes: list,
+                   seed: int) -> dict:
+    """The serve on one rank of the tp 2 world: for each of ``cfgs``
+    (bf16; int8 cache and weights) ``evaluate_rl.main`` with
+    ``eval.sharded_decode`` (counted, its ring forwards recorded by
+    width); then ``_tp_serve_checks`` on the checkpoint they served
+    (compared on rank 0)."""
+    import collections
+
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.parallel.mesh import make_mesh
+
+    _register_eval_envs(seed)
+    widths = []
+    ring_forward = TransformerXL.ring_forward
+
+    def counting(self, h, *a, **kw):
+        widths.append(int(h.shape[1]))
+        return ring_forward(self, h, *a, **kw)
+
+    out = {"rank": rank}
+    for leg, cfg in cfgs.items():
+        widths.clear()
+        TransformerXL.ring_forward = counting
+        try:
+            # ---- the main path, counted ----------------------------------
+            _reset_launches()
+            t0 = time.perf_counter()
+            records = evaluate_rl.main(cfg, device="cuda:0")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            # --------------------------------------------------------------
+        finally:
+            TransformerXL.ring_forward = ring_forward
+        out[leg] = {"records": records, "launches": launches, "wall_s": wall,
+                    "forwards": dict(collections.Counter(widths))}
+    t0 = time.perf_counter()
+    checks = _tp_serve_checks(cfgs, make_mesh(cfgs["bf16"].mesh, "cuda"),
+                              rank, primes, seed)
+    out["checks_s"] = time.perf_counter() - t0
+    if rank == 0:
+        out["checks"] = _tp_compare(checks)
+    return out
+
+
+def _tp_compare(checks: dict) -> dict:
+    """``_tp_serve_checks``'s results, tp against one process: in each
+    model the first action's logits (max |diff|, and over max |logit|)
+    and the share of equal actions in the chain, the ring layers; the
+    one-process bf16 logits against its f32 copy's."""
+    out = {}
+    for name, c in checks.items():
+        d = (c["tp"]["logits"] - c["one"]["logits"]).abs().max()
+        out[name] = {
+            "logits_max_abs_diff": float(d),
+            "logits_rel_diff": float(d / c["one"]["logits"].abs().max()),
+            "actions_equal_share": float(np.mean(
+                c["tp"]["actions"] == c["one"]["actions"]))}
+        if "layers" in c:
+            out[name]["layers"] = c["layers"]
+    out["one_process_bf16_vs_f32_logits_max_abs_diff"] = float(
+        (checks["bfloat16"]["one"]["logits"]
+         - checks["float32"]["one"]["logits"]).abs().max())
+    return out
+
+
+def _tp_plan_ok(leg: dict, int8: bool) -> bool:
+    """The serve's launches are its ring forwards' plan: a K1 (K6) launch a
+    layer for every q = 1 forward, a K2 (K7) launch a layer for every
+    forward of 2..32 rows, and with int8 weights a K9 launch for each of
+    the four trunk matrices of every layer of every forward."""
+    f = {int(k): v for k, v in leg["forwards"].items()}
+    q1 = f.get(1, 0)
+    prime = sum(v for k, v in f.items() if 2 <= k <= 32)
+    L = 24
+    sfx = "_int8" if int8 else ""
+    want = {"flash_ring_decode" + sfx: L * q1,
+            "flash_ring_prime_ap" + sfx: L * prime}
+    if int8:
+        want["quant_matmul"] = 4 * L * sum(f.values())
+    return all(leg["launches"][k] == v for k, v in want.items()) and q1 > 0
+
+
+def phase_tensor_parallel(smi: str, seed: int = 0) -> dict:
+    """Tensor parallelism in a world of two processes on the one card (gloo;
+    NCCL refuses two ranks on one device), tp 2, dp 1, db1_1p2b at full
+    width and depth from weights this process saves. First every kernel
+    of the paths at a rank's shapes (H 8) against its plain version
+    (``_tp_kernels``). Then each rank takes one ``make_train_step`` step on
+    its shard (the train phase's first micro-batch cut to 2 rows, no
+    dropout, SGD lr 1 without the clip), in bf16: K3 = K4 = K5 = 24, the
+    tp checkpoint restored here in one process, its slices bit for bit
+    the ranks' parameters; a second step with the default dropout leaves
+    the replicated parameters bitwise equal on both ranks; three layers
+    from one input and one upstream gradient against the one-process
+    layers (``_tp_layers_ok``). The same first step in f32 activations:
+    the loss within DP_LOSS_TOL of the one-process f32 step and the update
+    (from its tp checkpoint) within TP_F32_UPDATE_COS_MIN and
+    TP_F32_UPDATE_NORM_RTOL; the bf16
+    step's update within TP_BF16_UPDATE_COS_MIN and
+    TP_BF16_UPDATE_NORM_RTOL of the one-process bf16 step's, its loss read
+    beside the one-process bf16 step's own distance from f32
+    (TP_ACTION_SHARE's comment says why). Then, in the same world,
+    ``evaluate_rl.main`` with ``eval.sharded_decode`` serves the bf16
+    checkpoint (the evaluate_rl phase's 40 envs, 4 steps, without the
+    expert prompt, whose 256-token slices would send 16 GB of f32 partial
+    sums through gloo; the ring layers hold such a slice), in bf16 and on
+    an int8 cache with int8 weights: each rank's launches the plan of its
+    ring forwards (bf16: K1 120 and K2 24 a step), the records finite and
+    written once; then on the served weights: the ring layers from one
+    input in the serve's dtypes at TP_RING_WIDTHS within ATTN_REL_TOL of
+    one process (the plain ring branch, K2/K7 and K1/K6; K9 on the int8
+    leg), and on f32 copies the first action's logits within
+    BUCKET_LOGIT_TOL and at least TP_ACTION_SHARE of a greedy
+    chain's actions equal to one process's."""
+    from bdm_db1_tpu_torch.ops import cuda_build
+    from bdm_db1_tpu_torch.parallel.mesh import shard_rule, shard_tensor
+    from bdm_db1_tpu_torch.train.checkpoint import load_model
+
+    cuda_build.build_libraries(SOURCES)      # once, before the ranks load
+    kernels = _tp_kernels()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        weights = os.path.join(work, "weights.pt")
+        batch_file = os.path.join(work, "batch.npz")
+        ckpt_dir = os.path.join(work, "ckpt")
+        _, model, _, loader = _train_setup(seed, drop=0.0, embd_pdrop=0.0,
+                                           dropattn=0.0)
+        try:
+            # one micro-batch of 2 rows: each step's collectives go
+            # through gloo on the one card
+            raw = {k: v[:1, :TP_MICRO]
+                   for k, v in next(loader)["rl"].items()}
+        finally:
+            loader.stop()
+        np.savez(batch_file, **raw)
+        torch.save({n: t.to("cpu", copy=True)
+                    for n, t in model.state_dict().items()}, weights)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the world: train, then serve (counted in each rank) ---------
+        cache_dir = os.path.join(work, "rl")
+        _register_eval_envs(seed, cache_dir)
+        cfgs = {}
+        # without the expert prompt: its 1,032-token prime sends 16 GB of
+        # f32 partial sums through gloo on the one card (the CPU tests
+        # serve the prompt under tensor parallelism)
+        for leg, over in (("bf16", {}),
+                          ("int8", dict(decode_cache_dtype="int8",
+                                        decode_weight_dtype="int8"))):
+            c = _eval_cfg(cache_dir, ckpt_dir, os.path.join(work, "out_" + leg))
+            c.model = dataclasses.replace(c.model, **over)
+            c.eval = dataclasses.replace(c.eval, sharded_decode=True,
+                                         decode_obs_buckets=True,
+                                         max_step_size=TP_SERVE_STEPS,
+                                         use_prompt=False)
+            c.mesh = dataclasses.replace(c.mesh, model_parallel=TP_WORLD)
+            cfgs[leg] = c
+        primes = _tp_prime_stream(seed + 1, cfgs["bf16"].vocab.layout())
+        t0 = time.perf_counter()
+        both = _run_world("_tp_rank", work, weights, batch_file, ckpt_dir,
+                          cfgs, primes, seed)
+        world_s = time.perf_counter() - t0
+        ranks = [r["train"] for r in both]
+        evals = [r["serve"] for r in both]
+        want = dict.fromkeys(ranks[0]["launches"], 0)
+        for name in ("flash_rel_attention", "flash_rel_attention_bwd_dq",
+                     "flash_rel_attention_bwd_dkv"):
+            want[name] = 24 * len(raw["label"])
+        layers = ranks[0]["layers"]
+        if not (all(r["launches"] == want == r["launches_dropout_step"]
+                    for r in ranks)
+                and [r["coords"] for r in ranks] == [[0, 0], [0, 1]]
+                and ranks[0]["loss"] == ranks[1]["loss"]
+                and all(r["replicated_bitwise_equal_across_ranks"]
+                        and r["replicated_params"] > 100 for r in ranks)
+                and _tp_layers_ok(layers)):
+            raise AssertionError(f"tensor-parallel ranks: "
+                                 f"{[{k: v for k, v in r.items() if k != 'param_bits'} for r in ranks]}")
+
+        # ---- the tp checkpoint, restored in one process ------------------
+        cfg = _tp_cfg("bfloat16")
+        model = _tp_model(cfg, None, weights)
+        t0 = time.perf_counter()
+        load_model(model, os.path.join(ckpt_dir, "1"))
+        restore_s = time.perf_counter() - t0
+        bad = []
+        for n, p in model.named_parameters():
+            rule = shard_rule(n, cfg.model)
+            for r in ranks:
+                part = p.detach() if rule is None else shard_tensor(
+                    p.detach(), *rule, r["coords"][1], TP_WORLD)
+                if int(part.view(torch.int32).sum(
+                        dtype=torch.int64)) != r["param_bits"][n]:
+                    bad.append((n, r["rank"]))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = ranks[0]["ref"]
+        f32 = ref["f32"]
+        loss_diff = abs(f32["loss_tp"] - f32["loss_one_process"])
+        agree = f32["update"]
+        train = {
+            "gated_f32": dict(f32, loss_abs_diff=loss_diff,
+                              loss_tol=DP_LOSS_TOL,
+                              update_tol={"cosine_min": TP_F32_UPDATE_COS_MIN,
+                                          "norm_rtol":
+                                          TP_F32_UPDATE_NORM_RTOL}),
+            "bf16": ref["bf16"],
+            "bf16_update_tol": {"cosine_min": TP_BF16_UPDATE_COS_MIN,
+                                "norm_rtol": TP_BF16_UPDATE_NORM_RTOL},
+            "layers_bf16": layers,
+            "layer_tol": {"out": ATTN_REL_TOL, "dx": GRAD_REL_TOL,
+                          "grad_cosine_min": GRAD_COS_MIN,
+                          "grad_norm_rtol": GRAD_NORM_RTOL},
+            "checkpoint_restore_one_process_s": restore_s}
+        agree16 = ref["bf16"]["update"]
+        if bad or not (loss_diff <= DP_LOSS_TOL
+                       and agree["update_cosine"] >= TP_F32_UPDATE_COS_MIN
+                       and agree["update_norm_rel_diff"]
+                       <= TP_F32_UPDATE_NORM_RTOL
+                       and agree16["update_cosine"] >= TP_BF16_UPDATE_COS_MIN
+                       and agree16["update_norm_rel_diff"]
+                       <= TP_BF16_UPDATE_NORM_RTOL):
+            raise AssertionError(f"tp step against the one-process step: "
+                                 f"{train}, checkpoint slices {bad[:4]}")
+
+        chk = evals[0]["checks"]
+        serve = {"checks": chk, "layer_tol": ATTN_REL_TOL,
+                 "f32_logit_tol": BUCKET_LOGIT_TOL,
+                 "checks_s": evals[0]["checks_s"]}
+        layers = chk["bfloat16"]["layers"] + chk["int8"]["layers"]
+        if not (len(layers) == 2 * len(TP_RING_WIDTHS) * len(TP_LAYERS)
+                and all(x["rel_diff"] <= ATTN_REL_TOL for x in layers)
+                and chk["float32"]["logits_rel_diff"] <= BUCKET_LOGIT_TOL
+                and chk["float32"]["actions_equal_share"]
+                >= TP_ACTION_SHARE):
+            raise AssertionError(f"sharded serve against one process: {chk}")
+        for leg, c in cfgs.items():
+            with open(os.path.join(c.train.save_dir, "results.output")) as f:
+                lines = f.read().splitlines()
+            recs = evals[0][leg]["records"]
+            ok = (all(e[leg]["records"] == recs for e in evals)
+                  and lines == [json.dumps(r) for r in recs]
+                  and [r["env"] for r in recs] == list(EVAL_ENVS)
+                  and all(np.isfinite(r["return_mean"])
+                          and r["num_trials"] == EVAL_TRIALS for r in recs)
+                  and all(_tp_plan_ok(e[leg], leg == "int8") for e in evals))
+            if leg == "bf16":
+                ok = ok and all(
+                    e[leg]["launches"]["flash_ring_decode"]
+                    == 24 * 5 * TP_SERVE_STEPS
+                    and e[leg]["launches"]["flash_ring_prime_ap"]
+                    == 24 * TP_SERVE_STEPS for e in evals)
+            serve[leg] = {
+                "ranks": [{k: e[leg][k] for k in ("launches", "wall_s",
+                                                   "forwards")}
+                          for e in evals],
+                "actions_per_sec": TP_SERVE_B * TP_SERVE_STEPS / max(
+                    e[leg]["wall_s"] for e in evals),
+                "records": recs}
+            if not ok:
+                raise AssertionError(f"sharded serve ({leg}): {serve[leg]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict.fromkeys(want, 0)
+    for r in ranks:
+        for k in launches:
+            launches[k] += r["launches"][k] + r["launches_dropout_step"][k]
+    for e in evals:
+        for leg in cfgs:
+            for k in launches:
+                launches[k] += e[leg]["launches"][k]
+    return {"phase": "tensor_parallel", "config": "db1_1p2b", "card": smi,
+            "world": TP_WORLD, "mesh": "(data 1, model 2)",
+            "backend": "gloo, the ranks on cuda:0", "dtype": "bfloat16",
+            "param_dtype": "float32", "optimizer": DP_OPT,
+            "micro_batch": TP_MICRO, "accum": len(raw["label"]),
+            "seq_length": raw["label"].shape[-1], "kernels_h8": kernels,
+            "ranks": [{k: v for k, v in r.items() if k != "param_bits"}
+                      for r in ranks],
+            "world_s": world_s, "train": train,
+            "serve": serve, "serve_envs": TP_SERVE_B,
+            "serve_steps": TP_SERVE_STEPS,
+            "launches": launches}
+
+
+TP_NCCL_WORLD = 4
+
+
+def _tp_nccl_rank(rank: int, world: int, cfg, seed: int) -> dict:
+    """One rank of the NCCL serve: ``evaluate_rl.main`` with
+    ``eval.sharded_decode`` on cuda:<rank>, counted, its ring forwards
+    recorded by width."""
+    import collections
+
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+
+    _register_eval_envs(seed)
+    widths = []
+    ring_forward = TransformerXL.ring_forward
+
+    def counting(self, h, *a, **kw):
+        widths.append(int(h.shape[1]))
+        return ring_forward(self, h, *a, **kw)
+
+    TransformerXL.ring_forward = counting
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        records = evaluate_rl.main(cfg, device=f"cuda:{rank}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        TransformerXL.ring_forward = ring_forward
+    return {"rank": rank, "records": records, "launches": launches,
+            "wall_s": wall, "forwards": dict(collections.Counter(widths)),
+            "backend": torch.distributed.get_backend()}
+
+
+def phase_tensor_parallel_nccl(smi: str, seed: int = 0) -> dict:
+    """Not in the default run (it needs TP_NCCL_WORLD cards): the sharded
+    serve over NCCL across the cards of one host, a process a card, tp 4
+    (4 of db1_1p2b's 16 heads a rank): ``evaluate_rl.main`` with
+    ``eval.sharded_decode`` on the evaluate_rl phase's 40 envs with the
+    expert prompt, TP_SERVE_STEPS steps, bf16, random weights from
+    ``eval.seed``. Checks each rank's launches against the plan of its
+    ring forwards (K1 120 and K2 24 a step), the ranks' records equal and
+    finite; reads the wall time and actions/sec."""
+    from bdm_db1_tpu_torch.ops import cuda_build
+
+    n = torch.cuda.device_count()
+    if n < TP_NCCL_WORLD:
+        raise SystemExit(f"tensor_parallel_nccl needs {TP_NCCL_WORLD} "
+                         f"cards; {n} visible")
+    cuda_build.build_libraries(SOURCES)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_nccl_")
+    try:
+        cache_dir = os.path.join(work, "rl")
+        _register_eval_envs(seed, cache_dir)
+        cfg = _eval_cfg(cache_dir, "", os.path.join(work, "out"))
+        cfg.eval = dataclasses.replace(cfg.eval, sharded_decode=True,
+                                       max_step_size=TP_SERVE_STEPS)
+        cfg.mesh = dataclasses.replace(cfg.mesh,
+                                       model_parallel=TP_NCCL_WORLD)
+        t0 = time.perf_counter()
+        ranks = _run_world("_tp_nccl_rank", work, cfg, seed,
+                           world=TP_NCCL_WORLD, backend="nccl")
+        world_s = time.perf_counter() - t0
+        recs = ranks[0]["records"]
+        ok = (all(r["records"][:len(EVAL_ENVS)] == recs[:len(EVAL_ENVS)]
+                  for r in ranks)
+              and all(np.isfinite(x["return_mean"])
+                      and x["num_trials"] == EVAL_TRIALS for x in recs)
+              and all(r["backend"] == "nccl" and _tp_plan_ok(r, False)
+                      and r["launches"]["flash_ring_decode"]
+                      == 24 * 5 * TP_SERVE_STEPS
+                      and r["launches"]["flash_ring_prime_ap"]
+                      == 24 * TP_SERVE_STEPS for r in ranks))
+        out = {"phase": "tensor_parallel_nccl", "config": "db1_1p2b",
+               "card": smi, "cards": n, "world": TP_NCCL_WORLD,
+               "mesh": f"(data 1, model {TP_NCCL_WORLD})",
+               "heads_a_rank": 16 // TP_NCCL_WORLD,
+               "envs": TP_SERVE_B, "steps": TP_SERVE_STEPS,
+               "ranks": [{k: r[k] for k in ("launches", "wall_s",
+                                            "forwards")} for r in ranks],
+               "actions_per_sec": TP_SERVE_B * TP_SERVE_STEPS / max(
+                   r["wall_s"] for r in ranks),
+               "world_s": world_s, "records": recs}
+        if not ok:
+            raise AssertionError(f"NCCL sharded serve: {out}")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # what each time of the K4/K5 rows of the kernels line is
 BWD_TIMES = {
     "ms": "the kernel alone: CUDA events around bare launches, on delta and "
@@ -5120,13 +6132,40 @@ BWD_TIMES = {
 RING_TURNS = ("old_ms", "turns_ms")
 
 
-def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
+def _tp_rows(tp: dict) -> dict:
+    """The tensor_parallel phase's kernel cases (``_tp_kernels``) by the
+    kernels line's names: K8 from the int8 prime's case, K4 and K5 each
+    from the backward's, K9 at qkv_net's 40 rows with every TP shape
+    under ``cases``."""
+    out = dict(tp)
+    k7 = tp["flash_ring_prime_ap_int8"]
+    out["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
+                                   max_abs_err=k7["k8_max_abs_err"])
+    bwd = out.pop("flash_rel_attention_bwd")
+    for which, grads in (("dq", ("dq",)),
+                         ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
+        out["flash_rel_attention_bwd_" + which] = dict(
+            bwd, **bwd[which], max_abs_err=max(bwd["abs_err"][n]
+                                               for n in grads))
+    qmm = tp["quant_matmul"]
+    out["quant_matmul"] = dict(qmm[0], cases=[
+        {k: c[k] for k in ("shape", "ms", "bound_ms", "bound_by",
+                           "library_ms", "plain_ms", "plan", "max_abs_err")}
+        for c in qmm])
+    return out
+
+
+def kernels_line(kernels: dict, launches: dict, alone: dict,
+                 tp: dict = None) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
     matrix, with every timed K9 shape under ``cases``) and its launches in
     the counted main-path runs of the same process. K8 is held by the
     kernels phase only: no main path runs it. ``alone``: the kernel-alone
-    ms per launch in the train profile (``kernel_alone_ms``)."""
+    ms per launch in the train profile (``kernel_alone_ms``). ``tp``: the
+    tensor_parallel phase's cases at a rank's shapes (H 8), on each row
+    as ``tp2_h8``."""
+    tp_rows = _tp_rows(tp) if tp else {}
     cases = kernels["cases"]
     pick = {name: cases[name][0] for name in cases}
     pick["quant_matmul"] = next(
@@ -5159,6 +6198,11 @@ def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
             "shape": case["shape"]})
         if name in alone:
             rows[-1]["train_profile_ms"] = alone[name]
+        if name in tp_rows:
+            c = tp_rows[name]
+            rows[-1]["tp2_h8"] = {k: c[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "cases") if k in c}
         rows[-1].update({k: case[k] for k in RING_TURNS if k in case})
         if name.startswith("flash_rel_attention_bwd"):
             rows[-1].update({k: case[k] for k in BWD_TIMES if k in case})
@@ -5175,7 +6219,9 @@ def kernels_line(kernels: dict, launches: dict, alone: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated, of " + ", ".join(
+                        PHASES + OPTIONAL_PHASES))
     ap.add_argument("--old-qmm", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/quant_matmul.cu: its K9 is "
                          "timed in turns with this tree's")
@@ -5198,7 +6244,7 @@ def main(argv=None) -> int:
                          "with it")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
     if "evaluate_rl" in phases and "train" not in phases:
@@ -5289,7 +6335,9 @@ def main(argv=None) -> int:
     for phase, fn in (("stateless", phase_stateless),
                       ("remat", phase_remat),
                       ("serve_preln", phase_serve_preln),
-                      ("data_parallel", phase_data_parallel)):
+                      ("data_parallel", phase_data_parallel),
+                      ("tensor_parallel", phase_tensor_parallel),
+                      ("tensor_parallel_nccl", phase_tensor_parallel_nccl)):
         if phase in phases:
             gc.collect()
             torch.cuda.empty_cache()
@@ -5304,7 +6352,8 @@ def main(argv=None) -> int:
                               for p in MAIN_PATHS)
                     for name in K_REPLACES}
         emit(kernels_line(results["kernels"], launches,
-                          results["train"]["kernel_alone_ms"]))
+                          results["train"]["kernel_alone_ms"],
+                          results["tensor_parallel"]["kernels_h8"]))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -305,7 +305,9 @@ def test_fake_discrete_env_matches_jax(kw):
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("sharded_decode", True, NotImplementedError, "item 9b"),
+    # sharded decode over a model_parallel (3) that does not divide
+    # db1_tiny's 4 heads: a rank cannot hold a fraction of a head
+    ("sharded_decode", True, ValueError, "n_head"),
     # a multi-process run without the launcher's rendezvous address raises
     # instead of evaluating in one process
     ("multihost", True, ValueError, "MASTER_ADDR")])
@@ -316,6 +318,8 @@ def test_unported_options_raise(field, value, error, match, monkeypatch):
     cfg.eval.decode_obs_buckets = False
     section = cfg.mesh if field == "multihost" else cfg.eval
     setattr(section, field, value)
+    if field == "sharded_decode":
+        cfg.mesh.model_parallel = 3
     with pytest.raises(error, match=match):
         ter.main(cfg, device="cpu")
 

@@ -321,3 +321,179 @@ def numpy_batch(accum: int, micro: int, seq: int, seed: int,
         "position_id": rng.randint(0, 60, shape).astype(np.int32),
         "loss_mask": (rng.rand(*shape) < dens).astype(np.float32),
         "label": rng.randint(0, 321, shape).astype(np.int32)}}
+
+
+# ---- tensor parallelism -----------------------------------------------------
+
+def tp_of(mesh_kw, sequence_sharded: bool = False):
+    """This process's ``TensorParallel`` in ``make_mesh(MeshConfig(
+    **mesh_kw))`` on the CPU."""
+    from bdm_db1_tpu_torch.core.config import MeshConfig
+    from bdm_db1_tpu_torch.parallel.mesh import make_mesh, tensor_parallel
+
+    return tensor_parallel(make_mesh(MeshConfig(**mesh_kw), "cpu"),
+                           sequence_sharded)
+
+
+def tp_model(state_dict, tp, **overrides):
+    """The port's db1_tiny in f32 on the CPU holding this rank's shard of
+    ``state_dict`` (a whole model's)."""
+    from bdm_db1_tpu_torch.core.config import db1_tiny
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.train.convert import load_into
+
+    cfg = db1_tiny(dtype="float32", **overrides)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cpu", tp=tp)
+    load_into(model, state_dict)
+    return model
+
+
+def _gathered(tensors: dict, tp, cfg) -> dict:
+    from bdm_db1_tpu_torch.parallel.mesh import gather_state_dict
+
+    return gather_state_dict(tensors, tp, cfg)
+
+
+def tp_step(rank, world, state_dict, raw, opt_kw, overrides, mesh_kw,
+            sequence_sharded):
+    """A tensor-parallel rank: the logits of its forward over the first
+    micro-batch of its data shard of ``raw``, then one ``make_train_step``
+    step; the loss, the grad norm, the gradients the optimizer was handed
+    and the parameters after, both gathered whole; its mesh coordinates."""
+    from bdm_db1_tpu_torch.core.config import OptimizerConfig
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    tp = tp_of(mesh_kw, sequence_sharded)
+    model = tp_model(state_dict, tp, **overrides)
+    whole = _gathered(model.state_dict(), tp, model.cfg)
+    roundtrip = whole.keys() == state_dict.keys() and all(
+        torch.equal(t, state_dict[n]) for n, t in whole.items())
+    mine = shard(raw, tp.data_rank, tp.data_size)
+    with torch.no_grad():
+        logits, _ = model(to_gato_batch(
+            {m: {k: v[0] for k, v in f.items()} for m, f in mine.items()},
+            "cpu"))
+    state = tstep.init_train_state(model, OptimizerConfig(**opt_kw), 20)
+    grads = {}
+    opt_step = state.optimizer.step
+
+    def keeping():
+        grads.update({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        opt_step()
+
+    state.optimizer.step = keeping
+    step = tstep.make_train_step(model, with_grad_norm=True)
+    state, met = step(state, to_gato_batch(mine, "cpu"), torch.Generator())
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return {"logits": logits, "loss": float(met["loss"]),
+            "grad_norm": float(met["grad_norm"]),
+            "grads": _gathered(grads, tp, model.cfg),
+            "params": _gathered(params, tp, model.cfg),
+            "coords": (tp.data_rank, tp.rank), "roundtrip": roundtrip}
+
+
+def tp_ce(rank, world, h, emb, labels, mask, valid, mesh_kw):
+    """The vocab-parallel fused CE of this rank's rows of ``emb``: the loss
+    and the gradients of h (whole) and of the rows (gathered)."""
+    from bdm_db1_tpu_torch.ops.fused_ce import masked_cross_entropy_fused
+    from bdm_db1_tpu_torch.parallel.mesh import gather_tensor, shard_tensor
+
+    tp = tp_of(mesh_kw)
+    h = h.clone().requires_grad_(True)
+    w = shard_tensor(emb, 0, 1, tp.rank, tp.size).requires_grad_(True)
+    loss = masked_cross_entropy_fused(h, w, labels, mask, valid, tp=tp)
+    loss.backward()
+    return {"loss": float(loss), "dh": h.grad,
+            "dw": gather_tensor(w.grad, (0, 1), tp), "rows": w.shape[0]}
+
+
+def tp_trainer(rank, world, state_dict, raw, cfg, mesh_kw):
+    """``Trainer.train()`` of a tensor-parallel model over this rank's data
+    shard of ``raw`` (the same batch each iteration), saving into
+    ``cfg.train.save_dir``; then a fresh Trainer's ``maybe_resume``. Each
+    step's loss, the replicated parameters (this rank's own) and the
+    whole parameters after, the generator state and the resumed
+    iteration."""
+    from bdm_db1_tpu_torch.parallel.mesh import replicated
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import Trainer
+
+    tp = tp_of(mesh_kw)
+    model = tp_model(state_dict, tp)
+    state = tstep.init_train_state(model, cfg.train.optimizer,
+                                   cfg.train.train_iters)
+    step = tstep.make_train_step(model)
+    losses = []
+
+    def recording(st, batch, gen):
+        st, met = step(st, batch, gen)
+        losses.append(float(met["loss"]))
+        return st, met
+
+    loader = FixedLoader(shard(raw, tp.data_rank, tp.data_size))
+    trainer = Trainer(cfg, model, recording, state, loader)
+    trainer.train()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    fresh = Trainer(cfg, model, step, tstep.init_train_state(
+        model, cfg.train.optimizer, cfg.train.train_iters), loader)
+    return {"losses": losses, "step": trainer.state.step,
+            "replicated": {n: p for n, p in params.items() if replicated(n)},
+            "params": _gathered(params, tp, model.cfg),
+            "generator": trainer.state.generator.get_state(),
+            "resumed_at": fresh.maybe_resume()}
+
+
+def _chain(decoder, primes, defer):
+    """The greedy actions of ``decoder`` over the prime stream ``primes``
+    (tests/test_speculative.py's ``_chain``)."""
+    mems = decoder.init_mems(primes[0].shape[0])
+    acts, deferred = [], None
+    for p in primes:
+        if defer:
+            a, mems = decoder.decode(p, mems, deferred_tok=deferred,
+                                     defer_last=True)
+            deferred = np.asarray(a)[..., -decoder.defer_width:]
+        else:
+            a, mems = decoder.decode(p, mems)
+        acts.append(np.asarray(a))
+    return acts
+
+
+def tp_chains(rank, world, state_dict, cases, mesh_kw):
+    """Greedy chains of the sharded decode, one a case: (model overrides,
+    obs length, action length, primes, defer). Each decoder is an
+    ``ActionDecoder(mesh=...)`` over this rank's shard (its int8 weights,
+    when the overrides ask for them, made after sharding, as
+    ``build_decoder_for_env`` makes them); with the first case's cache
+    shapes and the pool's sharing."""
+    from bdm_db1_tpu_torch.core.config import MeshConfig, db1_tiny
+    from bdm_db1_tpu_torch.eval.decode import (
+        ActionDecoder, DecoderPool, shard_decode_params,
+    )
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(**mesh_kw), "cpu")
+    out = {"chains": [], "cache": None}
+    for over, obs_len, act_len, primes, defer in cases:
+        cfg = db1_tiny(dtype="float32", **over)
+        full = TransformerXL(cfg.model, cfg.vocab, device="cpu")
+        full.load_state_dict(state_dict)
+        model = shard_decode_params(full, mesh)
+        if cfg.model.decode_weight_dtype:
+            model.quantize_decode_weights()
+        dec = ActionDecoder(model, cfg.vocab.layout(), obs_len, act_len,
+                            False, mesh=mesh)
+        assert dec.model is model
+        out["chains"].append(_chain(dec, primes, defer))
+        if out["cache"] is None:
+            mems = dec.init_mems(primes[0].shape[0])
+            out["cache"] = {k: tuple(v.shape) for k, v in mems.items()
+                            if k != "cursor"}
+            out["speculates"] = dec.speculates
+    pool = DecoderPool(full, mesh=mesh)
+    out["pool_sharded"] = pool.model is not full and pool.model.tp is not None
+    out["pool_heads"] = pool.model.heads
+    return out
