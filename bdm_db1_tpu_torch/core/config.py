@@ -137,10 +137,11 @@ class ModelConfig:
 @dataclass
 class MeshConfig:
     """The device mesh of the JAX package: DP = ``data`` axis, TP =
-    ``model`` axis, PP (> 1) a ``pipe`` axis. The port runs data
-    parallelism over its process world, a card a process
-    (parallel/mesh.py); tensor and pipeline parallelism are not ported
-    yet."""
+    ``model`` axis, PP (> 1) a ``pipe`` axis. The port lays the same mesh
+    over its process world, a card a process (parallel/mesh.py): data
+    parallelism over the data group, tensor parallelism over the model
+    group, the GPipe pipeline (parallel/pipeline.py) over the pipe
+    group."""
 
     data_parallel: int = -1  # -1: infer from device count / model_parallel
     model_parallel: int = 1

@@ -571,12 +571,14 @@ def gather_records(local: List[Dict], tp=None) -> List[Dict]:
     group. The JAX package's ``process_allgather`` of the record dicts
     would gather each leaf instead, and cannot carry the env names. Under
     tensor parallelism (``tp``, parallel/mesh.py ``TensorParallel``) the
-    ranks of a model group hold the same records: one copy a data group,
-    from its model rank 0 (world rank d * tp), in data-rank order."""
+    ranks of a data rank's block (its model group, and on a mesh with a
+    pipe axis the model groups of every stage) hold the same records: one
+    copy a data rank, from the first rank of its block (world rank
+    d * world / dp), in data-rank order."""
     if not (dist.is_available() and dist.is_initialized()):
         return local
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, local)
     if tp is not None:
-        gathered = gathered[::tp.size]
+        gathered = gathered[::len(gathered) // tp.data_size]
     return [r for rank in gathered for r in rank]

@@ -89,6 +89,15 @@ generator that the ranks of a model group share; a slice of heads or of
 the sequence draws the whole mask and keeps its part), so nothing is drawn
 per model rank and the replicas never part.
 
+Pipeline parallelism (``pp``, parallel/mesh.py ``PipelineParallel``): a
+stage's model holds its layers, under their global names (``h.12.*`` on
+stage 1 of 2 at 24 layers, :class:`StageLayers`), and the parameters the
+JAX package replicates over "pipe" (the embeddings, the head, the shared
+``r_w_bias``/``r_r_bias``, the vision tower). Its random init is the
+one-process init's share. parallel/pipeline.py runs the stages; the
+whole-stack forwards (the trunk, the ring and aligned decodes) refuse a
+stage.
+
 Rematerialization (``remat``, in grad mode): each layer runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward pass, keeping
 what ``remat_policy`` names: nothing ("full"), the products without a batch
@@ -140,8 +149,8 @@ from bdm_db1_tpu_torch.parallel.distributed import (
     reduce_from_tp, reduce_scatter_tp, scatter_to_tp,
 )
 from bdm_db1_tpu_torch.parallel.mesh import (
-    TensorParallel, check_tensor_parallel, ring_cache_shardings, shard_rule,
-    shard_tensor,
+    PipelineParallel, TensorParallel, check_pipeline_parallel,
+    check_tensor_parallel, ring_cache_shardings, shard_rule, shard_tensor,
 )
 
 Tensor = torch.Tensor
@@ -711,6 +720,21 @@ class DecoderLayer(nn.Module):
         return self.pos_ff(a._residual(x, attn)), k_x, v_x
 
 
+class StageLayers(nn.ModuleList):
+    """Layers ``start``, ``start + 1``, ... of the stack, registered under
+    those global indices, so that a pipeline stage's state dict keeps the
+    one-process names; indexing and iteration are local."""
+
+    def __init__(self, layers, start: int = 0):
+        super().__init__()
+        self.start = start
+        for i, layer in enumerate(layers):
+            self.add_module(str(start + i), layer)
+
+    def _get_abs_string_index(self, idx):
+        return str(self.start + int(super()._get_abs_string_index(idx)))
+
+
 class TransformerXL(nn.Module):
     """The decoder. ``device`` defaults to the card and CUDA is never
     swapped for the CPU: asking for it where there is none raises. Weights
@@ -721,12 +745,16 @@ class TransformerXL(nn.Module):
     parallelism) the model holds this rank's shards, and a ``tp.size``
     that does not divide the heads, the FF width or the padded vocab
     raises ``ValueError``; its random init is the slice of the one-process
-    init from the same generator."""
+    init from the same generator. With ``pp`` (a pipeline stage) it holds
+    the stage's layers (``pp.layers``) and the replicated parameters, a
+    stage count that does not divide ``n_layer`` raises ``ValueError``,
+    and its random init is the one-process init's share."""
 
     def __init__(self, cfg: ModelConfig, vocab: VocabConfig, *,
                  vision: Optional[VisionConfig] = None,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None,
+                 pp: Optional[PipelineParallel] = None):
         super().__init__()
         for name, val, ok in (
                 ("decode_cache_dtype", cfg.decode_cache_dtype, ("", "int8")),
@@ -748,7 +776,10 @@ class TransformerXL(nn.Module):
         d = cfg.n_embed
         n = 1 if tp is None else tp.size
         check_tensor_parallel(cfg, self.layout.padded_vocab_size, n)
+        if pp is not None:
+            check_pipeline_parallel(cfg.n_layer, pp.size)
         self.tp = tp
+        self.pp = pp
         # this rank's heads and vocab rows (all of them without tp)
         self.heads = cfg.n_head // n
         V = self.layout.padded_vocab_size // n
@@ -763,12 +794,14 @@ class TransformerXL(nn.Module):
                 torch.empty(self.heads, cfg.d_head, device=dev, dtype=pdt))
             self.r_r_bias = nn.Parameter(
                 torch.empty(self.heads, cfg.d_head, device=dev, dtype=pdt))
-        self.h = nn.ModuleList(
-            DecoderLayer(cfg, dev, pdt, tp) for _ in range(cfg.n_layer))
-        if not cfg.untie_r:
-            for layer in self.h:  # one shared pair, listed under every layer
-                layer.dec_attn.r_w_bias = self.r_w_bias
-                layer.dec_attn.r_r_bias = self.r_r_bias
+        if pp is None:
+            self.h = nn.ModuleList(
+                DecoderLayer(cfg, dev, pdt, tp) for _ in range(cfg.n_layer))
+        else:
+            ids = pp.layers(cfg.n_layer)
+            self.h = StageLayers([DecoderLayer(cfg, dev, pdt, tp)
+                                  for _ in ids], ids.start)
+        self.share_r_bias()
         if not cfg.share_input_output_embedding:
             self.lm_head = _linear(d, V, False, dev, pdt)
         self.vision_encoder = VisionEmbedding(cfg, self.vision, dev, pdt)
@@ -779,6 +812,15 @@ class TransformerXL(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.word_embedding.weight.device
+
+    def share_r_bias(self) -> None:
+        """Without ``cfg.untie_r``: one shared r_w_bias/r_r_bias pair,
+        listed under every layer (again after ``to_empty``, which gives
+        each module a parameter of its own)."""
+        if not self.cfg.untie_r:
+            for layer in self.h:
+                layer.dec_attn.r_w_bias = self.r_w_bias
+                layer.dec_attn.r_r_bias = self.r_r_bias
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -804,15 +846,23 @@ class TransformerXL(nn.Module):
         if not cfg.untie_r:
             normal(self.r_w_bias, "r_w_bias")
             normal(self.r_r_bias, "r_r_bias")
-        for layer in self.h:
+        # a pipeline stage draws the other stages' layers too, into
+        # scratch tensors, so that its own draws are the one-process ones
+        start = getattr(self.h, "start", 0)
+        for i in range(cfg.n_layer):
+            held = start <= i < start + len(self.h)
+            layer = self.h[i - start if held else 0]
             a, f = layer.dec_attn, layer.pos_ff
+            drawn = [(lin.weight, name + ".weight") for lin, name in (
+                (a.qkv_net, "qkv_net"), (a.r_net, "r_net"),
+                (a.o_net, "o_net"), (f.CoreNet[0], "CoreNet.0"),
+                (f.CoreNet[2], "CoreNet.2"))]
             if cfg.untie_r:
-                normal(a.r_w_bias, "r_w_bias")
-                normal(a.r_r_bias, "r_r_bias")
-            for lin, name in ((a.qkv_net, "qkv_net"), (a.r_net, "r_net"),
-                              (a.o_net, "o_net"), (f.CoreNet[0], "CoreNet.0"),
-                              (f.CoreNet[2], "CoreNet.2")):
-                normal(lin.weight, name + ".weight")
+                drawn[:0] = [(a.r_w_bias, "r_w_bias"), (a.r_r_bias, "r_r_bias")]
+            for p, name in drawn:
+                normal(p if held else torch.empty_like(p), name)
+            if not held:
+                continue
             for lin in (f.CoreNet[0], f.CoreNet[2]):
                 lin.bias.zero_()
             for ln in (a.layer_norm, f.layer_norm):
@@ -896,18 +946,10 @@ class TransformerXL(nn.Module):
         rows]``. An unknown group key raises ``ValueError`` where the JAX
         package drops it. With ``deterministic=False`` the patch positions
         draw from ``generator``."""
-        names = [n for n in MODALITY_ORDER if n in batch]
-        names += sorted(k for k in batch if k not in MODALITY_ORDER)
-        embs, masks, labels = [], [], []
-        for name in names:
+        embs = []
+        for name in self._groups(batch):
             base = name.split("_")[0]
-            if base not in MODALITY_ORDER:
-                raise ValueError(f"unknown modality group {name!r}; the "
-                                 f"groups are {MODALITY_ORDER} and their "
-                                 "'<group>_<suffix>' sub-groups")
             sub = batch[name]
-            if sub is None:
-                continue
             if base == "nlp":
                 embs.append(self.embed_nlp(sub.tokens))
             elif base == "rl":
@@ -917,13 +959,31 @@ class TransformerXL(nn.Module):
             else:                                       # "ic", "vqa"
                 embs.append(self.embed_ic(sub.prompt, sub.images, sub.text,
                                           deterministic, generator))
-            if with_targets:
-                masks.append(sub.loss_mask)
-                labels.append(sub.label.clamp(min=0))
         h = torch.cat(embs, dim=0) if len(embs) > 1 else embs[0]
         if not with_targets:
             return h, None, None
-        return h, torch.cat(masks, dim=0).float(), torch.cat(labels, dim=0)
+        return (h, *self.concat_targets(batch))
+
+    @staticmethod
+    def _groups(batch: GatoBatch) -> list:
+        """The batch's groups that hold rows, in ``embed_concat``'s order;
+        an unknown group key raises ``ValueError``."""
+        names = [n for n in MODALITY_ORDER if n in batch]
+        names += sorted(k for k in batch if k not in MODALITY_ORDER)
+        for name in names:
+            if name.split("_")[0] not in MODALITY_ORDER:
+                raise ValueError(f"unknown modality group {name!r}; the "
+                                 f"groups are {MODALITY_ORDER} and their "
+                                 "'<group>_<suffix>' sub-groups")
+        return [n for n in names if batch[n] is not None]
+
+    def concat_targets(self, batch: GatoBatch) -> Tuple[Tensor, Tensor]:
+        """(loss_mask f32, label clamped at 0) of every group, concatenated
+        in ``embed_concat``'s order (what a pipeline's last stage needs of
+        a batch)."""
+        subs = [batch[n] for n in self._groups(batch)]
+        return (torch.cat([s.loss_mask for s in subs], dim=0).float(),
+                torch.cat([s.label.clamp(min=0) for s in subs], dim=0))
 
     def loss_from_hidden(self, h: Tensor, loss_mask: Tensor,
                          label: Tensor, count: Optional[Tensor] = None
@@ -961,6 +1021,7 @@ class TransformerXL(nn.Module):
         grad mode each layer is checkpointed (:func:`_remat_layer`). Under
         the sequence-sharded option without mems each rank runs the layers
         on its slice of the sequence, gathered at the end."""
+        self._whole_stack()
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         drop = None
@@ -983,30 +1044,56 @@ class TransformerXL(nn.Module):
         use_kernel = use_rel_kernel(
             cfg, qlen, klen, dev,
             use_dropatt=drop is not None and cfg.dropattn > 0.0)
+        if mems is None:
+            return self.run_layers(h, r, mask, use_kernel, drop), None
+        hids = []
+        for i, layer in enumerate(self.h):
+            mem = mems[i].to(self.dtype)
+            hids.append(h)
+            if remat:
+                h = _remat_layer(layer, h, mem, r, mask, use_kernel, drop)
+            else:
+                h = layer(h, mem, r, mask, use_kernel, drop)
+        cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
+        return h, cat[:, :, -cfg.mem_len:]
+
+    def run_layers(self, h: Tensor, r: Tensor, mask: Tensor,
+                   use_kernel: bool,
+                   drop: Optional[torch.Generator] = None) -> Tensor:
+        """The layers this model holds, in order, over h [B, q, D] without
+        memory (the trunk's loop; a pipeline stage's share of it):
+        checkpointed under ``cfg.remat`` in grad mode, and under the
+        sequence-sharded option run on this rank's slice of the sequence,
+        gathered at the end."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
         tp = self.tp
-        sp = tp is not None and tp.sequence_sharded and mems is None
+        sp = tp is not None and tp.sequence_sharded
         if sp:
+            qlen = h.shape[1]
             if qlen % tp.size:
                 raise ValueError(
                     f"the sequence-sharded trunk splits the sequence over "
                     f"{tp.size} ranks; its length {qlen} does not divide")
             h = scatter_to_tp(h, tp.group, 1)
-        hids = []
-        for i, layer in enumerate(self.h):
-            mem = None
-            if mems is not None:
-                mem = mems[i].to(self.dtype)
-                hids.append(h)
+        for layer in self.h:
             if remat:
-                h = _remat_layer(layer, h, mem, r, mask, use_kernel, drop)
+                h = _remat_layer(layer, h, None, r, mask, use_kernel, drop)
             else:
-                h = layer(h, mem, r, mask, use_kernel, drop)
+                h = layer(h, None, r, mask, use_kernel, drop)
         if sp:
             h = gather_from_tp(h, tp.group, 1)
-        if mems is None:
-            return h, None
-        cat = torch.cat([mems.to(self.dtype), torch.stack(hids)], dim=2)
-        return h, cat[:, :, -cfg.mem_len:]
+        return h
+
+    def _whole_stack(self) -> None:
+        """``ValueError`` on a pipeline stage, which holds a share of the
+        layers: parallel/pipeline.py runs it."""
+        if self.pp is not None:
+            ids = self.pp.layers(self.cfg.n_layer)
+            raise ValueError(
+                f"this model is pipeline stage {self.pp.stage}, holding "
+                f"layers [{ids.start}, {ids.stop}); parallel/pipeline.py "
+                "runs the stages (gather_stages gives stage 0 the whole "
+                "model)")
 
     def forward(self, batch: GatoBatch, mems: Optional[Tensor] = None,
                 compute_loss: bool = True, deterministic: bool = True,
@@ -1179,7 +1266,7 @@ class TransformerXL(nn.Module):
         rows, which the next forward still attends) keep their values. The
         real rows come first and the attention is causal, so they never see
         the pads, and the masks are row-index arithmetic: the real rows'
-        outputs equal an unpadded forward's.
+        outputs equal an unpadded forward's. A pipeline stage raises.
 
         ``spec_tail`` S > 0 (speculative decode) makes the last S rows, or
         with ``real_q`` the S rows after the real ones ([real || guesses ||
@@ -1189,6 +1276,7 @@ class TransformerXL(nn.Module):
         logits are then those of every row from the last committed one on:
         [B, S + 1, V], or [B, q, V] when nothing commits (q == S: a verify
         forward, which returns the cache untouched)."""
+        self._whole_stack()
         cfg = self.cfg
         M = cfg.mem_len
         qlen = h.shape[1]
@@ -1269,7 +1357,8 @@ class TransformerXL(nn.Module):
         rows] by the trunk's route (:func:`use_rel_kernel`: K3 on the
         card), and its cache becomes the trailing mem_len rows of them.
         Returns (last-position logits [B, V] f32, the new aligned cache,
-        cursor 0)."""
+        cursor 0). A pipeline stage raises."""
+        self._whole_stack()
         cfg = self.cfg
         M = cfg.mem_len
         qlen = h.shape[1]

@@ -7,7 +7,9 @@ shape and names (:func:`mesh_shape`) and builds a
 ``torch.distributed.device_mesh.DeviceMesh`` over the process world
 (:func:`make_mesh`). Data parallelism alone runs over the whole world and
 needs no mesh; tensor parallelism takes the mesh's "data" and "model"
-groups (:class:`TensorParallel`).
+groups (:class:`TensorParallel`), the pipeline its "data" and "pipe"
+groups (:class:`PipelineParallel`): rank r sits at (d, s, t) with
+r = (d * pp + s) * tp + t, JAX's row-major layout.
 
 The port has one device a process, so a sharded weight is explicit: each
 rank's modules hold only its shard, made by the placement helpers below
@@ -72,9 +74,11 @@ def mesh_shape(cfg: MeshConfig, world: int
 def make_mesh(cfg: MeshConfig, device_type: str = "cuda"):
     """A ``DeviceMesh`` of :func:`mesh_shape` over the process world (one
     device a process), under the default process group, which must be up;
-    ``mesh.get_group("data")`` is the data-parallel group and
-    ``mesh.get_group("model")`` the tensor-parallel one. Rank r sits at
-    (r // tp, r % tp), JAX's row-major (dp, tp) layout."""
+    ``mesh.get_group("data")`` is the data-parallel group,
+    ``mesh.get_group("model")`` the tensor-parallel one and, with more
+    than one stage, ``mesh.get_group("pipe")`` the pipeline's. Rank r sits
+    at (r // tp, r % tp), JAX's row-major (dp, tp) layout, or at (d, s, t)
+    with r = (d * pp + s) * tp + t on a (dp, pp, tp) mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -253,17 +257,28 @@ def gather_state_dict(local: Mapping[str, torch.Tensor], tp: TensorParallel,
             for n, t in local.items()}
 
 
-def batch_sharding(tp: Optional[TensorParallel]) -> Tuple[int, int]:
+def batch_sharding(par) -> Tuple[int, int]:
     """(index, count) of this process's share of a global batch or of the
-    env list: its data rank, so the ranks of one model group read the same
-    rows (the world rank without tensor parallelism)."""
-    if tp is not None:
-        return tp.data_rank, tp.data_size
+    env list: the data rank of ``par`` (a :class:`TensorParallel` or
+    :class:`PipelineParallel`, or None), so the ranks of one model group
+    and of one pipeline read the same rows (the world rank without
+    either)."""
+    if par is not None:
+        return par.data_rank, par.data_size
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def data_axis(tp: Optional[TensorParallel],
+              pp: Optional[PipelineParallel]):
+    """What a batch is sharded by (:func:`batch_sharding`) and its
+    gradients are summed over (``data_group``): the pipeline place ``pp``,
+    else the tensor-parallel place ``tp``, else None. Under both they
+    share one data group."""
+    return pp if pp is not None else tp
 
 
 def ring_cache_shardings(cfg: ModelConfig, batch_size: int,
@@ -276,3 +291,99 @@ def ring_cache_shardings(cfg: ModelConfig, batch_size: int,
     shape = (cfg.n_layer, batch_size, cfg.mem_len, h, cfg.d_head)
     return {"k": shape, "v": shape, "k_scale": shape[:-1],
             "v_scale": shape[:-1]}
+
+
+# ---- pipeline parallelism: a stage's layers --------------------------------
+
+def check_pipeline_parallel(n_layer: int, size: int) -> None:
+    """``ValueError`` naming ``n_layer`` when ``size`` stages cannot hold
+    equal shares of the layer stack (the JAX ``pipeline_trunk`` asserts
+    it)."""
+    if n_layer % size:
+        raise ValueError(
+            f"mesh.pipeline_parallel = {size} does not divide n_layer "
+            f"({n_layer}): each stage holds n_layer / stages layers")
+
+
+def stage_layers(n_layer: int, stage: int, size: int) -> range:
+    """The global indices of the layers stage ``stage`` of ``size`` holds:
+    [s * n_layer / S, (s + 1) * n_layer / S)."""
+    check_pipeline_parallel(n_layer, size)
+    n = n_layer // size
+    return range(stage * n, (stage + 1) * n)
+
+
+def pipe_replicated(name: str) -> bool:
+    """Whether the parameter (or buffer) ``name`` is whole on every stage
+    (the embeddings, the head, the shared r_w_bias/r_r_bias, the vision
+    tower, as JAX replicates them over "pipe"); a layer's (``h.{i}.*``)
+    lives on one stage."""
+    return not name.startswith("h.")
+
+
+def layer_index(name: str) -> Optional[int]:
+    """The global layer index of a layer's tensor (``h.{i}.*``), else
+    None."""
+    return int(name.split(".")[1]) if name.startswith("h.") else None
+
+
+def stage_state_dict(full: Mapping[str, torch.Tensor], pp,
+                     n_layer: int) -> Dict[str, torch.Tensor]:
+    """A pipeline stage's entries of a whole state dict: the replicated
+    tensors and its own layers' (:func:`stage_layers`)."""
+    ids = pp.layers(n_layer)
+    return {n: t for n, t in full.items()
+            if pipe_replicated(n) or layer_index(n) in ids}
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineParallel:
+    """This process's place in a (data, pipe, model) mesh: ``stage`` of
+    ``size`` stages, the pipe ``group`` (the ranks at the same (d, t),
+    one a stage), the world ranks of the stages before and after it
+    (None at the ends), the data group (the ranks at the same (s, t)),
+    and ``n_micro``, the pipeline micro-batches a micro-batch is split
+    into."""
+
+    stage: int
+    size: int
+    group: object = None
+    prev_rank: Optional[int] = None
+    next_rank: Optional[int] = None
+    data_rank: int = 0
+    data_size: int = 1
+    data_group: object = None
+    n_micro: int = 2
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.size - 1
+
+    def layers(self, n_layer: int) -> range:
+        return stage_layers(n_layer, self.stage, self.size)
+
+
+def pipeline_parallel(mesh, microbatches: int = -1) -> PipelineParallel:
+    """The :class:`PipelineParallel` of this process in ``mesh`` (a
+    ``DeviceMesh`` named ("data", "pipe", "model")); ``microbatches`` > 0
+    sets ``n_micro``, otherwise it is twice the stages (the JAX
+    ``make_sharded_train_step``'s default)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group("pipe")
+    stage = mesh.get_local_rank("pipe")
+    size = mesh.size(mesh.mesh_dim_names.index("pipe"))
+    return PipelineParallel(
+        stage=stage, size=size, group=group,
+        prev_rank=(dist.get_global_rank(group, stage - 1) if stage > 0
+                   else None),
+        next_rank=(dist.get_global_rank(group, stage + 1)
+                   if stage < size - 1 else None),
+        data_rank=mesh.get_local_rank("data"),
+        data_size=mesh.size(mesh.mesh_dim_names.index("data")),
+        data_group=mesh.get_group("data"),
+        n_micro=microbatches if microbatches > 0 else 2 * size)

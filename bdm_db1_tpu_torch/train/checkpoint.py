@@ -36,6 +36,11 @@ slices into the state. The files are those of a one-process run, so a
 tensor-parallel world's checkpoint restores in one process and the
 reverse, and onto another ``model_parallel``, as an orbax checkpoint
 restores onto another mesh.
+
+A pipeline stage's state (``state.model.pp``) holds its own layers under
+their global names and the replicated tensors: dcp writes the union of
+the stages' tensors, each once, so the files are again a one-process
+run's, and a stage restores its own keys from them.
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from bdm_db1_tpu_torch.core.config import DB1Config
-from bdm_db1_tpu_torch.parallel.mesh import shard_state_dict
+from bdm_db1_tpu_torch.parallel.mesh import shard_state_dict, stage_state_dict
 
 VISION_KEY = "vision"
 VISION_PREFIX = "vision_encoder."
@@ -137,8 +137,13 @@ def load_into(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]
     """``model.load_state_dict(sd)`` (cast to the model's dtypes and
     device), strict except that the vision tower may be absent as a whole:
     then it stays at its init and its names are returned (else []). ``sd``
-    is a whole model's; a tensor-parallel model (``model.tp``) loads this
-    rank's shard of it (parallel/mesh.py ``shard_state_dict``)."""
+    is a whole model's; a pipeline stage (``model.pp``) loads its layers
+    and the replicated tensors of it (parallel/mesh.py
+    ``stage_state_dict``), a tensor-parallel model (``model.tp``) this
+    rank's shard of that (``shard_state_dict``)."""
+    pp = getattr(model, "pp", None)
+    if pp is not None:
+        sd = stage_state_dict(sd, pp, model.cfg.n_layer)
     tp = getattr(model, "tp", None)
     if tp is not None:
         sd = shard_state_dict(sd, tp, model.cfg)

@@ -42,13 +42,27 @@ tensors:
     torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.train.pretrain \
         --mesh.model-parallel 2 ...
 
-Not ported (``NotImplementedError``): the pipeline
-(``mesh.pipeline_parallel`` > 1, ROADMAP queue 1 item 9c).
+Pipeline parallelism: ``--mesh.pipeline-parallel 2`` lays the world out as
+JAX's (dp, pp, tp) mesh, rank r at (d, s, t) with r = (d * pp + s) * tp +
+t; the world must hold dp x pp x tp processes and pp must divide
+``model.n_layer``. Stage s holds its share of the layers and the
+replicated parameters (the seeded init's share), each micro-batch runs
+the GPipe schedule of parallel/pipeline.py over ``mesh.pipeline_microbatches``
+pipeline micro-batches (2 x pp when not positive), the loader shards by
+data rank, and checkpoints hold whole tensors. The eval hook runs the
+validation loss through the stages; for the RL rollouts and the caption
+and VQA metrics the stages of data rank 0 send their layers to stage 0
+(``gather_stages``, collective over each pipe group), whose model group
+runs them on the whole model, with the same envs and seeds as one
+process:
+
+    torchrun --nproc-per-node 8 -m bdm_db1_tpu_torch.train.pretrain \
+        --mesh.pipeline-parallel 2 [--mesh.model-parallel 2] ...
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -82,9 +96,11 @@ from bdm_db1_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed, rank_and_world, world_group,
 )
 from bdm_db1_tpu_torch.parallel.mesh import (
-    TensorParallel, batch_sharding, check_tensor_parallel, make_mesh,
-    tensor_parallel,
+    PipelineParallel, TensorParallel, batch_sharding,
+    check_pipeline_parallel, check_tensor_parallel, data_axis, make_mesh,
+    pipeline_parallel, tensor_parallel,
 )
+from bdm_db1_tpu_torch.parallel.pipeline import gather_stages
 from bdm_db1_tpu_torch.tokenizers.scalar import ScalarTokenizer
 from bdm_db1_tpu_torch.tokenizers.text import build_text_tokenizer
 from bdm_db1_tpu_torch.train.step import init_train_state, make_train_step
@@ -109,15 +125,16 @@ def build_tokenizer_suite(cfg: DB1Config) -> RLTokenizerSuite:
 
 def build_loader(cfg: DB1Config, datasets_by_modality: Dict[str, object],
                  weights: Dict[str, float],
-                 tp: Optional[TensorParallel] = None) -> StratifiedGatoLoader:
+                 tp=None) -> StratifiedGatoLoader:
     """This process's loader (one card a process): {modality: {field:
     [accum, micro, ...]}} with the fixed ``mixture_counts`` of the weights
     over ``train.micro_batch_size``, accum = global batch / (micro x
     data-parallel processes), one ``RandomSampler`` a group from the start
     of the stream (seed ``train.seed``, sharded by the data rank: the
     ``torch.distributed`` rank when a process group is up, ``tp.data_rank``
-    under tensor parallelism, whose model group reads the same rows) and
-    ``data.num_workers`` threads."""
+    under tensor or pipeline parallelism (``tp`` a ``TensorParallel`` or
+    ``PipelineParallel``), whose model group and pipeline read the same
+    rows) and ``data.num_workers`` threads."""
     proc, n_proc = batch_sharding(tp)
     micro = cfg.train.micro_batch_size
     counts = mixture_counts(weights, micro)
@@ -164,42 +181,53 @@ def group_by_modality(train_ds):
 
 
 def check_mesh(cfg: DB1Config) -> None:
-    """A ``mesh.model_parallel`` that cannot split the model raises
-    ``ValueError`` naming the field (parallel/mesh.py
-    ``check_tensor_parallel``); the pipeline raises
-    ``NotImplementedError``."""
+    """A ``mesh.model_parallel`` that cannot split the model, or a
+    ``mesh.pipeline_parallel`` that does not divide ``model.n_layer``,
+    raises ``ValueError`` naming the field (parallel/mesh.py
+    ``check_tensor_parallel``, ``check_pipeline_parallel``)."""
     m = cfg.mesh
     if m.model_parallel > 1:
         check_tensor_parallel(cfg.model, cfg.vocab.layout().padded_vocab_size,
                               m.model_parallel)
     if m.pipeline_parallel > 1:
-        raise NotImplementedError(
-            "the pipeline (mesh.pipeline_parallel > 1) is not ported yet "
-            "(ROADMAP queue 1 item 9c)")
+        check_pipeline_parallel(cfg.model.n_layer, m.pipeline_parallel)
 
 
 def check_world(cfg: DB1Config) -> None:
-    """The world must hold dp x tp processes (one card a process):
-    ``mesh.data_parallel``, when positive, times ``mesh.model_parallel``;
-    otherwise a multiple of ``mesh.model_parallel``."""
-    dp, tp = cfg.mesh.data_parallel, max(1, cfg.mesh.model_parallel)
+    """The world must hold dp x pp x tp processes (one card a process):
+    ``mesh.data_parallel``, when positive, times ``mesh.pipeline_parallel``
+    and ``mesh.model_parallel``; otherwise a multiple of pp x tp."""
+    m = cfg.mesh
+    dp, pp, tp = (m.data_parallel, max(1, m.pipeline_parallel),
+                  max(1, m.model_parallel))
     world = rank_and_world()[1]
-    if dp > 0 and dp * tp != world:
-        raise ValueError(f"mesh.data_parallel is {dp} and "
+    if dp > 0 and dp * pp * tp != world:
+        raise ValueError(f"mesh.data_parallel is {dp}, "
+                         f"mesh.pipeline_parallel {pp} and "
                          f"mesh.model_parallel {tp}, but the process world "
-                         f"has {world} processes, not dp x tp")
-    if world % tp:
-        raise ValueError(f"mesh.model_parallel is {tp} but the process "
-                         f"world has {world} processes")
+                         f"has {world} processes, not dp x pp x tp")
+    if world % (pp * tp):
+        raise ValueError(f"mesh.pipeline_parallel x mesh.model_parallel is "
+                         f"{pp} x {tp} but the process world has {world} "
+                         "processes")
 
 
-def mesh_tensor_parallel(cfg: DB1Config, device) -> Optional[TensorParallel]:
-    """The :class:`TensorParallel` of this process when
-    ``mesh.model_parallel`` > 1 (the world's (dp, tp) mesh), else None."""
-    if cfg.mesh.model_parallel <= 1:
-        return None
-    return tensor_parallel(make_mesh(cfg.mesh, torch.device(device).type),
-                           cfg.model.sequence_sharded_activations)
+def mesh_parallel(cfg: DB1Config, device
+                  ) -> Tuple[Optional[TensorParallel],
+                             Optional[PipelineParallel]]:
+    """(the :class:`TensorParallel` of this process when
+    ``mesh.model_parallel`` > 1, its :class:`PipelineParallel` when
+    ``mesh.pipeline_parallel`` > 1), each None otherwise, on the world's
+    mesh."""
+    m = cfg.mesh
+    if m.model_parallel <= 1 and m.pipeline_parallel <= 1:
+        return None, None
+    mesh = make_mesh(m, torch.device(device).type)
+    tp = (tensor_parallel(mesh, cfg.model.sequence_sharded_activations)
+          if m.model_parallel > 1 else None)
+    pp = (pipeline_parallel(mesh, m.pipeline_microbatches)
+          if m.pipeline_parallel > 1 else None)
+    return tp, pp
 
 
 def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
@@ -215,8 +243,9 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     in_world = world_group() is not None
-    tp = mesh_tensor_parallel(cfg, dev)
-    data_rank = batch_sharding(tp)[0]
+    tp, pp = mesh_parallel(cfg, dev)
+    axis = data_axis(tp, pp)
+    data_rank = batch_sharding(axis)[0]
     print_rank_0(f"device: {dev}"
                  + (f" ({torch.cuda.get_device_name(dev)})"
                     if dev.type == "cuda" else "")
@@ -253,7 +282,7 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         cache_dir=cfg.data.rl_dataset_cache_dir)
 
     datasets, weights = group_by_modality(train_ds)
-    loader = build_loader(cfg, datasets, weights, tp)
+    loader = build_loader(cfg, datasets, weights, axis)
     try:
         # the JAX driver draws one batch to initialise its parameters; the
         # port draws it too, so both train on the same stream
@@ -264,11 +293,11 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         model = TransformerXL(
             cfg.model, cfg.vocab, vision=cfg.vision, device=dev,
             generator=torch.Generator(device=dev).manual_seed(cfg.train.seed),
-            tp=tp)
-        if tp is not None:  # every replica starts from data rank 0's shard
+            tp=tp, pp=pp)
+        if axis is not None:  # every replica starts from data rank 0's share
             broadcast_flat(list(model.state_dict().values()),
-                           src=dist.get_global_rank(tp.data_group, 0),
-                           group=tp.data_group)
+                           src=dist.get_global_rank(axis.data_group, 0),
+                           group=axis.data_group)
         elif in_world:      # every rank starts from rank 0's weights
             broadcast_flat(list(model.state_dict().values()), src=0)
         state = init_train_state(model, cfg.train.optimizer,
@@ -279,7 +308,12 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
         def eval_fn(state, iteration):
             """The validation loss over ``train.eval_iters`` batches, RL
             rollouts of ``eval.env_names`` and the caption and VQA metrics
-            on the training weights, the model in eval mode meanwhile."""
+            on the training weights, the model in eval mode meanwhile. A
+            pipeline stage runs the validation loss through the stages;
+            for the rollouts and the metrics the stages of data rank 0
+            send their layers to stage 0 (collective over each pipe
+            group), whose model group runs them on the whole model, while
+            the other stages go on to the barrier after the hook."""
             state.model.eval()
             try:
                 return _eval(state)
@@ -290,13 +324,20 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
             out = {}
             if valid_ds is not None:
                 vd, vw = group_by_modality(valid_ds)
-                vloader = build_loader(cfg, vd, vw, tp)
+                vloader = build_loader(cfg, vd, vw, axis)
                 try:
                     batches = [next(vloader)
                                for _ in range(cfg.train.eval_iters)]
                 finally:
                     vloader.stop()
                 out["loss"] = evaluate_loss(state.model, batches, device=dev)
+            n_icvqa = cfg.eval.ic_vqa_num_samples
+            model = state.model
+            if pp is not None and data_rank == 0 and (
+                    cfg.eval.env_names or (n_icvqa and valid_no_blend)):
+                model = gather_stages(state.model)   # collective
+                if model is None:                   # a later stage
+                    return out
             if cfg.eval.env_names and data_rank == 0:
                 for name in cfg.eval.env_names:
                     def make_tenv(n=name):
@@ -307,26 +348,25 @@ def main(cfg: Optional[DB1Config] = None, device="cuda") -> None:
                         return TokenizedEnv(make_env(n), ds)
 
                     res = evaluate_env(
-                        state.model, make_tenv,
+                        model, make_tenv,
                         num_trials=cfg.eval.num_trials, seed=cfg.eval.seed,
                         max_step_size=cfg.eval.max_step_size)
                     out[f"return/{name}"] = res["return_mean"]
                     out[f"length/{name}"] = res["length_mean"]
             # the in-training caption and VQA metrics on the unblended
             # valid splits (reference: train.py:24-25, 173-207)
-            n_icvqa = cfg.eval.ic_vqa_num_samples
             if n_icvqa and valid_no_blend and data_rank == 0:
                 layout = cfg.vocab.layout()
                 eos = tok.text_tokenizer.eos_token_id
                 for i, ds in enumerate(valid_no_blend.get("ic", [])):
                     metrics = evaluate_ic(
-                        state.model, ds, layout, eos, num_samples=n_icvqa,
+                        model, ds, layout, eos, num_samples=n_icvqa,
                         batch_size=cfg.eval.ic_vqa_batch_size)
                     for k, v in metrics.items():
                         out[f"ic{i}/{k}"] = v
                 for i, ds in enumerate(valid_no_blend.get("vqa", [])):
                     metrics = evaluate_vqa(
-                        state.model, ds, layout, eos,
+                        model, ds, layout, eos,
                         text_tokenizer=tok.text_tokenizer,
                         num_samples=n_icvqa,
                         batch_size=cfg.eval.ic_vqa_batch_size)

@@ -44,6 +44,17 @@ the FF output bias, which see a slice of the sequence) are partial and are
 summed over the model group first. The global norm (the clip,
 ``grad_norm``) sums the squares of the sharded leaves over the model
 group and counts each replicated leaf once.
+
+Pipeline parallelism (``model.pp``): the micro-batch runs through the
+stages by parallel/pipeline.py's GPipe schedule (``make_pipelined_loss_fn``,
+``model.pp.n_micro`` pipeline micro-batches); after the accumulation the
+replicated parameters' gradients and the loss are summed over the pipe
+group, then the data parallelism above runs over the data group (the
+ranks at the same (stage, model rank)). A replicated parameter that only
+some stages use (the embedding on stage 0, an untied head on the last)
+counts as reached once that sum has run. The global norm counts each
+stage's layers once (summed over the pipe group) and each replicated
+leaf once.
 """
 
 from __future__ import annotations
@@ -59,7 +70,12 @@ from bdm_db1_tpu_torch.core.config import OptimizerConfig
 from bdm_db1_tpu_torch.parallel.distributed import (
     all_reduce_f32, all_reduce_flat, summed, world_group,
 )
-from bdm_db1_tpu_torch.parallel.mesh import replicated
+from bdm_db1_tpu_torch.parallel.mesh import (
+    data_axis, pipe_replicated, replicated,
+)
+from bdm_db1_tpu_torch.parallel.pipeline import (
+    make_pipelined_loss_fn, reduce_over_stages,
+)
 from bdm_db1_tpu_torch.train.schedule import lr_schedule, wd_schedule
 
 Tensor = torch.Tensor
@@ -79,19 +95,34 @@ def decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
 
 
 def global_norm(tensors: List[Tensor], sharded: Optional[List[bool]] = None,
-                tp=None) -> Tensor:
+                tp=None, staged: Optional[List[bool]] = None,
+                pp=None) -> Tensor:
     """sqrt of the sum of squares of every element, in f32 (optax
     ``global_norm``). Under tensor parallelism (``tp``, with ``sharded``
     flagging each tensor that is this rank's shard) the sharded squares
     are summed over the model group and the replicated ones counted
-    once."""
+    once; in a pipeline (``pp``, with ``staged`` flagging each tensor of
+    this stage's layers) the staged squares are summed over the pipe
+    group and the replicated ones counted once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    if tp is None:
+    if tp is None and pp is None:
         return torch.linalg.vector_norm(torch.stack(norms))
     sq = torch.stack(norms).square()
-    flag = torch.tensor(sharded, dtype=torch.bool, device=sq.device)
-    shards = all_reduce_f32(torch.where(flag, sq, 0.0).sum(), tp.group)
-    return torch.sqrt(shards + torch.where(flag, 0.0, sq).sum())
+    flag = torch.tensor(sharded if tp is not None else [False] * len(sq),
+                        dtype=torch.bool, device=sq.device)
+    if pp is None:
+        shards = all_reduce_f32(torch.where(flag, sq, 0.0).sum(), tp.group)
+        return torch.sqrt(shards + torch.where(flag, 0.0, sq).sum())
+    stage = torch.tensor(staged, dtype=torch.bool, device=sq.device)
+    # [sharded and staged, sharded and replicated over the stages]
+    shards = torch.stack([torch.where(flag & stage, sq, 0.0).sum(),
+                          torch.where(flag & ~stage, sq, 0.0).sum()])
+    if tp is not None:
+        shards = all_reduce_f32(shards, tp.group)
+    layers = all_reduce_f32(
+        shards[0] + torch.where(~flag & stage, sq, 0.0).sum(), pp.group)
+    return torch.sqrt(layers + shards[1]
+                      + torch.where(~flag & ~stage, sq, 0.0).sum())
 
 
 def sharded_flags(model: torch.nn.Module) -> List[bool]:
@@ -99,6 +130,14 @@ def sharded_flags(model: torch.nn.Module) -> List[bool]:
     shard (all False without ``model.tp``)."""
     tp = getattr(model, "tp", None)
     return [tp is not None and not replicated(n)
+            for n, _ in model.named_parameters()]
+
+
+def staged_flags(model: torch.nn.Module) -> List[bool]:
+    """Per ``named_parameters()`` entry: whether it is one of this
+    pipeline stage's layers' (all False without ``model.pp``)."""
+    pp = getattr(model, "pp", None)
+    return [pp is not None and not pipe_replicated(n)
             for n, _ in model.named_parameters()]
 
 
@@ -156,6 +195,8 @@ class _Base(torch.optim.Optimizer):
         self.decay = list(mask.values())
         self.tp = getattr(model, "tp", None)
         self.sharded = sharded_flags(model)
+        self.pp = getattr(model, "pp", None)
+        self.staged = staged_flags(model)
         self.lr = lr_schedule(cfg, train_iters)
         self.wd = wd_schedule(cfg, train_iters)
         self.count = 0
@@ -165,10 +206,11 @@ class _Base(torch.optim.Optimizer):
 
     def _grad_norm(self, grads: List[Tensor]) -> Tensor:
         """The global norm of ``grads``, those of the parameters that have
-        a gradient, in order, over the model group."""
-        sharded = [s for p, s in zip(self._params(), self.sharded)
-                   if p.grad is not None]
-        return global_norm(grads, sharded, self.tp)
+        a gradient, in order, over the model group and the stages."""
+        have = [p.grad is not None for p in self._params()]
+        return global_norm(
+            grads, [s for s, h in zip(self.sharded, have) if h], self.tp,
+            [s for s, h in zip(self.staged, have) if h], self.pp)
 
     def moment_dtypes(self):
         """(mu, nu) storage dtypes (None: the parameter's), or None when
@@ -333,15 +375,20 @@ def init_train_state(model: torch.nn.Module, cfg: OptimizerConfig,
                       optimizer=make_optimizer(model, cfg, train_iters))
 
 
-def make_train_rng(seed: int, device, rank: int = 0) -> torch.Generator:
+def make_train_rng(seed: int, device, rank: int = 0,
+                   stage: int = 0) -> torch.Generator:
     """The training generator (the dropout masks) on the model's device,
     seeded by ``seed`` on data rank 0 and by (``seed``, ``rank``) on the
     other data ranks of a data-parallel run, so that each draws its own
     masks (the JAX package draws one mask over the global batch). ``rank``
     is the data rank: the ranks of one tensor-parallel model group share
-    it, and so draw the same masks on their replicated activations."""
-    if rank:
-        seed = int(np.random.SeedSequence((seed, rank)).generate_state(1)[0])
+    it, and so draw the same masks on their replicated activations. A
+    pipeline stage after the first is seeded by (``seed``, ``rank``,
+    ``stage``): each stage draws its layers' masks from its own
+    stream."""
+    key = (seed, rank, stage) if stage else (seed, rank) if rank else None
+    if key is not None:
+        seed = int(np.random.SeedSequence(key).generate_state(1)[0])
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
@@ -398,6 +445,16 @@ def _reduce_over_ranks(loss: Tensor, grads: list, names: List[str], group):
     return small[0]
 
 
+def _check_reached(named, grads) -> None:
+    """``RuntimeError`` naming the parameters that the loss reaches no
+    gradient to, but those in ``UNREACHED_OK``."""
+    lost = [n for (n, _), g in zip(named, grads)
+            if g is None and not n.startswith(UNREACHED_OK)]
+    if lost:
+        raise RuntimeError(f"the loss reaches no gradient to "
+                           f"{len(lost)} parameters: {lost[:4]}")
+
+
 def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
                     loss_fn: Optional[Callable] = None) -> Callable:
     """``train_step(state, batch, generator) -> (state, metrics)`` with
@@ -419,42 +476,46 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
     clip see the global values. A custom ``loss_fn`` must then return this
     rank's share of the global loss itself. Under the sequence-sharded
     option the layers' replicated gradients are summed over the model
-    group first (:func:`sequence_partial`)."""
+    group first (:func:`sequence_partial`). A pipeline stage
+    (``model.pp``) runs each micro-batch through the stages
+    (parallel/pipeline.py) and takes no custom ``loss_fn``."""
     tp = getattr(model, "tp", None)
+    pp = getattr(model, "pp", None)
+    if pp is not None and loss_fn is not None:
+        raise ValueError("a pipeline stage's step takes the pipelined loss "
+                         "(parallel/pipeline.py), not a custom loss_fn")
     sharded = sharded_flags(model)
+    staged = staged_flags(model)
 
     def train_step(state: TrainState, batch, generator):
-        grp = world_group() if tp is None else tp.data_group
-        lf = loss_fn
-        if lf is None:
-            lf = make_loss_fn(model, None if grp is None
-                              else lambda count: summed(count, grp))
+        axis = data_axis(tp, pp)
+        grp = world_group() if axis is None else axis.data_group
+        count_reduce = (None if grp is None
+                        else lambda count: summed(count, grp))
         accum = accum_steps(batch)
         named = [(n, p) for n, p in state.model.named_parameters()
                  if p.requires_grad]
         params = [p for _, p in named]
+        if pp is not None:
+            loss_and_grads = make_pipelined_loss_fn(model, count_reduce)
+        else:
+            lf = loss_fn or make_loss_fn(model, count_reduce)
 
-        def grads_of(l):
-            gs = torch.autograd.grad(l, params, allow_unused=True)
-            lost = [n for (n, _), g in zip(named, gs)
-                    if g is None and not n.startswith(UNREACHED_OK)]
-            if lost:
-                raise RuntimeError(f"the loss reaches no gradient to "
-                                   f"{len(lost)} parameters: {lost[:4]}")
-            return gs
+            def loss_and_grads(micro, gen):
+                l = lf(micro, gen)
+                gs = torch.autograd.grad(l, params, allow_unused=True)
+                _check_reached(named, gs)
+                return l.detach(), gs
 
         if accum == 1:
-            loss = lf(micro_batch(batch, 0), generator)
-            grads = grads_of(loss)
-            loss = loss.detach()
+            loss, grads = loss_and_grads(micro_batch(batch, 0), generator)
         else:
             gsum, lsum = None, None
             for a in range(accum):
-                l = lf(micro_batch(batch, a), generator)
-                gs = grads_of(l)
+                l, gs = loss_and_grads(micro_batch(batch, a), generator)
                 if gsum is None:
                     gsum = [None if g is None else g.float() for g in gs]
-                    lsum = l.detach()
+                    lsum = l
                 else:
                     for i, g in enumerate(gs):
                         if g is None:
@@ -463,10 +524,15 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
                             gsum[i] = g.float()
                         else:
                             gsum[i].add_(g)
-                    lsum = lsum + l.detach()
+                    lsum = lsum + l
                 del gs, l
             grads = [None if s is None else s.div_(accum) for s in gsum]
             loss = lsum / accum
+        if pp is not None:
+            grads = list(grads)
+            loss = reduce_over_stages(loss, grads, [n for n, _ in named],
+                                      params, pp)
+            _check_reached(named, grads)
         if tp is not None and tp.sequence_sharded:
             all_reduce_flat([g for (n, _), g in zip(named, grads)
                              if g is not None and sequence_partial(n)],
@@ -477,11 +543,13 @@ def make_train_step(model: torch.nn.Module, with_grad_norm: bool = False,
             p.grad = None if g is None else g.to(p.dtype)
         metrics = {"loss": loss, "step": state.step}
         if with_grad_norm:
-            flags = [s for (n, p), s in zip(state.model.named_parameters(),
-                                            sharded) if p.requires_grad]
-            pairs = [(g, s) for g, s in zip(grads, flags) if g is not None]
+            flags = [(s, t) for (n, p), s, t in zip(
+                state.model.named_parameters(), sharded, staged)
+                if p.requires_grad]
+            pairs = [(g, f) for g, f in zip(grads, flags) if g is not None]
             metrics["grad_norm"] = global_norm(
-                [g for g, _ in pairs], [s for _, s in pairs], tp)
+                [g for g, _ in pairs], [f[0] for _, f in pairs], tp,
+                [f[1] for _, f in pairs], pp)
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return dataclasses.replace(state, step=state.step + 1), metrics

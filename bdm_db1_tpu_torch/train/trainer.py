@@ -7,7 +7,9 @@ the trainer logs every eval tick. Under a process group (data
 parallelism) each rank's loader hands it its shard of the global batch;
 the rates count the global batch and the losses are the global ones. A
 tensor-parallel model (``model.tp``) counts over its data group: the
-ranks of a model group read, count and draw the same rows."""
+ranks of a model group read, count and draw the same rows; so does a
+pipeline stage (``model.pp``), whose validation loss runs through the
+stages."""
 
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from bdm_db1_tpu_torch.data.input_specs import (
 from bdm_db1_tpu_torch.parallel.distributed import (
     barrier, rank_and_world, summed, world_group,
 )
-from bdm_db1_tpu_torch.parallel.mesh import batch_sharding
+from bdm_db1_tpu_torch.parallel.mesh import batch_sharding, data_axis
+from bdm_db1_tpu_torch.parallel.pipeline import pipelined_loss
 from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 from bdm_db1_tpu_torch.train.step import make_train_rng
 
@@ -70,9 +73,10 @@ class Trainer:
     (``state.generator``), every ``log_interval`` iterations a host read of
     the loss and the tokens/sec of the window, every ``eval_interval`` the
     ``eval_fn(state, iteration)`` hook. Under a process group the
-    generator is seeded by (``train.seed``, data rank) and tokens/sec
-    counts the global batch (this rank's times the data-parallel size);
-    the data rank is the world rank without tensor parallelism.
+    generator is seeded by (``train.seed``, data rank), and by the stage
+    too on a pipeline stage after the first, and tokens/sec counts the
+    global batch (this rank's times the data-parallel size); the data
+    rank is the world rank without tensor or pipeline parallelism.
 
     With ``cfg.train.save_dir``: metrics go to ``<save_dir>/metrics.jsonl``
     (unless a ``logger`` is given); the run resumes from the latest
@@ -141,9 +145,12 @@ class Trainer:
     def _train_loop(self) -> None:
         tcfg = self.cfg.train
         dev = self.model.device
-        rank, world = batch_sharding(getattr(self.model, "tp", None))
+        rank, world = batch_sharding(data_axis(self.model.tp,
+                                               self.model.pp))
         if self.state.generator is None:
-            self.state.generator = make_train_rng(tcfg.seed, dev, rank)
+            pp = getattr(self.model, "pp", None)
+            self.state.generator = make_train_rng(
+                tcfg.seed, dev, rank, 0 if pp is None else pp.stage)
         iteration = self.maybe_resume()
         data_iter = iter(self.loader)
         tokens_per_batch = None
@@ -202,24 +209,29 @@ def evaluate_loss(model, batches: Iterable, device="cuda") -> float:
     micro-batch: a slice's loss
     is the masked mean over the global micro-batch, as in the train step
     (the count summed over the ranks, then the rank shares); a
-    tensor-parallel model's ranks sum over its data group."""
+    tensor-parallel model's ranks sum over its data group, and a pipeline
+    stage runs each slice through the stages (parallel/pipeline.py
+    ``pipelined_loss``) and sums over its data group."""
     dev = _check_device(device)
     if model.device != dev and not (
             dev.index is None and model.device.type == dev.type):
         raise ValueError(f"the model is on {model.device}, not {dev}")
-    tp = getattr(model, "tp", None)
-    grp = world_group() if tp is None else tp.data_group
+    axis = data_axis(model.tp, model.pp)
+    grp = world_group() if axis is None else axis.data_group
     count_reduce = None if grp is None else lambda c: summed(c, grp)
     losses = []
     with torch.inference_mode():
         for raw in batches:
             accum = len(next(iter(next(iter(raw.values())).values())))
             for a in range(accum):
-                sub = {m: {k: v[a] for k, v in fields.items()}
-                       for m, fields in raw.items()}
-                _, loss = model(to_gato_batch(sub, dev), compute_loss=True,
-                                deterministic=True, loss_only=True,
-                                count_reduce=count_reduce)
+                sub = to_gato_batch({m: {k: v[a] for k, v in fields.items()}
+                                     for m, fields in raw.items()}, dev)
+                if getattr(model, "pp", None) is not None:
+                    loss = pipelined_loss(model, sub, count_reduce)
+                else:
+                    _, loss = model(sub, compute_loss=True,
+                                    deterministic=True, loss_only=True,
+                                    count_reduce=count_reduce)
                 losses.append(loss)
         if not losses:
             return float("nan")

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases build,remat,serve_preln
     python3 chip_smoke.py --phases build,data_parallel
     python3 chip_smoke.py --phases build,tensor_parallel
+    python3 chip_smoke.py --phases build,pipeline
     python3 chip_smoke.py --phases build,tensor_parallel_nccl   # 4 cards
 
 Phases, each printing one JSON line:
@@ -245,7 +246,27 @@ Phases, each printing one JSON line:
   within the route gate of one process, and on f32 copies the first
   action's logits within 1e-3 of their maximum and >= 0.9 of a 2-step
   greedy chain's actions equal to one process's (the bf16 readings
-  printed beside them).
+  printed beside them). The one-process steps it is held to are made once
+  a run (``OneProcessReference``) and shared with ``pipeline``.
+* ``pipeline``   — the GPipe pipeline (pp 2, dp 1, tp 1) in a world of two
+  gloo processes on the one card, 12 of db1_1p2b's 24 layers a stage.
+  First K3 and the backward (K4, K5) at a pipeline micro-batch (1 x 1024,
+  16 heads) against their plain versions, timed. Then each stage loads its
+  share of the weights of ``tensor_parallel``'s one-process reference and
+  takes, on the same 2-row micro-batch in 2 pipeline micro-batches of one
+  row (no dropout, SGD lr 1 without the clip), the f32 step: its loss
+  within the DP loss gate of the one-process f32 step, its checkpoint
+  restored in one process (the stages' parameters bit for bit) and the
+  update read from it within cosine 1 - 1e-6 and 1e-4 in norm of the
+  one-process f32 update; then from the weights again the bf16 step,
+  counted: K3 = K4 = K5 = 24 a stage (12 layers x 2 micro-batches), the
+  activation stage 0 sends (layer 11's output) within the route gate of
+  the one-process layer 11 on the same rows, the update within cosine 0.9
+  and 5e-2 in norm of the one-process bf16 update (its loss read beside
+  the one-process bf16 step's own distance from f32); a second step with
+  the default dropout leaves the replicated parameters bitwise equal on
+  both stages. Reads a stage's step, its sends and receives replayed
+  alone, its collectives replayed alone and its peak memory.
 * ``tensor_parallel_nccl`` — not in the default run (four cards of one
   host): ``evaluate_rl.main`` with ``eval.sharded_decode`` over NCCL at
   tp 4, a process a card, on the same 40 envs with the expert prompt, 4
@@ -321,14 +342,15 @@ SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
           "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
           "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless",
-          "remat", "serve_preln", "data_parallel", "tensor_parallel")
+          "remat", "serve_preln", "data_parallel", "tensor_parallel",
+          "pipeline")
 # phases of more than one card, run only when named
 OPTIONAL_PHASES = ("tensor_parallel_nccl",)
 MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
               "evaluate_rl", "pretrain", "pretrain_vision",
               "evaluate_rl_image", "evaluate_rl_text", "generate",
               "stateless", "remat", "serve_preln", "data_parallel",
-              "tensor_parallel")
+              "tensor_parallel", "pipeline")
 SOURCES = ("flash_ring_decode", "quant_matmul", "flash_rel_attention",
            "flash_rel_attention_bwd")
 # Kernel against its plain version, normalised output: max |diff| at most
@@ -4967,6 +4989,13 @@ def _update_agreement(model, one_after: dict, before: dict) -> dict:
 
 def _delta_agreement(after: dict, one_after: dict, before: dict) -> dict:
     """``_update_agreement`` of the parameters ``after`` (by name)."""
+    return _agreement(_delta_sums(after, one_after, before))
+
+
+def _delta_sums(after: dict, one_after: dict, before: dict) -> list:
+    """[u . o, |u|^2, |o|^2] over the parameters ``after`` (by name), u
+    their update from ``before`` and o that of ``one_after``, in f64 on
+    each parameter's device."""
     dot = nd = no = 0.0
     for n, p in after.items():
         b = before[n].to(p.device)
@@ -4975,6 +5004,12 @@ def _delta_agreement(after: dict, one_after: dict, before: dict) -> dict:
         dot += float((du * ou).sum())
         nd += float(du.square().sum())
         no += float(ou.square().sum())
+    return [dot, nd, no]
+
+
+def _agreement(sums) -> dict:
+    """Cosine and relative norm difference from ``_delta_sums``'s sums."""
+    dot, nd, no = sums
     nd, no = nd ** 0.5, no ** 0.5
     return {"update_cosine": dot / (nd * no),
             "update_norm_rel_diff": abs(nd - no) / no, "update_norm": no}
@@ -5407,31 +5442,126 @@ def _tp_layers_ok(layers: list) -> bool:
                     and x["params"] > 10 for x in layers))
 
 
-def _sgd_step(model, batch, alone: bool = False) -> float:
+def _sgd_step(model, batch) -> float:
     """One ``make_train_step`` step of ``model`` (its config's SGD) from
-    the seed-0 generator; the loss. ``alone``: blind to the process world,
-    as in a process of its own (a one-process reference inside a world)."""
-    from unittest import mock
-
+    the seed-0 generator; the loss."""
     from bdm_db1_tpu_torch.train import step as tstep
 
     state = tstep.init_train_state(model, _tp_cfg("float32").train.optimizer,
                                    1)
-    with mock.patch.object(tstep, "world_group",
-                           (lambda: None) if alone else tstep.world_group):
-        _, met = tstep.make_train_step(model)(
-            state, batch, torch.Generator(device="cuda").manual_seed(0))
+    _, met = tstep.make_train_step(model)(
+        state, batch, torch.Generator(device="cuda").manual_seed(0))
     return float(met["loss"])
 
 
-def _tp_reference_steps(model, one, tp, batch, weights: str) -> dict:
-    """The first step, not counted, from the weights: in f32 activations
-    on the tp model (its parameters put back afterwards) and, on rank 0,
-    on the one-process model, then the one-process step in bf16. Rank 0's
-    result: the f32 losses and the agreement of the f32 updates (the tp
-    parameters gathered whole), the one-process bf16 step's loss and its
-    update against the f32 one (how far bf16 alone moves it), and that
-    update on the host for the counted step to be held to."""
+class OneProcessReference:
+    """The one-process steps that the tensor_parallel and pipeline phases
+    hold their worlds to, made once a process and seed (the two phases
+    share them): db1_1p2b without dropout from the seed's random weights
+    and the train phase's first micro-batch cut to TP_MICRO rows (both to
+    files the worlds read), then from those weights one ``make_train_step``
+    step (DP_OPT) with f32 activations and one with bf16: their losses and
+    parameters after (files), how far the bf16 step lands from the f32
+    one, and the bf16 hidden state after the first PP_LAYERS layers on
+    each pipeline micro-batch's rows (a file). ``close`` deletes the
+    files."""
+
+    def __init__(self):
+        self.dir = None
+        self.runs = {}
+
+    def get(self, seed: int) -> dict:
+        if seed not in self.runs:
+            if self.dir is None:
+                self.dir = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+            self.runs[seed] = self._make(seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+        return self.runs[seed]
+
+    def close(self) -> None:
+        if self.dir is not None:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+    def _make(self, seed: int) -> dict:
+        from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+        t0 = time.perf_counter()
+        out = {k: os.path.join(self.dir, f"{seed}_{k}") for k in (
+            "weights.pt", "batch.npz", "f32_after.pt", "bf16_after.pt",
+            "stage_rows.pt")}
+        _, model, _, loader = _train_setup(seed, drop=0.0, embd_pdrop=0.0,
+                                           dropattn=0.0)
+        try:
+            # one micro-batch of 2 rows: each step's collectives go
+            # through gloo on the one card
+            raw = {k: v[:1, :TP_MICRO]
+                   for k, v in next(loader)["rl"].items()}
+        finally:
+            loader.stop()
+        np.savez(out["batch.npz"], **raw)
+        before = {n: t.to("cpu", copy=True)
+                  for n, t in model.state_dict().items()}
+        torch.save(before, out["weights.pt"])
+        batch = to_gato_batch({"rl": raw}, "cuda")
+        torch.save(_stage_rows(model, batch), out["stage_rows.pt"])
+        _set_dtype(model, "float32")
+        out["f32_loss"] = _sgd_step(model, batch)
+        after32 = {n: p.detach().to("cpu", copy=True)
+                   for n, p in model.named_parameters()}
+        torch.save(after32, out["f32_after.pt"])
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(before[n])
+        _set_dtype(model, "bfloat16")
+        out["bf16_loss"] = _sgd_step(model, batch)
+        torch.save({n: p.detach().to("cpu", copy=True)
+                    for n, p in model.named_parameters()},
+                   out["bf16_after.pt"])
+        out["bf16_vs_f32_loss_abs_diff"] = abs(out["bf16_loss"]
+                                               - out["f32_loss"])
+        out["bf16_vs_f32_update"] = _update_agreement(model, after32, before)
+        out["micro_batch"] = TP_MICRO
+        out["seconds"] = time.perf_counter() - t0
+        return out
+
+
+def _stage_rows(model, batch) -> list:
+    """The bf16 hidden state after the first PP_LAYERS layers of ``model``
+    (no dropout, the trunk's route: K3 at 1024) on the rows of each of
+    PP_MICRO pipeline micro-batches of the first micro-batch (row b in
+    micro-batch b % PP_MICRO), on the host: what stage 0 of a pipeline
+    over PP_WORLD stages sends."""
+    from bdm_db1_tpu_torch.models.transformer_xl import use_rel_kernel
+    from bdm_db1_tpu_torch.ops.attention import same_length_mask
+    from bdm_db1_tpu_torch.ops.positional import relative_positional_embedding
+    from bdm_db1_tpu_torch.train.step import micro_batch
+
+    cfg = model.cfg
+    out = []
+    with torch.no_grad():
+        h = model.embed_concat(micro_batch(batch, 0), with_targets=False)[0]
+        L = h.shape[1]
+        mask = same_length_mask(L, L, cfg.mem_len, device="cuda")
+        r = relative_positional_embedding(L, cfg.n_embed,
+                                          cfg.effective_clamp_len,
+                                          device="cuda")
+        use_kernel = use_rel_kernel(cfg, L, L, "cuda")
+        for m in range(PP_MICRO):
+            x = h[m::PP_MICRO].clone(memory_format=torch.contiguous_format)
+            for layer in list(model.h)[:PP_LAYERS]:
+                x = layer(x, None, r, mask, use_kernel)
+            out.append(x.cpu())
+    return out
+
+
+def _tp_reference_steps(model, tp, batch, ref: dict) -> dict:
+    """The first step, not counted, from the weights, in f32 activations
+    on the tp model (its parameters put back afterwards). Rank 0's
+    result: the f32 losses and the agreement of the f32 update (the tp
+    parameters gathered whole) with the one-process f32 step's, and the
+    one-process bf16 step's loss and its update against the f32 one (how
+    far bf16 alone moves it), from ``ref`` (``OneProcessReference``)."""
     from bdm_db1_tpu_torch.parallel.mesh import gather_state_dict
 
     snap = [p.detach().clone() for p in model.parameters()]
@@ -5445,37 +5575,28 @@ def _tp_reference_steps(model, one, tp, batch, weights: str) -> dict:
             p.copy_(s)
     del snap
     _set_dtype(model, "bfloat16")
-    if one is None:
+    if tp.rank != 0:
         return {}
-    before = torch.load(weights, map_location="cpu", mmap=True)
-    out = {"f32": {"loss_tp": loss_tp}}
-    _set_dtype(one, "float32")
-    out["f32"]["loss_one_process"] = _sgd_step(one, batch, alone=True)
-    out["f32"]["update"] = _update_agreement(one, after, before)
-    del after
-    one32 = {n: p.detach().to("cpu", copy=True)
-             for n, p in one.named_parameters()}
-    with torch.no_grad():
-        for n, p in one.named_parameters():
-            p.copy_(before[n])
-    _set_dtype(one, "bfloat16")
-    loss16 = _sgd_step(one, batch, alone=True)
-    out["bf16"] = {"loss_one_process": loss16,
-                   "one_process_bf16_vs_f32_loss_abs_diff": abs(
-                       loss16 - out["f32"]["loss_one_process"]),
-                   "one_process_bf16_vs_f32_update": _update_agreement(
-                       one, one32, before)}
-    out["one_bf16_after"] = {n: p.detach().to("cpu", copy=True)
-                             for n, p in one.named_parameters()}
+    out = {"f32": {"loss_tp": loss_tp, "loss_one_process": ref["f32_loss"],
+                   "update": _delta_agreement(
+                       after, torch.load(ref["f32_after.pt"],
+                                         map_location="cpu", mmap=True),
+                       torch.load(ref["weights.pt"], map_location="cpu",
+                                  mmap=True))}}
+    out["bf16"] = {"loss_one_process": ref["bf16_loss"],
+                   "one_process_bf16_vs_f32_loss_abs_diff":
+                   ref["bf16_vs_f32_loss_abs_diff"],
+                   "one_process_bf16_vs_f32_update":
+                   ref["bf16_vs_f32_update"]}
     return out
 
 
-def _tp_train_rank(rank: int, world: int, weights: str, batch_file: str,
-                   ckpt_dir: str) -> dict:
-    """One rank of the tp 2 train world: its shard of the weights (rank 0
-    the whole model too, for the references). Three layers against the
-    one-process layers from one input (``_tp_layers``) and the reference
-    steps (``_tp_reference_steps``: the gated f32 step). Then one
+def _tp_train_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
+    """One rank of the tp 2 train world: its shard of the weights of
+    ``ref`` (``OneProcessReference``; rank 0 the whole model too, for the
+    layer checks). Three layers against the one-process layers from one
+    input (``_tp_layers``) and the reference steps
+    (``_tp_reference_steps``: the gated f32 step). Then one
     ``make_train_step`` step on the whole batch (2 rows a micro-batch, no
     dropout, SGD lr 1 without the clip) in bf16, counted and timed (its
     first bf16 backward: not a rate), with its collectives recorded and
@@ -5498,20 +5619,23 @@ def _tp_train_rank(rank: int, world: int, weights: str, batch_file: str,
     from bdm_db1_tpu_torch.train.trainer import to_gato_batch
 
     stages, t0 = {}, time.perf_counter()
+    weights = ref["weights.pt"]
     cfg = _tp_cfg("bfloat16")
     tp = tensor_parallel(make_mesh(MeshConfig(model_parallel=world), "cuda"))
     model = _tp_model(cfg, tp, weights)
     one = _tp_model(_tp_cfg("bfloat16"), None, weights) if rank == 0 else None
-    with np.load(batch_file) as f:
+    with np.load(ref["batch.npz"]) as f:
         batch = to_gato_batch({"rl": {k: f[k] for k in f.files}}, "cuda")
     stages["load_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     layers = _tp_layers(model, one, tp, batch)
     stages["layers_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ref = _tp_reference_steps(model, one, tp, batch, weights)
-    stages["reference_steps_s"] = time.perf_counter() - t0
     del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps_ref = _tp_reference_steps(model, tp, batch, ref)
+    stages["reference_steps_s"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
     state = init_train_state(model, cfg.train.optimizer,
@@ -5541,14 +5665,13 @@ def _tp_train_rank(rank: int, world: int, weights: str, batch_file: str,
     after = gather_state_dict({n: p.detach() for n, p in
                                model.named_parameters()}, tp, model.cfg)
     if rank == 0:
-        one_after = ref.pop("one_bf16_after")
-        ref["bf16"]["loss_tp"] = loss
-        ref["bf16"]["loss_abs_diff"] = abs(
-            loss - ref["bf16"]["loss_one_process"])
-        ref["bf16"]["update"] = _delta_agreement(
-            after, one_after, torch.load(weights, map_location="cpu",
-                                         mmap=True))
-        del one_after
+        steps_ref["bf16"]["loss_tp"] = loss
+        steps_ref["bf16"]["loss_abs_diff"] = abs(
+            loss - steps_ref["bf16"]["loss_one_process"])
+        steps_ref["bf16"]["update"] = _delta_agreement(
+            after, torch.load(ref["bf16_after.pt"], map_location="cpu",
+                              mmap=True),
+            torch.load(weights, map_location="cpu", mmap=True))
     del after
     t0 = time.perf_counter()
     CheckpointManager(ckpt_dir).save(1, state, client_state={"iteration": 1})
@@ -5568,7 +5691,7 @@ def _tp_train_rank(rank: int, world: int, weights: str, batch_file: str,
     every = [None] * world
     dist.all_gather_object(every, mine)
     return {"rank": rank, "coords": [tp.data_rank, tp.rank], "loss": loss,
-            "loss_dropout_step": loss2, "ref": ref,
+            "loss_dropout_step": loss2, "ref": steps_ref,
             "launches": launches, "launches_dropout_step": launches2,
             "collectives": collectives,
             "step_ms": step_ms, "step_ms_is": TP_NOTE,
@@ -5718,11 +5841,11 @@ def _tp_serve_checks(cfgs: dict, mesh, rank: int, primes, seed: int
     return checks
 
 
-def _tp_rank(rank: int, world: int, weights: str, batch_file: str,
-             ckpt_dir: str, cfgs: dict, primes: list, seed: int) -> dict:
+def _tp_rank(rank: int, world: int, ref: dict, ckpt_dir: str, cfgs: dict,
+             primes: list, seed: int) -> dict:
     """One rank of the tp 2 world: ``_tp_train_rank``, then the serve of
     its checkpoint (``_tp_serve_rank``)."""
-    train = _tp_train_rank(rank, world, weights, batch_file, ckpt_dir)
+    train = _tp_train_rank(rank, world, ref, ckpt_dir)
     gc.collect()
     torch.cuda.empty_cache()
     return {"train": train,
@@ -5814,10 +5937,12 @@ def _tp_plan_ok(leg: dict, int8: bool) -> bool:
     return all(leg["launches"][k] == v for k, v in want.items()) and q1 > 0
 
 
-def phase_tensor_parallel(smi: str, seed: int = 0) -> dict:
+def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
+                          seed: int = 0) -> dict:
     """Tensor parallelism in a world of two processes on the one card (gloo;
     NCCL refuses two ranks on one device), tp 2, dp 1, db1_1p2b at full
-    width and depth from weights this process saves. First every kernel
+    width and depth from the weights of ``reference`` (the one-process
+    steps, made once for this phase and the pipeline's). First every kernel
     of the paths at a rank's shapes (H 8) against its plain version
     (``_tp_kernels``). Then each rank takes one ``make_train_step`` step on
     its shard (the train phase's first micro-batch cut to 2 rows, no
@@ -5852,26 +5977,15 @@ def phase_tensor_parallel(smi: str, seed: int = 0) -> dict:
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
     kernels = _tp_kernels()
+    t0 = time.perf_counter()
+    one = reference.get(seed)
+    reference_s = time.perf_counter() - t0
+    weights = one["weights.pt"]
+    with np.load(one["batch.npz"]) as f:
+        raw = {k: f[k] for k in f.files}
     work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
-        weights = os.path.join(work, "weights.pt")
-        batch_file = os.path.join(work, "batch.npz")
         ckpt_dir = os.path.join(work, "ckpt")
-        _, model, _, loader = _train_setup(seed, drop=0.0, embd_pdrop=0.0,
-                                           dropattn=0.0)
-        try:
-            # one micro-batch of 2 rows: each step's collectives go
-            # through gloo on the one card
-            raw = {k: v[:1, :TP_MICRO]
-                   for k, v in next(loader)["rl"].items()}
-        finally:
-            loader.stop()
-        np.savez(batch_file, **raw)
-        torch.save({n: t.to("cpu", copy=True)
-                    for n, t in model.state_dict().items()}, weights)
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
 
         # ---- the world: train, then serve (counted in each rank) ---------
         cache_dir = os.path.join(work, "rl")
@@ -5893,8 +6007,8 @@ def phase_tensor_parallel(smi: str, seed: int = 0) -> dict:
             cfgs[leg] = c
         primes = _tp_prime_stream(seed + 1, cfgs["bf16"].vocab.layout())
         t0 = time.perf_counter()
-        both = _run_world("_tp_rank", work, weights, batch_file, ckpt_dir,
-                          cfgs, primes, seed)
+        both = _run_world("_tp_rank", work, one, ckpt_dir, cfgs, primes,
+                          seed)
         world_s = time.perf_counter() - t0
         ranks = [r["train"] for r in both]
         evals = [r["serve"] for r in both]
@@ -6014,10 +6128,364 @@ def phase_tensor_parallel(smi: str, seed: int = 0) -> dict:
             "seq_length": raw["label"].shape[-1], "kernels_h8": kernels,
             "ranks": [{k: v for k, v in r.items() if k != "param_bits"}
                       for r in ranks],
-            "world_s": world_s, "train": train,
+            "world_s": world_s, "reference_s": reference_s, "train": train,
             "serve": serve, "serve_envs": TP_SERVE_B,
             "serve_steps": TP_SERVE_STEPS,
             "launches": launches}
+
+
+PP_WORLD = 2
+PP_MICRO = 2                   # pipeline micro-batches: one row x 1024 each
+PP_LAYERS = 24 // PP_WORLD     # db1_1p2b's layers on a stage
+# The bf16 pp step's update against the one-process bf16 step's, whole
+# and in two groups: the stages' layers and the replicated parameters
+# (the tied table, r_w_bias/r_r_bias, the vision tower). Both steps run
+# the same bf16 kernels on the same rows; only the order of the
+# gradients' sums differs (one micro-batch of one row at a time here).
+# Sound readings (H100): cosine 0.99986 whole, 0.99987 the layers,
+# 0.99981 the replicated, norms 7e-4 to 1.6e-3 apart. The tied table's
+# gradient left unsummed over the stages read 0.99960 whole (TP's 0.9
+# let it pass) and 0.99780 the replicated: the limit sits between, five
+# times the sound gap and half the fault's.
+PP_BF16_UPDATE_COS_MIN = 0.999
+PP_BF16_UPDATE_NORM_RTOL = 1e-2
+PP_UPDATE_GROUPS = ("layers", "replicated")
+PP_NOTE = ("the step of one stage while the other shares the card; gloo "
+           "sends each activation and its gradient, and sums the replicated "
+           "parameters' gradients, through host memory: not a pipeline rate")
+
+
+class _P2PLog:
+    """Records the pipeline's sends and receives (parallel/pipeline.py
+    ``send``/``recv``) while on, keeping copies of the tensors sent in
+    ``keep`` when given, and replays them alone on zeros, in the same
+    order."""
+
+    def __init__(self, keep: list = None):
+        from bdm_db1_tpu_torch.parallel import pipeline
+
+        self.mod = pipeline
+        self.keep = keep
+        self.calls = []
+
+    def __enter__(self):
+        self.send, self.recv = self.mod.send, self.mod.recv
+
+        def send(t, dst):
+            self.calls.append(("send", tuple(t.shape), t.dtype, dst))
+            if self.keep is not None:
+                self.keep.append(t.detach().clone())
+            return self.send(t, dst)
+
+        def recv(shape, dtype, device, src):
+            self.calls.append(("recv", tuple(shape), dtype, src))
+            return self.recv(shape, dtype, device, src)
+
+        self.mod.send, self.mod.recv = send, recv
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.send, self.mod.recv = self.send, self.recv
+
+    def replay_ms(self) -> float:
+        import torch.distributed as dist
+
+        bufs = [(op, torch.zeros(shape, dtype=dtype, device="cuda"), peer)
+                for op, shape, dtype, peer in self.calls]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for op, t, peer in bufs:
+            if op == "send":
+                self.send(t, peer)
+            else:
+                self.recv(t.shape, t.dtype, t.device, peer)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+
+def _pp_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
+    """One stage of the pp 2 world (dp 1, tp 1): its layers and the
+    replicated parameters of the weights of ``ref``
+    (``OneProcessReference``), in the pipeline's 2 micro-batches of one
+    row. The f32 step (no dropout, SGD lr 1 without the clip) and its
+    collective save as step 1 (the phase reads its update from it); the
+    weights again and the bf16 step, counted and timed, its sends and
+    receives and its collectives recorded and replayed alone: stage 0's
+    sent activations against ``ref``'s rows, and the update's sums over
+    this stage's layers and (stage 0) over the replicated parameters
+    against the one-process bf16 update; a second step with the default dropout
+    rates from the stage's generator, and the replicated parameters' bits
+    exchanged."""
+    import torch.distributed as dist
+
+    from bdm_db1_tpu_torch.core.config import MeshConfig, db1_1p2b
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.parallel import pipeline
+    from bdm_db1_tpu_torch.parallel.distributed import COLLECTIVES
+    from bdm_db1_tpu_torch.parallel.mesh import (
+        make_mesh, pipe_replicated, pipeline_parallel,
+    )
+    from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
+    from bdm_db1_tpu_torch.train.convert import load_into
+    from bdm_db1_tpu_torch.train.step import (
+        init_train_state, make_train_rng, make_train_step,
+    )
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    stages, t0 = {}, time.perf_counter()
+    cfg = _tp_cfg("float32")
+    pp = pipeline_parallel(make_mesh(MeshConfig(pipeline_parallel=world),
+                                     "cuda"), PP_MICRO)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cuda", pp=pp)
+    weights = torch.load(ref["weights.pt"], map_location="cpu", mmap=True)
+    load_into(model, weights)
+    with np.load(ref["batch.npz"]) as f:
+        batch = to_gato_batch({"rl": {k: f[k] for k in f.files}}, "cuda")
+    stages["load_s"] = time.perf_counter() - t0
+    # ---- the f32 step, saved ---------------------------------------------
+    t0 = time.perf_counter()
+    state = init_train_state(model, cfg.train.optimizer, 1)
+    state, met = make_train_step(model)(
+        state, batch, torch.Generator(device="cuda").manual_seed(0))
+    loss32 = float(met["loss"])
+    CheckpointManager(ckpt_dir).save(1, state)
+    bits32 = _param_bits(model)
+    stages["f32_step_and_save_s"] = time.perf_counter() - t0
+    # ---- the bf16 step from the weights ----------------------------------
+    load_into(model, weights)
+    _set_dtype(model, "bfloat16")
+    state = init_train_state(model, cfg.train.optimizer,
+                             cfg.train.train_iters)
+    step = make_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sent = []
+    p2p = _P2PLog(sent if pp.first else None)
+    log = _CollectiveLog()
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path, counted ------------------------------------------
+    _reset_launches()
+    for counts in (COLLECTIVES, pipeline.P2P):
+        for k in counts:
+            counts[k] = 0
+    with log, p2p:
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_launches()
+    # ----------------------------------------------------------------------
+    p2p_counts, collectives = dict(pipeline.P2P), dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    p2p_ms = p2p.replay_ms()
+    alone_ms = log.replay_ms()
+    log.calls.clear()
+    sent_rel_diff = None
+    if pp.first:
+        rows = torch.load(ref["stage_rows.pt"])
+        sent_rel_diff = max(
+            float((g.cpu().float() - w.float()).abs().max()
+                  / w.float().abs().max()) for g, w in zip(sent, rows))
+    t0 = time.perf_counter()
+    one_after = torch.load(ref["bf16_after.pt"], map_location="cpu",
+                           mmap=True)
+    named = dict(model.named_parameters())
+    update_sums = {"layers": _delta_sums(
+        {n: p for n, p in named.items() if not pipe_replicated(n)},
+        one_after, weights), "replicated": _delta_sums(
+        {n: p for n, p in named.items() if pipe_replicated(n)
+         and pp.first}, one_after, weights)}
+    del one_after
+    stages["update_sums_s"] = time.perf_counter() - t0
+    # ---- the second step, with dropout (counted too) ---------------------
+    base = db1_1p2b().model
+    for name in ("drop", "embd_pdrop", "dropattn"):
+        setattr(model.cfg, name, getattr(base, name))
+    _reset_launches()
+    state, met = step(state, batch, make_train_rng(0, "cuda", 0, pp.stage))
+    loss2 = float(met["loss"])
+    torch.cuda.synchronize()
+    launches2 = _read_launches()
+    # ----------------------------------------------------------------------
+    mine = {n: b for n, b in _param_bits(model).items() if pipe_replicated(n)}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    return {"rank": rank, "stage": pp.stage,
+            "layers": [pp.layers(cfg.model.n_layer).start,
+                       pp.layers(cfg.model.n_layer).stop],
+            "loss_f32": loss32, "loss": loss, "loss_dropout_step": loss2,
+            "launches": launches, "launches_dropout_step": launches2,
+            "p2p": p2p_counts, "collectives": collectives,
+            "step_ms": step_ms, "step_ms_is": PP_NOTE,
+            "p2p_alone_ms": p2p_ms, "p2p_share": p2p_ms / step_ms,
+            "collectives_alone_ms": alone_ms,
+            "gloo_share": (p2p_ms + alone_ms) / step_ms,
+            "max_memory_allocated_gb": peak / 1e9,
+            "sent_rel_diff": sent_rel_diff, "update_sums": update_sums,
+            "param_bits_f32": bits32,
+            "replicated_bitwise_equal_across_ranks": all(
+                e == mine for e in every),
+            "replicated_params": len(mine), "stages_s": stages}
+
+
+def _pp_kernels() -> dict:
+    """K3 and the backward (K4, K5) at a pipeline micro-batch, one row x
+    1024 with db1_1p2b's 16 heads, held to their plain versions and
+    timed."""
+    from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
+
+    shape = dict(B=TP_MICRO // PP_MICRO, qlen=1024, klen=1024, mem_len=1024,
+                 same_length=True, timed=True)
+    out = {"flash_rel_attention": _rel_case(fra, seed=107, **shape),
+           "flash_rel_attention_bwd": _rel_bwd_case(fra, seed=108, **shape)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(smi: str, reference: "OneProcessReference",
+                   seed: int = 0) -> dict:
+    """The GPipe pipeline in a world of two processes on the one card
+    (gloo; NCCL refuses two ranks on one device), pp 2, dp 1, tp 1,
+    db1_1p2b at full width and depth, 12 layers a stage, from the weights
+    of ``reference`` on its 2-row micro-batch split into PP_MICRO pipeline
+    micro-batches. First K3, K4 and K5 at a pipeline micro-batch against
+    their plain versions (``_pp_kernels``). Then ``_pp_rank`` on each
+    stage, and here: each stage's launches K3 = K4 = K5 = PP_LAYERS x
+    PP_MICRO in the counted bf16 step and in the dropout step; the f32
+    loss within DP_LOSS_TOL of the one-process f32 step; the f32
+    checkpoint restored in one process, its parameters the stages' bit for
+    bit, and its update within TP_F32_UPDATE_COS_MIN and
+    TP_F32_UPDATE_NORM_RTOL of the one-process f32 update; the bf16 update
+    (the stages' sums), whole and over the layers and the replicated
+    parameters each, within PP_BF16_UPDATE_COS_MIN and
+    PP_BF16_UPDATE_NORM_RTOL of the one-process bf16 update, its loss
+    read beside the one-process bf16 step's own distance from f32
+    (TP_ACTION_SHARE's comment says why); stage 0's sent activations
+    within ATTN_REL_TOL of the one-process layer 11 on the same rows; the
+    replicated parameters bitwise equal on both stages after the dropout
+    step."""
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.ops import cuda_build
+    from bdm_db1_tpu_torch.train.checkpoint import load_model
+
+    cuda_build.build_libraries(SOURCES)      # once, before the ranks load
+    kernels = _pp_kernels()
+    t0 = time.perf_counter()
+    one = reference.get(seed)
+    reference_s = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        ckpt_dir = os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        ranks = _run_world("_pp_rank", work, one, ckpt_dir, world=PP_WORLD)
+        world_s = time.perf_counter() - t0
+        want = dict.fromkeys(ranks[0]["launches"], 0)
+        for name in ("flash_rel_attention", "flash_rel_attention_bwd_dq",
+                     "flash_rel_attention_bwd_dkv"):
+            want[name] = PP_LAYERS * PP_MICRO
+        sent = ranks[0]["sent_rel_diff"]
+        gates = {
+            "launches": all(r["launches"] == want
+                            == r["launches_dropout_step"] for r in ranks),
+            "stages_hold_their_layers": [r["layers"] for r in ranks] == [
+                [s * PP_LAYERS, (s + 1) * PP_LAYERS]
+                for s in range(PP_WORLD)],
+            "one_loss_on_every_stage": len({r["loss"] for r in ranks}) == 1,
+            "sends_and_receives": all(
+                r["p2p"] == {"send": PP_MICRO, "recv": PP_MICRO}
+                for r in ranks),
+            "replicated_bitwise_equal": all(
+                r["replicated_bitwise_equal_across_ranks"]
+                and r["replicated_params"] > 3 for r in ranks),
+            "stage0_sent": sent is not None and sent <= ATTN_REL_TOL}
+
+        # ---- the f32 step's checkpoint, restored in one process ----------
+        cfg = _tp_cfg("float32")
+        model = TransformerXL(cfg.model, cfg.vocab, device="cuda")
+        t0 = time.perf_counter()
+        load_model(model, os.path.join(ckpt_dir, "1"))
+        restore_s = time.perf_counter() - t0
+        bits = _param_bits(model)
+        bad = [(n, r["rank"]) for r in ranks
+               for n, b in r["param_bits_f32"].items() if bits[n] != b]
+        bad += [n for n in bits
+                if not any(n in r["param_bits_f32"] for r in ranks)]
+        f32_update = _update_agreement(
+            model, torch.load(one["f32_after.pt"], map_location="cpu",
+                              mmap=True),
+            torch.load(one["weights.pt"], map_location="cpu", mmap=True))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_diff = abs(ranks[0]["loss_f32"] - one["f32_loss"])
+        sums = {g: [sum(r["update_sums"][g][i] for r in ranks)
+                    for i in range(3)] for g in PP_UPDATE_GROUPS}
+        bf16_update = {g: _agreement(v) for g, v in sums.items()}
+        bf16_update["whole"] = _agreement(
+            [sum(v[i] for v in sums.values()) for i in range(3)])
+        train = {
+            "gated_f32": {"loss_pp": ranks[0]["loss_f32"],
+                          "loss_one_process": one["f32_loss"],
+                          "loss_abs_diff": loss_diff, "loss_tol": DP_LOSS_TOL,
+                          "update": f32_update,
+                          "update_tol": {"cosine_min": TP_F32_UPDATE_COS_MIN,
+                                         "norm_rtol":
+                                         TP_F32_UPDATE_NORM_RTOL}},
+            "bf16": {"loss_pp": ranks[0]["loss"],
+                     "loss_one_process": one["bf16_loss"],
+                     "loss_abs_diff": abs(ranks[0]["loss"]
+                                          - one["bf16_loss"]),
+                     "one_process_bf16_vs_f32_loss_abs_diff":
+                     one["bf16_vs_f32_loss_abs_diff"],
+                     "one_process_bf16_vs_f32_update":
+                     one["bf16_vs_f32_update"],
+                     "update": bf16_update},
+            "bf16_update_tol": {"cosine_min": PP_BF16_UPDATE_COS_MIN,
+                                "norm_rtol": PP_BF16_UPDATE_NORM_RTOL},
+            "stage0_sent_rel_diff": sent, "sent_tol": ATTN_REL_TOL,
+            "checkpoint_restore_one_process_s": restore_s}
+        gates.update({
+            "checkpoint_bits": not bad,
+            "f32_loss": loss_diff <= DP_LOSS_TOL,
+            "f32_update": (
+                f32_update["update_cosine"] >= TP_F32_UPDATE_COS_MIN
+                and f32_update["update_norm_rel_diff"]
+                <= TP_F32_UPDATE_NORM_RTOL),
+            "bf16_update": all(
+                u["update_cosine"] >= PP_BF16_UPDATE_COS_MIN
+                and u["update_norm_rel_diff"] <= PP_BF16_UPDATE_NORM_RTOL
+                for u in bf16_update.values())})
+        failed = [k for k, ok in gates.items() if not ok]
+        if failed:
+            raise AssertionError(
+                f"pipeline gates failed: {failed}; {train}; checkpoint "
+                f"{bad[:4]}; stages {[_pp_public(r) for r in ranks]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict.fromkeys(want, 0)
+    for r in ranks:
+        for k in launches:
+            launches[k] += r["launches"][k] + r["launches_dropout_step"][k]
+    with np.load(one["batch.npz"]) as f:
+        seq = int(f["label"].shape[-1])
+    return {"phase": "pipeline", "config": "db1_1p2b", "card": smi,
+            "world": PP_WORLD, "mesh": "(data 1, pipe 2, model 1)",
+            "backend": "gloo, the ranks on cuda:0", "dtype": "bfloat16",
+            "param_dtype": "float32", "optimizer": DP_OPT,
+            "micro_batch": one["micro_batch"],
+            "pipeline_microbatches": PP_MICRO, "layers_a_stage": PP_LAYERS,
+            "seq_length": seq, "kernels_b1": kernels,
+            "ranks": [_pp_public(r) for r in ranks], "world_s": world_s,
+            "reference_s": reference_s, "train": train, "gates": gates,
+            "launches": launches}
+
+
+def _pp_public(rank: dict) -> dict:
+    """A stage's record without its parameter bits."""
+    return {k: v for k, v in rank.items() if k != "param_bits_f32"}
 
 
 TP_NCCL_WORLD = 4
@@ -6132,6 +6600,16 @@ BWD_TIMES = {
 RING_TURNS = ("old_ms", "turns_ms")
 
 
+def _bwd_rows(bwd: dict) -> dict:
+    """The backward's case as the kernels line's K4 and K5 entries: each
+    its own time and bound, the plain backward's time (both kernels'
+    work) and the SDPA backward (K4 + K5)."""
+    return {"flash_rel_attention_bwd_" + which: dict(
+        bwd, **bwd[which], max_abs_err=max(bwd["abs_err"][n] for n in grads))
+        for which, grads in (("dq", ("dq",)),
+                             ("dkv", ("dk", "dv", "drk", "drw", "drr")))}
+
+
 def _tp_rows(tp: dict) -> dict:
     """The tensor_parallel phase's kernel cases (``_tp_kernels``) by the
     kernels line's names: K8 from the int8 prime's case, K4 and K5 each
@@ -6141,12 +6619,7 @@ def _tp_rows(tp: dict) -> dict:
     k7 = tp["flash_ring_prime_ap_int8"]
     out["flash_ring_prime"] = dict(k7, ms=k7["k8_ms"],
                                    max_abs_err=k7["k8_max_abs_err"])
-    bwd = out.pop("flash_rel_attention_bwd")
-    for which, grads in (("dq", ("dq",)),
-                         ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
-        out["flash_rel_attention_bwd_" + which] = dict(
-            bwd, **bwd[which], max_abs_err=max(bwd["abs_err"][n]
-                                               for n in grads))
+    out.update(_bwd_rows(out.pop("flash_rel_attention_bwd")))
     qmm = tp["quant_matmul"]
     out["quant_matmul"] = dict(qmm[0], cases=[
         {k: c[k] for k in ("shape", "ms", "bound_ms", "bound_by",
@@ -6156,7 +6629,7 @@ def _tp_rows(tp: dict) -> dict:
 
 
 def kernels_line(kernels: dict, launches: dict, alone: dict,
-                 tp: dict = None) -> dict:
+                 tp: dict = None, pp: dict = None) -> dict:
     """One record per kernel: its numbers at the main path's shape (the
     first case of each; K9 at the serve's q == 1 rows and the largest trunk
     matrix, with every timed K9 shape under ``cases``) and its launches in
@@ -6164,8 +6637,13 @@ def kernels_line(kernels: dict, launches: dict, alone: dict,
     kernels phase only: no main path runs it. ``alone``: the kernel-alone
     ms per launch in the train profile (``kernel_alone_ms``). ``tp``: the
     tensor_parallel phase's cases at a rank's shapes (H 8), on each row
-    as ``tp2_h8``."""
+    as ``tp2_h8``; ``pp``: the pipeline phase's at a pipeline micro-batch
+    (B 1), on the K3, K4 and K5 rows as ``pp_b1``."""
     tp_rows = _tp_rows(tp) if tp else {}
+    pp_rows = {}
+    if pp:
+        pp_rows = dict(pp)
+        pp_rows.update(_bwd_rows(pp_rows.pop("flash_rel_attention_bwd")))
     cases = kernels["cases"]
     pick = {name: cases[name][0] for name in cases}
     pick["quant_matmul"] = next(
@@ -6177,14 +6655,7 @@ def kernels_line(kernels: dict, launches: dict, alone: dict,
                                     max_abs_err=k7["k8_max_abs_err"],
                                     **{t: k7["k8_" + t] for t in RING_TURNS
                                        if "k8_" + t in k7})
-    # K4 and K5 share one case: each its own time and bound, the plain
-    # backward's time (both kernels' work) and the SDPA backward (K4 + K5)
-    bwd = cases["flash_rel_attention_bwd"][0]
-    for which, grads in (("dq", ("dq",)),
-                         ("dkv", ("dk", "dv", "drk", "drw", "drr"))):
-        pick["flash_rel_attention_bwd_" + which] = dict(
-            bwd, **bwd[which], max_abs_err=max(bwd["abs_err"][n]
-                                               for n in grads))
+    pick.update(_bwd_rows(cases["flash_rel_attention_bwd"][0]))
     rows = []
     for name, replaces in K_REPLACES.items():
         case = pick[name]
@@ -6198,11 +6669,12 @@ def kernels_line(kernels: dict, launches: dict, alone: dict,
             "shape": case["shape"]})
         if name in alone:
             rows[-1]["train_profile_ms"] = alone[name]
-        if name in tp_rows:
-            c = tp_rows[name]
-            rows[-1]["tp2_h8"] = {k: c[k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "cases") if k in c}
+        for key, extra in (("tp2_h8", tp_rows), ("pp_b1", pp_rows)):
+            if name in extra:
+                c = extra[name]
+                rows[-1][key] = {k: c[k] for k in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "cases") if k in c}
         rows[-1].update({k: case[k] for k in RING_TURNS if k in case})
         if name.startswith("flash_rel_attention_bwd"):
             rows[-1].update({k: case[k] for k in BWD_TIMES if k in case})
@@ -6332,17 +6804,27 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         results["generate"] = phase_generate(smi)
         emit(results["generate"])
-    for phase, fn in (("stateless", phase_stateless),
-                      ("remat", phase_remat),
-                      ("serve_preln", phase_serve_preln),
-                      ("data_parallel", phase_data_parallel),
-                      ("tensor_parallel", phase_tensor_parallel),
-                      ("tensor_parallel_nccl", phase_tensor_parallel_nccl)):
-        if phase in phases:
-            gc.collect()
-            torch.cuda.empty_cache()
-            results[phase] = fn(smi)
-            emit(results[phase])
+    # the one-process steps that tensor_parallel and pipeline are held to,
+    # made once; deleted at the end
+    reference = OneProcessReference()
+    try:
+        for phase, fn in (
+                ("stateless", phase_stateless),
+                ("remat", phase_remat),
+                ("serve_preln", phase_serve_preln),
+                ("data_parallel", phase_data_parallel),
+                ("tensor_parallel", functools.partial(
+                    phase_tensor_parallel, reference=reference)),
+                ("pipeline", functools.partial(phase_pipeline,
+                                               reference=reference)),
+                ("tensor_parallel_nccl", phase_tensor_parallel_nccl)):
+            if phase in phases:
+                gc.collect()
+                torch.cuda.empty_cache()
+                results[phase] = fn(smi)
+                emit(results[phase])
+    finally:
+        reference.close()
 
     print(smi, flush=True)
     # launches are counted only on the main paths (both serves, the
@@ -6353,7 +6835,8 @@ def main(argv=None) -> int:
                     for name in K_REPLACES}
         emit(kernels_line(results["kernels"], launches,
                           results["train"]["kernel_alone_ms"],
-                          results["tensor_parallel"]["kernels_h8"]))
+                          results["tensor_parallel"]["kernels_h8"],
+                          results["pipeline"]["kernels_b1"]))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -327,7 +327,8 @@ def test_pretrain_main_on_cpu(workspace):
 @pytest.mark.parametrize("change,error,match", [
     # a model_parallel that does not divide db1_tiny's 4 heads
     (("mesh", "model_parallel", 3), ValueError, "n_head"),
-    (("mesh", "pipeline_parallel", 2), NotImplementedError, "item 9c"),
+    # a pipeline_parallel that does not divide db1_tiny's 2 layers
+    (("mesh", "pipeline_parallel", 3), ValueError, "n_layer"),
     # a multi-process run without the launcher's rendezvous address, and
     # a data-parallel size that is not the world's, raise instead of
     # training in one process

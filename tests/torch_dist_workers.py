@@ -497,3 +497,198 @@ def tp_chains(rank, world, state_dict, cases, mesh_kw):
     out["pool_sharded"] = pool.model is not full and pool.model.tp is not None
     out["pool_heads"] = pool.model.heads
     return out
+
+
+# ---- pipeline parallelism ---------------------------------------------------
+
+def pp_of(mesh_kw):
+    """(``TensorParallel`` or None, ``PipelineParallel``) of this process in
+    ``make_mesh(MeshConfig(**mesh_kw))`` on the CPU."""
+    from bdm_db1_tpu_torch.core.config import MeshConfig
+    from bdm_db1_tpu_torch.parallel.mesh import (
+        make_mesh, pipeline_parallel, tensor_parallel,
+    )
+
+    mc = MeshConfig(**mesh_kw)
+    mesh = make_mesh(mc, "cpu")
+    tp = tensor_parallel(mesh) if mc.model_parallel > 1 else None
+    return tp, pipeline_parallel(mesh, mc.pipeline_microbatches)
+
+
+def pp_model(state_dict, tp, pp, **overrides):
+    """The port's db1_tiny in f32 on the CPU as this rank's stage (and
+    tensor-parallel shard) of a whole model's ``state_dict``."""
+    from bdm_db1_tpu_torch.core.config import db1_tiny
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.train.convert import load_into
+
+    cfg = db1_tiny(dtype="float32", **overrides)
+    model = TransformerXL(cfg.model, cfg.vocab, device="cpu", tp=tp, pp=pp)
+    if state_dict is not None:
+        load_into(model, state_dict)
+    return model
+
+
+def _first_micro(raw):
+    return {m: {k: v[0] for k, v in f.items()} for m, f in raw.items()}
+
+
+def pp_step(rank, world, state_dict, raw, opt_kw, overrides, mesh_kw,
+            steps, ckpt_dir):
+    """A pipeline rank: ``pipeline_trunk`` over the first micro-batch of
+    ``raw`` (every row, in the mesh's pipeline micro-batches; the output
+    on the last stage) and ``gather_stages`` (stage 0's whole state dict,
+    gathered over the model group, and its parameter count), then ``steps`` ``make_train_step`` steps on its
+    data shard of ``raw`` with the collective save of the last into
+    ``ckpt_dir``: each step's loss and grad norm, the first step's
+    gradients and the parameters after, both gathered over the model
+    group, the layers the stage holds and its mesh coordinates."""
+    from bdm_db1_tpu_torch.core.config import OptimizerConfig
+    from bdm_db1_tpu_torch.parallel.pipeline import (
+        gather_stages, pipeline_trunk,
+    )
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    tp, pp = pp_of(mesh_kw)
+    model = pp_model(state_dict, tp, pp, **overrides)
+    whole = to_gato_batch(_first_micro(raw), "cpu")
+    rows = whole["rl"].label.shape
+    h = None
+    if pp.first:
+        with torch.no_grad():
+            h = model.embed_concat(whole, with_targets=False)[0]
+    trunk = pipeline_trunk(model, h, shape=rows)
+    out = {"trunk": trunk, "stage": pp.stage, "coords": (
+        pp.data_rank, pp.stage, 0 if tp is None else tp.rank),
+        "layers": [int(n.split(".")[1]) for n, _ in model.named_parameters()
+                   if n.endswith("qkv_net.weight")]}
+    whole = gather_stages(model)
+    out["gathered"] = out["gathered_params"] = None
+    if whole is not None:
+        sd = {n: t.clone() for n, t in whole.state_dict().items()}
+        out["gathered"] = sd if tp is None else _gathered(sd, tp, model.cfg)
+        out["gathered_params"] = len(list(whole.parameters()))
+    if not steps:
+        return out
+    mine = to_gato_batch(shard(raw, pp.data_rank, pp.data_size), "cpu")
+    state = tstep.init_train_state(model, OptimizerConfig(**opt_kw), 20)
+    grads = {}
+    opt_step = state.optimizer.step
+
+    def keeping():
+        if not grads:
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None})
+        opt_step()
+
+    state.optimizer.step = keeping
+    step = tstep.make_train_step(model, with_grad_norm=True)
+    losses = []
+    for _ in range(steps):
+        state, met = step(state, mine, torch.Generator())
+        losses.append((float(met["loss"]), float(met["grad_norm"])))
+    CheckpointManager(ckpt_dir).save(steps, state)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if tp is not None:
+        grads = _gathered(grads, tp, model.cfg)
+        params = _gathered(params, tp, model.cfg)
+    out.update(losses=losses, grads=grads, params=params)
+    return out
+
+
+def _mask_fingerprints(calls):
+    """A wrapper of ``dropout`` that records, for each call that drops, the
+    bytes of its mask (where a nonzero input became 0)."""
+    def wrap(fn):
+        def recording(x, rate, generator, *a, **kw):
+            y = fn(x, rate, generator, *a, **kw)
+            if rate > 0:
+                calls.append(((y == 0) & (x != 0)).numpy().tobytes())
+            return y
+        return recording
+    return wrap
+
+
+def pp_dropout(rank, world, state_dict, raw, const_raw, samples,
+               mesh_kw):
+    """A pipeline rank at pp 2 with dropout. (1) One pipelined step at the
+    default rates of db1_tiny(n_layer=4), dropout 0.1: the dropped r each
+    stage used and the fingerprints of its layers' masks. (2) ``samples``
+    GPipe forwards of db1_tiny(n_layer=2) (dropout 0.2, no embedding
+    dropout) over the first micro-batch of ``raw``, stage s drawing from
+    ``make_train_rng(1000 + i, rank 0, stage s)``: the outputs on the last
+    stage; rank 0 also the one-process trunk's over the same input
+    (generator 5000 + i). (3) six steps with dropout 0.1 on
+    ``const_raw`` at lr 1e-2: the losses and the replicated parameters
+    after."""
+    from bdm_db1_tpu_torch.core.config import OptimizerConfig, db1_tiny
+    from bdm_db1_tpu_torch.models import transformer_xl as txl
+    from bdm_db1_tpu_torch.parallel import pipeline
+    from bdm_db1_tpu_torch.parallel.mesh import pipe_replicated
+    from bdm_db1_tpu_torch.train import step as tstep
+    from bdm_db1_tpu_torch.train.trainer import to_gato_batch
+
+    _, pp = pp_of(mesh_kw)
+    drop = dict(drop=0.1, embd_pdrop=0.1, dropattn=0.0)
+    model = pp_model(None, None, pp, n_layer=4, **drop)
+    batch = to_gato_batch(raw, "cpu")
+    masks, rs = [], []
+    stage_inputs = pipeline._stage_inputs
+
+    def keep_r(*a, **kw):
+        out = stage_inputs(*a, **kw)
+        rs.append(out[1].clone())
+        return out
+
+    plain = txl.dropout
+    pipeline._stage_inputs = keep_r
+    txl.dropout = _mask_fingerprints(masks)(plain)
+    try:
+        pipeline.make_pipelined_loss_fn(model)(
+            tstep.micro_batch(batch, 0),
+            tstep.make_train_rng(0, "cpu", 0, pp.stage))
+    finally:
+        pipeline._stage_inputs = stage_inputs
+        txl.dropout = plain
+    out = {"r": rs[0], "masks": masks, "stage": pp.stage}
+
+    over = dict(n_layer=2, drop=0.2, embd_pdrop=0.0, dropattn=0.0)
+    model = pp_model(state_dict, None, pp, **over)
+    micro = to_gato_batch(_first_micro(raw), "cpu")
+    with torch.no_grad():
+        h = model.embed_concat(micro, with_targets=False)[0] if pp.first \
+            else None
+    shape = micro["rl"].label.shape
+    got = [pipeline.pipeline_trunk(
+        model, h, shape=shape, deterministic=False,
+        generator=tstep.make_train_rng(1000 + i, "cpu", 0, pp.stage))
+        for i in range(samples)]
+    if pp.last:
+        out["pipe_samples"] = torch.stack(got)
+    if rank == 0:
+        one = tiny_model(state_dict, **over)
+        with torch.no_grad():
+            out["trunk_samples"] = torch.stack([one.trunk(
+                h, None, deterministic=False,
+                generator=torch.Generator().manual_seed(5000 + i))[0]
+                for i in range(samples)])
+
+    model = pp_model(state_dict, None, pp, n_layer=2, drop=0.1,
+                     embd_pdrop=0.1, dropattn=0.1)
+    opt = OptimizerConfig(lr=1e-2, lr_decay_style="constant")
+    state = tstep.init_train_state(model, opt, 100)
+    step = tstep.make_train_step(model)
+    gen = tstep.make_train_rng(0, "cpu", 0, pp.stage)
+    const = to_gato_batch(const_raw, "cpu")
+    losses = []
+    for _ in range(6):
+        state, met = step(state, const, gen)
+        losses.append(float(met["loss"]))
+    out["losses"] = losses
+    out["replicated"] = {n: p.detach().clone()
+                         for n, p in model.named_parameters()
+                         if pipe_replicated(n)}
+    return out
