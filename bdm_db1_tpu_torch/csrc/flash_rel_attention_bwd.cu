@@ -78,38 +78,68 @@
 // have (~229 KB with a three-chunk ring and no prefetch), and it halves
 // the grid to 512 blocks.
 //
-// K5. One block of 8 warps takes 64 keys of one (b, h) and walks the query
-// tiles of _tile_i_bounds in order. A tile runs in two passes between
-// three barriers:
-// - Query-major: warp w takes row group w / 2 (16 query rows) and key half
-//   w % 2 (32 keys), so its band slice is 48 rows (G, p and dS are
-//   [16, 48] and [16, 32] in registers). The sums of dS over rows (for
+// K5. One block of 8 warps (two warpgroups) takes 64 keys of one (b, h)
+// and walks the query tiles of _tile_i_bounds in order. A tile runs in two
+// passes between two block barriers:
+// - Query-major, on mma.sync: warp w takes row group w / 2 (16 query rows)
+//   and key half w % 2 (32 keys), so its band slice is 48 rows (G, p and dS
+//   are [16, 48] and [16, 32] in registers). The sums of dS over rows (for
 //   dK's r_w term and drw) and over diagonals (dgsum, for drk's r_r term
 //   and drr) stay f32: dS goes skewed into the warp's own G buffer and each
 //   lane adds one column, one shared add per sum. p and dS go to shared
-//   memory as bf16, and dG skewed into the row group's pair of G buffers
-//   (a 64-thread barrier), with only the two 16-column strips at its ends
-//   zeroed: the drk product reads nothing else.
-// - Key-major: warp w owns keys 16 (w % 4).. and head dims 64 (w / 4)..:
-//   dK and dV are 64 f32 a thread. On the same q fragments it runs the drk
-//   product of band blocks w % 4 (16 rows, fresh) and w % 4 + 4 (carried):
-//   the next query tile's band is this one's moved down 64 rows, so a
-//   warp's low block is the next tile's high block and stays in registers
-//   until it is complete; it then goes to drk by red.global.add.v4.f32
-//   (lanes t, t ^ 1 swap halves), once per rk row per block and tile pair,
-//   while the remaining products run. Every (b, key tile) adds into the
-//   same rk rows, so drk's summation order changes from run to run. drr
-//   sums dgsum . rk over the rk rows no later tile touches.
+//   memory transposed (keys x queries) as bf16 by stmatrix.trans, and dS
+//   skewed and transposed into dG^T[63 - i + j, i] (band rows x queries;
+//   a buffer of its own, so the cells no tile writes are zeroed once).
+// - Key-major, on wgmma: warpgroup g takes head dims 64 g.. and issues
+//   m64n64k16 products over the tile's 64 queries (4 k-steps), both
+//   operands from shared memory: dV += p^T . dO, dK += dS^T . q, and drk
+//   += dG^T . q over the band's low block (rows 0-63, fresh) and high block
+//   (rows 64-127), then one commit and one wait. drr (dgsum . rk over the
+//   rk rows no later tile touches, on CUDA cores) runs while the products
+//   are in flight. Accumulators: dK, dV and the two drk blocks, 128 f32 a
+//   thread (warp w of a warpgroup holds keys, or band rows, 16 (w % 4)..);
+//   no A or B fragments, no ldmatrix in this pass.
+// - drk. The next query tile's band is this one's moved down 64 rows, so
+//   the low block is the next tile's high block: it stays in registers.
+//   The high block, complete after this tile, goes to drk by
+//   red.global.add.v4.f32, once per rk row per block and tile pair. Added
+//   at once from the accumulator layout (16 rows of 32 bytes an
+//   instruction) at the end of each tile, with nothing left to run under
+//   them, these adds cost more than the products saved, so the block is
+//   rearranged through shared memory and its adds spread: each warp writes
+//   it into its own chunks of the Q/dO stage just read (the staging copies
+//   of a warpgroup fill the head-dim half its products read, so between
+//   that warpgroup's last product on a stage and the stage's next copy the
+//   chunks are the thread's own), and each lane adds its chunk k at k-step
+//   k of the next tile's query-major products, 2 rows whole (4 full
+//   128-byte lines) an instruction, before its copies of the tile after
+//   overwrite them. The last tile adds both blocks at once. Every (b, key
+//   tile) adds into the same rk rows, so drk's summation order changes from
+//   run to run.
+// - Layouts: wgmma reads shared memory in its canonical layouts, so p^T,
+//   dS^T and dG^T (A, K-major) and the staged Q and dO (B, rows of queries
+//   x head dims: MN-major, the transpose bit) are 128-byte-swizzled tiles
+//   of 64-value rows, 16-byte chunk c of row r at chunk c ^ (r % 8), each
+//   1024-byte aligned; Q and dO as two [64, 64] halves, one a warpgroup.
+//   The query-major pass reads Q and dO by ldmatrix through the same
+//   swizzle. K, V and the rk band keep their padded rows (LDH): only
+//   mma.sync reads them.
 // - Stages: Q, dO, (m, l, delta) and r_r . rk_t in two stages; the band in
 //   a ring of three 64-row chunks, so a tile loads only its 64 new rk rows.
 //   The next tile's cp.async copies are issued inside the query-major pass
-//   and waited for (wait_group 0) at the next tile's first barrier.
-// - Budget: 207,360 bytes of shared memory (K, V 34.8 KB; two stages of Q
-//   and dO 69.6 KB; the band ring 52.2 KB; eight warps' G 26.6 KB, with dG
-//   on it; p and dS 18.4 KB; stats, biases and sums 5.5 KB), one block an
-//   SM; registers near the 255 cap (chip_smoke's build phase reports what
-//   ptxas gives, and that nothing spills).
-//
+//   and waited for (wait_group 0) at the next tile's first barrier; the
+//   generic writes (cp.async, stmatrix, stores) reach wgmma through
+//   fence.proxy.async before the second barrier.
+// - Budget: 218,624 bytes of shared memory (two stages of Q and dO 64 KB;
+//   p^T, dS^T 16 KB; dG^T 16 KB; K, V 34.8 KB; the band ring 52.2 KB;
+//   eight warps' G 26.6 KB; stats, biases and sums 5.5 KB; 1 KB to align),
+//   one block an SM. Double-buffered p^T/dS^T/dG^T, which would let one
+//   tile's products overlap the next tile's query-major pass, do not fit
+//   beside the two Q/dO stages and the band ring. The 1024-byte alignment
+//   is an offset from the shared array itself: through an integer the
+//   pointer loses the shared state space, every plain access and atomic
+//   becomes generic, and K5 runs 9-10% slower (a probe build on an H100).
+
 // What bounds them on an H100: operations by the count, latency in fact.
 // At the training shape (B 4, H 16, qlen = klen = 1024, Dh 128, causal:
 // 33.6 M unbanned pairs) K4 runs 5 products of 2 * 128 FLOP a pair (AC,
@@ -119,13 +149,17 @@
 // 2 warps a scheduler. K4's time spreads over the dq pass, the cp.async
 // copies, the G, S and dP products and the elementwise work, none of them
 // dominant (probe builds with one part removed at a time: -18%, -10%,
-// -10%, -10%, -9%). K5's spreads over the drk flush (the L2 atomics), the
-// cp.async issue, the shared-memory sums and the mma.sync chains. (Pairing
-// the blocks of two batch elements in a cluster, to add their drk rows
-// through distributed shared memory before the atomics, was slower: two
-// cluster barriers a tile hold both blocks in step.) Left for a wgmma
-// version: products from shared memory by warpgroup (fewer registers, so
-// more warps or a deeper ring) and TMA for the staging.
+// -10%, -10%, -9%). K5's key-major products, half its tensor work, take
+// 0.033 of its 0.44 ms on wgmma; the drk adds 0.021, the drr sums 0.019,
+// the p^T, dS^T and dG^T stores 0.011 (probe builds with one part removed
+// at a time, H100, training shape); the rest is the query-major pass on
+// mma.sync.
+// (Pairing the blocks of two batch elements in a cluster, to add their drk
+// rows through distributed shared memory before the atomics, was slower:
+// two cluster barriers a tile hold both blocks in step. Walking two key
+// tiles a block, so that the first's last adds drain under the second,
+// gained nothing.) Left: K4's dq pass on wgmma, TMA for the staging, and
+// overlap across tiles.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -159,23 +193,30 @@ constexpr int KH = BK / 2;                 // keys per warp, query-major
 constexpr int WBAND = WROWS + KH;          // 48 band rows per warp (47 used)
 constexpr int LDG = WBAND + 4;             // f32 row stride of a warp's G
 constexpr int GW_BYTES = WROWS * LDG * 4;  // one warp's G
-static_assert(WROWS * LDD * 2 <= 2 * GW_BYTES,
-              "a row group's dG rows must fit in its two warps' G buffers");
-constexpr int K5_K = 0;
+// K5's wgmma operands: bf16 tiles of 128-byte rows (64 values) under the
+// 128-byte swizzle, each 1024-byte aligned. A [64, 128] staged tile (Q,
+// dO) is two such [64, 64] halves, head dims 0-63 and 64-127.
+constexpr int SW_ROW = 64;                   // bf16 values of a swizzled row
+constexpr int SW_HALF = BQ * SW_ROW;         // bf16 values of a [64, 64] tile
+constexpr int SW_TILE = 2 * SW_HALF * 2;     // bytes of a staged [64, 128] tile
+constexpr int K5_Q = 0;                               // 2 stages, swizzled
+constexpr int K5_DO = K5_Q + 2 * SW_TILE;             // 2 stages, swizzled
+constexpr int K5_P = K5_DO + 2 * SW_TILE;             // p^T [BK, BQ], swizzled
+constexpr int K5_S = K5_P + SW_HALF * 2;              // dS^T [BK, BQ], swizzled
+constexpr int K5_DG = K5_S + SW_HALF * 2;             // dG^T [BAND, BQ], swizzled
+constexpr int K5_K = K5_DG + 2 * SW_HALF * 2;
 constexpr int K5_V = K5_K + TILE;
-constexpr int K5_Q = K5_V + TILE;                     // 2 stages
-constexpr int K5_DO = K5_Q + 2 * TILE;                // 2 stages
-constexpr int K5_R = K5_DO + 2 * TILE;                // rk band: a ring of 3 x 64 rows
-constexpr int K5_G = K5_R + 3 * TILE;                 // 8 warps' G; the block's dG
-constexpr int K5_P = K5_G + WARPS * GW_BYTES;         // bf16 p  [BQ, LDP]
-constexpr int K5_S = K5_P + BQ * LDP * 2;             // bf16 dS [BQ, LDP]
-constexpr int K5_RRK = K5_S + BQ * LDP * 2;           // r_r . rk_t [2][BAND]
+constexpr int K5_R = K5_V + TILE;                     // rk band: a ring of 3 x 64 rows
+constexpr int K5_G = K5_R + 3 * TILE;                 // 8 warps' G
+constexpr int K5_RRK = K5_G + WARPS * GW_BYTES;       // r_r . rk_t [2][BAND]
 constexpr int K5_ST = K5_RRK + 2 * BAND * 4;          // m, l, delta [2][3][BQ]
 constexpr int K5_RWK = K5_ST + 2 * 3 * BQ * 4;        // r_w . k_j [BK]
 constexpr int K5_BIAS = K5_RWK + BK * 4;              // r_w, r_r [2][DH]
 constexpr int K5_DSUM = K5_BIAS + 2 * DH * 4;         // sum_i dS_ij [BK]
 constexpr int K5_DGSUM = K5_DSUM + BK * 4;            // sum_i dG_it [3][BAND]
-constexpr int SMEM_DKV = K5_DGSUM + 3 * BAND * 4;
+// and up to 1023 bytes to align the dynamic shared memory to 1024
+constexpr int SMEM_DKV = K5_DGSUM + 3 * BAND * 4 + 1024;
+static_assert(K5_K % 1024 == 0, "the swizzled tiles must stay 1024-byte aligned");
 static_assert(SMEM_DKV <= 232448, "one block must fit one SM");
 constexpr int K4_Q = 0;
 constexpr int K4_DO = K4_Q + TILE;
@@ -277,9 +318,79 @@ __device__ __forceinline__ void ld_a(uint32_t* r, const bf16* base, int ld, int 
   ldsm_x4(r, base + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4));
 }
 
-// A fragment of the transpose: rows of A are columns of the stored tile
-__device__ __forceinline__ void ld_a_t(uint32_t* r, const bf16* base, int ld, int lane) {
-  ldsm_x4_t(r, base + ((lane & 7) + 8 * ((lane >> 4) & 1)) * ld + 8 * ((lane >> 3) & 1));
+// four 8 x 8 bf16 matrices stored transposed: lane l's registers hold row
+// l / 4, columns 2 (l % 4).. of each, which go to column l / 4 of rows
+// 2 (l % 4).. in memory; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void stsm_x4_t(bf16* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                          uint32_t r3) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(a),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// element (r, c) of a tile of 128-byte bf16 rows under the 128-byte
+// swizzle: 16-byte chunk c / 8 of row r lies at chunk (c / 8) ^ (r % 8)
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * SW_ROW + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
+
+// element (r, d) of a staged swizzled [64, 128] tile (two [64, 64] halves)
+__device__ __forceinline__ int sw_tile(int r, int d) { return (d >> 6) * SW_HALF + sw128(r, d & 63); }
+
+// A fragment (16 rows from r0 x 16 head dims from 16 kk) of a staged
+// swizzled tile
+__device__ __forceinline__ void ld_a_sw(uint32_t* r, const bf16* base, int r0, int kk, int lane) {
+  ldsm_x4(r, base + sw_tile(r0 + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * kk + 8 * (lane >> 4)));
+}
+
+// ---- wgmma (K5's key-major products) ---------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Descriptor of a swizzled tile (128-byte rows, 8-row groups 1024 bytes
+// apart, layout type 1: the 128-byte swizzle) from its shared address. K-
+// major (A: rows are M, 64 K values a row) a k16 slice starts 32 bytes
+// further; MN-major (B: rows are K, 64 N values a row) 2048 bytes further.
+// The stride between 64-wide MN blocks is never used (N = 64): it is set to
+// 1024 bytes too.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[64 x 64] (+)= A . B, A K-major and B MN-major (transposed) from shared
+// memory; thread l of warp w of the warpgroup holds d[n][0..1] at row
+// 16 w + l / 4, columns 8 n + 2 (l % 4).., d[n][2..3] eight rows below.
+// scale_d 0 ignores d's old values.
+#define K5_D4(n) "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
+__device__ __forceinline__ void wgmma_64x64(float (&d)[DH / 16][4], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : K5_D4(0), K5_D4(1), K5_D4(2), K5_D4(3), K5_D4(4), K5_D4(5), K5_D4(6), K5_D4(7)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+#undef K5_D4
+
+// after wgmma.wait_group: the accumulators are read only from here on
+__device__ __forceinline__ void fence_acc(float (&d)[DH / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < DH / 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
 }
 
 // B fragments for two n-tiles of 8 from rows [n, d] of a stored tile (k-dim d)
@@ -654,22 +765,33 @@ __device__ __forceinline__ void k5_stage_rk(const Params& p, int h, int t1, unsi
   stage_rk(p, h, t1, reinterpret_cast<bf16*>(smem + K5_R + slot * TILE), tid);
 }
 
-// K5: stage query tile r0's Q, dO, r_r . rk_t and (m, l, delta) into stage
-// s, and the low 64 rows of its rk band into ring slot `slot`, by cp.async
-// (zero past qlen and outside [0, klen)). The band's high 64 rows are the
-// previous tile's low ones.
+// K5: the 16-byte chunk i (0-7) of a staged Q/dO tile that thread tid
+// copies: warpgroup tid / 128 copies the head-dim half that its wgmma reads
+// (chunks 0-3 of Q, 4-7 of dO), so between that warpgroup's last product
+// on a stage and the stage's next copy the chunks are the thread's own.
+__device__ __forceinline__ int k5_chunk(int tid, int i, int& r, int& c) {
+  const int e = (tid & 127) + 128 * (i & 3);
+  r = e >> 3;
+  c = DH / 2 * (tid >> 7) + 8 * (e & 7);
+  return (i < 4 ? K5_Q : K5_DO) + 2 * sw_tile(r, c);   // bytes from the stage's Q
+}
+
+// K5: stage query tile r0's Q, dO (swizzled), r_r . rk_t and (m, l, delta)
+// into stage s, and the low 64 rows of its rk band into ring slot `slot`,
+// by cp.async (zero past qlen and outside [0, klen)). The band's high 64
+// rows are the previous tile's low ones.
 __device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, int c0, int r0,
                                          unsigned char* smem, int s, int slot, int tid) {
-  bf16* Qs = reinterpret_cast<bf16*>(smem + K5_Q + s * TILE);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + K5_DO + s * TILE);
   const bf16* qb = p.q + b * p.q_sb + h * DH;
   const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
   const long long do_st = static_cast<long long>(p.H) * DH;
-  for (int e = tid; e < BQ * VECS; e += THREADS) {
-    const int r = e / VECS, c = (e % VECS) * 8;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int r, c;
+    unsigned char* dst = smem + s * SW_TILE + k5_chunk(tid, i, r, c);
     const bool ok = r0 + r < p.qlen;
-    cp_async16(Qs + r * LDH + c, ok ? qb + (r0 + r) * p.q_st + c : qb, ok);
-    cp_async16(dOs + r * LDH + c, ok ? dob + (r0 + r) * do_st + c : dob, ok);
+    const bf16* src = i < 4 ? qb + (r0 + r) * p.q_st : dob + (r0 + r) * do_st;
+    cp_async16(dst, ok ? src + c : qb, ok);
   }
   const int t0 = c0 - r0 + p.qlen - BQ;   // rk row of band row 0
   k5_stage_rk(p, h, t0, smem, slot, tid);
@@ -692,11 +814,16 @@ __device__ __forceinline__ void k5_stage(const Params& p, int bh, int b, int h, 
 
 // K5: dk, dv for 64 keys of one (b, h); drk, drw and drr by f32 atomics
 __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+  // the swizzled tiles need 1024-byte alignment; an offset from the shared
+  // array itself keeps every access in the shared state space
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - static_cast<unsigned>(__cvta_generic_to_shared(smem_raw))) & 1023u);
   bf16* Ks = reinterpret_cast<bf16*>(smem + K5_K);
   bf16* Vs = reinterpret_cast<bf16*>(smem + K5_V);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + K5_P);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + K5_S);
+  bf16* Pt = reinterpret_cast<bf16*>(smem + K5_P);
+  bf16* dSt = reinterpret_cast<bf16*>(smem + K5_S);
+  bf16* dGt = reinterpret_cast<bf16*>(smem + K5_DG);
   float* rwk_s = reinterpret_cast<float*>(smem + K5_RWK);
   float* rw_s = reinterpret_cast<float*>(smem + K5_BIAS);
   float* rr_s = rw_s + DH;
@@ -705,11 +832,6 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // the block's dG [BQ, LDD] (bf16, skewed): the rows of row group rg lie
-  // in the G buffers of warps 2 rg and 2 rg + 1
-  const auto dg_row = [&](int r) {
-    return reinterpret_cast<bf16*>(smem + K5_G + (r / WROWS) * 2 * GW_BYTES) + (r % WROWS) * LDD;
-  };
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const Geometry geo = geometry(p);
   const int jb = blockIdx.y;    // the first key tiles see the most query tiles
@@ -725,16 +847,14 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
   const int wb = BQ - WROWS - WROWS * rg + KH * kh;
   const int i0 = WROWS * rg + g;            // block rows i0 and i0 + 8
   float* Gw = reinterpret_cast<float*>(smem + K5_G + warp * GW_BYTES);
-  bf16* dgp = dg_row(WROWS * rg);
-  // key-major: keys 16 kq.., head dims 64 dh..
-  const int kq = warp & 3, dh = warp >> 2;
-  // drk: band-row blocks rbl = warp % 4 and rbl + 4 (16 rows each) over
-  // head dims 64 dh... Block rb meets min(rb, 7 - rb) + 1 query blocks, so
-  // the two sum to 5 products of 16 rows x 64 dims x 16 queries a warp. The
-  // next query tile's band is this one's moved down 64 rows: its block
-  // rbl + 4 holds this tile's block rbl, so the warp carries that block's
-  // sums in registers to the next tile and adds them into drk once.
-  const int rbl = warp & 3;
+  // key-major: warpgroup dh takes head dims 64 dh..; the wgmma accumulator
+  // rows of warp w % 4 are keys 16 (w % 4).. of dK and dV, and band rows
+  // 16 (w % 4).. of each drk block. drk: the band's low block (rows 0-63,
+  // fresh) and high block (rows 64-127). The next query tile's band is this
+  // one's moved down 64 rows, so this tile's low block is the next tile's
+  // high block: its sums are carried in registers and added into drk once,
+  // when complete. Warp w holds band-row blocks rbl and rbl + 4 (16 rows).
+  const int dh = warp >> 2, rbl = warp & 3;
 
   {
     const bf16* kb = p.k + b * p.k_sb + h * DH;
@@ -763,6 +883,10 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
     rr_s[tid] = p.rr[h * DH + tid];
   }
   for (int e = tid; e < 3 * BAND; e += THREADS) dgsum_s[e] = 0.f;
+  // Every tile writes the same dG^T cells (the skewed diagonal band), so
+  // the cells the drk products read beside them are zeroed once.
+  for (int e = tid; e < 2 * SW_HALF / 8; e += THREADS)
+    reinterpret_cast<uint4*>(dGt)[e] = make_uint4(0u, 0u, 0u, 0u);
 
   float dk[DH / 16][4], dv[DH / 16][4];
 #pragma unroll
@@ -788,8 +912,8 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
     const float* dgs_prev = dgsum_s + (dg_cur + 2) % 3 * BAND;
     if (tid < BAND) dgsum_s[(dg_cur + 1) % 3 * BAND + tid] = 0.f;
 
-    const bf16* Qs = reinterpret_cast<const bf16*>(smem + K5_Q + s * TILE);
-    const bf16* dOs = reinterpret_cast<const bf16*>(smem + K5_DO + s * TILE);
+    const bf16* Qs = reinterpret_cast<const bf16*>(smem + K5_Q + s * SW_TILE);
+    const bf16* dOs = reinterpret_cast<const bf16*>(smem + K5_DO + s * SW_TILE);
     const int chunk = iq - i_lo + 1;
     const bf16* Rlo = reinterpret_cast<const bf16*>(smem + K5_R + chunk % 3 * TILE);
     const bf16* Rhi = reinterpret_cast<const bf16*>(smem + K5_R + (chunk + 2) % 3 * TILE);
@@ -797,10 +921,14 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
     const auto band_row = [&](int r) { return (r < BQ ? Rlo : Rhi) + (r % BQ) * LDH; };
     const float* rrk_s = reinterpret_cast<const float*>(smem + K5_RRK) + s * BAND;
     const float* st_s = reinterpret_cast<const float*>(smem + K5_ST) + s * 3 * BQ;
+    // the previous tile's high block (this tile's band rows 128 + 16 rbl..),
+    // staged by drk_stage in the other stage: at k-step k of the
+    // query-major products this lane adds its chunk k (rows 2 k, 2 k + 1)
+    const int fl_tr = iq > i_lo ? t0 + 2 * BQ + 16 * rbl + (lane >> 4) : -p.klen;
+    float* fl_dst = p.drk + (static_cast<long long>(fl_tr) * p.H + h) * DH + DH / 2 * dh;
 
     {  // query-major: rows i0, i0 + 8 of row group rg, keys 32 kh..
       float pr[KH / 8][4], ds[KH / 8][4];
-      const bf16* qw = Qs + WROWS * rg * LDH;
       {  // G = q . band^T over the warp's 48 band rows (f32 in Gw), S = q . k^T
         float gacc[WBAND / 8][4];
 #pragma unroll
@@ -809,8 +937,16 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
         for (int n = 0; n < KH / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
+          {
+            int r, c;
+            const float4 v = *reinterpret_cast<const float4*>(smem + (s ^ 1) * SW_TILE +
+                                                              k5_chunk(tid, kk, r, c));
+            const unsigned tr = static_cast<unsigned>(fl_tr + 2 * kk);
+            if (tr < static_cast<unsigned>(p.klen))
+              red_add4(fl_dst + 2 * kk * p.H * DH + 4 * ((lane & 15) ^ (2 * kk + (lane >> 4))), v);
+          }
           uint32_t qa[4];
-          ld_a(qa, qw + kk * 16, LDH, lane);
+          ld_a_sw(qa, Qs, WROWS * rg, kk, lane);
 #pragma unroll
           for (int np = 0; np < WBAND / 16; ++np) {
             uint32_t bfr[4];
@@ -890,11 +1026,10 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
       // dP = dO . V^T, then dS = p (dP - delta) scale
 #pragma unroll
       for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-      const bf16* dow = dOs + WROWS * rg * LDH;
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         uint32_t da[4];
-        ld_a(da, dow + kk * 16, LDH, lane);
+        ld_a_sw(da, dOs, WROWS * rg, kk, lane);
 #pragma unroll
         for (int np = 0; np < KH / 16; ++np) {
           uint32_t bfr[4];
@@ -940,40 +1075,35 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
         if (lane < WROWS - 1) atomicAdd(dgs + wb + KH + lane, d1);
       }
 
-      // the row group's dG rows overlay both warps' G: both must be done
-      pair_barrier(rg);
-      // dG[i, 63 - i + j] = dS[i, j]. The drk product reads row group rg's
-      // dG in band columns [48 - 16 rg, 128 - 16 rg): this warp's diagonal
-      // plus a 16-column strip at its outer end, zeroed here.
-      {
-        const int zc = kh ? 2 * BQ - WROWS - WROWS * rg : BQ - WROWS - WROWS * rg;
-        *reinterpret_cast<uint4*>(dgp + (lane >> 1) * LDD + zc + 8 * (lane & 1)) =
-            make_uint4(0u, 0u, 0u, 0u);
+      // p^T and dS^T (keys x queries) as bf16 by stmatrix.trans: matrix
+      // 2 (n % 2) + hi of a pair is keys 32 kh + 8 n.., queries 16 rg + 8 hi..
+#pragma unroll
+      for (int np = 0; np < KH / 16; ++np) {
+        const int mi = lane >> 3;
+        const int key = KH * kh + 8 * (2 * np + (mi >> 1)) + (lane & 7);
+        const int off = sw128(key, WROWS * rg + 8 * (mi & 1));
+        const int n0 = 2 * np, n1 = n0 + 1;
+        stsm_x4_t(Pt + off, pack_bf16(pr[n0][0], pr[n0][1]), pack_bf16(pr[n0][2], pr[n0][3]),
+                  pack_bf16(pr[n1][0], pr[n1][1]), pack_bf16(pr[n1][2], pr[n1][3]));
+        stsm_x4_t(dSt + off, pack_bf16(ds[n0][0], ds[n0][1]), pack_bf16(ds[n0][2], ds[n0][3]),
+                  pack_bf16(ds[n1][0], ds[n1][1]), pack_bf16(ds[n1][2], ds[n1][3]));
       }
-      __syncwarp();
+      // dG^T[63 - i + j, i] = dS[i, j] (band rows x queries)
 #pragma unroll
       for (int n = 0; n < KH / 8; ++n) {
-        const int j = KH * kh + 8 * n + 2 * t;
-        *reinterpret_cast<uint32_t*>(Ps + i0 * LDP + j) = pack_bf16(pr[n][0], pr[n][1]);
-        *reinterpret_cast<uint32_t*>(Ps + (i0 + 8) * LDP + j) = pack_bf16(pr[n][2], pr[n][3]);
-        *reinterpret_cast<uint32_t*>(dSs + i0 * LDP + j) = pack_bf16(ds[n][0], ds[n][1]);
-        *reinterpret_cast<uint32_t*>(dSs + (i0 + 8) * LDP + j) = pack_bf16(ds[n][2], ds[n][3]);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int bc0 = BQ - 1 - i0 + j + e;     // block band column of (i0, j + e)
-          dgp[g * LDD + bc0] = __float2bfloat16_rn(ds[n][e]);
-          dgp[(g + 8) * LDD + bc0 - 8] = __float2bfloat16_rn(ds[n][2 + e]);
+          const int br = BQ - 1 - i0 + KH * kh + 8 * n + 2 * t + e;   // band row of (i0, j)
+          dGt[sw128(br, i0)] = __float2bfloat16_rn(ds[n][e]);
+          dGt[sw128(br - 8, i0 + 8)] = __float2bfloat16_rn(ds[n][2 + e]);
         }
       }
     }
+    // p^T, dS^T, dG^T and the staged Q and dO are read by wgmma (the async
+    // proxy) after the barrier
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();   // p, dS, dG and the sums are complete
 
-    // drk rows of band block rb: A = dG^T (stored rows are queries 16 ks..,
-    // columns band rows 16 rb..), zero outside query blocks 3 - rb..7 - rb
-    const auto ld_dgt = [&](uint32_t* a, int ks, int rb) {
-      const int qr = 16 * ks + (lane & 7) + 8 * ((lane >> 4) & 1);
-      ldsm_x4_t(a, dg_row(qr) + 16 * rb + 8 * ((lane >> 3) & 1));
-    };
     // + dgsum r_r for the rows of block rb (this tile's sums)
     const auto add_rr = [&](float (&acc)[DH / 16][4], int rb) {
       const float gA = dgs[16 * rb + g], gB = dgs[16 * rb + g + 8];
@@ -986,64 +1116,68 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
         acc[n][3] += gB * r2.y;
       }
     };
-    // into drk for the rows of block rb: lanes t and t ^ 1 swap halves, so
-    // an even t adds dims d..d+3 of row A and an odd t dims d-2..d+1 of row B
-    const auto flush_drk = [&](float (&acc)[DH / 16][4], int rb) {
-      const bool odd = t & 1;
-      const int tr = t0 + 16 * rb + g + (odd ? 8 : 0);
-      const bool ok = tr >= 0 && tr < p.klen;
-      float* dst = p.drk + (static_cast<long long>(tr) * p.H + h) * DH + DH / 2 * dh + 2 * (t & 2);
+    // Into drk for the warp's 16 rows of block rb (64 dims a row, 4 KB),
+    // through the warp's own chunks of this tile's Q/dO stage (its
+    // warpgroup's products on them are done), so that add k of lane L is
+    // row R = 2 k + L / 16, dims quad (L % 16) ^ R, from its own chunk k: one
+    // red.global.add.v4.f32 of 4 full 128-byte lines a warp. Lane (g, t)
+    // holds rows g and g + 8, dims 8 n + 2 t.. (quad 2 n + t / 2, half
+    // t % 2), and stores each pair where its reader takes it; the xor by
+    // the row keeps these stores free of bank conflicts.
+    const auto drk_stage = [&](float (&acc)[DH / 16][4]) {
+      unsigned char* stage = smem + s * SW_TILE;
+      int r, c;
+      __syncwarp();
 #pragma unroll
       for (int n = 0; n < DH / 16; ++n) {
-        const float sx = __shfl_xor_sync(0xffffffffu, odd ? acc[n][0] : acc[n][2], 1);
-        const float sy = __shfl_xor_sync(0xffffffffu, odd ? acc[n][1] : acc[n][3], 1);
-        if (ok)
-          red_add4(dst + 8 * n, odd ? make_float4(sx, sy, acc[n][2], acc[n][3])
-                                    : make_float4(acc[n][0], acc[n][1], sx, sy));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = g + 8 * e;
+          const int reader = 16 * (row & 1) + ((2 * n + (t >> 1)) ^ row);
+          *reinterpret_cast<float2*>(stage + k5_chunk((tid & ~31) | reader, row >> 1, r, c) + 8 * (t & 1)) =
+              make_float2(acc[n][2 * e], acc[n][2 * e + 1]);
+        }
+      }
+    };
+    const auto flush_drk = [&](float (&acc)[DH / 16][4], int rb) {
+      unsigned char* stage = smem + s * SW_TILE;
+      int r, c;
+      drk_stage(acc);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k) {
+        const int tr = t0 + 16 * rb + 2 * k + (lane >> 4);
+        const float4 v = *reinterpret_cast<const float4*>(stage + k5_chunk(tid, k, r, c));
+        if (tr >= 0 && tr < p.klen)
+          red_add4(p.drk + (static_cast<long long>(tr) * p.H + h) * DH + DH / 2 * dh +
+                       4 * ((lane & 15) ^ (2 * k + (lane >> 4))), v);
       }
     };
 
-    {  // key-major: dV += p^T . dO, dK += dS^T . q for keys 16 kq.., dims
-       // 64 dh..; drk of blocks rbl (fresh) and rbl + 4 (carried) on the
-       // same q fragments
+    {  // key-major, by warpgroup dh on head dims 64 dh..: dV += p^T . dO,
+       // dK += dS^T . q, drk's low block (fresh) and high block (carried)
+       // += dG^T . q, over the tile's 64 queries (4 k-steps of 16)
       float acc[DH / 16][4];
-#pragma unroll
-      for (int n = 0; n < DH / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      const uint32_t a_p = static_cast<uint32_t>(__cvta_generic_to_shared(Pt));
+      const uint32_t a_s = static_cast<uint32_t>(__cvta_generic_to_shared(dSt));
+      const uint32_t a_g = static_cast<uint32_t>(__cvta_generic_to_shared(dGt));
+      const uint32_t b_q = static_cast<uint32_t>(__cvta_generic_to_shared(Qs + dh * SW_HALF));
+      const uint32_t b_o = static_cast<uint32_t>(__cvta_generic_to_shared(dOs + dh * SW_HALF));
+      wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BQ / 16; ++ks) {
-        uint32_t ap[4], as[4], al[4], ah[4];
-        ld_a_t(ap, Ps + 16 * ks * LDP + 16 * kq, LDP, lane);
-        ld_a_t(as, dSs + 16 * ks * LDP + 16 * kq, LDP, lane);
-        const bool in_l = ks >= 3 - rbl, in_h = ks <= 3 - rbl;   // the same for the warp
-        if (in_l) ld_dgt(al, ks, rbl);
-        if (in_h) ld_dgt(ah, ks, rbl + 4);
-#pragma unroll
-        for (int dp = 0; dp < DH / 32; ++dp) {
-          uint32_t bfr[4];
-          ld_b_t(bfr, dOs + 16 * ks * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
-          mma16816(dv[2 * dp], ap, bfr[0], bfr[1]);
-          mma16816(dv[2 * dp + 1], ap, bfr[2], bfr[3]);
-          ld_b_t(bfr, Qs + 16 * ks * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
-          mma16816(dk[2 * dp], as, bfr[0], bfr[1]);
-          mma16816(dk[2 * dp + 1], as, bfr[2], bfr[3]);
-          if (in_l) {
-            mma16816(acc[2 * dp], al, bfr[0], bfr[1]);
-            mma16816(acc[2 * dp + 1], al, bfr[2], bfr[3]);
-          }
-          if (in_h) {
-            mma16816(carry[2 * dp], ah, bfr[0], bfr[1]);
-            mma16816(carry[2 * dp + 1], ah, bfr[2], bfr[3]);
-          }
-        }
-        if (ks == 3 - rbl) {   // block rbl + 4 is complete: out while the rest runs
-          add_rr(carry, rbl + 4);
-          flush_drk(carry, rbl + 4);
-        }
+        const uint64_t bq = desc_sw128(b_q + 2048 * ks);
+        wgmma_64x64(carry, desc_sw128(a_g + SW_HALF * 2 + 32 * ks), bq, 1);
+        wgmma_64x64(dv, desc_sw128(a_p + 32 * ks), desc_sw128(b_o + 2048 * ks), 1);
+        wgmma_64x64(dk, desc_sw128(a_s + 32 * ks), bq, 1);
+        wgmma_64x64(acc, desc_sw128(a_g + 32 * ks), bq, ks > 0);
       }
+      wgmma_commit();
       // drr: sum_t dgsum_t rk_t over the rk rows no later tile touches: the
       // band's high 64 rows (this tile's sums and the previous tile's sums of
       // its low rows, the same rk rows), and on the last tile the low 64
       // too. Rows 8 warp.., dims 4 lane..; rows outside [0, klen) are zero.
+      // It reads no operand or accumulator of the products in flight.
       for (int half = has_next ? 1 : 0; half < 2; ++half) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -1058,13 +1192,21 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
           drr_acc[3] += gs * x1.y;
         }
       }
+      wgmma_wait0();
+      fence_acc(carry);
+      fence_acc(acc);
+      fence_acc(dk);
+      fence_acc(dv);
+      add_rr(carry, rbl + 4);   // the high block is complete
       add_rr(acc, rbl);
       if (has_next) {
+        drk_stage(carry);   // added into drk during the next tile
 #pragma unroll
         for (int n = 0; n < DH / 16; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) carry[n][e] = acc[n][e];
       } else {
+        flush_drk(carry, rbl + 4);
         flush_drk(acc, rbl);
       }
     }
@@ -1073,7 +1215,7 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
   __syncthreads();
 
   // dK = dS^T . q + (sum_i dS_ij) r_w; dV; both cast to bf16
-  const int j0 = 16 * kq + g, j1 = j0 + 8;
+  const int j0 = 16 * rbl + g, j1 = j0 + 8;
   const int key0 = c0 + j0, key1 = c0 + j1;
   const float s0 = dsum_s[j0], s1 = dsum_s[j1];
   const long long o0 =

@@ -277,13 +277,12 @@ With ``--old-qmm SRC`` (a copy of an earlier csrc/quant_matmul.cu, e.g.
 under build/), the kernels phase also times that K9 in turns with this
 tree's (new, old, old, new) and its host time per call. With
 ``--old-rel-bwd SRC`` (a copy of an earlier
-csrc/flash_rel_attention_bwd.cu with the single-entry C interface of
-commit 5ef425d, e.g. ``git show
-5ef425d:bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu``), at the two
-timed K4/K5 shapes it holds that source's six gradients to this tree's,
-times its K4 in turns with this tree's (old, new, new, old; both after the
-key terms, on the same delta) and its wrapper's two calls in turns with
-this tree's ``flash_rel_attention_bwd``. With ``--old-ring SRC`` (a copy
+csrc/flash_rel_attention_bwd.cu with this tree's C interface, e.g. ``git
+show edacf2a:bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu``), at the
+four timed K5 shapes (the kernels phase's two, ``tensor_parallel``'s H 8
+and ``pipeline``'s B 1) that source's K5 runs on this tree's delta and key
+terms, its dk, dv, drk, drw and drr are held to this tree's within
+BWD_REL_TOL, and the two K5s are timed in turns (old, new, new, old). With ``--old-ring SRC`` (a copy
 of an earlier csrc/flash_ring_decode.cu, e.g. ``git show
 9fdc92c:bdm_db1_tpu_torch/csrc/flash_ring_decode.cu``), at the timed K1,
 K6, K2 and K7 cases its decode's or prime's (o, m, l) are held to this
@@ -809,15 +808,12 @@ class OldQmm:
 
 
 class OldRelBwd:
-    """An earlier K4/K5 source with the C interface of commit 5ef425d (one
-    entry, ``bdm_flash_rel_attention_bwd(which, ...)``, that runs the key
-    terms and then K4 or K5), built from a copy given by --old-rel-bwd.
-    ``step`` runs one kernel as that commit's wrapper (``_launch_bwd``)
-    did, its input checks aside: delta in PyTorch, the scratch, the zeroed
-    sums, the key terms and the kernel; ``backward`` its two calls; ``dq``
-    its K4 (after the key terms) on the delta, scratch and output of this
-    tree's operands. Timed in turns with this tree's on the same card. Not
-    part of the port."""
+    """An earlier K5 with this tree's C interface (``bdm_rel_bwd(which,
+    ...)``: the preparation, K4 and K5 as separate steps), built from a copy
+    of its csrc/flash_rel_attention_bwd.cu given by --old-rel-bwd. ``dkv``
+    runs its K5 alone on the operands of ``_bwd_operands`` after this
+    tree's preparation (the same delta and key terms). Timed in turns with
+    this tree's K5 on the same card. Not part of the port."""
 
     def __init__(self, src: str, checked: bool = True):
         import ctypes
@@ -826,63 +822,25 @@ class OldRelBwd:
         self.resources = ptxas_resources(log)
         self.checked = checked
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bdm_flash_rel_attention_bwd.argtypes = (
-            [I] + [P] * 18 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
-        lib.bdm_flash_rel_attention_bwd.restype = I
+        lib.bdm_rel_bwd.argtypes = (
+            [I] + [P] * 19 + [LL] * 6 + [I] * 6 + [ctypes.c_float, I, P])
+        lib.bdm_rel_bwd.restype = I
         self.lib = lib
 
-    def _launch(self, code, q, k, v, rk, rw, rr, dout, m, l, delta, rwk, rrk,
-                outs, mem_len, same_length, scale):
+    def dkv(self, t, mem_len, same_length, scale):
+        from bdm_db1_tpu_torch.ops.flash_rel_attention import _BWD_PTRS
+
+        q, k, v = t["q"], t["k"], t["v"]
         B, qlen, H, _ = q.shape
         dev = q.device
-        rc = self.lib.bdm_flash_rel_attention_bwd(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), rk.data_ptr(),
-            rw.data_ptr(), rr.data_ptr(), dout.data_ptr(), m.data_ptr(),
-            l.data_ptr(), delta.data_ptr(), rwk.data_ptr(), rrk.data_ptr(),
-            *[0 if t is None else t.data_ptr() for t in outs],
+        rc = self.lib.bdm_rel_bwd(
+            2, *[0 if t.get(n) is None else t[n].data_ptr()
+                 for n in _BWD_PTRS],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), B, H, qlen, k.shape[1], mem_len, int(same_length),
             scale, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
         if rc:
-            raise RuntimeError(f"old K4/K5 launch failed ({rc})")
-
-    def step(self, which, q, k, v, rk, r_w_bias, r_r_bias, out, m, l, dout,
-             mem_len, same_length, scale):
-        dev = q.device
-        B, qlen, H, Dh = q.shape
-        klen = k.shape[1]
-        dout = dout.contiguous()
-        rw = r_w_bias.float().contiguous()
-        rr = r_r_bias.float().contiguous()
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
-        f32 = dict(dtype=torch.float32, device=dev)
-        rwk = torch.empty(B * H * klen, **f32)
-        rrk = torch.empty(H * klen, **f32)
-        if which == "dq":
-            outs = (torch.empty(B, qlen, H, Dh, dtype=torch.bfloat16,
-                                device=dev), None, None, None, None, None)
-        else:
-            dk = torch.empty(B, klen, H, Dh, dtype=torch.bfloat16, device=dev)
-            outs = (None, dk, torch.empty_like(dk),
-                    torch.zeros(klen, H, Dh, **f32), torch.zeros(H, Dh, **f32),
-                    torch.zeros(H, Dh, **f32))
-        self._launch(0 if which == "dq" else 1, q, k, v, rk, rw, rr, dout, m,
-                     l, delta, rwk, rrk, outs, mem_len, same_length, scale)
-        if which == "dq":
-            return outs[0]
-        _, dk, dv, drk, drw, drr = outs
-        return (dk, dv, drk.to(rk.dtype), drw.to(r_w_bias.dtype),
-                drr.to(r_r_bias.dtype))
-
-    def backward(self, *args):
-        return (self.step("dq", *args),) + self.step("dkv", *args)
-
-    def dq(self, t, mem_len, same_length, scale):
-        self._launch(0, t["q"], t["k"], t["v"], t["rk"], t["rw"], t["rr"],
-                     t["dout"], t["m"], t["l"], t["delta"], t["rwk"],
-                     t["rrk"], (t["dq"],) + (None,) * 5, mem_len,
-                     same_length, scale)
+            raise RuntimeError(f"old K5 launch failed ({rc})")
 
 
 def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
@@ -1130,6 +1088,36 @@ GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
 DELTA_REL_TOL = 1e-5
 
 
+def _old_k5_turns(fra, old, t, pos) -> dict:
+    """An earlier K5 (OldRelBwd) against this tree's on the operands ``t``
+    of ``_bwd_operands`` after this tree's preparation (the same delta and
+    key terms), each into outputs of its own with zeroed sums: dk, dv, drk,
+    drw and drr each within BWD_REL_TOL of this tree's largest value; then
+    the two K5s alone timed in turns (old, new, new, old)."""
+    outs = {}
+    for name, run in (("new", lambda u: fra._bwd_step("dkv", u, *pos)),
+                      ("old", lambda u: old.dkv(u, *pos))):
+        u = dict(t, dk=torch.empty_like(t["dk"]), dv=torch.empty_like(t["dv"]),
+                 **{n: torch.zeros_like(t[n]) for n in ("drk", "drw", "drr")})
+        run(u)
+        outs[name] = u
+    torch.cuda.synchronize()
+    rel = {n: float((outs["old"][n].float() - outs["new"][n].float()).abs()
+                    .max() / outs["new"][n].float().abs().max())
+           for n in GRAD_NAMES[1:]}
+    if old.checked and not all(np.isfinite(v) and v <= BWD_REL_TOL[n]
+                               for n, v in rel.items()):
+        raise AssertionError(f"the old K5 disagrees with this tree's: {rel}")
+    new_u, old_u = outs["new"], outs["old"]
+    times = [time_ms(f, iters=20) for f in (
+        lambda i: old.dkv(old_u, *pos),
+        lambda i: fra._bwd_step("dkv", new_u, *pos),
+        lambda i: fra._bwd_step("dkv", new_u, *pos),
+        lambda i: old.dkv(old_u, *pos))]
+    return {"old_vs_new_rel_err": rel, "ms": float(np.mean(times[1:3])),
+            "old_ms": float(np.mean(times[::3])), "turns_ms": times}
+
+
 def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
                   old=None, H=16):
     """The backward (the preparation, K4 and K5) on K3's inputs (q, k, v
@@ -1140,10 +1128,8 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     around bare launches on one preparation's delta and key terms), the
     preparation, the whole ``flash_rel_attention_bwd`` call, each kernel's
     bound, the plain backward and the SDPA backward as a yardstick. With
-    ``old`` (OldRelBwd): its six gradients held to this tree's within twice
-    BWD_REL_TOL, its K4 and this tree's timed in turns (old, new, new, old)
-    after the key terms on the same delta, and its two-call backward and
-    this tree's call in turns."""
+    ``old`` (OldRelBwd), when timed: its K5 held to this tree's and the two
+    timed in turns (``_old_k5_turns``)."""
     from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
 
     Dh = 128
@@ -1207,50 +1193,10 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
                 lambda i, w=which: fra._bwd_step(w, t, *pos), iters=20)
         rec["prep_ms"] = time_ms(lambda i: fra._bwd_step("prep", t, *pos),
                                  iters=20)
-
-        def call(i):
-            return fra.flash_rel_attention_bwd(*saved, **kw)
-
-        if old is None:
-            rec["call_ms"] = time_ms(call, iters=10)
-        else:
-            old_rel = {}
-            for name, a, b in zip(GRAD_NAMES, old.backward(*saved, *pos), got):
-                old_rel[name] = float((a.float() - b.float()).abs().max()
-                                      / b.float().abs().max())
-            torch.cuda.synchronize()
-            rec["old_vs_new_rel_err"] = old_rel
-            if old.checked and not all(np.isfinite(v)
-                                       and v <= 2 * BWD_REL_TOL[n]
-                                       for n, v in old_rel.items()):
-                raise AssertionError(f"the old K4/K5 disagree with this "
-                                     f"tree's: {old_rel}")
-            # K4 after the key terms on both sides: the old entry runs them
-            # before its K4, this tree's preparation without delta does the
-            # same work; delta is made beforehand for both
-            keys_only = dict(t, out=None)
-
-            def new_dq(i):
-                fra._bwd_step("prep", keys_only, *pos)
-                fra._bwd_step("dq", t, *pos)
-
-            def old_dq(i):
-                old.dq(t, *pos)
-
-            times = [time_ms(f, iters=20)
-                     for f in (old_dq, new_dq, new_dq, old_dq)]
-            rec["dq"]["with_key_terms_ms"] = float(np.mean(times[1:3]))
-            rec["dq"]["old_ms"] = float(np.mean(times[::3]))
-            rec["dq"]["turns_ms"] = times
-
-            def old_call(i):
-                return old.backward(*saved, *pos)
-
-            times = [time_ms(f, iters=10)
-                     for f in (old_call, call, call, old_call)]
-            rec["call_ms"] = float(np.mean(times[1:3]))
-            rec["old_call_ms"] = float(np.mean(times[::3]))
-            rec["call_turns_ms"] = times
+        if old is not None:
+            rec["dkv"].update(_old_k5_turns(fra, old, t, pos))
+        rec["call_ms"] = time_ms(
+            lambda i: fra.flash_rel_attention_bwd(*saved, **kw), iters=10)
         rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_bwd_plain(
             *saved, **kw), iters=2, warmup=1)
         # yardstick only (the port never calls it): the backward of SDPA of
@@ -1279,7 +1225,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     return rec
 
 
-def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
+def phase_kernels(old_qmm=None, old_bwd=None, old_ring=None,
                   old_rel_fwd=None, probe=False) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
@@ -1383,7 +1329,6 @@ def phase_kernels(old_qmm=None, old_rel_bwd=None, old_ring=None,
         _rel_case(fra, B=STATELESS_B, qlen=1024, klen=1024, mem_len=1024,
                   same_length=True, seed=58, timed=True)]
     torch.cuda.empty_cache()
-    old_bwd = OldRelBwd(old_rel_bwd, not probe) if old_rel_bwd else None
     cases["flash_rel_attention_bwd"] = [
         # (a) the train step's shape: B 4, seq 1024, causal
         _rel_bwd_case(fra, B=4, qlen=1024, klen=1024, mem_len=1024,
@@ -2407,7 +2352,11 @@ def _train_route_check(model, batch) -> dict:
     not gated, the same gap of the plain bf16 route (autograd through
     ``rel_attention`` in bf16, as the trunk runs it without the kernels),
     so that a reading over the gate shows whether bf16 alone goes as far
-    on that micro-batch. Then the whole
+    on that micro-batch, and the same gap of the reference algorithm
+    (``flash_rel_attention_bwd_plain``: JAX's backward in f32 arithmetic,
+    delta from the kernel route's own bf16 output, with its m and l), so
+    that a tail of drw and drr shows whether it is K5's or the
+    algorithm's. Then the whole
     model's gradient through both routes (attention_impl "auto" and "xla")
     from one generator seed, so that the dropout masks and the patch
     positions are equal: global norms within GRAD_NORM_RTOL, cosine
@@ -2433,6 +2382,7 @@ def _train_route_check(model, batch) -> dict:
               scale=1.0 / Dh ** 0.5)
     worst = dict.fromkeys(GRAD_NAMES, 0.0)
     plain_worst = dict.fromkeys(GRAD_NAMES, 0.0)
+    alg_worst = dict.fromkeys(GRAD_NAMES, 0.0)
     for layer in model.h:
         a = layer.dec_attn
         with torch.no_grad():
@@ -2453,12 +2403,18 @@ def _train_route_check(model, batch) -> dict:
         plain = torch.autograd.grad(
             rel_attention(*plain_ins, mask, scale=kw["scale"],
                           compute_dtype=q.dtype), plain_ins, g)
-        for name, x, p, y in zip(GRAD_NAMES, got, plain, ref):
+        with torch.no_grad():
+            out, (m, l) = fra.flash_rel_attention(*ins, with_stats=True, **kw)
+            alg = fra.flash_rel_attention_bwd_plain(*ins, out, m, l, g, **kw)
+            del out, m, l
+        for name, x, p, a, y in zip(GRAD_NAMES, got, plain, alg, ref):
             worst[name] = max(worst[name], float(
                 (x.float() - y).abs().max() / y.abs().max()))
             plain_worst[name] = max(plain_worst[name], float(
                 (p.float() - y).abs().max() / y.abs().max()))
-        del got, ref, ref_ins, ins, plain, plain_ins
+            alg_worst[name] = max(alg_worst[name], float(
+                (a.float() - y).abs().max() / y.abs().max()))
+        del got, ref, ref_ins, ins, plain, plain_ins, alg
         with torch.no_grad():
             h = layer(h, None, r, mask, True)
 
@@ -2489,6 +2445,7 @@ def _train_route_check(model, batch) -> dict:
     del flat
     out = {"grad_tol": GRAD_REL_TOL, "attn_grad_rel_err": worst,
            "plain_bf16_attn_grad_rel_err": plain_worst,
+           "ref_alg_attn_grad_rel_err": alg_worst,
            "params_reached": len(reached), "params": len(params),
            "grad_norm_kernel": nk, "grad_norm_plain": npl,
            "grad_norm_rel_diff": abs(nk - npl) / npl,
@@ -5256,7 +5213,7 @@ TP_NOTE = ("the step of one rank while the other shares the card; gloo sums "
            "tensor-parallel rate")
 
 
-def _tp_kernels() -> dict:
+def _tp_kernels(old_rel_bwd=None) -> dict:
     """Every kernel of the tensor-parallel paths at the shapes of a rank at
     tp 2 (H 8 heads), held to its plain version and timed: K1 and K2 (Q
     24, the steady prime's bucket) on the bf16 cache of the 40-env serve,
@@ -5289,7 +5246,8 @@ def _tp_kernels() -> dict:
             same_length=True, seed=105, timed=True, H=TP_H),
         "flash_rel_attention_bwd": _rel_bwd_case(
             fra, B=TP_MICRO, qlen=1024, klen=1024, mem_len=1024,
-            same_length=True, seed=106, timed=True, H=TP_H)}
+            same_length=True, seed=106, timed=True, H=TP_H,
+            old=old_rel_bwd)}
     torch.cuda.empty_cache()
     return out
 
@@ -5938,7 +5896,7 @@ def _tp_plan_ok(leg: dict, int8: bool) -> bool:
 
 
 def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
-                          seed: int = 0) -> dict:
+                          seed: int = 0, old_rel_bwd=None) -> dict:
     """Tensor parallelism in a world of two processes on the one card (gloo;
     NCCL refuses two ranks on one device), tp 2, dp 1, db1_1p2b at full
     width and depth from the weights of ``reference`` (the one-process
@@ -5976,7 +5934,7 @@ def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
     from bdm_db1_tpu_torch.train.checkpoint import load_model
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
-    kernels = _tp_kernels()
+    kernels = _tp_kernels(old_rel_bwd)
     t0 = time.perf_counter()
     one = reference.get(seed)
     reference_s = time.perf_counter() - t0
@@ -6331,7 +6289,7 @@ def _pp_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
             "replicated_params": len(mine), "stages_s": stages}
 
 
-def _pp_kernels() -> dict:
+def _pp_kernels(old_rel_bwd=None) -> dict:
     """K3 and the backward (K4, K5) at a pipeline micro-batch, one row x
     1024 with db1_1p2b's 16 heads, held to their plain versions and
     timed."""
@@ -6340,13 +6298,14 @@ def _pp_kernels() -> dict:
     shape = dict(B=TP_MICRO // PP_MICRO, qlen=1024, klen=1024, mem_len=1024,
                  same_length=True, timed=True)
     out = {"flash_rel_attention": _rel_case(fra, seed=107, **shape),
-           "flash_rel_attention_bwd": _rel_bwd_case(fra, seed=108, **shape)}
+           "flash_rel_attention_bwd": _rel_bwd_case(fra, seed=108,
+                                                    old=old_rel_bwd, **shape)}
     torch.cuda.empty_cache()
     return out
 
 
 def phase_pipeline(smi: str, reference: "OneProcessReference",
-                   seed: int = 0) -> dict:
+                   seed: int = 0, old_rel_bwd=None) -> dict:
     """The GPipe pipeline in a world of two processes on the one card
     (gloo; NCCL refuses two ranks on one device), pp 2, dp 1, tp 1,
     db1_1p2b at full width and depth, 12 layers a stage, from the weights
@@ -6372,7 +6331,7 @@ def phase_pipeline(smi: str, reference: "OneProcessReference",
     from bdm_db1_tpu_torch.train.checkpoint import load_model
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
-    kernels = _pp_kernels()
+    kernels = _pp_kernels(old_rel_bwd)
     t0 = time.perf_counter()
     one = reference.get(seed)
     reference_s = time.perf_counter() - t0
@@ -6588,11 +6547,9 @@ BWD_TIMES = {
     "call_ms": "the whole flash_rel_attention_bwd call: the preparation "
                "(delta, key terms), K4, K5, the zeroed sums and allocations",
     "prep_ms": "the preparation kernel alone",
-    "old_ms": "--old-rel-bwd: the old K4 after its key terms, in turns with "
-              "with_key_terms_ms",
-    "with_key_terms_ms": "--old-rel-bwd: this K4 after the key terms alone",
-    "old_call_ms": "--old-rel-bwd: the old wrapper's two calls, in turns "
-                   "with call_ms"}
+    "old_ms": "--old-rel-bwd: the old K5 alone on this tree's delta and key "
+              "terms, in turns with ms (old, new, new, old)",
+    "turns_ms": "--old-rel-bwd: the four turns (old, new, new, old)"}
 
 
 # --old-ring (K1, K2, K6, K7, K8) and --old-rel-fwd (K3): the old kernel's
@@ -6674,7 +6631,8 @@ def kernels_line(kernels: dict, launches: dict, alone: dict,
                 c = extra[name]
                 rows[-1][key] = {k: c[k] for k in (
                     "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "cases") if k in c}
+                    "bound_by", "library_ms", "cases", "old_ms", "turns_ms")
+                    if k in c}
         rows[-1].update({k: case[k] for k in RING_TURNS if k in case})
         if name.startswith("flash_rel_attention_bwd"):
             rows[-1].update({k: case[k] for k in BWD_TIMES if k in case})
@@ -6698,9 +6656,10 @@ def main(argv=None) -> int:
                     help="a copy of an earlier csrc/quant_matmul.cu: its K9 is "
                          "timed in turns with this tree's")
     ap.add_argument("--old-rel-bwd", default=None, metavar="SRC",
-                    help="a copy of an earlier csrc/flash_rel_attention_bwd.cu:"
-                         " its K4 and its whole backward are timed in turns "
-                         "with this tree's")
+                    help="a copy of an earlier csrc/flash_rel_attention_bwd.cu"
+                         " with this tree's C interface: its K5 is held to "
+                         "this tree's and timed in turns with it at the four "
+                         "timed K5 shapes")
     ap.add_argument("--old-ring", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_ring_decode.cu: its "
                          "decode (K1, K6) and prime (K2, K7, K8) are held to "
@@ -6738,11 +6697,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     results = {}
+    old_bwd = (OldRelBwd(args.old_rel_bwd, not args.probe)
+               if args.old_rel_bwd else None)
     if "build" in phases:
         results["build"] = phase_build()
         emit(results["build"])
     if "kernels" in phases:
-        results["kernels"] = phase_kernels(args.old_qmm, args.old_rel_bwd,
+        results["kernels"] = phase_kernels(args.old_qmm, old_bwd,
                                            args.old_ring, args.old_rel_fwd,
                                            args.probe)
         emit(results["kernels"])
@@ -6814,9 +6775,11 @@ def main(argv=None) -> int:
                 ("serve_preln", phase_serve_preln),
                 ("data_parallel", phase_data_parallel),
                 ("tensor_parallel", functools.partial(
-                    phase_tensor_parallel, reference=reference)),
-                ("pipeline", functools.partial(phase_pipeline,
-                                               reference=reference)),
+                    phase_tensor_parallel, reference=reference,
+                    old_rel_bwd=old_bwd)),
+                ("pipeline", functools.partial(
+                    phase_pipeline, reference=reference,
+                    old_rel_bwd=old_bwd)),
                 ("tensor_parallel_nccl", phase_tensor_parallel_nccl)):
             if phase in phases:
                 gc.collect()

@@ -5,6 +5,8 @@ through their plain versions) against the JAX package's custom VJP of
 autograd through the port's ``rel_attention``, on the same numpy inputs
 and upstream gradient in f32."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,3 +188,50 @@ def test_plain_backward_equals_its_entry_point():
     ref = _rel_attention_grads(xs, g, 64, True)
     _check(got, ref)
     assert [t.dtype for t in got] == [torch.float32] * 6
+
+
+# drw = sum_i (dS . K)_i and drr = sum_i (dG . rk)_i add dS over every row,
+# and a row of dS sums to ~0 only where delta equals sum_j p_ij dP_ij:
+# both cancel heavily. JAX's backward takes delta = rowsum(dO * O) from the
+# forward's output in its working dtype (pallas_attention.py:456), so with
+# bf16 activations delta carries the output's rounding and drw/drr a tail
+# of their own. Held to 1e-5 of the largest value (GRAD_RTOL): the same
+# sums in another order, in f32.
+@pytest.mark.parametrize("same_length,mem_len", [(False, 256), (True, 128)])
+def test_drw_drr_tail_is_the_reference_delta(same_length, mem_len):
+    """On bf16 inputs (seeded, held as f32 values), B 2, q = k = 256, H 2:
+    with delta from the f32 output the plain backward's drw and drr are
+    f32 autograd's through ``rel_attention``; with delta from the output
+    rounded to bf16 they are JAX's ``_pallas_rel_attention_bwd_impl``'s
+    (Pallas kernels in interpret mode) on the same inputs, and both sit far
+    from f32 autograd's: the tail is the reference algorithm's delta, not a
+    kernel's."""
+    b, n, h, dh = 2, 256, 2, 128
+    xs, g = _inputs(b, n, n, h, dh, seed=9)
+    ts = [torch.from_numpy(x).to(torch.bfloat16).float() for x in xs + (g,)]
+    *ins, gt = ts
+    kw = dict(mem_len=mem_len, same_length=same_length, scale=1.0 / dh ** 0.5)
+    ref = _rel_attention_grads([t.numpy() for t in ins], gt.numpy(), mem_len,
+                               same_length)
+    out, m, l = tk.flash_rel_attention_plain(*ins, **kw)
+    exact = tk.flash_rel_attention_bwd_plain(*ins, out, m, l, gt, **kw)
+    out_bf = out.to(torch.bfloat16).float()
+    rounded = tk.flash_rel_attention_bwd_plain(*ins, out_bf, m, l, gt, **kw)
+    stat = lambda s: jnp.asarray(s.reshape(b * h, 1, n).numpy())
+    jax_bwd = jax.jit(functools.partial(
+        jp._pallas_rel_attention_bwd_impl, block_q=128, block_k=128,
+        interpret=True, **kw))
+    jx = jax_bwd(*(jnp.asarray(t.numpy()) for t in ins),
+                 jnp.asarray(out_bf.numpy()), stat(m), stat(l),
+                 jnp.asarray(gt.numpy()))
+    for i in (4, 5):   # drw, drr
+        want = ref[i].numpy()
+        tol = GRAD_RTOL * float(np.abs(want).max())
+        np.testing.assert_allclose(exact[i].numpy(), want, rtol=0, atol=tol,
+                                   err_msg=NAMES[i])
+        jax_i = np.asarray(jx[i])
+        np.testing.assert_allclose(
+            rounded[i].numpy(), jax_i, rtol=0,
+            atol=GRAD_RTOL * float(np.abs(jax_i).max()), err_msg=NAMES[i])
+        # the tail: the rounded delta's gap is tens of times the limit
+        assert float(np.abs(rounded[i].numpy() - want).max()) > 10 * tol
