@@ -26,8 +26,9 @@
 // training shape (0.016 ms at the memory rate), where a prologue would
 // hold each K4 block on a second [64, 128] load before its first tile.
 //
-// Scores. Each tile recomputes q . k and q . rk_band as bf16 mma.sync
-// products with f32 accumulation plus the per-key terms, with K3's mask
+// Scores. Each tile recomputes q . k and q . rk_band as bf16 tensor-core
+// products (K4: wgmma; K5: mma.sync) with f32 accumulation plus the
+// per-key terms, with K3's mask
 // from indices (a banned entry gets p = 0, as exp(-1e30 - m) gives it)
 // and K3's skipping of fully banned tiles, so exp(s - m) / l gives back
 // K3's probabilities. p and dS are rounded to bf16 for the tensor-core
@@ -42,41 +43,56 @@
 // so K4 writes dq once, in bf16, and no [B, qlen, H, Dh] f32 parts exist.
 //
 // The rel-shift. K3 reads BD[i, j] = G[i, j + (15 - i)] from a warp's band
-// product G. The backward writes dS into the warp's shared memory at
-// dG[i, j + (15 - i)] (bf16, zero elsewhere) and runs dq += dG . band (K4)
-// or, over the block's 64 rows, drk_band += dG^T . q (K5). No row reversal
-// or roll of the TPU kernels is needed: it is an addressing change.
+// product G. The backward writes dS into shared memory at dG[i, j + (63 -
+// i)] over the block's 64 rows (bf16, zero elsewhere) and runs dq += dG .
+// band (K4) or drk_band += dG^T . q (K5). No row reversal or roll of the
+// TPU kernels is needed: it is an addressing change.
 //
-// K4. One block of 8 warps takes 64 query rows of one (b, h) and walks the
-// key tiles of K3's _tile_j_bounds in order. A tile runs in two passes
-// between one block barrier and one 64-thread barrier per row group; the
-// warps 2 rg and 2 rg + 1 share row group rg (16 query rows) in both
-// passes, so nothing else waits:
-// - Query-major (as K5's): warp w takes key half w % 2 (32 keys) over a
-//   48-row band slice; G, p and dS are [16, 48] and [16, 32] in registers.
-//   Warp tiles with every entry banned skip the products, fully unbanned
-//   ones the per-element masks. dS goes to shared memory as bf16 and,
-//   skewed, into the row group's dG rows (a buffer of its own, so the cells
-//   no tile writes are zeroed once, at the start).
-// - dq: warp w owns head dims 64 (w % 2).. of its 16 rows and runs dS . K
-//   (4 k-steps) and dG . band over the band columns [48 - 16 rg,
-//   128 - 16 rg) (5 k-steps): dq is 32 f32 a thread.
-// - Stages: Q and dO once; K, V, r_w . k_j and r_r . rk_t in two stages;
-//   the band in a ring of three 64-row chunks. Walking the key tiles
-//   upward moves the band up 64 rows a tile, so a tile loads only its 64
-//   new high rows (band row 127 included). The next tile's cp.async copies
-//   are issued inside the query-major pass and waited for at the next
-//   tile's barrier.
-// - Budget: 211,456 bytes of shared memory (Q, dO 34.8 KB; two stages of
-//   K and V 69.6 KB; the band ring 52.2 KB; dG 17.4 KB; eight warps' G
-//   26.6 KB; dS 9.2 KB; key terms 1.5 KB), one block an SM.
-// The alternative of 128 query rows a block (8 warps of 16 rows, dq 64 f32
-// a thread, half the K/V/band staging per query row) does not fit with the
-// prefetch: Q and dO (69.6 KB), two K/V stages (69.6 KB), a ring of four
-// 64-row band chunks (its band is 191 rows; 69.6 KB) and eight warps' f32
-// G over 80 band rows (43 KB) come to ~246 KB of the 227 KB a block may
-// have (~229 KB with a three-chunk ring and no prefetch), and it halves
-// the grid to 512 blocks.
+// K4. One block of two warpgroups (8 warps) takes 64 query rows of one
+// (b, h) and walks the key tiles of K3's _tile_j_bounds in order. All five
+// products are wgmma (m64nNk16, f32 accumulators, B from 128-byte-swizzled
+// shared memory); a tile runs in three passes between three block
+// barriers:
+// - Scores: warpgroup g computes G[:, 64 g..] = Q . (band chunk g)^T
+//   (n64; chunk 0 the tile's low ring slot, chunk 1 its high one), S = Q .
+//   K[32 g..]^T and dP = dO . V[32 g..]^T (n32), 8 k-steps over the head
+//   dims, B K-major as staged. A is Q or dO from registers: the warp's A
+//   fragments of the 8 k-steps, loaded once a block from the staged tiles
+//   (64 registers). The next tile's copies go out under these products.
+//   G goes to shared memory, f32 [64, 128] (row stride 136: the
+//   accumulator stores are free of bank conflicts).
+// - Elementwise, in the accumulator layout: warp w of warpgroup g holds
+//   rows 16 (w % 4).. x keys 32 g.. of S and dP (16 x 32, the query-major
+//   tile of the mma.sync design, so its all-banned and all-unbanned tests
+//   carry over). It reads BD at G[i, 63 - i + j], and p scale = exp2(s scale
+//   log2e - (m log2e + log2(l / scale))) and dS = p scale (dP - delta) are
+//   one FFMA, one MUFU.EX2, one FADD and one FMUL an element past the sum
+//   of the score terms; a masked entry takes a select, not a branch. dS
+//   goes as bf16 into dS and, skewed, into dG (the cells no tile writes are
+//   zeroed once).
+// - dq, after fence.proxy.async: warpgroup g owns head dims 64 g..: dq +=
+//   dS . K (4 k-steps) and dq += dG . band (8 k-steps, 4 a ring slot), B
+//   the K tile's or chunk's half g, MN-major. dS and dG are A in wgmma's
+//   interleaved layout (no swizzle: 8 x 16-byte core matrices, 128 bytes
+//   apart along K), so each thread's 24 stores a tile sit at fixed offsets
+//   from two bases, free of bank conflicts. dq is 32 f32 a thread.
+// - Stages: Q and dO once; K, V and r_w . k_j in two stages; the band in a
+//   ring of three 64-row chunks (a tile loads only its 64 new high rows).
+//   Each thread copies the same four 16-byte chunks of every tile, so their
+//   addresses are set up once a block and move on by a step a tile.
+// - Budget: 209,408 bytes of shared memory (Q, dO 32 KB; two stages of K
+//   and V 64 KB; the band ring 48 KB; G 34 KB; dG 16 KB; dS 8 KB; key terms
+//   1.5 KB; 1 KB to align), 205 registers, one block an SM.
+// With two warps a scheduler and nothing else on the SM, instruction
+// throughput sets the pace: a first wgmma version, with the copy
+// addresses, the swizzled stores and the descriptors computed anew for
+// every tile, ran no faster than the mma.sync kernel it replaced. A branch
+// around a warpgroup's products (to skip a fully banned one) makes ptxas
+// serialize every wgmma of the kernel (its note C7520); so does keeping
+// the dq group in flight under the next tile's score products (C7515).
+// Pipelining the tiles (the dq products of one tile and the score
+// products of the next as one batch, two barriers a tile) gained
+// nothing: no pass overlaps another within a block.
 //
 // K5. One block of 8 warps (two warpgroups) takes 64 keys of one (b, h)
 // and walks the query tiles of _tile_i_bounds in order. A tile runs in two
@@ -145,21 +161,27 @@
 // 33.6 M unbanned pairs) K4 runs 5 products of 2 * 128 FLOP a pair (AC,
 // BD, dP, dq_ac, dq_bd): 43.0 GFLOP, 0.0435 ms at 989 TFLOP/s; K5 6 (AC,
 // BD, dP, dV, dK, drk): 51.6 GFLOP, 0.0522 ms. Both execute more than that
-// count (48 band rows for 32 keys, the masked halves of diagonal tiles) at
-// 2 warps a scheduler. K4's time spreads over the dq pass, the cp.async
-// copies, the G, S and dP products and the elementwise work, none of them
-// dominant (probe builds with one part removed at a time: -18%, -10%,
-// -10%, -10%, -9%). K5's key-major products, half its tensor work, take
-// 0.033 of its 0.44 ms on wgmma; the drk adds 0.021, the drr sums 0.019,
-// the p^T, dS^T and dG^T stores 0.011 (probe builds with one part removed
-// at a time, H100, training shape); the rest is the query-major pass on
-// mma.sync.
+// count (K4: G over 128 band rows and dG . band over 128 band columns, 7
+// products' worth a tile for 5; K5: 48 band rows for 32 keys; both the
+// masked halves of diagonal tiles). On an H100 80GB HBM3 at 700 W, K4
+// takes 0.168 ms there: its passes run one after another in the SM's one
+// block, and probe builds with one part removed at a time save 0.038 ms
+// (the elementwise pass), 0.035 (the score products), 0.029 (the G round
+// trip), 0.026 (the dq products) and 0.010 (the staging); on the memory
+// trunk 0.019, 0.017, 0.015, 0.012 and 0.009 of 0.083. dS and dG in
+// 128-byte-swizzled tiles instead of the interleaved layout cost 4-6%.
+// K5's key-major products, half its tensor work, take 0.033 of its 0.44
+// ms on wgmma; the drk adds 0.021, the drr sums 0.019, the p^T, dS^T and
+// dG^T stores 0.011 (probe builds, training shape, the same card); the
+// rest is the query-major pass on mma.sync.
 // (Pairing the blocks of two batch elements in a cluster, to add their drk
 // rows through distributed shared memory before the atomics, was slower:
 // two cluster barriers a tile hold both blocks in step. Walking two key
 // tiles a block, so that the first's last adds drain under the second,
-// gained nothing.) Left: K4's dq pass on wgmma, TMA for the staging, and
-// overlap across tiles.
+// gained nothing.) Left: TMA for the staging, and overlap within a block
+// (K4: the warpgroups out of phase, so that one's elementwise pass runs
+// under the other's products; K5: one tile's key-major products under the
+// next tile's query-major pass).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface below).
@@ -179,23 +201,22 @@ constexpr int BK = 64;           // keys per tile
 constexpr int BAND = BQ + BK;    // rk band rows staged (BQ + BK - 1 used)
 constexpr int WROWS = 16;              // query rows (or keys) per warp
 constexpr int VECS = DH / 8;           // 16-byte vectors per bf16 row
-constexpr int LDH = DH + 8;            // bf16 row stride of Q, K, V, dO, band
-constexpr int LDD = BAND + 8;          // bf16 row stride of the block's dG
-constexpr int LDP = BK + 8;            // bf16 row stride of p and dS
-constexpr int TILE = BQ * LDH * 2;     // one staged [64, 128] bf16 tile
+constexpr int LDH = DH + 8;            // bf16 row stride of K5's K, V and band
+constexpr int TILE = BQ * LDH * 2;     // one staged [64, 128] bf16 tile, padded rows
 
-// K4 and K5: eight warps. In the query-major pass warp w takes row group
-// w / 2 (16 query rows) and key half w % 2 (32 keys), over a 48-row band
-// slice.
+// K4 and K5: eight warps (two warpgroups). In K5's query-major pass warp w
+// takes row group w / 2 (16 query rows) and key half w % 2 (32 keys), over
+// a 48-row band slice.
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int KH = BK / 2;                 // keys per warp, query-major
 constexpr int WBAND = WROWS + KH;          // 48 band rows per warp (47 used)
 constexpr int LDG = WBAND + 4;             // f32 row stride of a warp's G
 constexpr int GW_BYTES = WROWS * LDG * 4;  // one warp's G
-// K5's wgmma operands: bf16 tiles of 128-byte rows (64 values) under the
+// The wgmma operands: bf16 tiles of 128-byte rows (64 values) under the
 // 128-byte swizzle, each 1024-byte aligned. A [64, 128] staged tile (Q,
-// dO) is two such [64, 64] halves, head dims 0-63 and 64-127.
+// dO, K, V, a band chunk) is two such [64, 64] halves, head dims 0-63 and
+// 64-127.
 constexpr int SW_ROW = 64;                   // bf16 values of a swizzled row
 constexpr int SW_HALF = BQ * SW_ROW;         // bf16 values of a [64, 64] tile
 constexpr int SW_TILE = 2 * SW_HALF * 2;     // bytes of a staged [64, 128] tile
@@ -218,17 +239,20 @@ constexpr int K5_DGSUM = K5_DSUM + BK * 4;            // sum_i dG_it [3][BAND]
 constexpr int SMEM_DKV = K5_DGSUM + 3 * BAND * 4 + 1024;
 static_assert(K5_K % 1024 == 0, "the swizzled tiles must stay 1024-byte aligned");
 static_assert(SMEM_DKV <= 232448, "one block must fit one SM");
-constexpr int K4_Q = 0;
-constexpr int K4_DO = K4_Q + TILE;
-constexpr int K4_K = K4_DO + TILE;                    // 2 stages
-constexpr int K4_V = K4_K + 2 * TILE;                 // 2 stages
-constexpr int K4_R = K4_V + 2 * TILE;                 // rk band: a ring of 3 x 64 rows
-constexpr int K4_DG = K4_R + 3 * TILE;                // the block's dG [BQ, LDD]
-constexpr int K4_G = K4_DG + BQ * LDD * 2;            // 8 warps' G
-constexpr int K4_S = K4_G + WARPS * GW_BYTES;         // bf16 dS [BQ, LDP]
-constexpr int K4_RRK = K4_S + BQ * LDP * 2;           // r_r . rk_t [2][BAND]
+constexpr int LDG4 = BAND + 8;                        // f32 row stride of K4's G
+constexpr int K4_Q = 0;                               // swizzled, as K4_DO
+constexpr int K4_DO = K4_Q + SW_TILE;
+constexpr int K4_K = K4_DO + SW_TILE;                 // 2 stages, swizzled
+constexpr int K4_V = K4_K + 2 * SW_TILE;              // 2 stages, swizzled
+constexpr int K4_R = K4_V + 2 * SW_TILE;              // rk band: a ring of 3 x 64 rows, swizzled
+constexpr int K4_S = K4_R + 3 * SW_TILE;              // dS [BQ, BK], interleaved
+constexpr int K4_DG = K4_S + SW_HALF * 2;             // dG [BQ, BAND], interleaved
+constexpr int K4_G = K4_DG + 2 * SW_HALF * 2;         // f32 G [BQ, LDG4]
+constexpr int K4_RRK = K4_G + BQ * LDG4 * 4;          // r_r . rk_t [2][BAND]
 constexpr int K4_RWK = K4_RRK + 2 * BAND * 4;         // r_w . k_j [2][BK]
-constexpr int SMEM_DQ = K4_RWK + 2 * BK * 4;
+// and up to 1023 bytes to align the dynamic shared memory to 1024
+constexpr int SMEM_DQ = K4_RWK + 2 * BK * 4 + 1024;
+static_assert(K4_G % 1024 == 0, "the swizzled tiles must stay 1024-byte aligned");
 static_assert(SMEM_DQ <= 232448, "one block must fit one SM");
 
 struct Params {
@@ -274,12 +298,6 @@ __device__ __forceinline__ void cp_async_wait_group0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// the 64 threads of row group rg (warps 2 rg, 2 rg + 1) meet; barrier 0 is
-// __syncthreads
-__device__ __forceinline__ void pair_barrier(int rg) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(64) : "memory");
-}
-
 // four adjacent f32 adds into global memory, dst 16-byte aligned (one
 // red.global.add.v4.f32 on sm_90)
 __device__ __forceinline__ void red_add4(float* dst, float4 v) {
@@ -293,12 +311,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
 // c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -308,14 +320,16 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x (MUFU.EX2)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 rows x 16) of a row-major bf16 tile in shared memory
-__device__ __forceinline__ void ld_a(uint32_t* r, const bf16* base, int ld, int lane) {
-  ldsm_x4(r, base + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4));
 }
 
 // four 8 x 8 bf16 matrices stored transposed: lane l's registers hold row
@@ -344,7 +358,7 @@ __device__ __forceinline__ void ld_a_sw(uint32_t* r, const bf16* base, int r0, i
   ldsm_x4(r, base + sw_tile(r0 + (lane & 7) + 8 * ((lane >> 3) & 1), 16 * kk + 8 * (lane >> 4)));
 }
 
-// ---- wgmma (K5's key-major products) ---------------------------------------
+// ---- wgmma (all of K4's products, K5's key-major products) ------------------
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -355,23 +369,43 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// generic writes (cp.async, st.shared) before it are seen by wgmma after
+// the next barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // Descriptor of a swizzled tile (128-byte rows, 8-row groups 1024 bytes
 // apart, layout type 1: the 128-byte swizzle) from its shared address. K-
-// major (A: rows are M, 64 K values a row) a k16 slice starts 32 bytes
-// further; MN-major (B: rows are K, 64 N values a row) 2048 bytes further.
-// The stride between 64-wide MN blocks is never used (N = 64): it is set to
-// 1024 bytes too.
+// major (rows are M for A, N for B; 64 K values a row) a k16 slice starts
+// 32 bytes further; MN-major (B: rows are K, 64 N values a row) 2048 bytes
+// further. The stride between 64-wide MN blocks is never used (N <= 64): it
+// is set to 1024 bytes too.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Descriptor of a K-major tile in the interleaved layout (no swizzle): 8 x
+// 16-byte core matrices of 128 contiguous bytes, the two of a k16 slice
+// 128 bytes apart, 8-row groups `sbo` bytes apart; a k16 slice starts 256
+// bytes further.
+__device__ __forceinline__ uint64_t desc_inter(uint32_t saddr, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// the descriptor of the tile `bytes` further: its start address field, the
+// low 14 bits, never carries into the rest
+__device__ __forceinline__ uint64_t desc_at(uint64_t d, uint32_t bytes) {
+  return (d & 0xFFFFFFFF00000000ull) | (static_cast<uint32_t>(d) + (bytes >> 4));
 }
 
 // d[64 x 64] (+)= A . B, A K-major and B MN-major (transposed) from shared
 // memory; thread l of warp w of the warpgroup holds d[n][0..1] at row
 // 16 w + l / 4, columns 8 n + 2 (l % 4).., d[n][2..3] eight rows below.
 // scale_d 0 ignores d's old values.
-#define K5_D4(n) "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
+#define WG_D4(n) "+f"(d[n][0]), "+f"(d[n][1]), "+f"(d[n][2]), "+f"(d[n][3])
 __device__ __forceinline__ void wgmma_64x64(float (&d)[DH / 16][4], uint64_t a, uint64_t b,
                                             int scale_d) {
   asm volatile(
@@ -380,15 +414,42 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[DH / 16][4], uint64_t a, 
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : K5_D4(0), K5_D4(1), K5_D4(2), K5_D4(3), K5_D4(4), K5_D4(5), K5_D4(6), K5_D4(7)
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3), WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7)
       : "l"(a), "l"(b), "r"(scale_d));
 }
-#undef K5_D4
+
+// d[64 x 64] (+)= A . B, A from registers (the mma.sync A fragment of the
+// warp's 16 rows), B K-major from shared memory
+__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3), WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 32] (+)= A . B, A from registers, B K-major from shared memory
+__device__ __forceinline__ void wgmma_64x32_rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+#undef WG_D4
 
 // after wgmma.wait_group: the accumulators are read only from here on
-__device__ __forceinline__ void fence_acc(float (&d)[DH / 16][4]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N][4]) {
 #pragma unroll
-  for (int n = 0; n < DH / 16; ++n)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
 }
@@ -396,11 +457,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[DH / 16][4]) {
 // B fragments for two n-tiles of 8 from rows [n, d] of a stored tile (k-dim d)
 __device__ __forceinline__ void ld_b(uint32_t* r, const bf16* base, int ld, int lane) {
   ldsm_x4(r, base + (8 * (lane >> 4) + (lane & 7)) * ld + 8 * ((lane >> 3) & 1));
-}
-
-// B fragments for two n-tiles of 8 from rows [k, n] of a stored tile (k-dim rows)
-__device__ __forceinline__ void ld_b_t(uint32_t* r, const bf16* base, int ld, int lane) {
-  ldsm_x4_t(r, base + (8 * ((lane >> 3) & 1) + (lane & 7)) * ld + 8 * (lane >> 4));
 }
 
 // The preparation, one warp per dot product over two rows of 128 read in
@@ -468,45 +524,76 @@ __device__ __forceinline__ void stage_rk(const Params& p, int h, int t1, bf16* R
   }
 }
 
+// K4: thread tid's four 16-byte chunks of a swizzled [64, 128] tile at dst
+// (rows row + 16 i, i < 4, row = tid / 16; head dims 8 (tid % 16)..) by
+// cp.async from src + i * step bytes, zeroed where !ok(i). Every tile a
+// thread copies the same chunks: their addresses are set up once a block
+// and move on by a fixed step a tile.
+template <typename Ok>
+__device__ __forceinline__ void k4_copy(unsigned char* dst, const bf16* src, uint32_t step, Ok ok,
+                                        const bf16* any) {
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+#pragma unroll
+  for (int i = 0; i < BQ / WROWS; ++i) {
+    const bool v = ok(i);
+    cp_async16(dst + i * (WROWS * SW_ROW * 2), v ? reinterpret_cast<const bf16*>(s + i * step) : any, v);
+  }
+}
+
+// K4: a thread's chunk of every staged tile: its row and its byte offset in
+// a swizzled tile; its first element of the next key tile's K and V and of
+// the next band chunk's rk rows, and the bytes from one of its chunks to
+// the next (16 rows)
+struct K4Chunk {
+  int row, off;
+  const bf16 *k, *v, *rk;
+  uint32_t k16, v16, rk16;
+};
+
+// K4: one band chunk (64 rk rows from t1) into ring slot `slot` (zero
+// outside [0, klen)); the chunk's pointer moves on 64 rows
+__device__ __forceinline__ void k4_stage_rk(const Params& p, K4Chunk& ch, int t1, unsigned char* smem,
+                                            int slot) {
+  k4_copy(smem + K4_R + slot * SW_TILE + ch.off, ch.rk, ch.rk16, [&](int i) {
+    const int tr = t1 + ch.row + WROWS * i;
+    return tr >= 0 && tr < p.klen;
+  }, p.rk);
+  ch.rk += static_cast<long long>(BQ) * p.H * DH;
+}
+
 // K4: stage key tile c0's K, V and r_w . k_j into stage s, the r_r . rk_t
 // terms of its band (rk rows from t0), and the band's high 64 rows into
 // ring slot `slot`, by cp.async (zero past klen and outside [0, klen)). The
 // band's low 64 rows are the previous tile's high ones.
-__device__ __forceinline__ void k4_stage(const Params& p, int bh, int b, int h, int c0, int t0,
+__device__ __forceinline__ void k4_stage(const Params& p, K4Chunk& ch, int bh, int h, int c0, int t0,
                                          unsigned char* smem, int s, int slot, int tid) {
-  bf16* Ks = reinterpret_cast<bf16*>(smem + K4_K + s * TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + K4_V + s * TILE);
-  const bf16* kb = p.k + b * p.k_sb + h * DH;
-  const bf16* vb = p.v + b * p.v_sb + h * DH;
-  for (int e = tid; e < BK * VECS; e += THREADS) {
-    const int r = e / VECS, c = (e % VECS) * 8;
-    const bool ok = c0 + r < p.klen;
-    cp_async16(Ks + r * LDH + c, ok ? kb + (c0 + r) * p.k_st + c : kb, ok);
-    cp_async16(Vs + r * LDH + c, ok ? vb + (c0 + r) * p.v_st + c : vb, ok);
-  }
-  stage_rk(p, h, t0 + BQ, reinterpret_cast<bf16*>(smem + K4_R + slot * TILE), tid);
+  const auto key_ok = [&](int i) { return c0 + ch.row + WROWS * i < p.klen; };
+  k4_copy(smem + K4_K + s * SW_TILE + ch.off, ch.k, ch.k16, key_ok, p.k);
+  k4_copy(smem + K4_V + s * SW_TILE + ch.off, ch.v, ch.v16, key_ok, p.v);
+  ch.k += static_cast<long long>(BK) * p.k_st;
+  ch.v += static_cast<long long>(BK) * p.v_st;
+  k4_stage_rk(p, ch, t0 + BQ, smem, slot);
   float* rrk_s = reinterpret_cast<float*>(smem + K4_RRK) + s * BAND;
   float* rwk_s = reinterpret_cast<float*>(smem + K4_RWK) + s * BK;
-  for (int e = tid; e < BAND + BK; e += THREADS) {
-    if (e < BAND) {
-      const int tr = t0 + e;
-      const bool ok = tr >= 0 && tr < p.klen;
-      cp_async4(rrk_s + e, ok ? p.rrk + static_cast<long long>(h) * p.klen + tr : p.rrk, ok);
-    } else {
-      const int j = c0 + e - BAND;
-      const bool ok = j < p.klen;
-      cp_async4(rwk_s + e - BAND, ok ? p.rwk + static_cast<long long>(bh) * p.klen + j : p.rwk, ok);
-    }
+  if (tid < BAND) {
+    const int tr = t0 + tid;
+    const bool ok = tr >= 0 && tr < p.klen;
+    cp_async4(rrk_s + tid, ok ? p.rrk + static_cast<long long>(h) * p.klen + tr : p.rrk, ok);
+  } else if (tid < BAND + BK) {
+    const int j = c0 + tid - BAND;
+    const bool ok = j < p.klen;
+    cp_async4(rwk_s + tid - BAND, ok ? p.rwk + static_cast<long long>(bh) * p.klen + j : p.rwk, ok);
   }
 }
 
 // K4: dq for 64 query rows of one (b, h)
 __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + K4_Q);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + K4_DO);
-  bf16* dGs = reinterpret_cast<bf16*>(smem + K4_DG);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + K4_S);
+  // the swizzled tiles need 1024-byte alignment; an offset from the shared
+  // array itself keeps every access in the shared state space
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - static_cast<unsigned>(__cvta_generic_to_shared(smem_raw))) & 1023u);
+  float* Gs = reinterpret_cast<float*>(smem + K4_G);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -524,48 +611,93 @@ __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params 
     j_lo = lo_col > 0 ? lo_col / BK : 0;
   }
 
-  // row group rg (block rows 16 rg..) in both passes; key half kh in the
-  // query-major pass, head dims 64 dh.. in the dq pass
-  const int rg = warp >> 1, kh = warp & 1, dh = warp & 1;
-  const int wb = BQ - WROWS - WROWS * rg + KH * kh;   // first row of the band slice
-  const int i0 = WROWS * rg + g;                      // block rows i0 and i0 + 8
-  float* Gw = reinterpret_cast<float*>(smem + K4_G + warp * GW_BYTES);
-  bf16* dgp = dGs + WROWS * rg * LDD;                 // the row group's dG rows
+  // warpgroup wg: keys 32 wg.. of S and dP, band rows 64 wg.. of G, head
+  // dims 64 wg.. of dq; warp rg = warp % 4 of it: accumulator rows 16 rg..
+  // (rows i0 and i0 + 8). wg by a shuffle from lane 0, so that the compiler
+  // keeps what depends on it (the descriptors) in uniform registers.
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), rg = warp & 3;
+  const int i0 = WROWS * rg + g;
 
-  {
-    const bf16* qb = p.q + b * p.q_sb + h * DH;
-    const bf16* dob = p.dout + static_cast<long long>(b) * p.qlen * p.H * DH + h * DH;
-    const long long do_st = static_cast<long long>(p.H) * DH;
-    for (int e = tid; e < BQ * VECS; e += THREADS) {
-      const int r = e / VECS, c = (e % VECS) * 8;
-      const bool ok = r0 + r < p.qlen;
-      cp_async16(Qs + r * LDH + c, ok ? qb + (r0 + r) * p.q_st + c : qb, ok);
-      cp_async16(dOs + r * LDH + c, ok ? dob + (r0 + r) * do_st + c : dob, ok);
-    }
-  }
   // band chunk c (64 rk rows from t_lo + 64 c) in ring slot c % 3: tile
   // jb's band is chunks jb - j_lo (low rows) and jb - j_lo + 1 (high rows)
   const int t_lo = j_lo * BK - r0 + p.qlen - BQ;
+  K4Chunk ch;
+  {
+    ch.row = tid / VECS;
+    const int c = (tid % VECS) * 8;
+    ch.off = 2 * sw_tile(ch.row, c);
+    const long long rk_st = static_cast<long long>(p.H) * DH;
+    ch.k16 = static_cast<uint32_t>(2 * WROWS * p.k_st);
+    ch.v16 = static_cast<uint32_t>(2 * WROWS * p.v_st);
+    ch.rk16 = static_cast<uint32_t>(2 * WROWS * rk_st);
+    const auto row_ok = [&](int i) { return r0 + ch.row + WROWS * i < p.qlen; };
+    k4_copy(smem + K4_Q + ch.off, p.q + b * p.q_sb + (r0 + ch.row) * p.q_st + h * DH + c,
+            static_cast<uint32_t>(2 * WROWS * p.q_st), row_ok, p.q);
+    k4_copy(smem + K4_DO + ch.off, p.dout + (static_cast<long long>(b) * p.qlen + r0 + ch.row) * rk_st + h * DH + c,
+            static_cast<uint32_t>(2 * WROWS * rk_st), row_ok, p.dout);
+    // the first key tile and band chunk
+    ch.k = p.k + b * p.k_sb + (j_lo * BK + ch.row) * p.k_st + h * DH + c;
+    ch.v = p.v + b * p.v_sb + (j_lo * BK + ch.row) * p.v_st + h * DH + c;
+    ch.rk = p.rk + (static_cast<long long>(t_lo) + ch.row) * rk_st + h * DH + c;
+  }
+  cp_async_commit();   // Q and dO: a group of their own
   if (j_lo < j_hi) {
-    stage_rk(p, h, t_lo, reinterpret_cast<bf16*>(smem + K4_R), tid);
-    k4_stage(p, bh, b, h, j_lo * BK, t_lo, smem, 0, 1, tid);
+    k4_stage_rk(p, ch, t_lo, smem, 0);
+    k4_stage(p, ch, bh, h, j_lo * BK, t_lo, smem, 0, 1, tid);
   }
   cp_async_commit();
-  // Every tile writes the same dG cells (a row group's diagonal band), so
-  // the cells the product reads beside them are zeroed once.
-  for (int e = tid; e < BQ * LDD / 8; e += THREADS)
-    reinterpret_cast<uint4*>(dGs)[e] = make_uint4(0u, 0u, 0u, 0u);
+  // Every tile writes the same dG cells (row i's band columns 63 - i..
+  // 126 - i), so the cells the product reads beside them are zeroed once.
+  for (int e = tid; e < 2 * SW_HALF / 8; e += THREADS)
+    reinterpret_cast<uint4*>(smem + K4_DG)[e] = make_uint4(0u, 0u, 0u, 0u);
 
   const long long srow = static_cast<long long>(bh) * p.qlen;
   const int row0 = r0 + i0, row1 = row0 + 8;
-  const float m0 = row0 < p.qlen ? p.m[srow + row0] : 0.f;
-  const float m1 = row1 < p.qlen ? p.m[srow + row1] : 0.f;
-  const float il0 = row0 < p.qlen ? 1.f / fmaxf(p.l[srow + row0], 1e-30f) : 0.f;
-  const float il1 = row1 < p.qlen ? 1.f / fmaxf(p.l[srow + row1], 1e-30f) : 0.f;
+  // p scale = exp(s - m) scale / l = exp2(x log2e scale - e0), x the
+  // unscaled score and e0 = m log2e + log2(l / scale), the row's term (0 for
+  // rows past qlen: their p is set to 0)
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float xs = p.scale * LOG2E;
+  const auto row_term = [&](int row) {
+    return row < p.qlen ? p.m[srow + row] * LOG2E + __log2f(fmaxf(p.l[srow + row], 1e-30f) / p.scale)
+                        : 0.f;
+  };
+  const float e0 = row_term(row0), e1 = row_term(row1);
   const float dl0 = row0 < p.qlen ? p.delta[srow + row0] : 0.f;
   const float dl1 = row1 < p.qlen ? p.delta[srow + row1] : 0.f;
 
-  float dq[DH / 16][4];   // rows i0, i0 + 8; dims 64 dh + 8 n + 2 t
+  // Q and dO as wgmma's A from registers: the A fragments of the warp's 16
+  // rows for the 8 k-steps (register e: row i0 + 8 (e % 2), head dims
+  // 16 kk + 8 (e / 2) + 2 t..), loaded once
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+  uint32_t qa[DH / 16][4], da[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = 2 * sw_tile(i0 + 8 * (e & 1), 16 * kk + 8 * (e >> 1) + 2 * t);
+      qa[kk][e] = *reinterpret_cast<const uint32_t*>(smem + K4_Q + at);
+      da[kk][e] = *reinterpret_cast<const uint32_t*>(smem + K4_DO + at);
+    }
+  }
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // dS and dG are wgmma's A in the interleaved layout: element (i, c) at
+  // byte (i / 8) ldi + (c / 8) 128 + (i % 8) 16 + (c % 8) 2, ldi 1024 for dS
+  // and 2048 for dG. This thread's cells of a tile: dS rows i0 (i0 + 8 a
+  // row group below, + 1024), columns 32 wg + 8 n + 2 t.. at ds_at + 128 n;
+  // dG[i0, 63 - i0 + j + e] at dg_at[e] + 128 n (row i0 + 8: + 1920).
+  const uint32_t ds_at = (i0 >> 3) * 1024 + (4 * wg) * 128 + g * 16 + 4 * t;
+  uint32_t dg_at[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int bc = BQ - 1 - i0 + KH * wg + 2 * t + e;   // band column of (i0, 32 wg + 2 t + e)
+    dg_at[e] = (i0 >> 3) * 2048 + (bc >> 3) * 128 + g * 16 + (bc & 7) * 2;
+  }
+  unsigned char* dSb = smem + K4_S;
+  unsigned char* dGb = smem + K4_DG;
+  const uint64_t d_s = desc_inter(sa + K4_S, 1024), d_g = desc_inter(sa + K4_DG, 2048);
+  float dq[DH / 16][4];   // rows i0, i0 + 8; dims 64 wg + 8 n + 2 t
 #pragma unroll
   for (int n = 0; n < DH / 16; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
@@ -574,183 +706,148 @@ __global__ void __launch_bounds__(THREADS, 1) k4_rel_bwd_dq_kernel(const Params 
     const int c0 = jb * BK;
     const int t0 = t_lo + BQ * tn;   // rk row of band row 0
     cp_async_wait_group0();
+    fence_proxy_async();
     __syncthreads();   // tile jb has landed; every warp is done with tile jb - 1
-    const bf16* Ks = reinterpret_cast<const bf16*>(smem + K4_K + s * TILE);
-    const bf16* Vs = reinterpret_cast<const bf16*>(smem + K4_V + s * TILE);
-    const bf16* Rlo = reinterpret_cast<const bf16*>(smem + K4_R + tn % 3 * TILE);
-    const bf16* Rhi = reinterpret_cast<const bf16*>(smem + K4_R + (tn + 1) % 3 * TILE);
-    // band row r (a group of 16 never straddles the two chunks)
-    const auto band_row = [&](int r) { return (r < BQ ? Rlo : Rhi) + (r % BQ) * LDH; };
+    const uint32_t b_k = sa + K4_K + s * SW_TILE, b_v = sa + K4_V + s * SW_TILE;
+    const uint32_t b_lo = sa + K4_R + tn % 3 * SW_TILE, b_hi = sa + K4_R + (tn + 1) % 3 * SW_TILE;
     const float* rrk_s = reinterpret_cast<const float*>(smem + K4_RRK) + s * BAND;
     const float* rwk_s = reinterpret_cast<const float*>(smem + K4_RWK) + s * BK;
+    const int wrow = r0 + WROWS * rg, wcol = c0 + KH * wg;
+    // every entry of the warp's 16 rows x 32 keys banned (the upper
+    // triangle of a diagonal tile, the window's edge, the ragged end)
+    const bool empty = wrow >= p.qlen || wcol >= p.klen || wcol > wrow + WROWS - 1 + geo.mlen ||
+                       (p.same_length && wcol + KH - 1 < wrow - (geo.shift - 1));
 
-    {  // query-major: rows i0, i0 + 8 of row group rg, keys 32 kh..
-      const int wrow = r0 + WROWS * rg, wcol = c0 + KH * kh;
-      // every entry of the warp's 16 rows x 32 keys banned (the upper
-      // triangle of a diagonal tile, the window's edge, the ragged end)
-      const bool empty = wrow >= p.qlen || wcol >= p.klen ||
-                         wcol > wrow + WROWS - 1 + geo.mlen ||
-                         (p.same_length && wcol + KH - 1 < wrow - (geo.shift - 1));
-      float pr[KH / 8][4], ds[KH / 8][4];
-      const bf16* qw = Qs + WROWS * rg * LDH;
-      if (!empty) {  // G = q . band^T over the warp's 48 band rows (f32 in Gw), S = q . k^T
-        float gacc[WBAND / 8][4];
+    // The score products: G[:, 64 wg..] = Q . (band rows 64 wg..)^T, S and
+    // dP over keys 32 wg.., B K-major, 8 k-steps over the head dims. No
+    // warpgroup skips them: a branch around wgmma makes ptxas serialize
+    // every product of the kernel, and a warpgroup's 64 rows leave its 32
+    // keys of a tile all banned only at a window's edge.
+    float pr[KH / 8][4], ds[KH / 8][4];
+    {
+      float gacc[DH / 16][4];
+      const uint64_t d_b = desc_sw128(wg ? b_hi : b_lo);
+      const uint64_t d_k = desc_sw128(b_k + KH * 128 * wg), d_v = desc_sw128(b_v + KH * 128 * wg);
+      wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < WBAND / 8; ++n) gacc[n][0] = gacc[n][1] = gacc[n][2] = gacc[n][3] = 0.f;
-#pragma unroll
-        for (int n = 0; n < KH / 8; ++n) pr[n][0] = pr[n][1] = pr[n][2] = pr[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          uint32_t qa[4];
-          ld_a(qa, qw + kk * 16, LDH, lane);
-#pragma unroll
-          for (int np = 0; np < WBAND / 16; ++np) {
-            uint32_t bfr[4];
-            ld_b(bfr, band_row(wb + 16 * np) + kk * 16, LDH, lane);
-            mma16816(gacc[2 * np], qa, bfr[0], bfr[1]);
-            mma16816(gacc[2 * np + 1], qa, bfr[2], bfr[3]);
-          }
-#pragma unroll
-          for (int np = 0; np < KH / 16; ++np) {
-            uint32_t bfr[4];
-            ld_b(bfr, Ks + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
-            mma16816(pr[2 * np], qa, bfr[0], bfr[1]);
-            mma16816(pr[2 * np + 1], qa, bfr[2], bfr[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < WBAND / 8; ++n) {
-          *reinterpret_cast<float2*>(Gw + g * LDG + 8 * n + 2 * t) =
-              make_float2(gacc[n][0], gacc[n][1]);
-          *reinterpret_cast<float2*>(Gw + (g + 8) * LDG + 8 * n + 2 * t) =
-              make_float2(gacc[n][2], gacc[n][3]);
-        }
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        const uint32_t ko = (ks >> 2) * (SW_HALF * 2) + 32 * (ks & 3);
+        wgmma_64x64_rs(gacc, qa[ks], desc_at(d_b, ko), ks > 0);
+        wgmma_64x32_rs(pr, qa[ks], desc_at(d_k, ko), ks > 0);
+        wgmma_64x32_rs(ds, da[ks], desc_at(d_v, ko), ks > 0);
       }
-      __syncwarp();
-      // tile jb + 1 into the other stage, issued here, between the products
-      // and the shared-memory work, rather than in one burst after the barrier
-      if (jb + 1 < j_hi) k4_stage(p, bh, b, h, c0 + BK, t0 + BQ, smem, s ^ 1, (tn + 2) % 3, tid);
+      wgmma_commit();
+      // tile jb + 1 into the other stage, under the products
+      if (jb + 1 < j_hi) k4_stage(p, ch, bh, h, c0 + BK, t0 + BQ, smem, s ^ 1, (tn + 2) % 3, tid);
       cp_async_commit();
-      if (empty) {
+      wgmma_wait0();
+      fence_acc(gacc);
+      fence_acc(pr);
+      fence_acc(ds);
 #pragma unroll
-        for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-      } else {
-        // p = exp(s - m) / l with K3's scores and mask
-        const auto scores = [&](int n, int e, float& s0, float& s1) {
-          const int jl = 8 * n + 2 * t + e, j = KH * kh + jl;
-          const int br0 = BQ - 1 - i0 + j;          // block band row of (i0, j)
-          const int gc0 = WROWS - 1 - g + jl;       // its column in Gw
-          s0 = (pr[n][e] + rwk_s[j] + Gw[g * LDG + gc0] + rrk_s[br0]) * p.scale;
-          s1 = (pr[n][2 + e] + rwk_s[j] + Gw[(g + 8) * LDG + gc0 - 8] + rrk_s[br0 - 8]) * p.scale;
-        };
-        // most tiles ban nothing in the warp's 16 rows x 32 keys
-        const bool full = wrow + WROWS <= p.qlen && wcol + KH <= p.klen &&
-                          wcol + KH - 1 <= wrow + geo.mlen &&
-                          (!p.same_length || wcol >= wrow + WROWS - 1 - (geo.shift - 1));
-        if (full) {
+      for (int n = 0; n < DH / 16; ++n) {
+        const int c = BQ * wg + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(Gs + i0 * LDG4 + c) = make_float2(gacc[n][0], gacc[n][1]);
+        *reinterpret_cast<float2*>(Gs + (i0 + 8) * LDG4 + c) = make_float2(gacc[n][2], gacc[n][3]);
+      }
+    }
+    __syncthreads();   // G is complete
+
+    // The elementwise pass: rows i0, i0 + 8 x keys 32 wg + 8 n + 2 t..
+    if (empty) {
 #pragma unroll
-          for (int n = 0; n < KH / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float s0, s1;
-              scores(n, e, s0, s1);
-              pr[n][e] = __expf(s0 - m0) * il0;
-              pr[n][2 + e] = __expf(s1 - m1) * il1;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int n = 0; n < KH / 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float s0, s1;
-              scores(n, e, s0, s1);
-              const int col = wcol + 8 * n + 2 * t + e;
-              bool ban0 = col > row0 + geo.mlen || col >= p.klen || row0 >= p.qlen;
-              bool ban1 = col > row1 + geo.mlen || col >= p.klen || row1 >= p.qlen;
-              if (p.same_length) {
-                ban0 = ban0 || col < row0 - (geo.shift - 1);
-                ban1 = ban1 || col < row1 - (geo.shift - 1);
-              }
-              pr[n][e] = ban0 ? 0.f : __expf(s0 - m0) * il0;
-              pr[n][2 + e] = ban1 ? 0.f : __expf(s1 - m1) * il1;
-            }
-          }
-        }
-        // dP = dO . V^T, then dS = p (dP - delta) scale
-#pragma unroll
-        for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-        const bf16* dow = dOs + WROWS * rg * LDH;
-#pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          uint32_t da[4];
-          ld_a(da, dow + kk * 16, LDH, lane);
-#pragma unroll
-          for (int np = 0; np < KH / 16; ++np) {
-            uint32_t bfr[4];
-            ld_b(bfr, Vs + (KH * kh + 16 * np) * LDH + kk * 16, LDH, lane);
-            mma16816(ds[2 * np], da, bfr[0], bfr[1]);
-            mma16816(ds[2 * np + 1], da, bfr[2], bfr[3]);
-          }
-        }
+      for (int n = 0; n < KH / 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
+    } else {
+      // p scale with K3's scores and mask; BD[i, j] = G[i, 63 - i + j]
+      const auto scores = [&](int n, int e, float& s0, float& s1) {
+        const int j = KH * wg + 8 * n + 2 * t + e;
+        const int br0 = BQ - 1 - i0 + j;          // band row of (i0, j)
+        s0 = pr[n][e] + rwk_s[j] + Gs[i0 * LDG4 + br0] + rrk_s[br0];
+        s1 = pr[n][2 + e] + rwk_s[j] + Gs[(i0 + 8) * LDG4 + br0 - 8] + rrk_s[br0 - 8];
+      };
+      // most tiles ban nothing in the warp's 16 rows x 32 keys
+      const bool full = wrow + WROWS <= p.qlen && wcol + KH <= p.klen &&
+                        wcol + KH - 1 <= wrow + geo.mlen &&
+                        (!p.same_length || wcol >= wrow + WROWS - 1 - (geo.shift - 1));
+      if (full) {
 #pragma unroll
         for (int n = 0; n < KH / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            ds[n][e] = pr[n][e] * (ds[n][e] - dl0) * p.scale;
-            ds[n][2 + e] = pr[n][2 + e] * (ds[n][2 + e] - dl1) * p.scale;
+            float s0, s1;
+            scores(n, e, s0, s1);
+            pr[n][e] = ex2(fmaf(s0, xs, -e0));
+            pr[n][2 + e] = ex2(fmaf(s1, xs, -e1));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < KH / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float s0, s1;
+            scores(n, e, s0, s1);
+            const int col = wcol + 8 * n + 2 * t + e;
+            bool ban0 = col > row0 + geo.mlen || col >= p.klen || row0 >= p.qlen;
+            bool ban1 = col > row1 + geo.mlen || col >= p.klen || row1 >= p.qlen;
+            if (p.same_length) {
+              ban0 = ban0 || col < row0 - (geo.shift - 1);
+              ban1 = ban1 || col < row1 - (geo.shift - 1);
+            }
+            // exp of every score, then a select: no branch around the exp
+            const float p0 = ex2(fmaf(s0, xs, -e0)), p1 = ex2(fmaf(s1, xs, -e1));
+            pr[n][e] = ban0 ? 0.f : p0;
+            pr[n][2 + e] = ban1 ? 0.f : p1;
           }
         }
       }
-      // dS as bf16, and skewed into the row group's dG: dG[i, 63 - i + j] = dS[i, j]
+      // dS = p scale (dP - delta)
 #pragma unroll
       for (int n = 0; n < KH / 8; ++n) {
-        const int j = KH * kh + 8 * n + 2 * t;
-        *reinterpret_cast<uint32_t*>(dSs + i0 * LDP + j) = pack_bf16(ds[n][0], ds[n][1]);
-        *reinterpret_cast<uint32_t*>(dSs + (i0 + 8) * LDP + j) = pack_bf16(ds[n][2], ds[n][3]);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int bc0 = BQ - 1 - i0 + j + e;     // block band column of (i0, j + e)
-          dgp[g * LDD + bc0] = __float2bfloat16_rn(ds[n][e]);
-          dgp[(g + 8) * LDD + bc0 - 8] = __float2bfloat16_rn(ds[n][2 + e]);
+          ds[n][e] = pr[n][e] * (ds[n][e] - dl0);
+          ds[n][2 + e] = pr[n][2 + e] * (ds[n][2 + e] - dl1);
         }
       }
     }
-    pair_barrier(rg);   // the row group's dS and dG are complete
+    // dS as bf16, and skewed into dG: dG[i, 63 - i + j] = dS[i, j]
+#pragma unroll
+    for (int n = 0; n < KH / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dSb + ds_at + 128 * n) = pack_bf16(ds[n][0], ds[n][1]);
+      *reinterpret_cast<uint32_t*>(dSb + ds_at + 1024 + 128 * n) = pack_bf16(ds[n][2], ds[n][3]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<bf16*>(dGb + dg_at[e] + 128 * n) = __float2bfloat16_rn(ds[n][e]);
+        *reinterpret_cast<bf16*>(dGb + dg_at[e] + 1920 + 128 * n) = __float2bfloat16_rn(ds[n][2 + e]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();   // dS and dG are complete
 
-    {  // dq += dS . K, then dG . band over band columns [48 - 16 rg, 128 - 16 rg)
-      const bf16* sw = dSs + WROWS * rg * LDP;
+    // The dq products, head dims 64 wg..: dq += dS . K (4 k-steps over the
+    // keys), dq += dG . band (8 k-steps over the band rows, 4 in each chunk);
+    // B is the K tile's or the chunk's half wg, MN-major
+    {
+      const uint32_t half = SW_HALF * 2 * wg;
+      const uint64_t d_kh = desc_sw128(b_k + half);
+      const uint64_t d_lo = desc_sw128(b_lo + half), d_hi = desc_sw128(b_hi + half);
+      wgmma_fence();
 #pragma unroll
-      for (int kq = 0; kq < BK / 16; ++kq) {
-        uint32_t a[4];
-        ld_a(a, sw + 16 * kq, LDP, lane);
+      for (int kq = 0; kq < BK / 16; ++kq)
+        wgmma_64x64(dq, desc_at(d_s, 256 * kq), desc_at(d_kh, 2048 * kq), 1);
 #pragma unroll
-        for (int dp = 0; dp < DH / 32; ++dp) {
-          uint32_t bfr[4];
-          ld_b_t(bfr, Ks + 16 * kq * LDH + DH / 2 * dh + 16 * dp, LDH, lane);
-          mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
-          mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
-        }
-      }
-#pragma unroll
-      for (int kq = 0; kq < (WROWS + BK) / 16; ++kq) {
-        const int bc = BQ - WROWS - WROWS * rg + 16 * kq;
-        uint32_t a[4];
-        ld_a(a, dgp + bc, LDD, lane);
-#pragma unroll
-        for (int dp = 0; dp < DH / 32; ++dp) {
-          uint32_t bfr[4];
-          ld_b_t(bfr, band_row(bc) + DH / 2 * dh + 16 * dp, LDH, lane);
-          mma16816(dq[2 * dp], a, bfr[0], bfr[1]);
-          mma16816(dq[2 * dp + 1], a, bfr[2], bfr[3]);
-        }
-      }
+      for (int kq = 0; kq < BAND / 16; ++kq)
+        wgmma_64x64(dq, desc_at(d_g, 256 * kq), desc_at(kq < 4 ? d_lo : d_hi, 2048 * (kq & 3)), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(dq);
     }
   }
   cp_async_wait_group0();   // Q and dO, should no key tile have been visited
 
   bf16* out0 =
-      p.dq + ((static_cast<long long>(b) * p.qlen + row0) * p.H + h) * DH + DH / 2 * dh + 2 * t;
+      p.dq + ((static_cast<long long>(b) * p.qlen + row0) * p.H + h) * DH + DH / 2 * wg + 2 * t;
   bf16* out1 = out0 + 8LL * p.H * DH;
 #pragma unroll
   for (int n = 0; n < DH / 16; ++n) {
@@ -1101,7 +1198,7 @@ __global__ void __launch_bounds__(THREADS, 1) k5_rel_bwd_dkv_kernel(const Params
     }
     // p^T, dS^T, dG^T and the staged Q and dO are read by wgmma (the async
     // proxy) after the barrier
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();   // p, dS, dG and the sums are complete
 
     // + dgsum r_r for the rows of block rb (this tile's sums)
@@ -1256,6 +1353,8 @@ extern "C" {
 int bdm_rel_bwd_head_dim() { return DH; }
 int bdm_rel_bwd_block_q() { return BQ; }
 int bdm_rel_bwd_block_k() { return BK; }
+// dynamic shared memory of K4 (which = 1) and K5 (which = 2), bytes
+int bdm_rel_bwd_smem(int which) { return which == 1 ? SMEM_DQ : which == 2 ? SMEM_DKV : 0; }
 
 const char* bdm_rel_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

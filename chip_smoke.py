@@ -278,11 +278,12 @@ under build/), the kernels phase also times that K9 in turns with this
 tree's (new, old, old, new) and its host time per call. With
 ``--old-rel-bwd SRC`` (a copy of an earlier
 csrc/flash_rel_attention_bwd.cu with this tree's C interface, e.g. ``git
-show edacf2a:bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu``), at the
-four timed K5 shapes (the kernels phase's two, ``tensor_parallel``'s H 8
-and ``pipeline``'s B 1) that source's K5 runs on this tree's delta and key
-terms, its dk, dv, drk, drw and drr are held to this tree's within
-BWD_REL_TOL, and the two K5s are timed in turns (old, new, new, old). With ``--old-ring SRC`` (a copy
+show cb264b5:bdm_db1_tpu_torch/csrc/flash_rel_attention_bwd.cu``), at the
+four timed K4/K5 shapes (the kernels phase's two, ``tensor_parallel``'s H
+8 and ``pipeline``'s B 1) that source's K4 and K5 each run on this tree's
+delta and key terms, its dq, and its dk, dv, drk, drw and drr, are held to
+this tree's within BWD_REL_TOL, and each old kernel is timed in turns with
+this tree's (old, new, new, old). With ``--old-ring SRC`` (a copy
 of an earlier csrc/flash_ring_decode.cu, e.g. ``git show
 9fdc92c:bdm_db1_tpu_torch/csrc/flash_ring_decode.cu``), at the timed K1,
 K6, K2 and K7 cases its decode's or prime's (o, m, l) are held to this
@@ -301,7 +302,8 @@ builds with a part taken out.
 The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
 registers, stack, spill bytes and static shared memory of K3, K4, K5 and
 the two instances each of K1 and the prime (``k1_decode_kernel<bf16>``,
-``<int8>``, ``k2_prime_kernel<bf16>``, ``<int8>``). The
+``<int8>``, ``k2_prime_kernel<bf16>``, ``<int8>``), and K4's and K5's
+dynamic shared memory from the library (``dynamic_smem``). The
 K4/K5 records of the kernels line say what each of their times is
 (``times``): ``ms`` is the kernel alone, ``train_profile_ms`` the kernel
 alone in the train profile, ``call_ms`` the whole backward call.
@@ -461,6 +463,13 @@ def phase_build() -> dict:
                                          "flash_ring_decode")
                         if src in built
                         for k, v in ptxas_resources(built[src]["log"]).items()}
+    # K4's and K5's dynamic shared memory (ptxas reports the static only)
+    lib = cuda_build.load_library("flash_rel_attention_bwd")
+    for which, name in ((1, "k4_rel_bwd_dq_kernel"),
+                        (2, "k5_rel_bwd_dkv_kernel")):
+        if name in rec["resources"]:
+            rec["resources"][name]["dynamic_smem"] = \
+                lib.bdm_rel_bwd_smem(which)
     return rec
 
 
@@ -808,12 +817,13 @@ class OldQmm:
 
 
 class OldRelBwd:
-    """An earlier K5 with this tree's C interface (``bdm_rel_bwd(which,
+    """An earlier K4 and K5 with this tree's C interface (``bdm_rel_bwd(which,
     ...)``: the preparation, K4 and K5 as separate steps), built from a copy
-    of its csrc/flash_rel_attention_bwd.cu given by --old-rel-bwd. ``dkv``
-    runs its K5 alone on the operands of ``_bwd_operands`` after this
-    tree's preparation (the same delta and key terms). Timed in turns with
-    this tree's K5 on the same card. Not part of the port."""
+    of its csrc/flash_rel_attention_bwd.cu given by --old-rel-bwd. ``step``
+    runs its K4 ("dq") or K5 ("dkv") alone on the operands of
+    ``_bwd_operands`` after this tree's preparation (the same delta and key
+    terms). Timed in turns with this tree's kernels on the same card. Not
+    part of the port."""
 
     def __init__(self, src: str, checked: bool = True):
         import ctypes
@@ -827,20 +837,22 @@ class OldRelBwd:
         lib.bdm_rel_bwd.restype = I
         self.lib = lib
 
-    def dkv(self, t, mem_len, same_length, scale):
-        from bdm_db1_tpu_torch.ops.flash_rel_attention import _BWD_PTRS
+    def step(self, which, t, mem_len, same_length, scale):
+        from bdm_db1_tpu_torch.ops.flash_rel_attention import (
+            _BWD_PTRS, _BWD_STEPS,
+        )
 
         q, k, v = t["q"], t["k"], t["v"]
         B, qlen, H, _ = q.shape
         dev = q.device
         rc = self.lib.bdm_rel_bwd(
-            2, *[0 if t.get(n) is None else t[n].data_ptr()
-                 for n in _BWD_PTRS],
+            _BWD_STEPS[which], *[0 if t.get(n) is None else t[n].data_ptr()
+                                 for n in _BWD_PTRS],
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
             v.stride(1), B, H, qlen, k.shape[1], mem_len, int(same_length),
             scale, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
         if rc:
-            raise RuntimeError(f"old K5 launch failed ({rc})")
+            raise RuntimeError(f"old {which} launch failed ({rc})")
 
 
 def _qmm_case(qm, *, R, K, N, seed, timed, old=None):
@@ -1088,32 +1100,34 @@ GRAD_NAMES = ("dq", "dk", "dv", "drk", "drw", "drr")
 DELTA_REL_TOL = 1e-5
 
 
-def _old_k5_turns(fra, old, t, pos) -> dict:
-    """An earlier K5 (OldRelBwd) against this tree's on the operands ``t``
-    of ``_bwd_operands`` after this tree's preparation (the same delta and
-    key terms), each into outputs of its own with zeroed sums: dk, dv, drk,
-    drw and drr each within BWD_REL_TOL of this tree's largest value; then
-    the two K5s alone timed in turns (old, new, new, old)."""
+def _old_bwd_turns(fra, old, which, t, pos) -> dict:
+    """An earlier K4 (``which`` "dq") or K5 ("dkv") of OldRelBwd against
+    this tree's on the operands ``t`` of ``_bwd_operands`` after this
+    tree's preparation (the same delta and key terms), each into outputs of
+    its own with zeroed sums: each of its gradients within BWD_REL_TOL of
+    this tree's largest value; then the two kernels alone timed in turns
+    (old, new, new, old)."""
+    names = ("dq",) if which == "dq" else GRAD_NAMES[1:]
     outs = {}
-    for name, run in (("new", lambda u: fra._bwd_step("dkv", u, *pos)),
-                      ("old", lambda u: old.dkv(u, *pos))):
-        u = dict(t, dk=torch.empty_like(t["dk"]), dv=torch.empty_like(t["dv"]),
-                 **{n: torch.zeros_like(t[n]) for n in ("drk", "drw", "drr")})
+    for name, run in (("new", lambda u: fra._bwd_step(which, u, *pos)),
+                      ("old", lambda u: old.step(which, u, *pos))):
+        u = dict(t, **{n: torch.zeros_like(t[n]) for n in names})
         run(u)
         outs[name] = u
     torch.cuda.synchronize()
     rel = {n: float((outs["old"][n].float() - outs["new"][n].float()).abs()
                     .max() / outs["new"][n].float().abs().max())
-           for n in GRAD_NAMES[1:]}
+           for n in names}
     if old.checked and not all(np.isfinite(v) and v <= BWD_REL_TOL[n]
                                for n, v in rel.items()):
-        raise AssertionError(f"the old K5 disagrees with this tree's: {rel}")
+        raise AssertionError(f"the old {which} disagrees with this tree's: "
+                             f"{rel}")
     new_u, old_u = outs["new"], outs["old"]
     times = [time_ms(f, iters=20) for f in (
-        lambda i: old.dkv(old_u, *pos),
-        lambda i: fra._bwd_step("dkv", new_u, *pos),
-        lambda i: fra._bwd_step("dkv", new_u, *pos),
-        lambda i: old.dkv(old_u, *pos))]
+        lambda i: old.step(which, old_u, *pos),
+        lambda i: fra._bwd_step(which, new_u, *pos),
+        lambda i: fra._bwd_step(which, new_u, *pos),
+        lambda i: old.step(which, old_u, *pos))]
     return {"old_vs_new_rel_err": rel, "ms": float(np.mean(times[1:3])),
             "old_ms": float(np.mean(times[::3])), "turns_ms": times}
 
@@ -1128,8 +1142,8 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
     around bare launches on one preparation's delta and key terms), the
     preparation, the whole ``flash_rel_attention_bwd`` call, each kernel's
     bound, the plain backward and the SDPA backward as a yardstick. With
-    ``old`` (OldRelBwd), when timed: its K5 held to this tree's and the two
-    timed in turns (``_old_k5_turns``)."""
+    ``old`` (OldRelBwd), when timed: its K4 and its K5 each held to this
+    tree's and timed in turns with it (``_old_bwd_turns``)."""
     from bdm_db1_tpu_torch.ops.attention import rel_shift_sliced
 
     Dh = 128
@@ -1193,8 +1207,15 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
                 lambda i, w=which: fra._bwd_step(w, t, *pos), iters=20)
         rec["prep_ms"] = time_ms(lambda i: fra._bwd_step("prep", t, *pos),
                                  iters=20)
+        # the preparation reads k, rk, dO, O (bf16), r_w, r_r and writes
+        # rwk, rrk, delta (f32): one 128-long dot product each
+        dots = B * H * klen + H * klen + B * H * qlen
+        rec["prep_bound_ms"] = bound(
+            2 * (rows_k + klen * H * Dh + 2 * rows_q) + 2 * 4 * H * Dh
+            + 4 * dots, 2 * Dh * dots)["bound_ms"]
         if old is not None:
-            rec["dkv"].update(_old_k5_turns(fra, old, t, pos))
+            for which in ("dq", "dkv"):
+                rec[which].update(_old_bwd_turns(fra, old, which, t, pos))
         rec["call_ms"] = time_ms(
             lambda i: fra.flash_rel_attention_bwd(*saved, **kw), iters=10)
         rec["plain_ms"] = time_ms(lambda i: fra.flash_rel_attention_bwd_plain(
@@ -6547,8 +6568,9 @@ BWD_TIMES = {
     "call_ms": "the whole flash_rel_attention_bwd call: the preparation "
                "(delta, key terms), K4, K5, the zeroed sums and allocations",
     "prep_ms": "the preparation kernel alone",
-    "old_ms": "--old-rel-bwd: the old K5 alone on this tree's delta and key "
-              "terms, in turns with ms (old, new, new, old)",
+    "prep_bound_ms": "the preparation's bound (its bytes at the memory rate)",
+    "old_ms": "--old-rel-bwd: the old kernel alone on this tree's delta and "
+              "key terms, in turns with ms (old, new, new, old)",
     "turns_ms": "--old-rel-bwd: the four turns (old, new, new, old)"}
 
 
@@ -6657,9 +6679,9 @@ def main(argv=None) -> int:
                          "timed in turns with this tree's")
     ap.add_argument("--old-rel-bwd", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_rel_attention_bwd.cu"
-                         " with this tree's C interface: its K5 is held to "
-                         "this tree's and timed in turns with it at the four "
-                         "timed K5 shapes")
+                         " with this tree's C interface: its K4 and K5 are "
+                         "held to this tree's and timed in turns with them "
+                         "at the four timed K4/K5 shapes")
     ap.add_argument("--old-ring", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_ring_decode.cu: its "
                          "decode (K1, K6) and prime (K2, K7, K8) are held to "
