@@ -292,9 +292,11 @@ old, new), and its K8 (head-major scales) in turns with this tree's; its
 split scratch is sized by that library's ``bdm_k1_split()`` and
 ``bdm_k2_split()``. With ``--old-rel-fwd SRC`` (a copy of an earlier
 csrc/flash_rel_attention.cu, e.g. ``git show
-9fdc92c:bdm_db1_tpu_torch/csrc/flash_rel_attention.cu``), at the two timed
-K3 shapes its (out, m, l) are held to this tree's within the K3 limits
-and the two are timed in turns. Both put ``old_ms`` and ``turns_ms`` on
+aad7e91:bdm_db1_tpu_torch/csrc/flash_rel_attention.cu``), at every timed
+K3 shape (the kernels phase's a, b, e, f and both g, and those of
+``tensor_parallel``, ``pipeline`` and ``serve_preln``) its (out, m, l)
+are held to this tree's within the K3 limits and the two are timed in
+turns. Both put ``old_ms`` and ``turns_ms`` on
 their rows of the kernels line. ``--probe`` records how far those earlier
 kernels' outputs are from this tree's without failing on it, for probe
 builds with a part taken out.
@@ -302,8 +304,10 @@ builds with a part taken out.
 The ``build`` phase also reads, from nvcc's ``-Xptxas -v`` output, the
 registers, stack, spill bytes and static shared memory of K3, K4, K5 and
 the two instances each of K1 and the prime (``k1_decode_kernel<bf16>``,
-``<int8>``, ``k2_prime_kernel<bf16>``, ``<int8>``), and K4's and K5's
-dynamic shared memory from the library (``dynamic_smem``). The
+``<int8>``, ``k2_prime_kernel<bf16>``, ``<int8>``), and K3's, K4's and
+K5's dynamic shared memory from the libraries (``dynamic_smem``); it fails
+when ptxas notes that it serialized the wgmma instructions of K3, K4 or
+K5 (C7520). The
 K4/K5 records of the kernels line say what each of their times is
 (``times``): ``ms`` is the kernel alone, ``train_profile_ms`` the kernel
 alone in the train profile, ``call_ms`` the whole backward call.
@@ -448,6 +452,28 @@ def ptxas_resources(log: str) -> dict:
     return out
 
 
+# ptxas's note that it serialized a kernel's wgmma instructions (C7520 and
+# its kin: a wgmma issued in a branch, an accumulator written between a
+# wgmma and its wait, a group kept in flight across a call)
+_WGMMA_SERIAL = re.compile(r"C7520|wgmma\.mma_async instructions are serialized")
+
+
+def wgmma_serialized(log: str) -> dict:
+    """{kernel: [note, ...]} for each line of nvcc's ``-Xptxas -v`` output
+    that says ptxas serialized wgmma.mma_async instructions, keyed by the
+    PTXAS_KERNELS name of the function the note names (the whole function
+    name where none matches, "?" where the note names none)."""
+    out = {}
+    for line in log.splitlines():
+        if not _WGMMA_SERIAL.search(line):
+            continue
+        fn = re.search(r"function '([^']+)'", line)
+        name = "?" if fn is None else next(
+            (k for k in PTXAS_KERNELS if k in fn.group(1)), fn.group(1))
+        out.setdefault(name, []).append(line.strip())
+    return out
+
+
 def phase_build() -> dict:
     from bdm_db1_tpu_torch.ops import cuda_build
 
@@ -463,13 +489,25 @@ def phase_build() -> dict:
                                          "flash_ring_decode")
                         if src in built
                         for k, v in ptxas_resources(built[src]["log"]).items()}
-    # K4's and K5's dynamic shared memory (ptxas reports the static only)
+    # K3's, K4's and K5's dynamic shared memory (ptxas reports the static
+    # only)
     lib = cuda_build.load_library("flash_rel_attention_bwd")
     for which, name in ((1, "k4_rel_bwd_dq_kernel"),
                         (2, "k5_rel_bwd_dkv_kernel")):
         if name in rec["resources"]:
             rec["resources"][name]["dynamic_smem"] = \
                 lib.bdm_rel_bwd_smem(which)
+    if "k3_rel_attention_kernel" in rec["resources"]:
+        rec["resources"]["k3_rel_attention_kernel"]["dynamic_smem"] = \
+            cuda_build.load_library("flash_rel_attention").bdm_rel_smem()
+    # K3, K4 and K5 issue every product as wgmma: a serialized pipeline
+    # is a build fault
+    serial = {k: v for src in ("flash_rel_attention",
+                               "flash_rel_attention_bwd")
+              if src in built
+              for k, v in wgmma_serialized(built[src]["log"]).items()}
+    if serial:
+        raise AssertionError(f"ptxas serialized wgmma: {serial}")
     return rec
 
 
@@ -1247,7 +1285,7 @@ def _rel_bwd_case(fra, *, B, qlen, klen, mem_len, same_length, seed, timed,
 
 
 def phase_kernels(old_qmm=None, old_bwd=None, old_ring=None,
-                  old_rel_fwd=None, probe=False) -> dict:
+                  old_fwd=None, probe=False) -> dict:
     from bdm_db1_tpu_torch.ops import flash_rel_attention as fra
     from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
     from bdm_db1_tpu_torch.ops import quant_matmul as qm
@@ -1317,7 +1355,6 @@ def phase_kernels(old_qmm=None, old_bwd=None, old_ring=None,
     cases["quant_matmul"] = qmm
     host_us = _qmm_host_us(qm, old)
     torch.cuda.empty_cache()
-    old_fwd = OldRelFwd(old_rel_fwd, not probe) if old_rel_fwd else None
     cases["flash_rel_attention"] = [
         # (a) the validation forward: seq 1024, no memory (causal: the
         # same_length window is empty at klen = mem_len)
@@ -1339,16 +1376,18 @@ def phase_kernels(old_qmm=None, old_bwd=None, old_ring=None,
         # (e) the caption prime of pretrain_vision's eval tick: [9 prompt
         # tokens | 196 patches | one EOS] over 1024 cache rows, B 8
         _rel_case(fra, B=GEN_B, qlen=IC_PRIME_Q, klen=1024 + IC_PRIME_Q,
-                  mem_len=1024, same_length=True, seed=55, timed=True),
+                  mem_len=1024, same_length=True, seed=55, timed=True,
+                  old=old_fwd),
         # (f) the generate phase's 64-token text prompt over 1024 rows
         _rel_case(fra, B=GEN_B, qlen=GEN_PROMPT, klen=1024 + GEN_PROMPT,
-                  mem_len=1024, same_length=True, seed=56, timed=True),
+                  mem_len=1024, same_length=True, seed=56, timed=True,
+                  old=old_fwd),
         # (g) the stateless window decode: a 1024-token window, no memory,
         # one row (the episode) and STATELESS_B rows (decode_batch)
         _rel_case(fra, B=1, qlen=1024, klen=1024, mem_len=1024,
-                  same_length=True, seed=57, timed=True),
+                  same_length=True, seed=57, timed=True, old=old_fwd),
         _rel_case(fra, B=STATELESS_B, qlen=1024, klen=1024, mem_len=1024,
-                  same_length=True, seed=58, timed=True)]
+                  same_length=True, seed=58, timed=True, old=old_fwd)]
     torch.cuda.empty_cache()
     cases["flash_rel_attention_bwd"] = [
         # (a) the train step's shape: B 4, seq 1024, causal
@@ -4600,7 +4639,7 @@ def _hidden_ring_check(seed: int) -> dict:
 
 
 @torch.no_grad()
-def phase_serve_preln(smi: str, seed: int = 0) -> dict:
+def phase_serve_preln(smi: str, seed: int = 0, old_rel_fwd=None) -> dict:
     """The hidden-state decode. First :func:`_hidden_ring_check` (a post-LN
     model both ways). Then a pre-LN db1_1p2b (``pre_lnorm``, bf16 weights
     and activations, random init from ``eval.seed``) served by
@@ -4712,7 +4751,8 @@ def phase_serve_preln(smi: str, seed: int = 0) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         k3 = _rel_case(fra, B=PRELN_TRIALS, qlen=q0, klen=M + q0, mem_len=M,
-                       same_length=True, seed=59, timed=True)
+                       same_length=True, seed=59, timed=True,
+                       old=old_rel_fwd)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     step_med = float(np.median(steady_ms))
@@ -5234,7 +5274,7 @@ TP_NOTE = ("the step of one rank while the other shares the card; gloo sums "
            "tensor-parallel rate")
 
 
-def _tp_kernels(old_rel_bwd=None) -> dict:
+def _tp_kernels(old_rel_bwd=None, old_rel_fwd=None) -> dict:
     """Every kernel of the tensor-parallel paths at the shapes of a rank at
     tp 2 (H 8 heads), held to its plain version and timed: K1 and K2 (Q
     24, the steady prime's bucket) on the bf16 cache of the 40-env serve,
@@ -5264,7 +5304,8 @@ def _tp_kernels(old_rel_bwd=None) -> dict:
         "quant_matmul": qmm,
         "flash_rel_attention": _rel_case(
             fra, B=TP_MICRO, qlen=1024, klen=1024, mem_len=1024,
-            same_length=True, seed=105, timed=True, H=TP_H),
+            same_length=True, seed=105, timed=True, H=TP_H,
+            old=old_rel_fwd),
         "flash_rel_attention_bwd": _rel_bwd_case(
             fra, B=TP_MICRO, qlen=1024, klen=1024, mem_len=1024,
             same_length=True, seed=106, timed=True, H=TP_H,
@@ -5917,7 +5958,8 @@ def _tp_plan_ok(leg: dict, int8: bool) -> bool:
 
 
 def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
-                          seed: int = 0, old_rel_bwd=None) -> dict:
+                          seed: int = 0, old_rel_bwd=None,
+                          old_rel_fwd=None) -> dict:
     """Tensor parallelism in a world of two processes on the one card (gloo;
     NCCL refuses two ranks on one device), tp 2, dp 1, db1_1p2b at full
     width and depth from the weights of ``reference`` (the one-process
@@ -5955,7 +5997,7 @@ def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
     from bdm_db1_tpu_torch.train.checkpoint import load_model
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
-    kernels = _tp_kernels(old_rel_bwd)
+    kernels = _tp_kernels(old_rel_bwd, old_rel_fwd)
     t0 = time.perf_counter()
     one = reference.get(seed)
     reference_s = time.perf_counter() - t0
@@ -6310,7 +6352,7 @@ def _pp_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
             "replicated_params": len(mine), "stages_s": stages}
 
 
-def _pp_kernels(old_rel_bwd=None) -> dict:
+def _pp_kernels(old_rel_bwd=None, old_rel_fwd=None) -> dict:
     """K3 and the backward (K4, K5) at a pipeline micro-batch, one row x
     1024 with db1_1p2b's 16 heads, held to their plain versions and
     timed."""
@@ -6318,7 +6360,8 @@ def _pp_kernels(old_rel_bwd=None) -> dict:
 
     shape = dict(B=TP_MICRO // PP_MICRO, qlen=1024, klen=1024, mem_len=1024,
                  same_length=True, timed=True)
-    out = {"flash_rel_attention": _rel_case(fra, seed=107, **shape),
+    out = {"flash_rel_attention": _rel_case(fra, seed=107, old=old_rel_fwd,
+                                            **shape),
            "flash_rel_attention_bwd": _rel_bwd_case(fra, seed=108,
                                                     old=old_rel_bwd, **shape)}
     torch.cuda.empty_cache()
@@ -6326,7 +6369,8 @@ def _pp_kernels(old_rel_bwd=None) -> dict:
 
 
 def phase_pipeline(smi: str, reference: "OneProcessReference",
-                   seed: int = 0, old_rel_bwd=None) -> dict:
+                   seed: int = 0, old_rel_bwd=None,
+                   old_rel_fwd=None) -> dict:
     """The GPipe pipeline in a world of two processes on the one card
     (gloo; NCCL refuses two ranks on one device), pp 2, dp 1, tp 1,
     db1_1p2b at full width and depth, 12 layers a stage, from the weights
@@ -6352,7 +6396,7 @@ def phase_pipeline(smi: str, reference: "OneProcessReference",
     from bdm_db1_tpu_torch.train.checkpoint import load_model
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
-    kernels = _pp_kernels(old_rel_bwd)
+    kernels = _pp_kernels(old_rel_bwd, old_rel_fwd)
     t0 = time.perf_counter()
     one = reference.get(seed)
     reference_s = time.perf_counter() - t0
@@ -6694,7 +6738,9 @@ def main(argv=None) -> int:
     ap.add_argument("--old-rel-fwd", default=None, metavar="SRC",
                     help="a copy of an earlier csrc/flash_rel_attention.cu: "
                          "its K3 is held to this tree's and timed in turns "
-                         "with it")
+                         "with it at every timed K3 shape (the kernels "
+                         "phase's six, tensor_parallel's, pipeline's and "
+                         "serve_preln's)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
@@ -6721,12 +6767,14 @@ def main(argv=None) -> int:
     results = {}
     old_bwd = (OldRelBwd(args.old_rel_bwd, not args.probe)
                if args.old_rel_bwd else None)
+    old_fwd = (OldRelFwd(args.old_rel_fwd, not args.probe)
+               if args.old_rel_fwd else None)
     if "build" in phases:
         results["build"] = phase_build()
         emit(results["build"])
     if "kernels" in phases:
         results["kernels"] = phase_kernels(args.old_qmm, old_bwd,
-                                           args.old_ring, args.old_rel_fwd,
+                                           args.old_ring, old_fwd,
                                            args.probe)
         emit(results["kernels"])
     serves = {"serve": dict(batch=40),
@@ -6794,14 +6842,15 @@ def main(argv=None) -> int:
         for phase, fn in (
                 ("stateless", phase_stateless),
                 ("remat", phase_remat),
-                ("serve_preln", phase_serve_preln),
+                ("serve_preln", functools.partial(
+                    phase_serve_preln, old_rel_fwd=old_fwd)),
                 ("data_parallel", phase_data_parallel),
                 ("tensor_parallel", functools.partial(
                     phase_tensor_parallel, reference=reference,
-                    old_rel_bwd=old_bwd)),
+                    old_rel_bwd=old_bwd, old_rel_fwd=old_fwd)),
                 ("pipeline", functools.partial(
                     phase_pipeline, reference=reference,
-                    old_rel_bwd=old_bwd)),
+                    old_rel_bwd=old_bwd, old_rel_fwd=old_fwd)),
                 ("tensor_parallel_nccl", phase_tensor_parallel_nccl)):
             if phase in phases:
                 gc.collect()

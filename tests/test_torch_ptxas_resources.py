@@ -113,3 +113,24 @@ def test_ptxas_resources_reads_k3_and_both_k1_instances():
                                    "spill_stores": 4, "spill_loads": 4,
                                    "smem": 0},
     }
+
+
+SERIAL_LOG = K3_K1_LOG + """\
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions defining accumulator registers of a wgmma between start and end of the pipeline stage in the function '_ZN55_GLOBAL__N__ea2d10d2_22_flash_rel_attention_cu_2e11f57223k3_rel_attention_kernelENS_6ParamsE'
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to the presence of Extern calls in the function '_ZN59_GLOBAL__N__c261b1c4_26_flash_rel_attention_bwd_cu_1922280020k4_rel_bwd_dq_kernelENS_6ParamsE'
+"""
+
+
+def test_wgmma_serialized_names_each_kernel_and_passes_a_clean_log():
+    """ptxas's notes that it serialized a kernel's wgmma instructions (C7520
+    and the same words under another code) are keyed by the kernel they
+    name; a log without them gives nothing, so the build phase passes."""
+    got = chip_smoke.wgmma_serialized(SERIAL_LOG)
+    lines = SERIAL_LOG.splitlines()
+    assert got == {"k3_rel_attention_kernel": [lines[-2]],
+                   "k4_rel_bwd_dq_kernel": [lines[-1]]}
+    assert chip_smoke.wgmma_serialized(K3_K1_LOG) == {}
+    assert chip_smoke.wgmma_serialized(LOG + RING_LOG) == {}
+    assert chip_smoke.wgmma_serialized(
+        "ptxas info    : (C7520) wgmma pipeline split") == {
+            "?": ["ptxas info    : (C7520) wgmma pipeline split"]}
