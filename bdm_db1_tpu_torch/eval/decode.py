@@ -702,15 +702,22 @@ class DecoderPool:
     a ladder of widths) every decoder pads its primes to bucket widths, so
     envs of different observation lengths share one projection a bucket.
     With ``mesh`` the model is sharded once (:func:`shard_decode_params`)
-    and every decoder gets the shard."""
+    and every decoder gets the shard. With ``track_spec_sessions`` every
+    :class:`AdaptiveSpecSession` made on this pool's decoders appends
+    itself to ``spec_sessions``, in creation order, so a driver can read
+    their controllers across cohorts; off (``spec_sessions`` None) by
+    default, since a long-lived server would keep one record an
+    episode."""
 
-    def __init__(self, model, pad_buckets=None, mesh=None):
+    def __init__(self, model, pad_buckets=None, mesh=None,
+                 track_spec_sessions: bool = False):
         if mesh is not None:
             model = shard_decode_params(model, mesh)
         self.model = model
         self.mesh = mesh
         self.rk_cache = RkCache(model)
         self.pad_buckets = pad_buckets
+        self.spec_sessions = [] if track_spec_sessions else None
         self._cache = {}
 
     def get(self, tokenized_env) -> ActionDecoder:
@@ -721,6 +728,8 @@ class DecoderPool:
             self._cache[key] = build_decoder_for_env(
                 self.model, tokenized_env, rk_cache=self.rk_cache,
                 pad_buckets=self.pad_buckets, mesh=self.mesh)
+            if self.spec_sessions is not None:
+                self._cache[key].spec_sessions = self.spec_sessions
         return self._cache[key]
 
 
@@ -818,6 +827,9 @@ class AdaptiveSpecSession:
         self.defer_width = decoder.action_length
         self._guess = None           # previous action block [B, A] (host)
         self._rounds = None          # rounds of the unharvested spec step
+        reg = getattr(decoder, "spec_sessions", None)
+        if reg is not None:          # a DecoderPool's opt-in registry
+            reg.append(self)
 
     def decode_async(self, prime_tokens, mems, **kw):
         spec = self.ctl.decide()

@@ -1,7 +1,5 @@
 """Minimal gym-style env protocol, the continuous, discrete, image and
-text fake envs and the env registry (copy of bdm_db1_tpu/eval/envs.py,
-without the continuous env's random-walk observations, which only the
-JAX package's benchmark sets).
+text fake envs and the env registry (copy of bdm_db1_tpu/eval/envs.py).
 
 Real gym/d4rl envs stay pluggable (anything with reset/step/spaces works;
 ``make_env`` falls back to ``gym.make`` when gym is installed); the
@@ -47,10 +45,16 @@ class FakeContinuousEnv:
     """
 
     def __init__(self, obs_dim: int = 5, act_dim: int = 2,
-                 episode_len: int = 20, seed: int = 0):
+                 episode_len: int = 20, seed: int = 0,
+                 walk_sigma: float = 0.0):
         self.observation_space = BoxSpace((obs_dim,))
         self.action_space = BoxSpace((act_dim,))
         self.episode_len = episode_len
+        # walk_sigma > 0: observations follow a bounded random walk instead
+        # of i.i.d. resampling, so the expert action drifts slowly (the
+        # smoothness that the speculative decoder's guess from the previous
+        # action relies on)
+        self.walk_sigma = float(walk_sigma)
         rng = np.random.RandomState(seed)
         self._w = rng.uniform(-0.3, 0.3, (obs_dim, act_dim)).astype(np.float32)
         self._rng = np.random.RandomState(seed + 1)
@@ -61,11 +65,16 @@ class FakeContinuousEnv:
         return np.clip(np.tanh(obs @ self._w), -1, 1).astype(np.float32)
 
     def _next_obs(self) -> np.ndarray:
+        if self.walk_sigma and self._obs is not None:
+            step = self._rng.randn(
+                *self.observation_space.shape).astype(np.float32)
+            return np.clip(self._obs + self.walk_sigma * step, -1, 1)
         return self._rng.uniform(
             -1, 1, self.observation_space.shape).astype(np.float32)
 
     def reset(self) -> np.ndarray:
         self._t = 0
+        self._obs = None  # a walk restarts from a fresh uniform draw
         self._obs = self._next_obs()
         return self._obs
 

@@ -59,7 +59,9 @@ from bdm_db1_tpu_torch.parallel.distributed import (
 from bdm_db1_tpu_torch.parallel.mesh import (
     batch_sharding, make_mesh, tensor_parallel,
 )
-from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager, load_model
+from bdm_db1_tpu_torch.train.checkpoint import (
+    CheckpointManager, load_model, wait_for_saves,
+)
 from bdm_db1_tpu_torch.train.convert import (
     find_deepspeed_model_states, load_deepspeed_checkpoint,
 )
@@ -83,7 +85,8 @@ def load_params(cfg: DB1Config, model: TransformerXL) -> str:
     """Load the weights into ``model``, in this order: a DeepSpeed
     checkpoint under ``train.load_dir/train.ckpt_tag``; else the latest
     step of a port checkpoint at ``train.load_dir`` (its model tensors
-    only, cast to the model's dtype); else a random init seeded by
+    only, cast to the model's dtype), after this process's saves in
+    flight there; else a random init seeded by
     ``eval.seed``. Returns which: FROM_DEEPSPEED, FROM_PORT or
     FROM_RANDOM."""
     load_dir, tag = cfg.train.load_dir, cfg.train.ckpt_tag
@@ -97,6 +100,7 @@ def load_params(cfg: DB1Config, model: TransformerXL) -> str:
             load_deepspeed_checkpoint(model, path)
             return FROM_DEEPSPEED
     if load_dir and os.path.isdir(load_dir):
+        wait_for_saves(load_dir)
         mgr = CheckpointManager(load_dir)
         step = mgr.latest_step()
         if step is not None:

@@ -86,10 +86,16 @@ Phases, each printing one JSON line:
   step, the device idle share and the peak memory. Then, outside the
   timed window, the resume check: the whole train state (f32 parameters
   and moments, the step, the dropout generator) saved through
-  ``CheckpointManager``, one step on a fixed batch (loss L_a), a restore
-  into the same objects (every parameter and moment with its saved
-  float64 sum and raw-bit sum), the step again (L_b == L_a bitwise); reads
-  the bytes on disk and the save and restore seconds.
+  ``CheckpointManager`` (asynchronous: ``save`` returns once the state is
+  copied into pinned host memory), one step on a fixed batch while the
+  write is in flight (loss L_a; gated: the step is still its temporary
+  directory when ``save`` returns and still being written when the step
+  ends), the wait for the write, a restore into the same objects (every
+  parameter and moment with its float64 sum and raw-bit sum at the
+  ``save`` call), the step again (L_b == L_a bitwise); reads the bytes on
+  disk, the seconds ``save`` blocks (the first pinned allocation apart),
+  the step's time during the write, the whole save's and the restore's
+  seconds.
 * ``evaluate_rl`` — needs ``train``: the RL evaluation driver
   ``evaluate_rl.main`` at its default geometry buckets on the card,
   serving the train phase's checkpoint
@@ -206,7 +212,8 @@ Phases, each printing one JSON line:
   gates of the one-process step on the whole batch (this process, from
   the same weights); reads each rank's step (gloo through host memory:
   not a data-parallel rate), the gradient reduce alone, its peak memory
-  and the collective save. Then that step in a one-rank NCCL group: its
+  and the collective save (asynchronous; the seconds ``save`` blocks and
+  the whole write's). Then that step in a one-rank NCCL group: its
   reduce runs and its loss is bitwise the one-process loss. Then
   ``evaluate_rl.main`` in a new two-rank world serving the DP checkpoint
   on the ``evaluate_rl`` phase's envs, one a rank: rank 0's records are
@@ -223,10 +230,14 @@ Phases, each printing one JSON line:
   rank loading its shard; no dropout, SGD lr 1 without the clip) takes
   one ``make_train_step`` step on the ``train`` phase's first
   micro-batch cut to 2 rows: K3 = K4 = K5 = 24 a rank, the tp
-  checkpoint restored in one process (its slices the ranks' parameters
-  bit for bit); three layers from one input and one upstream gradient,
-  forward and backward through K3-K5 on the rank's heads, against the
-  one-process layers: the output within the route gate, the input
+  checkpoint (each rank writing only its own slices, the write running
+  during the dropout step below; a rank's file bytes and its resident
+  host memory before the save, staged and after it read) restored in one
+  process (its slices the ranks' parameters bit for bit) and the ranks'
+  file bytes within 1% of one process's file of the same state; three
+  layers from one input and one upstream gradient, forward and backward
+  through K3-K5 on the rank's heads, against the one-process layers: the
+  output within the route gate, the input
   gradient within the attention-gradient gate and the parameter
   gradients within the model-gradient gates; a second step with the
   default dropout leaves the replicated parameters bitwise equal on both
@@ -331,6 +342,7 @@ import io
 import json
 import os
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -2311,7 +2323,7 @@ def phase_train(smi: str, ckpt_dir: str, saved_weights: dict,
                                      keep=tuple(ALONE_KERNELS.values()))
         alone = kernel_alone_ms(top, _read_launches())
         resume = _resume_check(state, step, batch, ckpt_dir, saved_weights,
-                               smi)
+                               smi, step_s * 1e3)
     finally:
         loader.stop()
     return {"phase": "train", "config": "db1_1p2b", "dtype": "bfloat16",
@@ -2355,30 +2367,53 @@ def _dir_bytes(path: str) -> int:
 
 
 def _resume_check(state, step, batch, ckpt_dir: str, saved_weights: dict,
-                  smi: str) -> dict:
-    """Save the train state through CheckpointManager, take one step on
-    ``batch`` with the live generator (loss L_a), restore into the same
-    objects and take the step again with the restored generator (L_b).
-    The restored parameters and moments must carry the saved sums and
-    bits, and L_b must equal L_a bitwise: the loss comes out of the
-    forward, which has no atomics (K5's f32 atomics touch only the
-    gradients after it), under the same dropout masks. The checkpoint
-    stays in ``ckpt_dir`` for evaluate_rl, and a host copy of the saved
-    weights in ``saved_weights``."""
+                  smi: str, step_ms_median: float) -> dict:
+    """Save the train state through CheckpointManager and, while the
+    background write is in flight (gated: the step is still only its
+    temporary directory when ``save`` returns, and the write not finished
+    when the step has), take one step on ``batch`` with the live generator
+    (loss L_a); wait for the write, restore into the same objects and
+    take the step again with the restored generator (L_b). The restored
+    parameters and moments must carry the sums and bits they had at the
+    ``save`` call, and L_b must equal L_a bitwise: the loss comes out of
+    the forward, which has no atomics (K5's f32 atomics touch only the
+    gradients after it), under the same dropout masks. A save that read
+    the live tensors after the step would fail both. Reads the seconds
+    ``save`` blocks (its first allocation of pinned memory apart), the
+    step's time during the write beside the phase's median step, the
+    whole save's and the restore's seconds. The checkpoint stays in
+    ``ckpt_dir`` for evaluate_rl, and a host copy of the saved weights in
+    ``saved_weights``."""
     from bdm_db1_tpu_torch.train.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(ckpt_dir)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mgr.save(state.step, state, client_state={"iteration": state.step})
-    save_s = time.perf_counter() - t0
     saved = _leaf_sums(state)
     saved_weights.update({n: p.to("cpu", copy=True)
                           for n, p in state.model.state_dict().items()})
-    nbytes = _dir_bytes(mgr.step_dir(state.step))
     gen_state = state.generator.get_state()
+    tmp = os.path.join(mgr.directory, f".tmp-{state.step}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state.step, state, client_state={"iteration": state.step})
+    save_blocking_s = time.perf_counter() - t0
+    stage = dict(mgr.last_stage)
+    # the step directory appears by the rename that ends the write
+    final = mgr.step_dir(state.step)
+    in_flight = not os.path.exists(final)
+    t1 = time.perf_counter()
     _, met = step(state, batch, state.generator)
     loss_a = float(met["loss"])
+    torch.cuda.synchronize()
+    step_during_write_ms = (time.perf_counter() - t1) * 1e3
+    still_writing = not os.path.exists(final) and os.path.isdir(tmp)
+    if not (in_flight and still_writing):
+        raise AssertionError(
+            f"the step did not run during the write: in flight at the "
+            f"return of save {in_flight}, still under {tmp} after the "
+            f"step {still_writing}")
+    mgr.wait()
+    save_total_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(mgr.step_dir(state.step))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     restored, client = mgr.restore(state)
@@ -2393,12 +2428,22 @@ def _resume_check(state, step, batch, ckpt_dir: str, saved_weights: dict,
                              f"{bad[:5]} ({len(bad)} of {len(saved)})")
     _, met = step(state, batch, state.generator)
     loss_b = float(met["loss"])
+    mgr.close()
     if loss_b != loss_a:
         raise AssertionError(f"loss after restore {loss_b!r}, before "
                              f"{loss_a!r}")
     return {"card": smi, "step": state.step, "leaves": len(saved),
-            "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
-            "save_gb_per_s": nbytes / save_s / 1e9,
+            "bytes": nbytes, "save_blocking_s": save_blocking_s,
+            "pinned_alloc_s": stage["alloc_s"],
+            "stage_copy_s": stage["copy_s"],
+            "stage_gb_per_s": stage["bytes"] / stage["copy_s"] / 1e9,
+            "staged_bytes": stage["bytes"], "staged_pinned": stage["pinned"],
+            "in_flight_at_save_return": in_flight,
+            "in_flight_after_step": still_writing,
+            "step_during_write_ms": step_during_write_ms,
+            "step_ms_median": step_ms_median,
+            "save_total_s": save_total_s, "restore_s": restore_s,
+            "save_gb_per_s": nbytes / save_total_s / 1e9,
             "restore_gb_per_s": nbytes / restore_s / 1e9,
             "loss_before": loss_a, "loss_after": loss_b}
 
@@ -4894,9 +4939,12 @@ def _dp_train_rank(rank: int, world: int, weights: str, batch_file: str,
     torch.cuda.synchronize()
     reduce_ms = (time.perf_counter() - t0) * 1e3
     del zeros
+    mgr = CheckpointManager(ckpt_dir)
     t0 = time.perf_counter()
-    CheckpointManager(ckpt_dir).save(1, state, client_state={"iteration": 1})
+    mgr.save(1, state, client_state={"iteration": 1})
     save_s = time.perf_counter() - t0
+    mgr.close()
+    save_total_s = time.perf_counter() - t0
     return {"rank": rank, "loss": loss, "loss_mask_counts": counts,
             "launches": launches, "collectives": collectives,
             "step_ms": step_ms, "step_ms_is": DP_NOTE,
@@ -4904,7 +4952,8 @@ def _dp_train_rank(rank: int, world: int, weights: str, batch_file: str,
             "max_memory_allocated_gb": peak / 1e9,
             "params_bitwise_equal_across_ranks": all(
                 b == bits[0] for b in bits),
-            "checkpoint_save_s": save_s}
+            "checkpoint_save_blocking_s": save_s,
+            "checkpoint_save_total_s": save_total_s}
 
 
 def _dp_eval_rank(rank: int, world: int, cfg, seed: int) -> dict:
@@ -5246,6 +5295,10 @@ TP_GRAD_SEED = 7               # their upstream gradients
 # the ring layers' widths: a 256-token slice of the expert prompt (the
 # plain ring branch), the bucketed prime (K2/K7) and the decode (K1/K6)
 TP_RING_WIDTHS = (256, 24, 1)
+# the tp ranks' checkpoint files, each its own slices, against one
+# process's file of the same state: the bytes differ only by the records'
+# headers (a shard's every chunk is a record of its own, about 1.6 KB)
+TP_FILE_BYTES_RTOL = 0.01
 # The bf16 tp step's update against the one-process bf16 step's. Sound
 # readings (H100, six runs): cosine 0.973-0.981, norms 0.0008-0.015
 # apart; the one-process bf16 step is as far from its f32 step (cosine
@@ -5611,6 +5664,21 @@ def _tp_reference_steps(model, tp, batch, ref: dict) -> dict:
     return out
 
 
+def _host_memory_gib() -> dict:
+    """This process's host memory in GiB: resident now (``VmRSS`` of
+    /proc/self/status) and ``ru_maxrss``, its peak, which on Linux also
+    holds the parent's resident memory at the fork of a spawned
+    process."""
+    out = {"ru_maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+           / 2**20}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                out[key] = int(value.split()[0]) / 2**20     # kB
+    return out
+
+
 def _tp_train_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
     """One rank of the tp 2 train world: its shard of the weights of
     ``ref`` (``OneProcessReference``; rank 0 the whole model too, for the
@@ -5693,9 +5761,12 @@ def _tp_train_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
                               mmap=True),
             torch.load(weights, map_location="cpu", mmap=True))
     del after
+    mgr = CheckpointManager(ckpt_dir)
+    host_before = _host_memory_gib()
     t0 = time.perf_counter()
-    CheckpointManager(ckpt_dir).save(1, state, client_state={"iteration": 1})
-    save_s = time.perf_counter() - t0
+    mgr.save(1, state, client_state={"iteration": 1})
+    save = {"blocking_s": time.perf_counter() - t0, "stage": mgr.last_stage}
+    host_staged = _host_memory_gib()
     bits = _param_bits(model)
     # ---- the second step, with dropout (counted too) ---------------------
     base = db1_1p2b().model
@@ -5707,6 +5778,12 @@ def _tp_train_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
     torch.cuda.synchronize()
     launches2 = _read_launches()
     # ----------------------------------------------------------------------
+    mgr.close()        # the write ran during the dropout step
+    save["total_s"] = time.perf_counter() - t0
+    save["file_bytes"] = os.path.getsize(
+        os.path.join(mgr.step_dir(1), f"__{rank}_0.distcp"))
+    save["host_memory_gib"] = {"before": host_before, "staged": host_staged,
+                               "closed": _host_memory_gib()}
     mine = {n: b for n, b in _param_bits(model).items() if replicated(n)}
     every = [None] * world
     dist.all_gather_object(every, mine)
@@ -5718,7 +5795,7 @@ def _tp_train_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
             "collectives_alone_ms": alone_ms,
             "gloo_share": alone_ms / step_ms,
             "max_memory_allocated_gb": peak / 1e9,
-            "checkpoint_save_s": save_s, "param_bits": bits,
+            "checkpoint_save": save, "param_bits": bits,
             "replicated_bitwise_equal_across_ranks": all(
                 e == mine for e in every),
             "replicated_params": len(mine), "layers": layers,
@@ -5994,7 +6071,10 @@ def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
     chain's actions equal to one process's."""
     from bdm_db1_tpu_torch.ops import cuda_build
     from bdm_db1_tpu_torch.parallel.mesh import shard_rule, shard_tensor
-    from bdm_db1_tpu_torch.train.checkpoint import load_model
+    from bdm_db1_tpu_torch.train.checkpoint import (
+        CheckpointManager, load_model,
+    )
+    from bdm_db1_tpu_torch.train.step import init_train_state
 
     cuda_build.build_libraries(SOURCES)      # once, before the ranks load
     kernels = _tp_kernels(old_rel_bwd, old_rel_fwd)
@@ -6063,7 +6143,24 @@ def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
                 if int(part.view(torch.int32).sum(
                         dtype=torch.int64)) != r["param_bits"][n]:
                     bad.append((n, r["rank"]))
-        del model
+        # the same state saved by one process: the ranks wrote their own
+        # slices, so their files hold its bytes between them
+        one_state = init_train_state(model, cfg.train.optimizer, 1)
+        one_state.step = 1
+        one_mgr = CheckpointManager(os.path.join(work, "one"))
+        one_mgr.save(1, one_state, client_state={"iteration": 1})
+        one_mgr.close()
+        one_bytes = os.path.getsize(
+            os.path.join(one_mgr.step_dir(1), "__0_0.distcp"))
+        rank_bytes = [r["checkpoint_save"]["file_bytes"] for r in ranks]
+        files = {"rank_file_bytes": rank_bytes,
+                 "one_process_file_bytes": one_bytes,
+                 "rel_diff": abs(sum(rank_bytes) - one_bytes) / one_bytes,
+                 "tol": TP_FILE_BYTES_RTOL}
+        if files["rel_diff"] > TP_FILE_BYTES_RTOL:
+            raise AssertionError(f"the ranks' checkpoint files against one "
+                                 f"process's: {files}")
+        del model, one_state, one_mgr
         gc.collect()
         torch.cuda.empty_cache()
         ref = ranks[0]["ref"]
@@ -6083,7 +6180,8 @@ def phase_tensor_parallel(smi: str, reference: "OneProcessReference",
             "layer_tol": {"out": ATTN_REL_TOL, "dx": GRAD_REL_TOL,
                           "grad_cosine_min": GRAD_COS_MIN,
                           "grad_norm_rtol": GRAD_NORM_RTOL},
-            "checkpoint_restore_one_process_s": restore_s}
+            "checkpoint_restore_one_process_s": restore_s,
+            "checkpoint_files": files}
         agree16 = ref["bf16"]["update"]
         if bad or not (loss_diff <= DP_LOSS_TOL
                        and agree["update_cosine"] >= TP_F32_UPDATE_COS_MIN
@@ -6270,11 +6368,15 @@ def _pp_rank(rank: int, world: int, ref: dict, ckpt_dir: str) -> dict:
     state, met = make_train_step(model)(
         state, batch, torch.Generator(device="cuda").manual_seed(0))
     loss32 = float(met["loss"])
-    CheckpointManager(ckpt_dir).save(1, state)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(1, state)
     bits32 = _param_bits(model)
     stages["f32_step_and_save_s"] = time.perf_counter() - t0
     # ---- the bf16 step from the weights ----------------------------------
-    load_into(model, weights)
+    t0 = time.perf_counter()
+    load_into(model, weights)           # while the save is being written
+    mgr.close()
+    stages["reload_and_save_wait_s"] = time.perf_counter() - t0
     _set_dtype(model, "bfloat16")
     state = init_train_state(model, cfg.train.optimizer,
                              cfg.train.train_iters)

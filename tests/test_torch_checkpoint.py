@@ -3,15 +3,19 @@ and the Trainer's use of it), on the CPU at db1_tiny in f32: the round
 trip of the whole train state, pruning, a resumed Trainer bitwise equal to
 the uninterrupted one, the emergency checkpoint on a crash, and the
 Trainer's checkpoint steps, client state and metric keys against the JAX
-package's."""
+package's; the asynchronous save (the state of the call written while the
+state moves on, no unfinished step visible, a failed write raised at
+``wait``), its writer held on a ``threading.Event``."""
 
 import dataclasses
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed.checkpoint as dcp
 
 from bdm_db1_tpu_torch.core.config import db1_tiny
 from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
@@ -276,3 +280,98 @@ def test_trainer_checkpoints_like_jax(tmp_path):
 
     assert keys(dirs["port"]) == keys(dirs["jax"])
     assert len(keys(dirs["port"])) == 3
+
+
+def _held_writes(monkeypatch, fail=None):
+    """Patch dcp's file writer: each write waits for the returned event,
+    then raises ``fail`` when given."""
+    go = threading.Event()
+    real = dcp.FileSystemWriter.write_data
+
+    def write_data(self, plan, planner):
+        assert go.wait(60)
+        if fail is not None:
+            raise fail
+        return real(self, plan, planner)
+
+    monkeypatch.setattr(dcp.FileSystemWriter, "write_data", write_data)
+    return go
+
+
+def _stepped_state(cfg, steps=1):
+    """A state with its moments and generator moved by ``steps`` steps, its
+    step function and batch."""
+    state = _state(cfg, seed=0)
+    state.generator = torch.Generator().manual_seed(7)
+    step = tstep.make_train_step(state.model)
+    batch = to_gato_batch(_raw_batch(cfg), "cpu")
+    for _ in range(steps):
+        state, _ = step(state, batch, state.generator)
+    return state, step, batch
+
+
+def test_async_save_writes_the_state_of_the_call(monkeypatch, tmp_path):
+    """Two train steps while the write is held change every parameter,
+    moment and the generator in place; the checkpoint holds the state at
+    the ``save`` call, bit for bit."""
+    cfg = _cfg()
+    state, step, batch = _stepped_state(cfg)
+    saved = {k: v.clone() for k, v in _leaves(state).items()}
+    go = _held_writes(monkeypatch)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(1, state, client_state={"iteration": 1})
+    for _ in range(2):
+        state, _ = step(state, batch, state.generator)
+    moved = _leaves(state)
+    changed = {k for k in saved if not torch.equal(moved[k], saved[k])}
+    assert {"generator", "step", "optimizer.count",
+            "model.word_embedding.weight"} <= changed
+    assert len(changed) > len(saved) // 2
+    go.set()
+    mgr.wait()
+    fresh = _state(cfg, seed=1)
+    fresh.generator = torch.Generator().manual_seed(99)
+    restored, client = mgr.restore(fresh)
+    mgr.close()
+    assert restored is fresh and client == {"iteration": 1}
+    _assert_bitwise(_leaves(fresh), saved)
+    assert mgr.last_stage["bytes"] > 0
+
+
+def test_unfinished_save_is_invisible(monkeypatch, tmp_path):
+    """While the write is held, the step is only a temporary directory: a
+    second manager on the directory sees no step; the saving manager's
+    ``latest_step`` waits for the write and returns the step."""
+    cfg = _cfg()
+    state, _, _ = _stepped_state(cfg)
+    go = _held_writes(monkeypatch)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    other = CheckpointManager(mgr.directory)
+    mgr.save(3, state, client_state={"iteration": 3})
+    assert other.latest_step() is None and other.all_steps() == []
+    assert not os.path.exists(mgr.step_dir(3))
+    assert other.restore(state) == (None, None)
+    threading.Timer(0.2, go.set).start()
+    assert mgr.latest_step() == 3 and go.is_set()
+    assert other.all_steps() == [3]
+    assert other.restore(state)[1] == {"iteration": 3}
+
+
+def test_failed_async_save_raises_at_wait(monkeypatch, tmp_path):
+    """A write that raises: ``wait`` raises its error once, no step
+    directory (nor its temporary one) is left, and a later save works."""
+    cfg = _cfg()
+    state, _, _ = _stepped_state(cfg)
+    go = _held_writes(monkeypatch, fail=OSError("no space left on device"))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(2, state)
+    go.set()
+    with pytest.raises(OSError, match="no space left on device"):
+        mgr.wait()
+    mgr.wait()
+    assert mgr.all_steps() == [] and os.listdir(mgr.directory) == []
+    monkeypatch.undo()
+    mgr.save(2, state, client_state={"iteration": 2})
+    mgr.wait()
+    assert mgr.all_steps() == [2]
+    assert mgr.restore(state)[1] == {"iteration": 2}

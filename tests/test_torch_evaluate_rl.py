@@ -5,7 +5,8 @@ caches of tests/test_drivers.py written by both packages byte for byte,
 (one-env loop, batched over 3 envs of 2 geometries, the suite summary;
 the first two also at the default geometry buckets) with equal records
 and ``results.output`` lines, ``load_params``' three sources,
-``shard_envs``, the discrete fake env and what raises."""
+``shard_envs``, the discrete fake env, the continuous one's random walk
+and what raises."""
 
 import dataclasses
 import filecmp
@@ -302,6 +303,40 @@ def test_fake_discrete_env_matches_jax(kw):
         to, tr, tdone, _ = t.step(a)
         np.testing.assert_array_equal(jo, to)
         assert (jr, jdone) == (tr, tdone)
+
+
+@pytest.mark.parametrize("walk_sigma", [0.0, 0.05])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fake_continuous_env_walk_matches_jax(seed, walk_sigma):
+    """Two episodes of 6 steps under a fixed action: the observations,
+    rewards and ``done`` equal to JAX's; the walk moves each observation
+    at most 5 sigma from the last, and a reset draws a fresh start."""
+    kw = dict(obs_dim=5, act_dim=2, episode_len=6, seed=seed)
+    j = je.FakeContinuousEnv(walk_sigma=walk_sigma, **kw)
+    t = te.FakeContinuousEnv(walk_sigma=walk_sigma, **kw)
+    plain = te.FakeContinuousEnv(**kw)
+    action = np.array([0.3, -0.2], np.float32)
+    starts = []
+    for _ in range(2):
+        jo, to, po = j.reset(), t.reset(), plain.reset()
+        np.testing.assert_array_equal(jo, to)
+        if not (walk_sigma and starts):     # the first start: one draw
+            np.testing.assert_array_equal(to, po)
+        starts.append(to)
+        done = False
+        while not done:
+            last = to
+            jo, jr, jdone, _ = j.step(action)
+            to, tr, done, _ = t.step(action)
+            po = plain.step(action)[0]
+            assert to.dtype == jo.dtype == np.float32
+            np.testing.assert_array_equal(jo, to)
+            assert (jr, jdone) == (tr, done)
+            if walk_sigma:
+                assert np.abs(to - last).max() <= 5 * walk_sigma
+            else:
+                np.testing.assert_array_equal(to, po)
+    assert not np.array_equal(*starts)
 
 
 @pytest.mark.parametrize("field,value,error,match", [

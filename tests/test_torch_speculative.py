@@ -7,7 +7,8 @@ kernels' plain versions, across a split guess tail, on image primes (the
 sliced prompt and the realigned one-shot prime), on an int8 cache and
 with w8a8 weights; the lockstep cohort and the one-env episode equal the
 classic decoder's; the spec-tail ring forward; the adaptive controller's
-decisions and sessions; ``prewarm``.
+decisions and sessions, and a pool's registry of them
+(``track_spec_sessions``); ``prewarm``.
 
 Each JAX decoder is built once per module (its compiled programs are then
 reused) and each of its chains runs once."""
@@ -500,6 +501,49 @@ def test_adaptive_cohort_and_episode_match_nonspec():
             == (want1.episode_return, want1.episode_length)
             == (ref1.episode_return, ref1.episode_length))
     assert adec.spec_prewarmed
+
+
+def test_pool_tracks_spec_sessions_in_creation_order(monkeypatch):
+    """``DecoderPool(track_spec_sessions=True)``: every
+    ``AdaptiveSpecSession`` made on its decoders (the cohort's, the
+    one-env episode's, one by hand) is in ``spec_sessions``, in creation
+    order; off, the pool keeps none (``spec_sessions`` None), as JAX's
+    pool does."""
+    from bdm_db1_tpu.eval.decode import DecoderPool as JPool
+    from bdm_db1_tpu_torch.eval import harness as th
+    from bdm_db1_tpu_torch.eval.decode import (
+        AdaptiveSpecSession, DecoderPool,
+    )
+
+    made = []
+
+    class Recorded(AdaptiveSpecSession):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(th, "AdaptiveSpecSession", Recorded)
+    over = {"decode_spec_adaptive": True}
+    jt, tt = _fresh_envs(ep=3)
+    _, jm, params, pnp = _jax_model(False, _key(over))
+    model = port_model(pnp, "off", **over)
+    for track in (True, False):
+        made.clear()
+        pool = DecoderPool(model, track_spec_sessions=track)
+        dec = pool.get(tt[0])
+        assert dec.spec_adaptive and pool.get(tt[1]) is dec
+        _episodes(tt, dec)
+        th.run_episode(tt[0], dec, use_prompt=True,
+                       rng=np.random.RandomState(3))
+        made.append(AdaptiveSpecSession(dec))
+        assert len(made) == 3
+        jpool = JPool(jm, params, track_spec_sessions=track)
+        if track:
+            assert len(pool.spec_sessions) == 3 and jpool.spec_sessions == []
+            assert all(a is b for a, b in zip(pool.spec_sessions, made))
+        else:
+            assert pool.spec_sessions is jpool.spec_sessions is None
+            assert getattr(dec, "spec_sessions", None) is None
 
 
 def test_adaptive_prewarm_covers_all_switch_widths():

@@ -47,6 +47,9 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 UPDATE_RTOL = 2e-3
 PARAM_ATOL = 2 * OPT["lr"]
+# a checkpoint record's bytes beyond its tensor's (torch.save's zip
+# headers, about 1.6 KB); a shard's every chunk is a record of its own
+TP_RECORD_BYTES = 2048
 # rows 0-1 to data rank 0, rows 2-3 to data rank 1 (the dp 2 world)
 DENSITIES = (0.2, 0.3, 0.7, 0.8)
 
@@ -353,7 +356,8 @@ def one_process_trainer(tmp_path_factory):
     trainer = Trainer(cfg, model, recording, state,
                       tw.FixedLoader(_mixed_batch()))
     trainer.train()
-    return {"losses": losses, "generator": trainer.state.generator.get_state()}
+    return {"losses": losses, "generator": trainer.state.generator.get_state(),
+            "dir": cfg.train.save_dir}
 
 
 def test_tp_trainer_mixed_loop(worlds, one_process_trainer):
@@ -396,6 +400,57 @@ def test_tp_checkpoint_restores_in_one_process(worlds):
     for n, p in model.named_parameters():
         if n in want:
             assert torch.equal(p, want[n]), n
+
+
+def test_tp_checkpoint_writes_each_rank_its_chunks(worlds,
+                                                  one_process_trainer):
+    """The tp 2 step-6 checkpoint is written in place: the checkpoint
+    module gathered no tensor; every sharded parameter and moment is its
+    ranks' chunks under the whole tensor's key (qkv_net 3 a rank, the GEGLU
+    input 2), each in its rank's file at its rank's offset, half the
+    tensor a rank; each file holds at least its rank's shards' bytes, and
+    the two files the one-process run's step-6 bytes, and for each record
+    beyond that run's at most ``TP_RECORD_BYTES`` more."""
+    import math
+
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import MetadataIndex
+
+    ranks = worlds["trainer"].join()
+    assert [r["checkpoint_gathers"] for r in ranks] == [0, 0]
+    md = dcp.FileSystemReader(os.path.join(worlds["trainer_dir"], "6")
+                              ).read_metadata()
+    cfg = tcfg.db1_tiny().model
+    groups_seen = set()
+    for key, tmd in md.state_dict_metadata.items():
+        prefix, _, name = key.partition(".")
+        if prefix == "optimizer":
+            prefix, _, name = key.partition(".")[2].partition(".")
+        rule = (tmesh.shard_rule(name, cfg)
+                if prefix in ("model", "mu", "nu") else None)
+        if rule is None:
+            assert len(getattr(tmd, "chunks", [None])) == 1, key
+            continue
+        dim, groups = rule
+        groups_seen.add((name.split(".")[-2:][0], groups))
+        assert len(tmd.chunks) == groups * TP, key
+        width = tmd.size[dim] // (groups * TP)
+        volume = [0] * TP
+        for c in tmd.chunks:
+            path = md.storage_data[MetadataIndex(key, c.offsets)].relative_path
+            r = int(path.split("_")[2])
+            assert c.sizes[dim] == width and c.offsets[dim] // width % TP == r
+            volume[r] += math.prod(c.sizes)
+        assert volume == [math.prod(tmd.size) // TP] * TP, key
+    assert {("qkv_net", 3), ("0", 2), ("o_net", 1)} <= groups_seen
+    one_dir = os.path.join(one_process_trainer["dir"], "6")
+    one = os.path.getsize(os.path.join(one_dir, "__0_0.distcp"))
+    extra = len(md.storage_data) - len(
+        dcp.FileSystemReader(one_dir).read_metadata().storage_data)
+    assert all(r["file_bytes"] >= r["shard_bytes"] > 0 for r in ranks)
+    diff = sum(r["file_bytes"] for r in ranks) - one
+    assert extra > 0 and 0 <= diff <= extra * TP_RECORD_BYTES, (
+        [r["file_bytes"] for r in ranks], one, extra)
 
 
 def test_tp_pretrain_main_matches_one_process(worlds, tmp_path):

@@ -409,17 +409,47 @@ def tp_ce(rank, world, h, emb, labels, mask, valid, mesh_kw):
             "dw": gather_tensor(w.grad, (0, 1), tp), "rows": w.shape[0]}
 
 
+def _count_checkpoint_gathers() -> list:
+    """Count, in the returned list's one entry, the ``gather_tensor`` calls
+    made from the checkpoint module's code (through the mesh module or a
+    name the checkpoint module imported)."""
+    import sys
+
+    from bdm_db1_tpu_torch.parallel import mesh
+    from bdm_db1_tpu_torch.train import checkpoint
+
+    count = [0]
+    real = mesh.gather_tensor
+
+    def counting(*args, **kwargs):
+        frame = sys._getframe(1)
+        while frame is not None:
+            if frame.f_globals.get("__name__") == checkpoint.__name__:
+                count[0] += 1
+                break
+            frame = frame.f_back
+        return real(*args, **kwargs)
+
+    mesh.gather_tensor = counting
+    if hasattr(checkpoint, "gather_tensor"):
+        checkpoint.gather_tensor = counting
+    return count
+
+
 def tp_trainer(rank, world, state_dict, raw, cfg, mesh_kw):
     """``Trainer.train()`` of a tensor-parallel model over this rank's data
     shard of ``raw`` (the same batch each iteration), saving into
     ``cfg.train.save_dir``; then a fresh Trainer's ``maybe_resume``. Each
     step's loss, the replicated parameters (this rank's own) and the
     whole parameters after, the generator state and the resumed
-    iteration."""
-    from bdm_db1_tpu_torch.parallel.mesh import replicated
+    iteration; the checkpoint module's ``gather_tensor`` calls, the bytes
+    of this rank's file of the last step, and the bytes of the sharded
+    tensors the rank holds (its parameters' and moments' shards)."""
+    from bdm_db1_tpu_torch.parallel.mesh import replicated, shard_rule
     from bdm_db1_tpu_torch.train import step as tstep
     from bdm_db1_tpu_torch.train.trainer import Trainer
 
+    gathers = _count_checkpoint_gathers()
     tp = tp_of(mesh_kw)
     model = tp_model(state_dict, tp)
     state = tstep.init_train_state(model, cfg.train.optimizer,
@@ -438,11 +468,22 @@ def tp_trainer(rank, world, state_dict, raw, cfg, mesh_kw):
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     fresh = Trainer(cfg, model, step, tstep.init_train_state(
         model, cfg.train.optimizer, cfg.train.train_iters), loader)
+    resumed_at = fresh.maybe_resume()
+    opt = trainer.state.optimizer.state_dict()
+    shards = [t for n, t in model.state_dict().items()
+              if shard_rule(n, model.cfg)]
+    shards += [t for key in ("mu", "nu") for n, t in opt[key].items()
+               if shard_rule(n, model.cfg)]
+    last = os.path.join(cfg.train.save_dir, str(cfg.train.train_iters),
+                        f"__{rank}_0.distcp")
     return {"losses": losses, "step": trainer.state.step,
+            "checkpoint_gathers": gathers[0],
+            "file_bytes": os.path.getsize(last),
+            "shard_bytes": sum(t.numel() * t.element_size() for t in shards),
             "replicated": {n: p for n, p in params.items() if replicated(n)},
             "params": _gathered(params, tp, model.cfg),
             "generator": trainer.state.generator.get_state(),
-            "resumed_at": fresh.maybe_resume()}
+            "resumed_at": resumed_at}
 
 
 def _chain(decoder, primes, defer):
@@ -590,7 +631,9 @@ def pp_step(rank, world, state_dict, raw, opt_kw, overrides, mesh_kw,
     for _ in range(steps):
         state, met = step(state, mine, torch.Generator())
         losses.append((float(met["loss"]), float(met["grad_norm"])))
-    CheckpointManager(ckpt_dir).save(steps, state)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(steps, state)
+    mgr.wait()
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     if tp is not None:
         grads = _gathered(grads, tp, model.cfg)
