@@ -111,10 +111,13 @@ def generator_key(rank: int) -> str:
 def state_tensors(state) -> Dict[str, object]:
     """The nested dict of tensors that a checkpoint holds for ``state`` (a
     ``TrainState``) on this rank: views of the state's own tensors, except
-    ``step`` and the generator's state, which are copies."""
+    ``step`` and the generator's state, which are copies. A state whose
+    optimizer is None (the convert CLI's, train/convert.py) has no
+    ``optimizer`` entry."""
     out = {"model": state.model.state_dict(),
-           "optimizer": state.optimizer.state_dict(),
            "step": torch.tensor(int(state.step), dtype=torch.int64)}
+    if state.optimizer is not None:
+        out["optimizer"] = state.optimizer.state_dict()
     if state.generator is not None:
         out[generator_key(rank_and_world()[0])] = state.generator.get_state()
     return out
@@ -514,6 +517,8 @@ def load_model(model: torch.nn.Module, path: str) -> None:
         raise ValueError(
             f"{path} is not a checkpoint of this package (a JAX/orbax one?); "
             "write JAX params as a DeepSpeed model_states.pt with "
-            "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead")
+            "bdm_db1_tpu.train.convert.save_deepspeed_checkpoint instead "
+            "(the port's weights go to the same format through "
+            "bdm_db1_tpu_torch.train.convert.save_deepspeed_checkpoint)")
     _check_model_keys(model, path)
     _load({"model": model.state_dict()}, model, path, no_dist=True)

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels,eval_loss
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,train,evaluate_rl
+    python3 chip_smoke.py --phases build,train,evaluate_rl,convert
     python3 chip_smoke.py --phases build,pretrain
     python3 chip_smoke.py --phases build,pretrain_vision,evaluate_rl_image
     python3 chip_smoke.py --phases build,generate
@@ -105,7 +106,25 @@ Phases, each printing one JSON line:
   checkpoint (every weight equal to the saved one cast to bf16), two
   records of 20 finite-return trials, ``results.output`` with their two
   lines and the K1/K2 launches of the serve's plan; reads the driver's
-  wall time and actions/sec. The checkpoint is deleted at the end.
+  wall time and actions/sec.
+* ``convert``    — needs ``train``: the cold path from a reference
+  checkpoint to the first decode, at db1_1p2b on the train phase's
+  weights: ``save_deepspeed_checkpoint`` writes them from an f32 model on
+  the card as the reference's fp16 ``mp_rank_00_model_states.pt`` (every
+  tensor finite, the vocab rows cut to the real ones); the convert CLI
+  (``python -m bdm_db1_tpu_torch.train.convert``, in a process that sees
+  no card) turns the file into step 0 of a port checkpoint; ``load_params``
+  reads the file (``FROM_DEEPSPEED``) and the CLI's output
+  (``FROM_PORT``) into two bf16 models on the card, every weight the
+  saved f32 one rounded to fp16, then to bf16, bit for bit (the padded
+  vocab rows zero, the positional buffer the analytic f32 one); each
+  model decodes the evaluate_rl phase's lockstep cohort of 40 for
+  CONVERT_STEPS env steps through ``DecoderPool`` at the default buckets
+  (K1/K2, the serve's plan for both cohorts), the two action chains and
+  records equal. Reads the export's seconds and bytes, the CLI's seconds
+  and its two lines, each load's seconds and each source's seconds from
+  the start of ``load_params`` to the first action on the host. The
+  checkpoint is deleted at the end.
 * ``pretrain``   — the pretraining driver ``pretrain.main(cfg,
   device="cuda")`` at db1_1p2b (bf16 activations, f32 parameters, random
   weights from ``train.seed``) on a 0.5 text / 0.5 RL mixture: a seeded
@@ -357,14 +376,14 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 SPIN_CYCLES_PER_S = 1.98e9      # H100 SXM boost clock: time_ms's spin
 PHASES = ("build", "kernels", "serve", "serve_int8", "serve_spec",
-          "eval_loss", "train", "evaluate_rl", "pretrain", "pretrain_vision",
-          "evaluate_rl_image", "evaluate_rl_text", "generate", "stateless",
-          "remat", "serve_preln", "data_parallel", "tensor_parallel",
-          "pipeline")
+          "eval_loss", "train", "evaluate_rl", "convert", "pretrain",
+          "pretrain_vision", "evaluate_rl_image", "evaluate_rl_text",
+          "generate", "stateless", "remat", "serve_preln", "data_parallel",
+          "tensor_parallel", "pipeline")
 # phases of more than one card, run only when named
 OPTIONAL_PHASES = ("tensor_parallel_nccl",)
 MAIN_PATHS = ("serve", "serve_int8", "serve_spec", "eval_loss", "train",
-              "evaluate_rl", "pretrain", "pretrain_vision",
+              "evaluate_rl", "convert", "pretrain", "pretrain_vision",
               "evaluate_rl_image", "evaluate_rl_text", "generate",
               "stateless", "remat", "serve_preln", "data_parallel",
               "tensor_parallel", "pipeline")
@@ -1481,14 +1500,31 @@ class _Recorder:
         return act, mems
 
 
+class _FirstAction(_Recorder):
+    """A _Recorder that also notes when the first action block is on the
+    host (``first_t``, perf_counter seconds)."""
+
+    def __init__(self, inner):
+        super().__init__(inner)
+        self.first_t = None
+
+    def decode_async(self, *args, **kwargs):
+        act, mems = super().decode_async(*args, **kwargs)
+        if self.first_t is None:
+            act.cpu()
+            self.first_t = time.perf_counter()
+        return act, mems
+
+
 class _RecordingPool:
-    def __init__(self, pool):
+    def __init__(self, pool, recorder=_Recorder):
         self.pool = pool
+        self.recorder = recorder
         self.decoders = {}
 
     def get(self, tenv):
         dec = self.pool.get(tenv)
-        return self.decoders.setdefault(id(dec), _Recorder(dec))
+        return self.decoders.setdefault(id(dec), self.recorder(dec))
 
 
 def _serve_setup(n_envs, episode_len, seed, **model_overrides):
@@ -2703,6 +2739,228 @@ def phase_evaluate_rl(smi: str, ckpt_dir: str, saved_weights: dict,
             "launches": launches, "launches_expected": want,
             "records": res, "load_params_s": load_s, "wall_s": wall,
             "actions_per_sec": actions / wall}
+
+
+CONVERT_TAG = "db1_870task_checkpoint"
+CONVERT_STEPS = 4
+
+
+def _convert_decode(cfg, cache_dir: str, load_dir: str) -> dict:
+    """A bf16 db1_1p2b on the card as ``evaluate_rl.main`` builds it, its
+    weights read by ``load_params`` from ``load_dir``, then one lockstep
+    cohort of the eval envs decoded as ``main`` decodes it (the default
+    buckets); returns the model, the source, the load's seconds, the
+    seconds from the load's start to the first action on the host, the
+    records, the action blocks and the pool."""
+    from bdm_db1_tpu_torch.data.rl_dataset import build_rl_dataset_from_cache
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.eval.decode import DecoderPool
+    from bdm_db1_tpu_torch.eval.envs import make_env
+    from bdm_db1_tpu_torch.eval.harness import evaluate_envs_lockstep
+    from bdm_db1_tpu_torch.eval.wrapper import TokenizedEnv
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.train import pretrain
+
+    cfg.train.load_dir = load_dir
+    model = TransformerXL(
+        cfg.model, cfg.vocab, vision=cfg.vision, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(cfg.eval.seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    source = evaluate_rl.load_params(cfg, model)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tok = pretrain.build_tokenizer_suite(cfg)
+    datasets = {}
+
+    def make_tenv(name):
+        if name not in datasets:
+            datasets[name] = build_rl_dataset_from_cache(
+                name, cache_dir, cfg.model.n_position, tok,
+                use_prompt=ev.use_prompt,
+                prompt_strategy=ev.prompt_strategy.split(";")[0])
+        return TokenizedEnv(
+            make_env(name), datasets[name],
+            eval_prompt_strategy=ev.prompt_strategy.split(";")[-1])
+
+    ev = cfg.eval
+    pool = _RecordingPool(DecoderPool(model, pad_buckets="default"),
+                          _FirstAction)
+    res = evaluate_envs_lockstep(
+        model, list(ev.env_names), make_tenv, num_trials=ev.num_trials,
+        seed=ev.seed, batch_size=ev.batch_size, decoder_pool=pool,
+        use_prompt=ev.use_prompt, strict_length=ev.strict_length,
+        minimal_expert_data=ev.minimal_expert_data,
+        max_step_size=ev.max_step_size, interleave=ev.interleave)
+    torch.cuda.synchronize()
+    recs = list(pool.decoders.values())
+    acts = torch.cat([a for rec in recs for a in rec.acts]).cpu()
+    first = min(r.first_t for r in recs if r.first_t is not None)
+    return {"model": model, "source": source, "load_s": load_s,
+            "first_decode_s": first - t0,
+            "records": res, "acts": acts, "pool": pool,
+            "make_tenv": make_tenv}
+
+
+@torch.no_grad()
+def _converted_weights_check(models: list, saved_weights: dict,
+                             cfg) -> None:
+    """Every weight of each model (bf16) against the saved f32 weight
+    rounded to fp16, then to bf16, bit for bit; the padded vocab rows
+    zero (the file holds the real ones); the positional buffer the
+    analytic f32 one that the converters compute."""
+    from bdm_db1_tpu_torch.train import convert
+
+    total = cfg.vocab.layout().total_vocab_size
+    inv_freq = torch.from_numpy(convert._inv_freq(cfg.model.n_embed))
+    sds = [m.state_dict() for m in models]
+    for sd in sds:
+        if sd.keys() != saved_weights.keys():
+            raise AssertionError("the loaded model's names are not the "
+                                 "saved ones")
+    bad = []
+    for n, t in saved_weights.items():
+        if n == "pos_emb.inv_freq":
+            want = inv_freq.cuda()
+        else:
+            want = t.cuda().half().to(torch.bfloat16)
+        if n == "word_embedding.weight":
+            want[total:] = 0
+        bad += [(i, n) for i, sd in enumerate(sds)
+                if not torch.equal(sd[n], want)]
+    if bad:
+        raise AssertionError(f"converted weights differ from the saved "
+                             f"ones rounded to fp16 and bf16: {bad[:5]}")
+
+
+def phase_convert(smi: str, ckpt_dir: str, saved_weights: dict,
+                  seed: int = 0) -> dict:
+    """Needs ``train``: the cold path from a reference DeepSpeed checkpoint
+    to the first decode, counted as one main path: the export of the
+    train phase's weights, the convert CLI, two ``load_params`` and a
+    decoded cohort from each (the module docstring has the checks)."""
+    from bdm_db1_tpu_torch.core.config import db1_1p2b
+    from bdm_db1_tpu_torch.eval import evaluate_rl
+    from bdm_db1_tpu_torch.models.transformer_xl import TransformerXL
+    from bdm_db1_tpu_torch.ops import flash_ring_decode as fro
+    from bdm_db1_tpu_torch.train import convert
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    try:
+        cache_dir = os.path.join(work, "rl")
+        ds_dir, port_dir = (os.path.join(work, d) for d in ("ds", "port"))
+        _register_eval_envs(seed, cache_dir)
+        cfg = _eval_cfg(cache_dir, ds_dir, os.path.join(work, "out"))
+        cfg.train.ckpt_tag = CONVERT_TAG
+        cfg.eval = dataclasses.replace(cfg.eval, max_step_size=CONVERT_STEPS)
+        f32 = db1_1p2b()
+        src = TransformerXL(f32.model, f32.vocab, device="cuda")
+        src.load_state_dict(saved_weights)
+        n_params = sum(p.numel() for p in src.parameters())
+
+        # ---- the main path, counted --------------------------------------
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = convert.save_deepspeed_checkpoint(src, f32, ds_dir,
+                                                 CONVERT_TAG, "float16")
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        del src
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = [sys.executable, "-m", "bdm_db1_tpu_torch.train.convert",
+               "--load-dir", ds_dir, "--tag", CONVERT_TAG,
+               "--output", port_dir]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            cli, cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        cli_s = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"the convert CLI exited {run.returncode}:"
+                                 f" {run.stderr[-4000:]}")
+        legs = {name: _convert_decode(cfg, cache_dir, d)
+                for name, d in (("deepspeed", ds_dir), ("port", port_dir))}
+        launches = _read_launches()
+        # ------------------------------------------------------------------
+
+        module = torch.load(path, map_location="cpu", weights_only=True,
+                            mmap=True)["module"]
+        file_bytes = os.path.getsize(path)
+        total = cfg.vocab.layout().total_vocab_size
+        if (module.keys() != saved_weights.keys()
+                or module["word_embedding.weight"].shape[0] != total
+                or any(t.dtype != torch.float16 for t in module.values())):
+            raise AssertionError("the exported file's names, rows or "
+                                 "dtypes are off")
+        nonfinite = [k for k, t in module.items()
+                     if not torch.isfinite(t).all()]
+        if nonfinite:
+            raise AssertionError(f"non-finite exported tensors: "
+                                 f"{nonfinite[:5]}")
+        del module
+        cli_lines = run.stdout.splitlines()
+        want_lines = [f"converted {n_params:,} parameters",
+                      f"wrote port checkpoint to {port_dir}/0"]
+        if cli_lines != want_lines:
+            raise AssertionError(f"the CLI printed {cli_lines}, expected "
+                                 f"{want_lines}")
+        with open(os.path.join(port_dir, "0", "client.json")) as f:
+            client = json.load(f)
+        if client != {"source": f"{ds_dir}/{CONVERT_TAG}", "iteration": 0}:
+            raise AssertionError(f"the CLI's client state {client}")
+        sources = {k: leg["source"] for k, leg in legs.items()}
+        if sources != {"deepspeed": evaluate_rl.FROM_DEEPSPEED,
+                       "port": evaluate_rl.FROM_PORT}:
+            raise AssertionError(f"load_params read {sources}")
+        _converted_weights_check([leg["model"] for leg in legs.values()],
+                                 saved_weights, cfg)
+        a, b = (legs[k]["acts"] for k in ("deepspeed", "port"))
+        steps, batch = CONVERT_STEPS, cfg.eval.batch_size
+        if a.shape[0] != steps * batch or not torch.equal(a, b):
+            raise AssertionError(f"the two action chains differ: shapes "
+                                 f"{tuple(a.shape)}, {tuple(b.shape)}, "
+                                 f"{(a != b).sum().item()} tokens apart")
+        res = legs["deepspeed"]["records"]
+        if res != legs["port"]["records"] or not all(
+                r["num_trials"] == EVAL_TRIALS and r["length_mean"] == steps
+                and np.isfinite(r["return_mean"]) for r in res):
+            raise AssertionError(f"records off: {res}, "
+                                 f"{legs['port']['records']}")
+
+        # the plan of each cohort, as the serve phase derives it
+        leg = legs["port"]
+        tenv = leg["make_tenv"](EVAL_ENVS[0])
+        dec = leg["pool"].get(tenv).inner
+        prompt, _ = tenv.get_prompt(strict_length=True,
+                                    rng=np.random.RandomState(0))
+        slices, widths = _prime_widths(dec, len(prompt) + dec.obs_length + 1)
+        L, A = cfg.model.n_layer, dec.action_length
+        want = dict.fromkeys(launches, 0)
+        want["flash_ring_decode"] = len(legs) * L * (
+            steps * (A - 1) + slices.count(1))
+        want["flash_ring_prime_ap"] = len(legs) * L * (
+            steps - 1 + sum(2 <= q <= fro.MAX_PRIME_Q for q in slices))
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"{want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"phase": "convert", "config": "db1_1p2b",
+            "param_dtype": "bfloat16", "file_dtype": "float16", "card": smi,
+            "envs": list(EVAL_ENVS), "trials": EVAL_TRIALS, "batch": batch,
+            "env_steps": steps, "prime_slices": slices,
+            "prime_widths": widths, "parameters": n_params,
+            "export_s": export_s, "file_bytes": file_bytes,
+            "all_finite": True, "cli_s": cli_s, "cli_lines": cli_lines,
+            "load_deepspeed_s": legs["deepspeed"]["load_s"],
+            "load_port_s": legs["port"]["load_s"],
+            "first_decode_s": {k: leg["first_decode_s"]
+                               for k, leg in legs.items()},
+            "actions_equal": True, "records": res,
+            "launches": launches, "launches_expected": want}
 
 
 PRETRAIN_ENV = "halfcheetah-geometry-pretrain-v0"
@@ -6848,9 +7106,10 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES + OPTIONAL_PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
-    if "evaluate_rl" in phases and "train" not in phases:
-        raise SystemExit("the evaluate_rl phase serves the train phase's "
-                         "checkpoint: name train too")
+    for phase in ("evaluate_rl", "convert"):
+        if phase in phases and "train" not in phases:
+            raise SystemExit(f"the {phase} phase serves the train phase's "
+                             "weights: name train too")
     for phase in ("evaluate_rl_image", "evaluate_rl_text"):
         if phase in phases and "pretrain_vision" not in phases:
             raise SystemExit(f"the {phase} phase serves the "
@@ -6894,14 +7153,16 @@ def main(argv=None) -> int:
         results["serve_spec"] = phase_serve_spec(smi)
         emit(results["serve_spec"])
     # the train phase's checkpoint and a host copy of its weights, served
-    # and checked by evaluate_rl; the directory is deleted at the end
+    # and checked by evaluate_rl and convert; the directory is deleted at
+    # the end
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     saved_weights = {}
     try:
         for phase, fn, args in (
                 ("eval_loss", phase_eval_loss, ()),
                 ("train", phase_train, (ckpt_dir, saved_weights)),
-                ("evaluate_rl", phase_evaluate_rl, (ckpt_dir, saved_weights))):
+                ("evaluate_rl", phase_evaluate_rl, (ckpt_dir, saved_weights)),
+                ("convert", phase_convert, (ckpt_dir, saved_weights))):
             if phase in phases:
                 gc.collect()
                 torch.cuda.empty_cache()

@@ -274,8 +274,11 @@ def test_load_params_refuses_a_jax_checkpoint(tmp_path):
     cfg = tcfg.db1_tiny(dtype="float32")
     (tmp_path / "orbax" / "3" / "state").mkdir(parents=True)
     cfg.train.load_dir = str(tmp_path / "orbax")
-    with pytest.raises(ValueError, match="save_deepspeed_checkpoint"):
+    with pytest.raises(ValueError, match="save_deepspeed_checkpoint") as e:
         ter.load_params(cfg, _port_model(cfg, 0))
+    # the JAX package's function for orbax files, the port's for its own
+    assert e.match(r"bdm_db1_tpu\.train\.convert\.save_deepspeed")
+    assert e.match(r"bdm_db1_tpu_torch\.train\.convert\.save_deepspeed")
 
 
 @pytest.mark.parametrize("n,pi,pc", [(5, 0, 1), (5, 0, 2), (5, 1, 2),
